@@ -6,8 +6,13 @@ setup(
     description=(
         "TPU-native (JAX/XLA/Pallas) unified video-action model framework"
     ),
+    # unified_video_action_tpu (JAX, the reference) and
+    # unified_video_action_tpu_torch (its PyTorch/CUDA port)
     packages=find_packages(exclude=("tests",)),
-    package_data={"unified_video_action_tpu": ["config/yaml/**/*.yaml"]},
+    package_data={
+        "unified_video_action_tpu": ["config/yaml/**/*.yaml"],
+        "unified_video_action_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,99 @@
+"""Shared pieces of the parity tests between the JAX package and its
+PyTorch port (tests/test_torch_*.py).
+
+Weights: the JAX modules' own parameter layout (``jax.eval_shape`` of their
+init), filled with numpy draws from a seed, goes through the port's weight
+bridge. Random values everywhere (rather than the JAX initializers, which
+zero the AdaLN modulations and the denoiser's last projection) keep every
+layer of the comparison live.
+
+Noise: the JAX package draws its noise with ``jax.random`` inside the
+computation; the tests draw the same numbers from the same keys here and
+inject them into the port.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+# fp32 algorithm parity: the same arithmetic in another order on the CPU.
+FP32_TOL = dict(rtol=1e-5, atol=1e-5)
+
+TINY_POLICY_KW = dict(
+    shape_meta={"action": {"shape": [2]}},
+    vae_model_params={
+        "autoencoder_path": None,
+        "ddconfig": {"vae_embed_dim": 8, "ch_mult": [1, 1, 2, 2], "ch": 32},
+    },
+    autoregressive_model_params={
+        "model_size": "custom",
+        "encoder_embed_dim": 64, "encoder_depth": 2, "encoder_num_heads": 4,
+        "decoder_embed_dim": 64, "decoder_depth": 2, "decoder_num_heads": 4,
+        "img_size": 32, "vae_stride": 8, "vae_embed_dim": 8,
+        "diffloss_d": 1, "diffloss_w": 32,
+        "diffloss_act_d": 2, "diffloss_act_w": 32,
+        "num_sampling_steps": "2", "act_diff_testing_steps": "100",
+        "attn_dropout": 0.0, "proj_dropout": 0.0,
+        "pretrained_model_path": None, "temperature": 0.95,
+    },
+    action_model_params={"predict_action": True, "act_model_type": "conv_fc"},
+    task_name="pusht",
+    compute_dtype="float32",
+)
+
+
+def random_params(shapes, seed: int, scale: float = 1.0):
+    """A pytree of ShapeDtypeStructs (flax layout) -> numpy fp32 arrays:
+    kernels N(0, scale²/fan_in), norm scales 1 + N(0, 0.1²), everything else
+    N(0, 0.1²)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = tuple(s.shape)
+        x = rng.standard_normal(shape).astype(np.float32)
+        if name == "kernel":
+            return x * np.float32(scale / np.sqrt(np.prod(shape[:-1])))
+        if name == "scale":
+            return 1.0 + 0.1 * x
+        return 0.1 * x
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def init_shapes(module, *args, method=None, **kwargs):
+    """Parameter shapes of a flax module's init, without computing it."""
+    key = jax.random.PRNGKey(0)
+    return jax.eval_shape(
+        lambda: module.init({"params": key, "dropout": key}, *args, method=method, **kwargs)
+    )["params"]
+
+
+def to_numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def head_draws(key, n: int, channels: int, steps: int):
+    """The draws of ``ActionDiffusionHead.sample`` (heads.py:283-297) and its
+    ``p_sample_loop`` (gaussian.py:322-330) from ``key``: the sampler's start
+    (n, C) and the per-step noise (steps, n, C)."""
+    noise_key, loop_key = jax.random.split(key)
+    init = np.asarray(jax.random.normal(noise_key, (n, channels)))
+    step_keys = jax.random.split(loop_key, steps)
+    per_step = np.stack([np.asarray(jax.random.normal(k, (n, channels))) for k in step_keys])
+    return init, per_step
+
+
+def policy_draws(key, noise_shapes):
+    """The draws of the JAX policy's predict fn (policy.py:443): the key
+    splits into (k_vae, k_wrist, k_samp); k_vae feeds the VAE posterior and
+    k_samp the action head. Returns torch tensors keyed as the port's
+    ``UnifiedVideoActionPolicy.sample_noise``."""
+    k_vae, _k_wrist, k_samp = jax.random.split(key, 3)
+    steps, n, channels = noise_shapes["steps"]
+    init, per_step = head_draws(k_samp, n, channels, steps)
+    vae = np.asarray(jax.random.normal(k_vae, noise_shapes["vae"]))
+    return {k: torch.tensor(v) for k, v in
+            {"vae": vae, "init": init, "steps": per_step}.items()}

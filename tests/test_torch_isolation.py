@@ -1,0 +1,86 @@
+"""The port stands alone: importing unified_video_action_tpu_torch and every
+module in it loads no JAX, no flax, no optax, no orbax and nothing of the
+JAX package; chip_smoke.py and the card's tests import none of them either,
+and chip_smoke.py refuses to run without a CUDA device or without the
+package beside it.
+
+The import check runs in a fresh interpreter, since this test process has
+JAX loaded already.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "unified_video_action_tpu")
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import unified_video_action_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+roots = sorted({m.split(".")[0] for m in sys.modules})
+print(json.dumps({"modules": names, "roots": roots}))
+"""
+
+
+def _run(args, cwd, env=None):
+    return subprocess.run([sys.executable, *args], cwd=cwd, capture_output=True, text=True,
+                          timeout=120, env=env)
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    import json
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = _run(["-c", _PROBE], cwd=REPO, env=env)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    for expected in ("ops.attention", "ops._build", "convert", "models.mar", "models.vae",
+                     "models.heads", "models.denoiser", "models.transformer",
+                     "models.diffusion.gaussian", "policy.policy", "utils.image",
+                     "data.normalizer"):
+        assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
+    loaded = set(result["roots"])
+    assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_the_port_and_its_card_tests_import_no_jax():
+    # all three run on the machine with the card, which has no JAX
+    sources = [os.path.join(REPO, "chip_smoke.py"),
+               os.path.join(REPO, "tests", "test_torch_attention_cuda.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "unified_video_action_tpu_torch")):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in sources:
+        bad = _imported_roots(path) & set(FORBIDDEN)
+        assert not bad, (path, bad)
+
+
+def test_chip_smoke_fails_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = _run(["chip_smoke.py"], cwd=REPO, env=env)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = _run(["chip_smoke.py"], cwd=str(tmp_path), env=env)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

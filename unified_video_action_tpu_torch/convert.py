@@ -1,0 +1,178 @@
+"""Weight bridge: the JAX package's flax parameter trees -> the port's
+``state_dict``.
+
+The port's modules carry the flax module names, so a flax leaf at path
+``(a, b, c, leaf)`` becomes the ``state_dict`` entry ``a.b.c.<name>``:
+
+* Dense ``kernel`` (in, out)        -> ``weight`` (out, in)
+* Conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw)
+* LayerNorm / GroupNorm ``scale``   -> ``weight``
+* ``bias`` and raw parameters (position embeddings, fake latents) keep
+  their name and shape.
+
+These are the inverses of ``linear_kernel`` and ``conv_kernel`` in the JAX
+package's ``models/torch_import.py``, kept here as the port's own copy.
+
+The bridge is strict: a leaf it cannot place (no such parameter, or another
+shape) raises, and so does a port parameter that no leaf sets. Subtrees of a
+JAX model that the port does not build yet are named in ``skip`` by the
+caller. It writes nothing: no converted checkpoint is stored; trees are
+converted when they are loaded.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+Path = Tuple[str, ...]
+
+
+def flatten_tree(tree: Mapping, prefix: Path = ()) -> Dict[Path, object]:
+    """Nested dict -> {path tuple: leaf}."""
+    out: Dict[Path, object] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = v
+    return out
+
+
+def load_flat_npz(path: str) -> Dict[str, Dict]:
+    """A flat ``"a/b/c"``-keyed ``.npz`` (as ``scripts/train_vae.py`` writes
+    the VAE, read by ``policy.py:267-283``) -> nested dict of arrays."""
+    tree: Dict[str, Dict] = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return tree
+
+
+def port_key(path: Path, ndim: int) -> Tuple[str, str]:
+    """(state_dict key, layout change) of the flax leaf at ``path`` with
+    ``ndim`` dimensions. The change is ``"linear"``, ``"conv"`` or ``"none"``."""
+    *mods, leaf = path
+    if leaf == "kernel":
+        if ndim == 2:
+            return ".".join(mods + ["weight"]), "linear"
+        if ndim == 4:
+            return ".".join(mods + ["weight"]), "conv"
+        raise ValueError(f"kernel {'/'.join(path)} has {ndim} dims; only Dense and 2-D Conv map")
+    if leaf == "scale":
+        return ".".join(mods + ["weight"]), "none"
+    return ".".join(path), "none"
+
+
+def _port_shape(shape: Tuple[int, ...], change: str) -> Tuple[int, ...]:
+    if change == "linear":
+        return (shape[1], shape[0])
+    if change == "conv":
+        return (shape[3], shape[2], shape[0], shape[1])
+    return tuple(shape)
+
+
+def _to_port_layout(x: np.ndarray, change: str) -> np.ndarray:
+    if change == "linear":
+        return np.ascontiguousarray(x.T)
+    if change == "conv":
+        return np.ascontiguousarray(np.transpose(x, (3, 2, 0, 1)))
+    return np.asarray(x)
+
+
+def _skipped(path: Path, skip: Iterable[Path]) -> bool:
+    return any(path[: len(s)] == tuple(s) for s in skip)
+
+
+def plan(flax_shapes: Mapping[Path, Tuple[int, ...]],
+         port_shapes: Mapping[str, Tuple[int, ...]],
+         skip: Iterable[Path] = ()) -> Dict[str, Tuple[Path, str]]:
+    """Check that every flax leaf (outside ``skip``) lands on a port
+    parameter of the right shape and that every port parameter is set.
+    Returns {state_dict key: (flax path, layout change)}; raises ValueError
+    listing every leaf left unmapped and every parameter left unset."""
+    skip = [tuple(s) for s in skip]
+    mapping: Dict[str, Tuple[Path, str]] = {}
+    unmapped = []
+    for path, shape in flax_shapes.items():
+        if _skipped(path, skip):
+            continue
+        key, change = port_key(path, len(shape))
+        want = port_shapes.get(key)
+        if want is None or tuple(want) != _port_shape(tuple(shape), change):
+            unmapped.append(f"{'/'.join(path)} {tuple(shape)} -> {key} {want}")
+            continue
+        mapping[key] = (path, change)
+    unset = sorted(set(port_shapes) - set(mapping))
+    if unmapped or unset:
+        raise ValueError(
+            f"{len(unmapped)} flax leaves unmapped: {unmapped[:8]}; "
+            f"{len(unset)} port parameters unset: {unset[:8]}"
+        )
+    return mapping
+
+
+def module_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    return {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+
+def load_into(module: nn.Module, tree: Mapping, skip: Iterable[Path] = ()) -> nn.Module:
+    """Set every parameter of ``module`` from the flax-layout ``tree`` of
+    numpy arrays, casting to the parameters' dtype and device."""
+    flat = flatten_tree(tree)
+    mapping = plan({p: np.shape(v) for p, v in flat.items()}, module_shapes(module), skip)
+    state = {
+        key: torch.tensor(_to_port_layout(np.asarray(flat[path], dtype=np.float32), change))
+        for key, (path, change) in mapping.items()
+    }
+    module.load_state_dict(state, strict=True)
+    return module
+
+
+def flax_layout_shapes(module: nn.Module) -> Dict[Path, Tuple[int, ...]]:
+    """The flax tree layout (path -> shape) that ``module`` loads from: the
+    inverse of :func:`port_key`."""
+    out: Dict[Path, Tuple[int, ...]] = {}
+    norm_types = (nn.LayerNorm, nn.GroupNorm)
+    owners = dict(module.named_modules())
+    for key, shape in module_shapes(module).items():
+        *mods, leaf = key.split(".")
+        owner = owners[".".join(mods)]
+        if leaf == "weight" and isinstance(owner, norm_types):
+            out[tuple(mods) + ("scale",)] = shape
+        elif leaf == "weight" and isinstance(owner, nn.Linear):
+            out[tuple(mods) + ("kernel",)] = (shape[1], shape[0])
+        elif leaf == "weight" and isinstance(owner, nn.Conv2d):
+            out[tuple(mods) + ("kernel",)] = (shape[2], shape[3], shape[1], shape[0])
+        else:
+            out[tuple(mods) + (leaf,)] = shape
+    return out
+
+
+def seeded_tree(module: nn.Module, seed: int) -> Dict[str, Dict]:
+    """A flax-layout tree of random weights for ``module``, made with numpy
+    from ``seed``: kernels N(0, 1/fan_in), biases N(0, 0.02²), norm scales
+    1 + N(0, 0.02²), raw parameters N(0, 0.02²)."""
+    rng = np.random.default_rng(seed)
+    tree: Dict[str, Dict] = {}
+    for path, shape in sorted(flax_layout_shapes(module).items()):
+        leaf = path[-1]
+        if leaf == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            value = rng.standard_normal(shape, dtype=np.float32) / np.sqrt(fan_in)
+        elif leaf == "scale":
+            value = 1.0 + 0.02 * rng.standard_normal(shape, dtype=np.float32)
+        else:
+            value = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = value.astype(np.float32)
+    return tree

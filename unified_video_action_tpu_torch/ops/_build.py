@@ -1,0 +1,95 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+``csrc/<name>.cu`` becomes a shared library with a plain C interface,
+compiled by ``nvcc`` for ``sm_90a`` at first use. The library goes into
+``build/torch_kernels/`` at the repository root (listed in ``.gitignore``)
+under a name keyed by a hash of the source and the flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is.
+
+Nothing here runs at import: the CPU tests import every module, and ``nvcc``
+is needed only when a kernel is first called on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin); "
+        "the CUDA kernels are built from source on the machine with the card"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for the current source."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
+    seconds the build took (0.0 where the library was already there). Raises
+    with nvcc's output on a failure; the ptxas report of a success is kept
+    beside the library as ``.log``."""
+    out = library_path(name)
+    if out.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The ptxas report (registers, shared memory, spills) of the built library."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        build(name)
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]
