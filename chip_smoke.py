@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PushT serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's PushT serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (each prints its elapsed seconds; a phase that fails raises, and the
 script exits non-zero without its result line):
 
-1. env    torch and CUDA versions, the card's name and power limit.
-2. build  the attention kernel, unified_video_action_tpu_torch/csrc/attention.cu, by nvcc.
-3. kernel each kernel against its plain PyTorch version on the card, at the
-          serving path's shapes and beyond, with times beside its bound and
-          beside one PyTorch library call computing the same function.
-4. serve  UnifiedVideoActionPolicy.predict_action at the flagship's width
-          (mar_base: 12+12 blocks, d=768, 12 heads, 96 px, 144 tokens), in
-          bf16 at B=1 and B=128 with 100 sampler steps. The VAE weights are
-          the committed pusht_vae96.npz; the MAR and denoiser weights are
-          numpy draws from a seed in the flax layout, through the weight
-          bridge (the flagship's orbax checkpoint needs JAX to be read).
-          Checks: shape, finite values inside the normalizer's range, the
-          kernel launched once per ViT block per call, the kernel route
-          against the plain-attention route under the same noise, controls
-          (the kernel with planted faults, which that comparison must
-          reject), and the card in fp32 against the port on the CPU in fp32.
+1. env     torch and CUDA versions, the card's name and power limit.
+2. build   every kernel source of unified_video_action_tpu_torch/csrc/
+           (attention.cu, int8_mm.cu) by nvcc, all started together.
+3. kernel  each kernel against its plain PyTorch version on the card, at the
+           serving paths' shapes and beyond, with times beside its bound and
+           beside one PyTorch library call computing the same function; the
+           int8 kernels must be bit-equal, also with each planted fault
+           (below) shown to break that.
+4. serve   UnifiedVideoActionPolicy.predict_action at the flagship's width
+           (mar_base: 12+12 blocks, d=768, 12 heads, 96 px, 144 tokens), in
+           bf16 at B=1 and B=128 with 100 sampler steps. The VAE weights are
+           the committed pusht_vae96.npz; the MAR and denoiser weights are
+           numpy draws from a seed in the flax layout, through the weight
+           bridge (the flagship's orbax checkpoint needs JAX to be read).
+           Checks: shape, finite values inside the normalizer's range, the
+           kernel launched once per ViT block per call, the kernel route
+           against the plain-attention route under the same noise, controls
+           (the kernel with planted faults, which that comparison must
+           reject), and the card in fp32 against the port on the CPU in fp32.
+5. deployed  the deployed tier, predict_action_cached with ddim10 +
+           serving_quant="int8" + obs_codec="yuv420", same width and
+           weights, bf16, at B=1 and B=128: a full call on a 16-frame window,
+           then a cached call (n_shift=8) that encodes 2 new frames. Checks:
+           shapes, finite actions inside the normalizer's range, the launches
+           of every kernel per call against the count the config implies,
+           the kernel route bit-equal to the plain-int8 route under the same
+           noise, the controls (the int8 kernels with planted faults, which
+           that comparison must reject), and the int8 route apart from the
+           bf16 route. Request times, a stage breakdown and the device's
+           busy share.
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
 object with every kernel's numbers, and the result:
@@ -37,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -50,6 +65,8 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: outside the tensor cores
+PEAK_INT8_OPS = 1979e12
+KERNEL_SOURCES = ("attention", "int8_mm")
 # attention: atol of tests/test_ops.py
 ATTN_ATOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
 # serve, the kernel route against the plain route in bf16 under the same
@@ -253,14 +270,32 @@ def breakdown(policy, frames: torch.Tensor, noise, reps: int = 5) -> dict:
     return out
 
 
-def phase_serve(attention_ops):
-    from unified_video_action_tpu_torch import convert
+def flagship_config():
+    """The flagship's config (``latest/meta.json``) on the meta device: its
+    MarConfig, the weights' flax layout and the normalizer."""
     from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    meta = UnifiedVideoActionPolicy.from_run_config(os.path.join(LATEST, "meta.json"), device="meta")
+    return meta, LinearNormalizer.load(os.path.join(LATEST, "normalizer.npz"))
+
+
+def serving_weights(meta_policy):
+    """The MAR and denoiser weights as numpy draws from SEED in the flax
+    layout (the int8 model reads the same tree), and the committed VAE."""
+    from unified_video_action_tpu_torch import convert
+
+    if not os.path.isfile(VAE_NPZ):
+        raise FileNotFoundError(f"the committed VAE weights are missing: {VAE_NPZ}")
+    return convert.seeded_tree(meta_policy.mar, SEED), convert.load_flat_npz(VAE_NPZ)
+
+
+def phase_serve(attention_ops, trees, normalizer):
     from unified_video_action_tpu_torch.models import transformer
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
     meta = os.path.join(LATEST, "meta.json")
-    normalizer = LinearNormalizer.load(os.path.join(LATEST, "normalizer.npz"))
+    mar_tree, vae_tree = trees
 
     def make_policy(device: str, dtype: str):
         p = UnifiedVideoActionPolicy.from_run_config(meta, device=device, compute_dtype=dtype)
@@ -272,10 +307,6 @@ def phase_serve(attention_ops):
     log(f"policy: mar {c.encoder_depth}+{c.decoder_depth} blocks, d={c.encoder_embed_dim}, "
         f"{c.encoder_num_heads} heads, {c.img_size}px, {c.total_tokens} tokens, "
         f"{policy.mar.diffactloss.num_steps} sampler steps, {policy.dtype}")
-    mar_tree = convert.seeded_tree(policy.mar, SEED)
-    if not os.path.isfile(VAE_NPZ):
-        raise FileNotFoundError(f"the committed VAE weights are missing: {VAE_NPZ}")
-    vae_tree = convert.load_flat_npz(VAE_NPZ)
     policy.load_params(mar_tree, vae_tree)
     n_mar = sum(p.numel() for p in policy.mar.parameters())
     n_vae = sum(p.numel() for p in policy.vae.parameters())
@@ -429,6 +460,380 @@ def phase_serve(attention_ops):
     return launches
 
 
+# ---------------------------------------------------------------- int8 W8A8
+
+# The int8 kernels repeat their plain versions' arithmetic exactly, so every
+# check of them is bit-equality: x_q, x_scale, the s32 product and the layer
+# output in the kernel phase, and the actions and the returned latent cache
+# of the kernel route against the plain-int8 route in the deployed phase.
+# The planted faults (ops/int8_mm.FAULTS) that each of those must reject: all
+# four. Two change every call (one scale for all columns; the bias added
+# before the bf16 cast instead of after it); the other two change x_q where
+# x / x_scale lies on or next to a rounding tie (half away from zero instead
+# of half to even; x * (127 / amax) instead of the division), which bf16
+# activations hit in every call: a row whose amax has the significand
+# 254/128 gets a power-of-two scale, and then many of its elements land
+# exactly on k + 0.5.
+INT8_REJECTED = ("round_half_away", "reciprocal_scale", "per_tensor_w_scale",
+                 "bias_before_cast")
+# the int8 route must differ from the bf16 route (mean |da| of the normalized
+# chunks): quantization is engaged
+INT8_VS_BF16_MIN = 1e-3
+
+
+def int8_path_shapes(cfg) -> list:
+    """(layer, M, K, N, x dtype) of every W8A8 layer shape on the deployed path
+    at B=128 and B=1, from the MAR config, and the ragged (100, 128, 130)."""
+    D, hidden = cfg.encoder_embed_dim, int(cfg.encoder_embed_dim * cfg.mlp_ratio)
+    W, Dd = cfg.diffloss_act_w, cfg.decoder_embed_dim
+    shapes = []
+    for B in (128, 1):
+        m_mar, m_den = B * cfg.total_tokens, B * cfg.num_action_tokens
+        shapes += [
+            (f"qkv B={B}", m_mar, D, 3 * D, torch.bfloat16),
+            (f"proj B={B}", m_mar, D, D, torch.bfloat16),
+            (f"mlp_fc1 B={B}", m_mar, D, hidden, torch.bfloat16),
+            (f"mlp_fc2 B={B}", m_mar, hidden, D, torch.bfloat16),
+            (f"ada_mod B={B}", m_den, W, 3 * W, torch.bfloat16),
+            (f"fc1/fc2 B={B}", m_den, W, W, torch.bfloat16),
+            (f"final.ada_mod B={B}", m_den, W, 2 * W, torch.bfloat16),
+            (f"cond_embed B={B}", m_den, Dd, W, torch.bfloat16),
+            # the quant denoiser's input_proj reads the fp32 sampler state
+            (f"input_proj B={B}", m_den, cfg.action_dim, W, torch.float32),
+        ]
+    shapes.append(("ragged", 100, 128, 130, torch.bfloat16))
+    return shapes
+
+
+def int8_inputs(M: int, K: int, N: int, dtype, gen):
+    x = torch.randn(M, K, generator=gen, device="cuda")
+    x[0] *= 100.0  # an outlier row
+    x[1] = 0.0  # an all-zero row: the 1e-12 scale floor
+    w = torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
+    from unified_video_action_tpu_torch.ops import quant
+
+    w_q, w_scale = quant.quantize_weight(w)
+    bias = 0.1 * torch.randn(N, generator=gen, device="cuda")
+    return x.to(dtype), w_q.T.contiguous(), w_scale, bias
+
+
+def int8_against_plain(int8_ops, quant, x, w_q, w_scale, bias) -> dict:
+    """Both kernels and the layer against the plain versions: which parts are
+    bit-equal, and the layer output's max |kernel - plain|."""
+    x_q, x_scale = int8_ops.quantize_rows(x)
+    y = int8_ops.int8_gemm(x_q, w_q)
+    out = int8_ops.w8a8_linear(x, w_q, w_scale, bias)
+    torch.cuda.synchronize()
+    want_q, want_scale = quant.quantize_rows_plain(x)
+    want = quant.w8a8_linear_plain(x, w_q, w_scale, bias)
+    return {
+        "x_q": torch.equal(x_q, want_q), "x_scale": torch.equal(x_scale, want_scale),
+        "s32": torch.equal(y, quant.int8_gemm_plain(want_q, w_q)),
+        "out": torch.equal(out, want),
+        "max_abs_err": (out.float() - want.float()).abs().max().item(),
+        "x_q_max_abs_err": (x_q.int() - want_q.int()).abs().max().item(),
+    }
+
+
+def int8_bounds(M: int, K: int, N: int, x_bytes: int, out_bytes: int):
+    """Least times (ms, bound_by) of the two kernels at (M, K, N): each input
+    read once, each output written once at 3.35 TB/s, against the operations
+    at their type's peak (the GEMM's 2MNK at 1,979 TOP/s int8; the row
+    quantization's abs-max, division and rounding, 3 per element, at 67
+    TFLOP/s fp32)."""
+    def bound(n_bytes, t_ops):
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+    gemm = bound(M * K + N * K + 4 * M + 8 * N + M * N * out_bytes, 2 * M * N * K / PEAK_INT8_OPS)
+    rows = bound(M * K * x_bytes + M * K + 4 * M, 3 * M * K / PEAK_FLOPS[torch.float32])
+    return gemm, rows
+
+
+def phase_kernel_int8(int8_ops, quant, cfg):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for layer, M, K, N, dtype in int8_path_shapes(cfg):
+        x, w_q, w_scale, bias = int8_inputs(M, K, N, dtype, gen)
+        eq = int8_against_plain(int8_ops, quant, x, w_q, w_scale, bias)
+        x_q, x_scale = int8_ops.quantize_rows(x)
+        out_bytes = torch.finfo(dtype).bits // 8
+        (gemm_bound, gemm_by), (rows_bound, rows_by) = int8_bounds(M, K, N, out_bytes, out_bytes)
+        try:  # cuBLASLt's s8 x s8 -> s32, where its shape rules allow (M > 16, K, N % 8 == 0)
+            torch._int_mm(x_q, w_q.T)
+            library_ms = time_ms(lambda: torch._int_mm(x_q, w_q.T))
+        except RuntimeError as e:
+            library_ms = None
+            log(f"int8 {layer}: torch._int_mm refuses ({str(e).splitlines()[0][:100]})")
+        row = dict(
+            layer=layer, M=M, K=K, N=N, x_dtype=str(dtype).split(".")[-1], bit_equal=eq,
+            gemm_ms=time_ms(lambda: int8_ops.int8_gemm(x_q, w_q, x_scale, w_scale, bias, dtype)),
+            gemm_plain_ms=time_ms(lambda: quant.rescale_plain(
+                quant.int8_gemm_plain(x_q, w_q), x_scale, w_scale, bias, dtype), reps=3),
+            gemm_library_ms=library_ms, gemm_bound_ms=gemm_bound, gemm_bound_by=gemm_by,
+            rows_ms=time_ms(lambda: int8_ops.quantize_rows(x)),
+            rows_plain_ms=time_ms(lambda: quant.quantize_rows_plain(x), reps=5),
+            rows_bound_ms=rows_bound, rows_bound_by=rows_by,
+        )
+        log("int8 " + json.dumps(row))
+        if not all(eq[k] for k in ("x_q", "x_scale", "s32", "out")):
+            raise AssertionError(f"int8 kernels differ from their plain versions: {row}")
+        rows.append(row)
+    return rows
+
+
+def int8_kernel_controls(int8_ops, quant, cfg) -> None:
+    """Each planted fault through the kernel phase's bit-equality, at the
+    path's B=128 shapes (and the ragged one): caught if any part differs."""
+    shapes = [s for s in int8_path_shapes(cfg) if "B=128" in s[0] or s[0] == "ragged"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    inputs = [int8_inputs(M, K, N, dtype, gen) for _, M, K, N, dtype in shapes]
+    caught = {}
+    try:
+        for name, flag in int8_ops.FAULTS.items():
+            int8_ops.planted_faults = flag
+            broken = []
+            for (layer, *_), args in zip(shapes, inputs):
+                eq = int8_against_plain(int8_ops, quant, *args)
+                broken += [f"{layer}:{k}" for k in ("x_q", "x_scale", "s32", "out") if not eq[k]]
+            caught[name] = {"caught": bool(broken), "where": broken[:6], "n": len(broken)}
+    finally:
+        int8_ops.planted_faults = 0
+    log(f"int8 kernel controls: {json.dumps(caught)}")
+    missed = [n for n in INT8_REJECTED if not caught[n]["caught"]]
+    if missed:
+        raise AssertionError(f"the kernel phase does not catch planted faults: {missed}")
+
+
+def int8_calls_per_request(policy) -> int:
+    """W8A8 layer calls of one request, from the config: qkv, proj, mlp_fc1,
+    mlp_fc2 in every ViT block, and per sampler step the denoiser's
+    input_proj, cond_embed, final.ada_mod and ada_mod, fc1, fc2 per block."""
+    c = policy.mar_cfg
+    blocks = c.encoder_depth + c.decoder_depth
+    return 4 * blocks + policy.mar.diffactloss.num_steps * (3 * c.diffloss_act_d + 3)
+
+
+def deployed_breakdown(policy, obs, cache, noise, reps: int = 5) -> dict:
+    """One cached request's stages (median ms of ``reps``): the host's frame
+    selection and YUV420 encode (host clock), then by CUDA events the copy
+    to the card, the decode and VAE encode of the new frames, the MAR pass,
+    the action sampler and the copy of the action back; and the device's
+    busy share of one request by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unified_video_action_tpu_torch.utils.obs_codec import encode_yuv420
+
+    stages = ("h2d_ms", "decode_vae_encode_ms", "mar_encoder_decoder_ms", "action_sampler_ms",
+              "d2h_ms")
+    times = {k: [] for k in ("host_select_encode_ms",) + stages}
+    reuse_from, new_positions = policy.cache_plan(obs["image"].shape[1], cache, 8)
+
+    def request(events=None):
+        mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        t0 = time.perf_counter()
+        packed = encode_yuv420(obs["image"][:, new_positions])
+        host = (time.perf_counter() - t0) * 1e3
+        mark(0)
+        frames = torch.from_numpy(packed).to(policy.device)
+        mark(1)
+        new_lat = policy._encode_frames(policy._prep_frames(frames), noise["vae"])
+        cond = torch.cat([cache[:, reuse_from], new_lat], dim=1)
+        mark(2)
+        z = policy.mar.policy_latents(cond)
+        mark(3)
+        nact = policy.mar.diffactloss.sample(z, noise["init"], noise["steps"],
+                                             temperature=policy.temperature)
+        mark(4)
+        nact.cpu()
+        mark(5)
+        return host
+
+    with torch.no_grad():
+        for _ in range(reps):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            torch.cuda.synchronize()
+            times["host_select_encode_ms"].append(request(events))
+            events[5].synchronize()
+            for i, k in enumerate(stages):
+                times[k].append(events[i].elapsed_time(events[i + 1]))
+        out = {k: statistics.median(v) for k, v in times.items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            request()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms > 0:
+        out["profiled_wall_ms"] = wall_ms
+        out["device_busy_ms"] = busy_ms
+        out["device_idle_share"] = max(0.0, 1.0 - busy_ms / wall_ms)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        out["top_device_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 for e in top}
+    else:
+        out["device_idle_share"] = "not measured (the profiler saw no device time)"
+    return out
+
+
+def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
+    """Returns the launches of every kernel on the deployed path."""
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    meta = os.path.join(LATEST, "meta.json")
+    with open(meta) as f:
+        amp = json.load(f)["cfg"]["model"]["policy"]["autoregressive_model_params"]
+    amp = dict(amp, act_diff_testing_steps="ddim10")
+
+    def make_policy(serving_quant):
+        p = UnifiedVideoActionPolicy.from_run_config(
+            meta, device="cuda", compute_dtype="bfloat16", autoregressive_model_params=amp,
+            obs_codec="yuv420", serving_quant=serving_quant)
+        p.set_normalizer(normalizer)
+        p.load_params(*trees)
+        return p
+
+    policy = make_policy("int8")
+    c = policy.mar_cfg
+    per_call_int8 = int8_calls_per_request(policy)
+    blocks = c.encoder_depth + c.decoder_depth
+    log(f"deployed policy: {policy.mar.diffactloss.num_steps} sampler steps (ddim10), "
+        f"serving_quant={policy.serving_quant}, obs_codec={policy.obs_codec}, {policy.dtype}; "
+        f"{per_call_int8} W8A8 layer calls per request from the config")
+
+    rng = np.random.default_rng(SEED + 2)
+    batches = (1, 128)
+    windows = {B: [{"image": rng.integers(0, 256, (B, 16, 3, 96, 96), dtype=np.uint8)}
+                   for _ in range(2)] for B in batches}
+    noise = {}
+    for B in batches:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + B)
+        noise[B] = (policy.sample_noise(B, gen, n_new=4), policy.sample_noise(B, gen, n_new=2))
+
+    def serve(B):
+        """A full call on the first window, then a cached call on the second."""
+        full, cache = policy.predict_action_cached(windows[B][0], noise=noise[B][0])
+        cached, cache2 = policy.predict_action_cached(windows[B][1], cache=cache, n_shift=8,
+                                                      noise=noise[B][1])
+        return (full, cache), (cached, cache2)
+
+    for B in batches:  # warm-up: not counted
+        serve(B)
+    torch.cuda.synchronize()
+
+    # the deployed path: a full and a cached request at B=1 and at B=128, counted
+    attention_ops.launch_count = 0
+    for k in int8_ops.launch_count:
+        int8_ops.launch_count[k] = 0
+    results, per_call = {}, {}
+    for B in batches:
+        before = (attention_ops.launch_count, dict(int8_ops.launch_count))
+        results[B] = serve(B)
+        torch.cuda.synchronize()
+        per_call[B] = {
+            "attention": (attention_ops.launch_count - before[0]) / 2,
+            **{k: (int8_ops.launch_count[k] - before[1][k]) / 2 for k in int8_ops.launch_count},
+        }
+    launches = {"flash_attention": attention_ops.launch_count, **int8_ops.launch_count}
+    log(f"deployed launches per call: {per_call}; in all: {launches}; "
+        f"want {blocks} attention and {per_call_int8} of each int8 kernel per call")
+    for B in batches:
+        want = {"attention": blocks, "quantize_rows": per_call_int8, "int8_gemm": per_call_int8}
+        if per_call[B] != want:
+            raise AssertionError(f"B={B}: launches per call {per_call[B]}, want {want}")
+        for res, cache in results[B]:
+            check_actions(policy, torch.from_numpy(res["action_pred"]), B)
+            if res["action"].shape != (B, policy.n_action_steps, 2):
+                raise AssertionError(f"action shape {res['action'].shape}")
+            if tuple(cache.shape) != (B, 4, c.vae_embed_dim, c.seq_hw, c.seq_hw):
+                raise AssertionError(f"cache shape {tuple(cache.shape)}")
+
+    def differences(got, want) -> dict:
+        """max |d| of the normalized chunks and of the returned caches over
+        the full and the cached call."""
+        acts = max((normalized(policy, torch.from_numpy(g[0]["action_pred"]))
+                    - normalized(policy, torch.from_numpy(w[0]["action_pred"]))).abs().max().item()
+                   for g, w in zip(got, want))
+        caches = max((g[1] - w[1]).abs().max().item() for g, w in zip(got, want))
+        return {"action_max": acts, "cache_max": caches}
+
+    # the kernel route against itself (the comparison below needs a
+    # reproducible route) and against the plain-int8 route, same noise
+    repeat = {B: differences(serve(B), results[B]) for B in batches}
+    policy.set_int8_impl("plain")
+    plain = {B: serve(B) for B in batches}
+    policy.set_int8_impl("kernel")
+    diffs = {B: differences(results[B], plain[B]) for B in batches}
+    log(f"deployed, kernel route again: {json.dumps(repeat)}; kernel vs plain-int8 route: "
+        f"{json.dumps(diffs)}; limit: bit-equal")
+    for B in batches:
+        if any(repeat[B].values()):
+            raise AssertionError(f"B={B}: the kernel route does not reproduce itself: {repeat[B]}")
+        if any(diffs[B].values()):
+            raise AssertionError(f"B={B}: kernel route differs from the plain-int8 route: {diffs[B]}")
+
+    # controls: the int8 kernels with a planted fault, through the same comparison
+    controls = {}
+    try:
+        for name, flag in int8_ops.FAULTS.items():
+            int8_ops.planted_faults = flag
+            controls[name] = {B: differences(serve(B), plain[B]) for B in batches}
+            controls[name]["rejected"] = any(v for B in batches for v in controls[name][B].values())
+    finally:
+        int8_ops.planted_faults = 0
+    log(f"deployed controls, faulty int8 kernels against the plain-int8 route: {json.dumps(controls)}")
+    passed = [n for n in INT8_REJECTED if not controls[n]["rejected"]]
+    if passed:
+        raise AssertionError(f"faulty int8 kernels pass the serve comparison: {passed}")
+
+    # the int8 route against the bf16 route: quantization is engaged
+    bf16_policy = make_policy(None)
+    engaged = {}
+    for B in batches:
+        full_bf16, _ = bf16_policy.predict_action_cached(windows[B][0], noise=noise[B][0])
+        da = (normalized(policy, torch.from_numpy(results[B][0][0]["action_pred"]))
+              - normalized(policy, torch.from_numpy(full_bf16["action_pred"]))).abs()
+        engaged[B] = {"action_mean": da.mean().item(), "action_max": da.max().item()}
+    del bf16_policy
+    log(f"int8 route vs bf16 route, full call: {json.dumps(engaged)}; mean must exceed {INT8_VS_BF16_MIN}")
+    for B in batches:
+        if engaged[B]["action_mean"] <= INT8_VS_BF16_MIN:
+            raise AssertionError(f"B={B}: the int8 route matches the bf16 route: {engaged[B]}")
+
+    # timing: host clock around whole requests (each ends with the action on
+    # the host), after the warm-up
+    def request_ms(B, cached, reps):
+        ms = []
+        cache = results[B][0][1]
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cached:
+                policy.predict_action_cached(windows[B][1], cache=cache, n_shift=8,
+                                             noise=noise[B][1])
+            else:
+                policy.predict_action_cached(windows[B][0], noise=noise[B][0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    torch.cuda.reset_peak_memory_stats()
+    timing = {
+        "p50_cached_ms_b1": request_ms(1, True, 9), "p50_full_ms_b1": request_ms(1, False, 9),
+        "median_cached_ms_b128": request_ms(128, True, 5),
+        "median_full_ms_b128": request_ms(128, False, 5),
+    }
+    timing["chunks_per_s_b128_cached"] = 128 / (timing["median_cached_ms_b128"] / 1e3)
+    timing["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("deployed serve " + json.dumps(timing))
+    for B in batches:
+        b = deployed_breakdown(policy, windows[B][1], results[B][0][1], noise[B][1])
+        log(f"deployed, where the time goes, cached request, B={B}: " + json.dumps(b))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -437,6 +842,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from unified_video_action_tpu_torch.ops import _build
     from unified_video_action_tpu_torch.ops import attention as attention_ops
+    from unified_video_action_tpu_torch.ops import int8_mm as int8_ops
+    from unified_video_action_tpu_torch.ops import quant
 
     with Phase("env"):
         card = card_line()
@@ -444,26 +851,64 @@ def main() -> int:
             f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         log(f"card: {card}")
     with Phase("build"):
-        seconds = _build.build("attention")
-        log(f"nvcc csrc/attention.cu: {seconds:.1f}s\n{_build.build_log('attention')}")
+        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+            seconds = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+        for name in KERNEL_SOURCES:
+            log(f"nvcc csrc/{name}.cu: {seconds[name]:.1f}s\n{_build.build_log(name)}")
+    meta_policy, normalizer = flagship_config()
     with Phase("kernel"):
         rows = phase_kernel(attention_ops)
+        int8_rows = phase_kernel_int8(int8_ops, quant, meta_policy.mar_cfg)
+        int8_kernel_controls(int8_ops, quant, meta_policy.mar_cfg)
+    trees = serving_weights(meta_policy)
     with Phase("serve"):
-        launches = phase_serve(attention_ops)
+        launches = phase_serve(attention_ops, trees, normalizer)
+    with Phase("deployed"):
+        deployed = phase_serve_deployed(attention_ops, int8_ops, trees, normalizer)
 
     path_row = rows[0]  # B=128 N=144 H=12 D=64 bf16: the serving path's shape
+    int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
+    by_path = {"predict_action_100_steps": launches,
+               "predict_action_cached_deployed": deployed["flash_attention"]}
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "unified_video_action_tpu_torch/csrc/attention.cu",
         "replaces": "unified_video_action_tpu/ops/attention.py:33",
-        "launches": launches,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": path_row["max_abs_err"],
         "ms": path_row["ms"],
         "plain_ms": path_row["plain_ms"],
         "bound_ms": path_row["bound_ms"],
         "bound_by": path_row["bound_by"],
         "library_ms": path_row["library_ms"],
+    }, {
+        "name": "int8_gemm",
+        "route": "cuda",
+        "source": "unified_video_action_tpu_torch/csrc/int8_mm.cu",
+        "replaces": "unified_video_action_tpu/ops/int8_mm.py:32",
+        "launches": deployed["int8_gemm"],
+        "shape": [int8_row["M"], int8_row["K"], int8_row["N"]],
+        "max_abs_err": int8_row["bit_equal"]["max_abs_err"],
+        "ms": int8_row["gemm_ms"],
+        "plain_ms": int8_row["gemm_plain_ms"],
+        "bound_ms": int8_row["gemm_bound_ms"],
+        "bound_by": int8_row["gemm_bound_by"],
+        "library_ms": int8_row["gemm_library_ms"],
+    }, {
+        "name": "quantize_rows",
+        "route": "cuda",
+        "source": "unified_video_action_tpu_torch/csrc/int8_mm.cu",
+        "replaces": "unified_video_action_tpu/ops/int8_mm.py:96",
+        "launches": deployed["quantize_rows"],
+        "shape": [int8_row["M"], int8_row["K"]],
+        "max_abs_err": int8_row["bit_equal"]["x_q_max_abs_err"],
+        "ms": int8_row["rows_ms"],
+        "plain_ms": int8_row["rows_plain_ms"],
+        "bound_ms": int8_row["rows_bound_ms"],
+        "bound_by": int8_row["rows_bound_by"],
+        "library_ms": None,
     }]}
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(card, flush=True)

@@ -97,3 +97,53 @@ def policy_draws(key, noise_shapes):
     vae = np.asarray(jax.random.normal(k_vae, noise_shapes["vae"]))
     return {k: torch.tensor(v) for k, v in
             {"vae": vae, "init": init, "steps": per_step}.items()}
+
+
+# W8A8 parity. x_q = round(x / scale) is a step function: a float32 rounding
+# difference upstream (LayerNorm, attention, a convolution, computed in
+# another order than XLA computes it) that puts an activation on the other
+# side of a step changes that element by one quantum, 1/127 of its row's
+# largest value, and the change spreads through the row's later layers.
+#
+# A layer or a block: most rows are held to FP32_TOL and the mean difference
+# to a tenth of the gap between JAX's int8 and float results on the same
+# inputs (an implementation of the float function, or of another
+# quantization, sits at the gap itself).
+INT8_MIN_EXACT_ROWS = 0.9
+INT8_GAP_FRACTION = 0.1
+
+
+def assert_int8_parity(got, want, want_float):
+    """Arrays whose last axis is a row: the share of rows within FP32_TOL, and
+    mean |got - want| against mean |want - want_float|."""
+    got, want, want_float = (np.asarray(a, np.float64) for a in (got, want, want_float))
+    rows = np.isclose(got, want, **FP32_TOL).reshape(-1, got.shape[-1]).all(axis=-1).mean()
+    err, gap = np.abs(got - want).mean(), np.abs(want - want_float).mean()
+    assert rows >= INT8_MIN_EXACT_ROWS and err <= INT8_GAP_FRACTION * gap, (
+        f"rows within FP32_TOL {rows:.3f} (min {INT8_MIN_EXACT_ROWS}), mean |d| {err:.3g} "
+        f"vs {INT8_GAP_FRACTION} x int8-vs-float gap {gap:.3g}"
+    )
+
+
+# Sampled action chunks: attention spreads one crossed step over the whole
+# chunk, and the sampler's first steps multiply x and eps by up to 2e4
+# before clipping x0, so a chunk is either reproduced to the float slice's
+# tolerance (INT8_CHUNK_ATOL in normalized action units, as
+# tests/test_torch_policy.py's NORMALIZED_ATOL) or moved about as far as
+# quantization itself moves it. Held: at least ``min_exact`` chunks within
+# INT8_CHUNK_ATOL, each of them at least 30x tighter than its own int8-vs-
+# float gap (a float implementation reproduces no chunk), and the mean over
+# all chunks below the mean gap.
+INT8_CHUNK_ATOL = 1e-4
+
+
+def assert_int8_chunks(got, want, want_float, min_exact):
+    """Chunks along the first axis: mean |got - want| and mean |want -
+    want_float| per chunk."""
+    got, want, want_float = (np.asarray(a, np.float64) for a in (got, want, want_float))
+    axes = tuple(range(1, got.ndim))
+    d, gap = np.abs(got - want).mean(axis=axes), np.abs(want - want_float).mean(axis=axes)
+    exact = d <= INT8_CHUNK_ATOL
+    assert exact.sum() >= min_exact, (d, gap)
+    assert (gap[exact] >= 30 * INT8_CHUNK_ATOL).all(), (d, gap)
+    assert d.mean() < gap.mean(), (d, gap)

@@ -20,6 +20,7 @@ from torch import nn
 
 from unified_video_action_tpu.policy.policy import UnifiedVideoActionPolicy as JaxPolicy
 from unified_video_action_tpu_torch import convert
+from unified_video_action_tpu_torch.models.transformer import QuantLinear
 from unified_video_action_tpu_torch.policy.policy import (
     MAR_SKIP,
     VAE_SKIP,
@@ -163,3 +164,56 @@ def test_flagship_maps_onto_the_port(flagship_shapes):
     skipped = [p for p in flagship_shapes["mar"] if p[0] == "diffloss"]
     assert len(mar_plan) + len(skipped) == 444
     assert n_mar > 200_000_000
+
+
+class _TinyQuant(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.fc = QuantLinear(64, 48)
+        self.ln = nn.LayerNorm(48)
+
+
+def test_quant_kernels_are_quantized_from_fp32_before_the_cast():
+    # JAX's QuantDense quantizes its fp32 parameter inside the program, so
+    # the bridge quantizes the fp32 value even into a model already cast to
+    # bf16 (the policy casts in its constructor, before load_params)
+    import jax.numpy as jnp
+
+    from unified_video_action_tpu.ops.quant import quantize_weight
+
+    rng = np.random.default_rng(6)
+    tree = {"fc": {"kernel": rng.standard_normal((64, 48)).astype(np.float32),
+                   "bias": rng.standard_normal(48).astype(np.float32)},
+            "ln": {"scale": rng.standard_normal(48), "bias": rng.standard_normal(48)}}
+    m = convert.load_into(_TinyQuant().to(torch.bfloat16), tree)
+    want = jax.jit(quantize_weight)(jnp.asarray(tree["fc"]["kernel"]))
+    np.testing.assert_array_equal(m.fc.weight_q.numpy(), np.asarray(want["kernel_q"]).T)
+    assert m.fc.w_scale.dtype == m.fc.bias.dtype == torch.float32
+    np.testing.assert_array_equal(m.fc.w_scale.numpy(), np.asarray(want["scale"]))
+    np.testing.assert_array_equal(m.fc.bias.numpy(), tree["fc"]["bias"])
+    cast_first = jax.jit(quantize_weight)(jnp.asarray(tree["fc"]["kernel"]).astype(jnp.bfloat16))
+    assert not np.array_equal(np.asarray(cast_first["scale"]), np.asarray(want["scale"]))
+
+
+def test_quant_layout_is_the_float_one():
+    m = _TinyQuant()
+    assert convert.flax_layout_shapes(m) == {("fc", "kernel"): (64, 48), ("fc", "bias"): (48,),
+                                             ("ln", "scale"): (48,), ("ln", "bias"): (48,)}
+    tree = convert.seeded_tree(m, seed=1)
+    convert.load_into(m, tree)
+    with pytest.raises(ValueError, match="fc/kernel"):
+        bad = convert.seeded_tree(m, seed=1)
+        bad["fc"]["kernel"] = np.zeros((48, 64), np.float32)
+        convert.load_into(m, bad)
+
+
+def test_flagship_maps_onto_the_int8_port(flagship_shapes):
+    policy = UnifiedVideoActionPolicy.from_run_config(
+        os.path.join(FLAGSHIP, "meta.json"), device="meta", serving_quant="int8"
+    )
+    mar_plan = convert.plan(flagship_shapes["mar"], convert.module_shapes(policy.mar), MAR_SKIP)
+    assert len(mar_plan) == len(policy.mar.state_dict())
+    n_quant = sum(1 for _, change in mar_plan.values() if change == "quant")
+    assert n_quant == 24 * 4 + 6 * 3 + 3
+    # one fp32 kernel leaf sets both the int8 weight and its scales
+    assert len({path for path, _ in mar_plan.values()}) == len(mar_plan) - n_quant

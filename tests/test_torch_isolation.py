@@ -40,9 +40,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     out = _run(["-c", _PROBE], cwd=REPO, env=env)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    for expected in ("ops.attention", "ops._build", "convert", "models.mar", "models.vae",
-                     "models.heads", "models.denoiser", "models.transformer",
-                     "models.diffusion.gaussian", "policy.policy", "utils.image",
+    for expected in ("ops.attention", "ops._build", "ops.int8_mm", "ops.quant", "convert",
+                     "models.mar", "models.vae", "models.heads", "models.denoiser",
+                     "models.transformer", "models.diffusion.gaussian", "policy.policy",
+                     "utils.image", "utils.obs_codec", "utils.frames", "utils.device",
                      "data.normalizer"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
@@ -61,9 +62,10 @@ def _imported_roots(path):
 
 
 def test_chip_smoke_the_port_and_its_card_tests_import_no_jax():
-    # all three run on the machine with the card, which has no JAX
+    # all of them run on the machine with the card, which has no JAX
     sources = [os.path.join(REPO, "chip_smoke.py"),
-               os.path.join(REPO, "tests", "test_torch_attention_cuda.py")]
+               os.path.join(REPO, "tests", "test_torch_attention_cuda.py"),
+               os.path.join(REPO, "tests", "test_torch_int8_cuda.py")]
     for root, _, files in os.walk(os.path.join(REPO, "unified_video_action_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in sources:

@@ -15,11 +15,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
-from tests._torch_parity import FP32_TOL, head_draws, init_shapes, random_params, to_numpy
+from tests._torch_parity import (
+    FP32_TOL,
+    assert_int8_chunks,
+    assert_int8_parity,
+    head_draws,
+    init_shapes,
+    random_params,
+    to_numpy,
+)
 from unified_video_action_tpu.models import mar as jm_
 from unified_video_action_tpu_torch import convert
 from unified_video_action_tpu_torch.models import mar as pm_
+from unified_video_action_tpu_torch.models.transformer import QuantLinear
 
 SMALL = dict(
     img_size=32, vae_stride=8, vae_embed_dim=8,
@@ -104,3 +114,69 @@ def test_port_holds_every_policy_leaf_of_the_jax_tree(mars):
     flat = convert.flatten_tree(to_numpy(params))
     held = {p for p in flat if p[0] != "diffloss"}
     assert len(held) == len(pm.state_dict())
+
+
+# W8A8 (MarConfig.quant): both stacks and the action denoiser int8, the
+# decoder_embed, z_proj* layers and the pool float, as in JAX. The JAX model
+# runs under jax.jit (as the serving program runs it); the int8 parity of
+# tests/_torch_parity.py holds the port to JAX's int8 model against the gap
+# between JAX's int8 and float models on the same latents and noise.
+
+
+@pytest.fixture(scope="module")
+def quant_mars(mars):
+    jm, params, _ = mars
+    jq = jm_.Mar(dataclasses.replace(jm.cfg, quant=True))
+    pq = pm_.Mar(pm_.MarConfig(**SMALL, quant=True))
+    convert.load_into(pq, to_numpy(params), skip=MAR_SKIP)
+    return jm, jq, params, pq
+
+
+def test_quant_encoder_decoder_match_jax(quant_mars):
+    jm, jq, params, pq = quant_mars
+    lat = _latents(B=3, seed=5)
+    B, T = lat.shape[:2]
+    tokens = np.asarray(jm_.patchify(jnp.asarray(lat.reshape(B * T, 8, 4, 4)), 1)).reshape(B, T, 16, 8)
+
+    def jax_fwd(mdl, tok):
+        return mdl.forward_decoder(
+            mdl.forward_encoder(jnp.zeros_like(tok), jnp.ones(tok.shape[:3]), tok, "policy_model"))
+
+    run = lambda m: np.asarray(jax.jit(lambda p, t: m.apply({"params": p}, t, method=jax_fwd))(
+        params, jnp.asarray(tokens)))
+    with torch.no_grad():
+        z = pq.forward_decoder(pq.forward_encoder(torch.tensor(tokens))).numpy()
+    assert_int8_parity(z, run(jq), run(jm))
+
+
+def test_quant_sample_policy_matches_jax(quant_mars):
+    # sampled chunks (normalized actions): tests/_torch_parity.py's chunk
+    # parity; measured 4 of 8 chunks within 2e-6, the others 0.63e-3 to
+    # 3.6e-3 apart, against int8-vs-float gaps of 3.8e-3 to 1.2e-2
+    jm, jq, params, pq = quant_mars
+    lat = _latents(B=8, seed=6)
+    key = jax.random.PRNGKey(8)
+    run = lambda m: np.asarray(jax.jit(lambda p, x, k: m.apply(
+        {"params": p}, x, k, temperature=0.95, method=jm_.Mar.sample_policy))(
+            params, jnp.asarray(lat), key))
+    init, per_step = head_draws(key, 8 * 16, 2, pq.diffactloss.num_steps)
+    with torch.no_grad():
+        got = pq.sample_policy(torch.tensor(lat), torch.tensor(init), torch.tensor(per_step),
+                               temperature=0.95).numpy()
+    assert got.shape == (8, 16, 2)
+    assert_int8_chunks(got, run(jq), run(jm), min_exact=2)
+
+
+def test_quant_reaches_the_layers_jax_quantizes(quant_mars):
+    *_, pq = quant_mars
+    quant = {n for n, m in pq.named_modules() if isinstance(m, QuantLinear)}
+    c = pq.cfg
+    blocks = [f"{s}.block_{i}" for s, d in (("encoder_blocks", c.encoder_depth),
+                                            ("decoder_blocks", c.decoder_depth)) for i in range(d)]
+    want = {f"{b}.{l}" for b in blocks for l in ("attn.qkv", "attn.proj", "mlp_fc1", "mlp_fc2")}
+    net = "diffactloss.net"
+    want |= {f"{net}.input_proj", f"{net}.cond_embed", f"{net}.final.ada_mod"}
+    want |= {f"{net}.block_{i}.{l}" for i in range(c.diffloss_act_d) for l in ("ada_mod", "fc1", "fc2")}
+    assert quant == want
+    assert all(isinstance(getattr(pq, n), nn.Linear) for n in
+               ("z_proj_cond", "z_proj", "decoder_embed", "proj_cond_x_layer"))

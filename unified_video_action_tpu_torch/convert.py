@@ -9,6 +9,11 @@ The port's modules carry the flax module names, so a flax leaf at path
 * LayerNorm / GroupNorm ``scale``   -> ``weight``
 * ``bias`` and raw parameters (position embeddings, fake latents) keep
   their name and shape.
+* Dense ``kernel`` bound for a W8A8 ``QuantLinear`` -> ``weight_q`` (out, in)
+  int8 and ``w_scale`` (out,) fp32, quantized by ``ops.quant.quantize_weight``
+  from the fp32 value before any cast to the compute dtype, as JAX's
+  ``QuantDense`` quantizes its fp32 parameter inside the program. The int8
+  model reads the same tree as the float one.
 
 These are the inverses of ``linear_kernel`` and ``conv_kernel`` in the JAX
 package's ``models/torch_import.py``, kept here as the port's own copy.
@@ -27,6 +32,8 @@ from typing import Dict, Iterable, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from unified_video_action_tpu_torch.ops.quant import quantize_weight
 
 Path = Tuple[str, ...]
 
@@ -72,8 +79,10 @@ def port_key(path: Path, ndim: int) -> Tuple[str, str]:
 
 
 def _port_shape(shape: Tuple[int, ...], change: str) -> Tuple[int, ...]:
-    if change == "linear":
+    if change in ("linear", "quant"):
         return (shape[1], shape[0])
+    if change == "quant_scale":
+        return (shape[1],)
     if change == "conv":
         return (shape[3], shape[2], shape[0], shape[1])
     return tuple(shape)
@@ -96,6 +105,8 @@ def plan(flax_shapes: Mapping[Path, Tuple[int, ...]],
          skip: Iterable[Path] = ()) -> Dict[str, Tuple[Path, str]]:
     """Check that every flax leaf (outside ``skip``) lands on a port
     parameter of the right shape and that every port parameter is set.
+    A Dense kernel whose layer holds ``weight_q`` instead of ``weight`` (a
+    ``QuantLinear``) sets both ``weight_q`` and ``w_scale``.
     Returns {state_dict key: (flax path, layout change)}; raises ValueError
     listing every leaf left unmapped and every parameter left unset."""
     skip = [tuple(s) for s in skip]
@@ -105,11 +116,16 @@ def plan(flax_shapes: Mapping[Path, Tuple[int, ...]],
         if _skipped(path, skip):
             continue
         key, change = port_key(path, len(shape))
-        want = port_shapes.get(key)
-        if want is None or tuple(want) != _port_shape(tuple(shape), change):
-            unmapped.append(f"{'/'.join(path)} {tuple(shape)} -> {key} {want}")
+        targets = [(key, change)]
+        stem = key[: -len("weight")]
+        if change == "linear" and key not in port_shapes and stem + "weight_q" in port_shapes:
+            targets = [(stem + "weight_q", "quant"), (stem + "w_scale", "quant_scale")]
+        wants = [port_shapes.get(k) for k, _ in targets]
+        if any(w is None or tuple(w) != _port_shape(tuple(shape), c)
+               for w, (_, c) in zip(wants, targets)):
+            unmapped.append(f"{'/'.join(path)} {tuple(shape)} -> {targets[0][0]} {wants[0]}")
             continue
-        mapping[key] = (path, change)
+        mapping.update((k, (path, c)) for k, c in targets)
     unset = sorted(set(port_shapes) - set(mapping))
     if unmapped or unset:
         raise ValueError(
@@ -128,10 +144,18 @@ def load_into(module: nn.Module, tree: Mapping, skip: Iterable[Path] = ()) -> nn
     numpy arrays, casting to the parameters' dtype and device."""
     flat = flatten_tree(tree)
     mapping = plan({p: np.shape(v) for p, v in flat.items()}, module_shapes(module), skip)
-    state = {
-        key: torch.tensor(_to_port_layout(np.asarray(flat[path], dtype=np.float32), change))
-        for key, (path, change) in mapping.items()
-    }
+    quantized: Dict[Path, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def value(path: Path, change: str) -> torch.Tensor:
+        x = np.asarray(flat[path], dtype=np.float32)
+        if change in ("quant", "quant_scale"):
+            if path not in quantized:
+                quantized[path] = quantize_weight(torch.from_numpy(x))
+            w_q, scale = quantized[path]
+            return w_q.T.contiguous() if change == "quant" else scale
+        return torch.tensor(_to_port_layout(x, change))
+
+    state = {key: value(path, change) for key, (path, change) in mapping.items()}
     module.load_state_dict(state, strict=True)
     return module
 
@@ -149,6 +173,10 @@ def flax_layout_shapes(module: nn.Module) -> Dict[Path, Tuple[int, ...]]:
             out[tuple(mods) + ("scale",)] = shape
         elif leaf == "weight" and isinstance(owner, nn.Linear):
             out[tuple(mods) + ("kernel",)] = (shape[1], shape[0])
+        elif leaf == "weight_q":
+            out[tuple(mods) + ("kernel",)] = (shape[1], shape[0])
+        elif leaf == "w_scale":
+            continue  # derived from the kernel
         elif leaf == "weight" and isinstance(owner, nn.Conv2d):
             out[tuple(mods) + ("kernel",)] = (shape[2], shape[3], shape[1], shape[0])
         else:

@@ -7,6 +7,8 @@ latents: a per-frame 3x3 conv, an adaptive average pool to 4x4 with torch's
 interpolation and a refining MLP. The head then samples one action per slot
 with the per-token ``MlpDenoiser`` under the respaced diffusion, from
 injected noise. Training (``__call__``) waits for the training slice.
+Under ``quant`` the denoiser's dense layers are W8A8; the pool stays float,
+as in JAX (``heads.py:137-147``, ``:224-246``).
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ class ActionDiffusionHead(nn.Module):
 
     def __init__(self, target_channels: int, z_channels: int, width: int, depth: int,
                  n_frames: int = 4, num_actions: int = 16,
-                 act_diff_testing_steps: str = "100", act_model_type: str = "conv_fc"):
+                 act_diff_testing_steps: str = "100", act_model_type: str = "conv_fc",
+                 quant: bool = False):
         super().__init__()
         if act_model_type != "conv_fc":
             raise NotImplementedError(f"act_model_type {act_model_type!r} is not ported yet")
@@ -80,6 +83,7 @@ class ActionDiffusionHead(nn.Module):
             out_channels=target_channels * 2,
             z_channels=z_channels,
             depth=depth,
+            quant=quant,
         )
         self.gen_diffusion = create_diffusion(act_diff_testing_steps, noise_schedule="cosine")
 

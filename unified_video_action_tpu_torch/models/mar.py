@@ -8,6 +8,9 @@ the action head's diffusion sampler. Parameters carry the flax names so
 ``convert.py`` maps the JAX tree by name. The video head (``diffloss``),
 the other task modes, text, proprioception, wrist images and history
 actions wait for later slices; the config refuses what is not ported.
+``MarConfig.quant`` makes the stacks' and the action denoiser's dense layers
+W8A8 (``mar.py:104``); ``decoder_embed`` and the ``z_proj*`` layers stay
+float, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ class MarConfig:
     act_model_type: str = "conv_fc"
     action_dim: int = 2
     num_action_tokens: int = 16
+    # int8 W8A8 dense layers in both stacks and the action denoiser (serving)
+    quant: bool = False
 
     @property
     def seq_hw(self) -> int:
@@ -107,12 +112,12 @@ class Mar(nn.Module):
         self.diffusion_temporal_embed = nn.Parameter(torch.zeros(1, c.n_frames, Dd))
         self.diffusion_spatial_embed = nn.Parameter(torch.zeros(1, c.seq_len, Dd))
         self.encoder_blocks = TransformerStack(
-            c.encoder_depth, D, c.encoder_num_heads, c.mlp_ratio
+            c.encoder_depth, D, c.encoder_num_heads, c.mlp_ratio, c.quant
         )
         self.encoder_norm = nn.LayerNorm(D, eps=1e-6)
         self.decoder_embed = nn.Linear(D, Dd)
         self.decoder_blocks = TransformerStack(
-            c.decoder_depth, Dd, c.decoder_num_heads, c.mlp_ratio
+            c.decoder_depth, Dd, c.decoder_num_heads, c.mlp_ratio, c.quant
         )
         self.decoder_norm = nn.LayerNorm(Dd, eps=1e-6)
         self.diffactloss = ActionDiffusionHead(
@@ -124,6 +129,7 @@ class Mar(nn.Module):
             num_actions=c.num_action_tokens,
             act_diff_testing_steps=c.act_diff_testing_steps,
             act_model_type=c.act_model_type,
+            quant=c.quant,
         )
 
     @staticmethod

@@ -1,0 +1,167 @@
+"""W8A8 int8 matrix multiply: the CUDA kernels' wrappers and their plain versions.
+
+Port of ``unified_video_action_tpu/ops/int8_mm.py`` (the Pallas kernel
+``_mm_kernel`` behind ``int8_matmul_pallas`` at :32-80 and its wrapper
+``w8a8_matmul`` at :83-107). The kernels are ``csrc/int8_mm.cu``; its source
+says what bounds them on an H100 and how they are laid out. The plain
+versions are ``ops/quant.py``'s, which the kernels reproduce bit for bit.
+
+* :func:`quantize_rows` (M, K) float -> x_q (M, K) int8, x_scale (M,) fp32
+* :func:`int8_gemm`     x_q (M, K) int8, weight (N, K) int8 -> (M, N) int32,
+                        or rescaled to float with the bias in its epilogue
+* :func:`w8a8_linear`   the layer: :func:`quantize_rows`, then
+                        :func:`int8_gemm` with the epilogue
+
+On a CUDA tensor each launches its kernel (or raises); on a CPU tensor it
+runs the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from unified_video_action_tpu_torch.ops import _build
+from unified_video_action_tpu_torch.ops.quant import (
+    int8_gemm_plain,
+    quantize_rows_plain,
+    rescale_plain,
+    w8a8_linear_plain,
+)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_OUT_S32 = 2
+# 127² · K must stay below 2³¹ for the int32 accumulator to be exact
+MAX_K = (2**31 - 1) // (127 * 127)
+
+# Incremented once for every launch of each CUDA kernel, and nowhere else.
+launch_count = {"quantize_rows": 0, "int8_gemm": 0}
+
+# Known errors the kernels can be built to make (bit flags of csrc/int8_mm.cu's
+# ``faults``), for the controls of chip_smoke.py's serve check. 0 in use.
+FAULTS = {"round_half_away": 1, "reciprocal_scale": 2,
+          "per_tensor_w_scale": 4, "bias_before_cast": 8}
+planted_faults = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("int8_mm")
+    lib.uva_quantize_rows.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    lib.uva_quantize_rows.restype = ctypes.c_int
+    lib.uva_int8_gemm.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    lib.uva_int8_gemm.restype = ctypes.c_int
+    return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _check_2d(name: str, t: torch.Tensor, dtypes, device: torch.device) -> None:
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_vector(name: str, t: torch.Tensor, n: int, device: torch.device) -> None:
+    if t.shape != (n,) or t.dtype != torch.float32 or t.device != device:
+        raise ValueError(
+            f"{name} must be float32 ({n},) on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_k(K: int) -> None:
+    if not 0 < K <= MAX_K:
+        raise ValueError(f"K={K} outside (0, {MAX_K}]: the int32 sum would not be exact")
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) float32 or bfloat16 -> ``(x_q, x_scale)``: int8 (M, K) and
+    float32 (M,)."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    _check_2d("x", x, tuple(_DTYPE_CODES), x.device)
+    M, K = x.shape
+    _check_k(K)
+    x_q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    x_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
+    if M == 0:
+        return x_q, x_scale
+    rc = _lib().uva_quantize_rows(x.data_ptr(), x_q.data_ptr(), x_scale.data_ptr(), M, K,
+                                  _DTYPE_CODES[x.dtype], planted_faults, _stream(x))
+    _raise_on(rc, "quantize_rows")
+    launch_count["quantize_rows"] += 1
+    return x_q, x_scale
+
+
+def int8_gemm(x_q: torch.Tensor, weight_q: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
+              w_scale: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+              out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """x_q (M, K) int8 times ``weight_q`` (N, K) int8. With ``out_dtype``
+    int32 (the default) the exact product; with float32 or bfloat16,
+    ``((y · x_scale) · w_scale)`` cast to ``out_dtype``, then ``bias`` (N,)
+    cast to it and added, all in the kernel's epilogue."""
+    if out_dtype != torch.int32 and out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"out_dtype must be int32, float32 or bfloat16, got {out_dtype}")
+    if out_dtype != torch.int32 and (x_scale is None or w_scale is None):
+        raise ValueError("a float output needs x_scale and w_scale")
+    if x_q.device.type == "cpu":
+        y = int8_gemm_plain(x_q, weight_q)
+        return y if out_dtype == torch.int32 else rescale_plain(y, x_scale, w_scale, bias, out_dtype)
+    _check_2d("x_q", x_q, (torch.int8,), x_q.device)
+    _check_2d("weight_q", weight_q, (torch.int8,), x_q.device)
+    M, K = x_q.shape
+    N = weight_q.shape[0]
+    if weight_q.shape[1] != K:
+        raise ValueError(f"x_q is (M, {K}) but weight_q is {tuple(weight_q.shape)}, not (N, {K})")
+    _check_k(K)
+    ptrs = [0, 0, 0]
+    if out_dtype != torch.int32:
+        for i, (name, v, n) in enumerate((("x_scale", x_scale, M), ("w_scale", w_scale, N),
+                                          ("bias", bias, N))):
+            if v is not None:
+                _check_vector(name, v, n, x_q.device)
+                ptrs[i] = v.data_ptr()
+    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    if out.numel() == 0:
+        return out
+    kind = _OUT_S32 if out_dtype == torch.int32 else _DTYPE_CODES[out_dtype]
+    rc = _lib().uva_int8_gemm(x_q.data_ptr(), ptrs[0], weight_q.data_ptr(), ptrs[1], ptrs[2],
+                              out.data_ptr(), M, N, K, kind, planted_faults, _stream(x_q))
+    _raise_on(rc, "int8_gemm")
+    launch_count["int8_gemm"] += 1
+    return out
+
+
+def w8a8_linear(x: torch.Tensor, weight_q: torch.Tensor, w_scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The W8A8 layer: x (..., K) float32 or bfloat16, ``weight_q`` (N, K)
+    int8, ``w_scale`` (N,) float32 and ``bias`` (N,) float32 -> (..., N) in
+    x's dtype. Two launches: :func:`quantize_rows`, then :func:`int8_gemm`
+    with the rescale, the cast and the bias in its epilogue."""
+    if x.device.type == "cpu":
+        return w8a8_linear_plain(x, weight_q, w_scale, bias)
+    lead = x.shape[:-1]
+    x_q, x_scale = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+    return int8_gemm(x_q, weight_q, x_scale, w_scale, bias, x.dtype).reshape(*lead, -1)

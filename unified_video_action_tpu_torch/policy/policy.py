@@ -1,34 +1,41 @@
-"""UnifiedVideoActionPolicy for serving (port of ``policy/policy.py:353-450``:
-``_prep_frames``, ``_encode_frames``, ``sample_policy`` and the unnormalize
-step).
+"""UnifiedVideoActionPolicy for serving (port of ``policy/policy.py:353-568``:
+``_prep_frames``, ``_encode_frames``, ``sample_policy``, the unnormalize
+step, and the latent-cached ``predict_action_cached``).
 
 ``predict_action`` takes the conditioning frames the policy attends to,
-uint8 (B, 4, 3, H, W), and returns a (B, 16, action_dim) action chunk:
-resize and map to [-1, 1], VAE-encode and sample the posterior, scale the
-latents by ``LATENT_SCALE``, one MAR encoder+decoder pass, the action
-head's diffusion sampler, then unnormalize. Its randomness is either drawn
-from a ``torch.Generator`` or injected as a dict of tensors
-(:meth:`UnifiedVideoActionPolicy.sample_noise` says which).
+uint8 (B, 4, 3, H, W) (or packed (B, 4, P) under ``obs_codec="yuv420"``),
+and returns a (B, 16, action_dim) action chunk: decode, resize and map to
+[-1, 1], VAE-encode and sample the posterior, scale the latents by
+``LATENT_SCALE``, one MAR encoder+decoder pass, the action head's diffusion
+sampler, then unnormalize. ``predict_action_cached`` takes the observation
+window instead, selects the frames, VAE-encodes only those it has not seen
+at the previous control step and reuses the cached latents of the others.
+Randomness is either drawn from a ``torch.Generator`` or injected as a dict
+of tensors (:meth:`UnifiedVideoActionPolicy.sample_noise` says which).
 
 The constructor takes the JAX policy's keyword arguments (the
-``model.policy`` section of a run config) so one config drives both.
-``predict_action_cached``, ``serving_quant``, ``obs_codec``, language goals,
-proprioception and training wait for later slices and are refused.
+``model.policy`` section of a run config) so one config drives both. The
+deployed tier is ``serving_quant="int8"`` (W8A8 dense layers in the MAR and
+the action denoiser, ``QuantLinear``) with ``obs_codec="yuv420"``. Language
+goals, proprioception and training wait for later slices and are refused.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from unified_video_action_tpu_torch import convert
 from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer, NormalizerField
 from unified_video_action_tpu_torch.models.mar import MODEL_SIZES, Mar, MarConfig
-from unified_video_action_tpu_torch.models.transformer import set_attn_impl
+from unified_video_action_tpu_torch.models.transformer import set_attn_impl, set_int8_impl
 from unified_video_action_tpu_torch.models.vae import LATENT_SCALE, KLVae, sample_posterior
 from unified_video_action_tpu_torch.utils import image as image_util
+from unified_video_action_tpu_torch.utils import obs_codec as obs_codec_util
+from unified_video_action_tpu_torch.utils.frames import select_frame_indices
 from unified_video_action_tpu_torch.utils.device import resolve_device
 
 # Keys of the JAX policy's config that only training reads.
@@ -45,7 +52,7 @@ _IGNORED_KEYS = {"attn_impl"}
 _UNPORTED_KEYS = {
     "use_history_action", "use_proprioception", "different_history_freq",
     "predict_wrist_img", "predict_proprioception", "language_emb_model",
-    "serving_quant", "obs_codec", "vae_encode_chunk",
+    "vae_encode_chunk",
 }
 # Subtrees of the JAX parameter trees that no ported module holds yet.
 MAR_SKIP = (("diffloss",),)          # video head: not on the policy path
@@ -71,6 +78,8 @@ class UnifiedVideoActionPolicy:
         task_name: str = "pusht",
         normalizer_type: str = "all",
         compute_dtype: str = "bfloat16",
+        serving_quant: Optional[str] = None,
+        obs_codec: Optional[str] = None,
         device: Union[str, torch.device] = "cuda",
         **kwargs: Any,
     ):
@@ -86,6 +95,10 @@ class UnifiedVideoActionPolicy:
             raise NotImplementedError(f"task {task_name!r} is not ported yet; only pusht")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
+        if serving_quant not in (None, "", "none", "int8"):
+            raise ValueError(f"serving_quant must be None or 'int8', got {serving_quant!r}")
+        if obs_codec not in (None, "", "none", "raw", "yuv420"):
+            raise ValueError(f"obs_codec must be None or 'yuv420', got {obs_codec!r}")
         amp = autoregressive_model_params
         if not _get(action_model_params, "predict_action", False):
             raise ValueError("serving needs the action head (action_model_params.predict_action)")
@@ -97,6 +110,8 @@ class UnifiedVideoActionPolicy:
         self.normalizer_type = normalizer_type
         self.action_dim = int(_get(_get(shape_meta, "action"), "shape", [2])[0])
         self.temperature = float(_get(amp, "temperature", 1.0))
+        self.serving_quant = serving_quant if serving_quant == "int8" else None
+        self.obs_codec = obs_codec if obs_codec == "yuv420" else None
 
         model_size = _get(amp, "model_size", "mar_base")
         if model_size == "custom":
@@ -118,6 +133,7 @@ class UnifiedVideoActionPolicy:
             act_diff_testing_steps=str(_get(amp, "act_diff_testing_steps", "100")),
             act_model_type=_get(action_model_params, "act_model_type", "conv_fc"),
             action_dim=self.action_dim,
+            quant=self.serving_quant == "int8",
             **size_kwargs,
         )
         ddconfig = _get(vae_model_params, "ddconfig", {})
@@ -150,7 +166,9 @@ class UnifiedVideoActionPolicy:
 
     def load_params(self, mar_tree: Mapping, vae_tree: Mapping) -> None:
         """Load the JAX policy's ``{"mar": ..., "vae": ...}`` trees (flax
-        layout, numpy leaves) through the weight bridge."""
+        layout, numpy leaves) through the weight bridge. Under
+        ``serving_quant="int8"`` the bridge quantizes the dense kernels from
+        their fp32 values, whatever the compute dtype."""
         convert.load_into(self.mar, mar_tree, skip=MAR_SKIP)
         convert.load_into(self.vae, vae_tree, skip=VAE_SKIP)
 
@@ -161,27 +179,48 @@ class UnifiedVideoActionPolicy:
         """``"kernel"`` or ``"plain"`` for every attention layer of the MAR."""
         set_attn_impl(self.mar, attn_impl)
 
+    def set_int8_impl(self, int8_impl: str) -> None:
+        """``"kernel"`` or ``"plain"`` for every W8A8 layer of the MAR and the
+        action denoiser (``serving_quant="int8"`` only)."""
+        set_int8_impl(self.mar, int8_impl)
+
     # -- serving ------------------------------------------------------------
 
-    def noise_shapes(self, batch: int) -> Dict[str, tuple]:
+    def noise_shapes(self, batch: int, n_new: Optional[int] = None) -> Dict[str, tuple]:
+        """Shapes of one call's draws; ``n_new`` is the number of frames the
+        call VAE-encodes (all ``n_frames`` unless a cached call reuses some)."""
         c = self.mar_cfg
         n = batch * c.num_action_tokens
+        n_new = c.n_frames if n_new is None else n_new
         return {
-            "vae": (batch * c.n_frames, c.vae_embed_dim, c.seq_hw, c.seq_hw),
+            "vae": (batch * n_new, c.vae_embed_dim, c.seq_hw, c.seq_hw),
             "init": (n, c.action_dim),
             "steps": (self.mar.diffactloss.num_steps, n, c.action_dim),
         }
 
-    def sample_noise(self, batch: int,
-                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """The standard-normal draws of one ``predict_action`` call: the VAE
-        posterior noise, the sampler's start and its per-step noise."""
+    def sample_noise(self, batch: int, generator: Optional[torch.Generator] = None,
+                     n_new: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The standard-normal draws of one call: the VAE posterior noise,
+        the sampler's start and its per-step noise."""
         return {
             k: torch.randn(s, generator=generator, device=self.device, dtype=torch.float32)
-            for k, s in self.noise_shapes(batch).items()
+            for k, s in self.noise_shapes(batch, n_new).items()
         }
 
+    def _noise(self, batch: int, n_new: int, noise: Optional[Mapping[str, torch.Tensor]],
+               generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        if noise is None:
+            return self.sample_noise(batch, generator, n_new)
+        want = self.noise_shapes(batch, n_new)
+        for k, s in want.items():
+            if tuple(noise[k].shape) != s:
+                raise ValueError(f"noise[{k!r}] must be {s}, got {tuple(noise[k].shape)}")
+        return {k: noise[k].to(self.device, torch.float32) for k in want}
+
     def _prep_frames(self, frames: torch.Tensor) -> torch.Tensor:
+        if self.obs_codec == "yuv420" and frames.dim() == 3:
+            # packed (B, T, P) planar YUV420 -> RGB in [0, 1]
+            frames = obs_codec_util.decode_yuv420(frames)
         if frames.dtype == torch.uint8:
             frames = frames.float() / 255.0
         frames = image_util.resize_video(frames, self.mar_cfg.img_size)
@@ -194,31 +233,88 @@ class UnifiedVideoActionPolicy:
         z = sample_posterior(mean, logvar, noise) * LATENT_SCALE
         return z.reshape(B, T, *z.shape[1:])
 
-    @torch.no_grad()
-    def predict_action(self, frames: torch.Tensor, generator: Optional[torch.Generator] = None,
-                       noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
-        """frames: uint8 (B, 4, 3, H, W), or float in [0, 1] -> (B, 16, A)
-        unnormalized fp32 action chunk on the policy's device (the first
-        ``n_action_steps`` are executed). ``noise`` injects the draws of
-        :meth:`sample_noise`; otherwise they come from ``generator``."""
-        if frames.dim() != 5 or frames.shape[1] != self.mar_cfg.n_frames:
-            raise ValueError(
-                f"frames must be (B, {self.mar_cfg.n_frames}, 3, H, W), got {tuple(frames.shape)}"
-            )
-        B = frames.shape[0]
-        frames = frames.to(self.device)
-        if noise is None:
-            noise = self.sample_noise(B, generator)
-        else:
-            want = self.noise_shapes(B)
-            for k, s in want.items():
-                if tuple(noise[k].shape) != s:
-                    raise ValueError(f"noise[{k!r}] must be {s}, got {tuple(noise[k].shape)}")
-            noise = {k: noise[k].to(self.device, torch.float32) for k in want}
-        cond = self._encode_frames(self._prep_frames(frames), noise["vae"])
+    def _sample(self, cond: torch.Tensor, noise: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """(B, T, C, h, w) conditioning latents -> (B, 16, A) unnormalized actions."""
         nact = self.mar.sample_policy(cond, noise["init"], noise["steps"],
                                       temperature=self.temperature)
         nact = nact[..., : self.action_dim]
         if self.normalizer_type == "all":
             nact = self.normalizer["action"].unnormalize(nact)
         return nact
+
+    @torch.no_grad()
+    def predict_action(self, frames: torch.Tensor, generator: Optional[torch.Generator] = None,
+                       noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """frames: uint8 (B, 4, 3, H, W), or float in [0, 1], or under
+        ``obs_codec="yuv420"`` packed uint8 (B, 4, P) -> (B, 16, A)
+        unnormalized fp32 action chunk on the policy's device (the first
+        ``n_action_steps`` are executed). ``noise`` injects the draws of
+        :meth:`sample_noise`; otherwise they come from ``generator``."""
+        n = self.mar_cfg.n_frames
+        packed = self.obs_codec == "yuv420" and frames.dim() == 3
+        if (frames.dim() != 5 and not packed) or frames.shape[1] != n:
+            raise ValueError(
+                f"frames must be (B, {n}, 3, H, W)"
+                + (f" or packed (B, {n}, P)" if self.obs_codec else "")
+                + f", got {tuple(frames.shape)}"
+            )
+        B = frames.shape[0]
+        noise = self._noise(B, n, noise, generator)
+        cond = self._encode_frames(self._prep_frames(frames.to(self.device)), noise["vae"])
+        return self._sample(cond, noise)
+
+    def cache_plan(self, total_frames: int, cache: Optional[torch.Tensor],
+                   n_shift: int) -> Tuple[List[int], List[int]]:
+        """``(reuse_from, new_positions)`` of a cached call on a window of
+        ``total_frames``: the slots of the previous call's cache whose frames
+        were selected again (each selected frame index p with p + n_shift
+        selected last time), and the window positions to encode anew. With
+        no cache, or nothing to reuse, every selected frame is new."""
+        idx = [int(i) for i in select_frame_indices(total_frames, self.mar_cfg.n_frames)]
+        reuse_from = [idx.index(p + n_shift) for p in idx if (p + n_shift) in idx]
+        if cache is None or not reuse_from:
+            return [], idx
+        return reuse_from, idx[len(reuse_from):]
+
+    @torch.no_grad()
+    def predict_action_cached(
+        self,
+        obs_dict: Mapping[str, Any],
+        cache: Optional[torch.Tensor] = None,
+        n_shift: int = 8,
+        noise: Optional[Mapping[str, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Dict[str, np.ndarray], torch.Tensor]:
+        """Rollout serving with latent reuse (``policy.py:453-568``).
+
+        ``obs_dict["image"]``: the observation window, (B, T, 3, H, W) uint8 or
+        float in [0, 1], on the host. ``cache``: the previous call's
+        conditioning latents (B, 4, C, h, w) on the device; ``n_shift``: the
+        env steps between the two calls. Only the frames that the previous
+        call did not encode are encoded (packed to YUV420 on the host first
+        under ``obs_codec="yuv420"``); ``noise["vae"]`` covers those frames
+        only (``noise_shapes(B, n_new)``, ``n_new`` from :meth:`cache_plan`).
+
+        Returns ``({"action": (B, n_action_steps, A), "action_pred": (B, 16, A)}``
+        as numpy arrays, ``new cache``); the cache stays on the device.
+        """
+        obs = image_util.remap_image_keys(self.task_name, dict(obs_dict))
+        image = np.asarray(obs["image"])
+        if image.dtype != np.uint8 and image.max() <= 1.0 + 1e-6:
+            image = np.round(image * 255.0).astype(np.uint8)
+        B = image.shape[0]
+        reuse_from, new_positions = self.cache_plan(image.shape[1], cache, n_shift)
+        if reuse_from:
+            c = self.mar_cfg
+            want = (B, c.n_frames, c.vae_embed_dim, c.seq_hw, c.seq_hw)
+            if tuple(cache.shape) != want:
+                raise ValueError(f"cache must be {want}, got {tuple(cache.shape)}")
+        new = image[:, new_positions]
+        if self.obs_codec == "yuv420":
+            new = obs_codec_util.encode_yuv420(new)
+        noise = self._noise(B, len(new_positions), noise, generator)
+        frames = self._prep_frames(torch.from_numpy(new).to(self.device))
+        new_lat = self._encode_frames(frames, noise["vae"])
+        cond = torch.cat([cache[:, reuse_from], new_lat], dim=1) if reuse_from else new_lat
+        action_pred = self._sample(cond, noise).cpu().numpy()
+        return {"action": action_pred[:, : self.n_action_steps], "action_pred": action_pred}, cond
