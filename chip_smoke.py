@@ -14,7 +14,8 @@ script exits non-zero without its result line):
            beside one PyTorch library call computing the same function; the
            int8 kernels must be bit-equal, also with each planted fault
            (below) shown to break that.
-4. serve   UnifiedVideoActionPolicy.predict_action at the flagship's width
+4. serve   UnifiedVideoActionPolicy.predict_action_frames (the predict
+           program on selected frames) at the flagship's width
            (mar_base: 12+12 blocks, d=768, 12 heads, 96 px, 144 tokens), in
            bf16 at B=1 and B=128 with 100 sampler steps. The VAE weights are
            the committed pusht_vae96.npz; the MAR and denoiser weights are
@@ -135,6 +136,35 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         end.record()
         end.synchronize()
         per_round.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_round)
+
+
+def graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the device time per call of one CUDA graph
+    that replays ``reps`` calls of ``fn``, captured after a warm-up: no host
+    dispatch between the launches, so a kernel of a few microseconds shows
+    its own time (``time_ms`` would show the Python dispatch instead)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_round = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_round.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(per_round)
 
 
@@ -322,18 +352,26 @@ def phase_serve(attention_ops, trees, normalizer):
 
     # warm-up (cuBLAS/cuDNN handles, kernel library load): not counted
     for B in (1, 128):
-        policy.predict_action(frames[B], noise=noise[B])
+        policy.predict_action_frames(frames[B], noise=noise[B])
     torch.cuda.synchronize()
 
-    # the main path: one request at B=1 and one at B=128, counted
+    # the main path: one request at B=1 and one at B=128, counted, through
+    # the obs-dict entry point on a 16-frame window whose selected frames
+    # (3, 7, 11, 15) are frames[B]
+    windows = {}
+    for B in (1, 128):
+        windows[B] = np.zeros((B, 16, 3, 96, 96), dtype=np.uint8)
+        windows[B][:, 3::4] = frames[B].numpy()
     attention_ops.launch_count = 0
     actions = {}
     per_call = {}
     for B in (1, 128):
         before = attention_ops.launch_count
-        actions[B] = policy.predict_action(frames[B], noise=noise[B])
-        torch.cuda.synchronize()
+        res = policy.predict_action({"image": windows[B]}, noise=noise[B])
         per_call[B] = attention_ops.launch_count - before
+        if res["action"].shape != (B, policy.n_action_steps, 2):
+            raise AssertionError(f"action shape {res['action'].shape}")
+        actions[B] = torch.from_numpy(res["action_pred"]).cuda()
     launches = attention_ops.launch_count
     blocks = c.encoder_depth + c.decoder_depth
     log(f"attention launches: {per_call} per call, {launches} in all ({blocks} blocks per call)")
@@ -361,7 +399,7 @@ def phase_serve(attention_ops, trees, normalizer):
             refs[B] = {
                 "cond": cond, "z_ref": z_ref,
                 "z_plain": policy.mar.policy_latents(cond).float(),
-                "actions": normalized(policy, policy.predict_action(frames[B], noise=noise[B])),
+                "actions": normalized(policy, policy.predict_action_frames(frames[B], noise=noise[B])),
             }
         policy.set_attn_impl("kernel")
 
@@ -403,7 +441,7 @@ def phase_serve(attention_ops, trees, normalizer):
             transformer.ATTN_IMPLS["control"] = fault
             policy.set_attn_impl("control")
             control_diffs[name] = {
-                B: against_plain(B, policy.predict_action(frames[B], noise=noise[B]))
+                B: against_plain(B, policy.predict_action_frames(frames[B], noise=noise[B]))
                 for B in (1, 128)
             }
             control_diffs[name]["rejected"] = not all(
@@ -425,7 +463,7 @@ def phase_serve(attention_ops, trees, normalizer):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
-            policy.predict_action(frames[B], noise=noise[B])
+            policy.predict_action_frames(frames[B], noise=noise[B])
             end.record()
             end.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
@@ -451,8 +489,8 @@ def phase_serve(attention_ops, trees, normalizer):
     cpu32 = make_policy("cpu", "float32")
     cpu32.load_params(mar_tree, vae_tree)
     cpu_noise = {k: v.cpu() for k, v in noise[1].items()}
-    on_card = policy32.predict_action(frames[1], noise=cpu_noise).cpu()
-    on_cpu = cpu32.predict_action(frames[1], noise=cpu_noise)
+    on_card = policy32.predict_action_frames(frames[1], noise=cpu_noise).cpu()
+    on_cpu = cpu32.predict_action_frames(frames[1], noise=cpu_noise)
     d = (normalized(policy, on_card) - normalized(policy, on_cpu)).abs().max().item()
     log(f"card fp32 vs CPU fp32, B=1, normalized actions: max abs {d}; atol {SERVE_FP32_ATOL}")
     if d > SERVE_FP32_ATOL:
@@ -505,6 +543,37 @@ def int8_path_shapes(cfg) -> list:
     return shapes
 
 
+def int8_layer_calls(policy) -> dict:
+    """W8A8 calls of one request for each layer of ``int8_path_shapes``: qkv,
+    proj, mlp_fc1, mlp_fc2 once in every ViT block, and per sampler step the
+    denoiser's input_proj, cond_embed, final.ada_mod and per block ada_mod,
+    fc1 and fc2."""
+    c = policy.mar_cfg
+    blocks = c.encoder_depth + c.decoder_depth
+    steps = policy.mar.diffactloss.num_steps
+    return {"qkv": blocks, "proj": blocks, "mlp_fc1": blocks, "mlp_fc2": blocks,
+            "ada_mod": steps * c.diffloss_act_d, "fc1/fc2": steps * 2 * c.diffloss_act_d,
+            "final.ada_mod": steps, "cond_embed": steps, "input_proj": steps}
+
+
+def int8_calls_per_request(policy) -> int:
+    return sum(int8_layer_calls(policy).values())
+
+
+def int8_gemm_kernels_per_request(policy, int8_ops, B: int) -> dict:
+    """Launches of each int8_gemm kernel in one request at batch B, from the
+    config: every layer's shape through the wrapper's dispatch (the
+    activations come from quantize_rows and the weights are parameters,
+    both 16-byte aligned)."""
+    calls = int8_layer_calls(policy)
+    out = {k: 0 for k in int8_ops.GEMM_KERNELS}
+    for layer, M, K, N, _ in int8_path_shapes(policy.mar_cfg):
+        name, _, b = layer.partition(" B=")
+        if b == str(B):
+            out[int8_ops.gemm_plan(M, N, K).kernel] += calls[name]
+    return out
+
+
 def int8_inputs(M: int, K: int, N: int, dtype, gen):
     x = torch.randn(M, K, generator=gen, device="cuda")
     x[0] *= 100.0  # an outlier row
@@ -522,7 +591,7 @@ def int8_against_plain(int8_ops, quant, x, w_q, w_scale, bias) -> dict:
     bit-equal, and the layer output's max |kernel - plain|."""
     x_q, x_scale = int8_ops.quantize_rows(x)
     y = int8_ops.int8_gemm(x_q, w_q)
-    out = int8_ops.w8a8_linear(x, w_q, w_scale, bias)
+    out = int8_ops.int8_gemm(x_q, w_q, x_scale, w_scale, bias, x.dtype)
     torch.cuda.synchronize()
     want_q, want_scale = quant.quantize_rows_plain(x)
     want = quant.w8a8_linear_plain(x, w_q, w_scale, bias)
@@ -533,6 +602,9 @@ def int8_against_plain(int8_ops, quant, x, w_q, w_scale, bias) -> dict:
         "max_abs_err": (out.float() - want.float()).abs().max().item(),
         "x_q_max_abs_err": (x_q.int() - want_q.int()).abs().max().item(),
     }
+
+
+BIT_EQUAL_PARTS = ("x_q", "x_scale", "s32", "out")
 
 
 def int8_bounds(M: int, K: int, N: int, x_bytes: int, out_bytes: int):
@@ -551,23 +623,45 @@ def int8_bounds(M: int, K: int, N: int, x_bytes: int, out_bytes: int):
 
 
 def phase_kernel_int8(int8_ops, quant, cfg):
+    """Every shape of ``int8_path_shapes``: both kernels bit-equal to their
+    plain versions (the GEMM through the wrapper's dispatch), then the GEMM's
+    device time by CUDA-graph replay, in turns: with the path's epilogue
+    (rescale, cast, bias), with s32 out, and ``torch._int_mm`` (s32 out, the
+    same function as the s32 kernel), each read twice (epilogue, s32,
+    library, library, s32, epilogue); with the bound of each. Then an operand
+    that is not 16-byte aligned, which must go to the mma.sync kernel and
+    stay bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for layer, M, K, N, dtype in int8_path_shapes(cfg):
         x, w_q, w_scale, bias = int8_inputs(M, K, N, dtype, gen)
+        plan = int8_ops.gemm_plan(M, N, K)
         eq = int8_against_plain(int8_ops, quant, x, w_q, w_scale, bias)
         x_q, x_scale = int8_ops.quantize_rows(x)
         out_bytes = torch.finfo(dtype).bits // 8
         (gemm_bound, gemm_by), (rows_bound, rows_by) = int8_bounds(M, K, N, out_bytes, out_bytes)
+        (s32_bound, _), _ = int8_bounds(M, K, N, out_bytes, 4)
+        calls = {"epilogue": lambda: int8_ops.int8_gemm(x_q, w_q, x_scale, w_scale, bias, dtype),
+                 "s32": lambda: int8_ops.int8_gemm(x_q, w_q),
+                 "library": lambda: torch._int_mm(x_q, w_q.T)}
         try:  # cuBLASLt's s8 x s8 -> s32, where its shape rules allow (M > 16, K, N % 8 == 0)
             torch._int_mm(x_q, w_q.T)
-            library_ms = time_ms(lambda: torch._int_mm(x_q, w_q.T))
         except RuntimeError as e:
-            library_ms = None
+            del calls["library"]
             log(f"int8 {layer}: torch._int_mm refuses ({str(e).splitlines()[0][:100]})")
+        readings = {k: [] for k in calls}
+        for which in ("epilogue", "s32", "library", "library", "s32", "epilogue"):
+            if which in calls:
+                readings[which].append(graph_ms(calls[which]))
+        gemm_ms, s32_ms = statistics.mean(readings["epilogue"]), statistics.mean(readings["s32"])
+        library_ms = statistics.mean(readings["library"]) if "library" in calls else None
         row = dict(
-            layer=layer, M=M, K=K, N=N, x_dtype=str(dtype).split(".")[-1], bit_equal=eq,
-            gemm_ms=time_ms(lambda: int8_ops.int8_gemm(x_q, w_q, x_scale, w_scale, bias, dtype)),
+            layer=layer, M=M, K=K, N=N, x_dtype=str(dtype).split(".")[-1],
+            kernel=plan.kernel, tile=[plan.bm, plan.bn], bit_equal=eq,
+            gemm_ms=gemm_ms, gemm_s32_ms=s32_ms, gemm_readings=readings,
+            gemm_tops=2 * M * N * K / (gemm_ms * 1e-3) / 1e12,
+            gemm_s32_vs_int_mm=None if library_ms is None else s32_ms / library_ms,
+            gemm_s32_bound_ms=s32_bound,
             gemm_plain_ms=time_ms(lambda: quant.rescale_plain(
                 quant.int8_gemm_plain(x_q, w_q), x_scale, w_scale, bias, dtype), reps=3),
             gemm_library_ms=library_ms, gemm_bound_ms=gemm_bound, gemm_bound_by=gemm_by,
@@ -576,16 +670,37 @@ def phase_kernel_int8(int8_ops, quant, cfg):
             rows_bound_ms=rows_bound, rows_bound_by=rows_by,
         )
         log("int8 " + json.dumps(row))
-        if not all(eq[k] for k in ("x_q", "x_scale", "s32", "out")):
+        if not all(eq[k] for k in BIT_EQUAL_PARTS):
             raise AssertionError(f"int8 kernels differ from their plain versions: {row}")
         rows.append(row)
+
+    # an operand 1 byte past a 16-byte boundary: TMA cannot read it
+    M, K, N = 144, 768, 768
+    x, w_q, w_scale, bias = int8_inputs(M, K, N, torch.bfloat16, gen)
+    x_q, x_scale = int8_ops.quantize_rows(x)
+    buf = torch.empty(M * K + 1, dtype=torch.int8, device="cuda")
+    x_off = buf[1:].view(M, K)
+    x_off.copy_(x_q)
+    plan = int8_ops.gemm_plan(M, N, K, x_off.data_ptr() % 16 == 0)
+    before = dict(int8_ops.launch_count)
+    got = int8_ops.int8_gemm(x_off, w_q, x_scale, w_scale, bias, torch.bfloat16)
+    torch.cuda.synchronize()
+    launched = [k for k in int8_ops.GEMM_KERNELS if int8_ops.launch_count[k] != before[k]]
+    want = quant.rescale_plain(quant.int8_gemm_plain(x_q, w_q), x_scale, w_scale, bias, torch.bfloat16)
+    log(f"int8 misaligned x_q {(M, K, N)}: plan {plan}, launched {launched}, "
+        f"bit-equal {torch.equal(got, want)}")
+    if plan.kernel != "int8_gemm_mma_sync" or launched != ["int8_gemm_mma_sync"]:
+        raise AssertionError(f"a misaligned operand did not take the mma.sync kernel: {plan}, {launched}")
+    if not torch.equal(got, want):
+        raise AssertionError("the mma.sync kernel differs from the plain version on a misaligned operand")
     return rows
 
 
 def int8_kernel_controls(int8_ops, quant, cfg) -> None:
     """Each planted fault through the kernel phase's bit-equality, at the
-    path's B=128 shapes (and the ragged one): caught if any part differs."""
-    shapes = [s for s in int8_path_shapes(cfg) if "B=128" in s[0] or s[0] == "ragged"]
+    path's B=128 shapes (the wgmma and the mma.sync kernels) and the ragged
+    one: caught if any part differs."""
+    shapes = [s for s in int8_path_shapes(cfg) if "B=" not in s[0] or "B=128" in s[0]]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     inputs = [int8_inputs(M, K, N, dtype, gen) for _, M, K, N, dtype in shapes]
     caught = {}
@@ -595,7 +710,7 @@ def int8_kernel_controls(int8_ops, quant, cfg) -> None:
             broken = []
             for (layer, *_), args in zip(shapes, inputs):
                 eq = int8_against_plain(int8_ops, quant, *args)
-                broken += [f"{layer}:{k}" for k in ("x_q", "x_scale", "s32", "out") if not eq[k]]
+                broken += [f"{layer}:{k}" for k in BIT_EQUAL_PARTS if not eq[k]]
             caught[name] = {"caught": bool(broken), "where": broken[:6], "n": len(broken)}
     finally:
         int8_ops.planted_faults = 0
@@ -605,13 +720,11 @@ def int8_kernel_controls(int8_ops, quant, cfg) -> None:
         raise AssertionError(f"the kernel phase does not catch planted faults: {missed}")
 
 
-def int8_calls_per_request(policy) -> int:
-    """W8A8 layer calls of one request, from the config: qkv, proj, mlp_fc1,
-    mlp_fc2 in every ViT block, and per sampler step the denoiser's
-    input_proj, cond_embed, final.ada_mod and ada_mod, fc1, fc2 per block."""
-    c = policy.mar_cfg
-    blocks = c.encoder_depth + c.decoder_depth
-    return 4 * blocks + policy.mar.diffactloss.num_steps * (3 * c.diffloss_act_d + 3)
+def int8_request_ms(rows, calls: dict, B: int, key: str) -> float:
+    """A request's int8_gemm device time at batch B modelled from the kernel
+    phase: every layer's calls per request times its measured time."""
+    return sum(calls[r["layer"].partition(" B=")[0]] * r[key] for r in rows
+               if r["layer"].endswith(f" B={B}"))
 
 
 def deployed_breakdown(policy, obs, cache, noise, reps: int = 5) -> dict:
@@ -674,13 +787,18 @@ def deployed_breakdown(policy, obs, cache, noise, reps: int = 5) -> dict:
         out["device_idle_share"] = max(0.0, 1.0 - busy_ms / wall_ms)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         out["top_device_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 for e in top}
+        gemm = [e for e in kernels if "int8_gemm" in e.key]
+        out["int8_gemm_device_ms"] = sum(e.self_device_time_total for e in gemm) / 1e3
+        out["int8_gemm_launches"] = sum(e.count for e in gemm)
     else:
         out["device_idle_share"] = "not measured (the profiler saw no device time)"
     return out
 
 
 def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
-    """Returns the launches of every kernel on the deployed path."""
+    """Returns the launches of every kernel on the deployed path, the
+    int8_gemm device time of one cached request at each batch, and the W8A8
+    calls of a request by layer."""
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
     meta = os.path.join(LATEST, "meta.json")
@@ -738,10 +856,11 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
             **{k: (int8_ops.launch_count[k] - before[1][k]) / 2 for k in int8_ops.launch_count},
         }
     launches = {"flash_attention": attention_ops.launch_count, **int8_ops.launch_count}
-    log(f"deployed launches per call: {per_call}; in all: {launches}; "
-        f"want {blocks} attention and {per_call_int8} of each int8 kernel per call")
+    wants = {B: {"attention": blocks, "quantize_rows": per_call_int8,
+                 **int8_gemm_kernels_per_request(policy, int8_ops, B)} for B in batches}
+    log(f"deployed launches per call: {per_call}; in all: {launches}; want {wants}")
     for B in batches:
-        want = {"attention": blocks, "quantize_rows": per_call_int8, "int8_gemm": per_call_int8}
+        want = wants[B]
         if per_call[B] != want:
             raise AssertionError(f"B={B}: launches per call {per_call[B]}, want {want}")
         for res, cache in results[B]:
@@ -828,10 +947,12 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
     timing["chunks_per_s_b128_cached"] = 128 / (timing["median_cached_ms_b128"] / 1e3)
     timing["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log("deployed serve " + json.dumps(timing))
+    gemm_request_ms = {}
     for B in batches:
         b = deployed_breakdown(policy, windows[B][1], results[B][0][1], noise[B][1])
         log(f"deployed, where the time goes, cached request, B={B}: " + json.dumps(b))
-    return launches
+        gemm_request_ms[B] = b.get("int8_gemm_device_ms")
+    return launches, gemm_request_ms, int8_layer_calls(policy)
 
 
 def main() -> int:
@@ -864,12 +985,22 @@ def main() -> int:
     with Phase("serve"):
         launches = phase_serve(attention_ops, trees, normalizer)
     with Phase("deployed"):
-        deployed = phase_serve_deployed(attention_ops, int8_ops, trees, normalizer)
+        deployed, gemm_request_ms, calls = phase_serve_deployed(
+            attention_ops, int8_ops, trees, normalizer)
+
+    # the int8_gemm device time of one deployed request: profiled (cached
+    # request) and modelled from the kernel phase (every layer's calls times
+    # its time)
+    request_ms = {f"B={B}": {"profiled": gemm_request_ms[B],
+                             "modelled": int8_request_ms(int8_rows, calls, B, "gemm_ms")}
+                  for B in (1, 128)}
+    log(f"int8_gemm device ms per deployed request: {json.dumps(request_ms)}")
 
     path_row = rows[0]  # B=128 N=144 H=12 D=64 bf16: the serving path's shape
     int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
     by_path = {"predict_action_100_steps": launches,
                "predict_action_cached_deployed": deployed["flash_attention"]}
+    gemm_launches = {k: deployed[k] for k in int8_ops.GEMM_KERNELS}
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -888,14 +1019,18 @@ def main() -> int:
         "route": "cuda",
         "source": "unified_video_action_tpu_torch/csrc/int8_mm.cu",
         "replaces": "unified_video_action_tpu/ops/int8_mm.py:32",
-        "launches": deployed["int8_gemm"],
+        "launches": sum(gemm_launches.values()),
+        "launches_by_kernel": gemm_launches,
         "shape": [int8_row["M"], int8_row["K"], int8_row["N"]],
+        "kernel": int8_row["kernel"],
         "max_abs_err": int8_row["bit_equal"]["max_abs_err"],
         "ms": int8_row["gemm_ms"],
+        "s32_ms": int8_row["gemm_s32_ms"],
         "plain_ms": int8_row["gemm_plain_ms"],
         "bound_ms": int8_row["gemm_bound_ms"],
         "bound_by": int8_row["gemm_bound_by"],
         "library_ms": int8_row["gemm_library_ms"],
+        "request_ms": request_ms,
     }, {
         "name": "quantize_rows",
         "route": "cuda",

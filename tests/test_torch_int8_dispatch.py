@@ -1,0 +1,50 @@
+"""The int8 GEMM wrapper's dispatch (ops/int8_mm.py:gemm_plan) on the CPU:
+which kernel and tile every W8A8 shape of the deployed serving path gets,
+that the shapes TMA cannot read (the denoiser's K = 2 input projection, an
+operand off a 16-byte boundary, K % 16 != 0) go to the mma.sync kernel, and
+that plans are cached and name the launch counters. The kernels themselves
+run only on the card (tests/test_torch_int8_cuda.py).
+"""
+
+import pytest
+
+from unified_video_action_tpu_torch.ops import int8_mm
+from unified_video_action_tpu_torch.ops.int8_mm import GemmPlan, gemm_plan
+
+# (K, N) of the deployed tier at mar_base width: the MAR's qkv, proj,
+# mlp_fc1, mlp_fc2 (M = 144 tokens a sample) and the denoiser's ada_mod,
+# fc1/fc2, final.ada_mod, cond_embed (M = 16 slots a sample)
+MAR = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+DENOISER = [(1024, 3072), (1024, 1024), (1024, 2048), (768, 1024)]
+PATH = [(144, K, N) for K, N in MAR] + [(16, K, N) for K, N in DENOISER]
+
+
+@pytest.mark.parametrize("B,tile", [(128, 128), (1, 64)])
+@pytest.mark.parametrize("rows,K,N", PATH)
+def test_every_path_shape_takes_the_wgmma_kernel(B, tile, rows, K, N):
+    assert gemm_plan(rows * B, N, K) == GemmPlan("wgmma", tile, tile)
+
+
+@pytest.mark.parametrize("M", [16, 2048])
+def test_what_tma_cannot_read_takes_the_mma_sync_kernel(M):
+    assert gemm_plan(M, 1024, 2) == int8_mm.MMA_SYNC  # the denoiser's input_proj
+    assert gemm_plan(M, 1024, 1024, aligned=False) == int8_mm.MMA_SYNC
+    assert gemm_plan(M, 1024, 1000) == int8_mm.MMA_SYNC  # K % 16 != 0
+    assert gemm_plan(M, 1024, 1008).variant == "wgmma"
+
+
+@pytest.mark.parametrize("M,tile", [(1, 64), (256, 64), (257, 128), (18432, 128)])
+def test_the_tile_follows_m(M, tile):
+    for K, N in ((16, 130), (784, 1000), (3072, 768)):
+        assert gemm_plan(M, N, K) == GemmPlan("wgmma", tile, tile)
+
+
+def test_plans_are_cached():
+    assert gemm_plan(144, 2304, 768) is gemm_plan(144, 2304, 768)
+    assert gemm_plan(16, 1024, 2) is int8_mm.MMA_SYNC
+
+
+def test_plans_name_the_launch_counters():
+    assert set(int8_mm.GEMM_KERNELS) | {"quantize_rows"} == set(int8_mm.launch_count)
+    for plan in (int8_mm.MMA_SYNC, GemmPlan("wgmma", 64, 64), GemmPlan("wgmma", 128, 128)):
+        assert plan.kernel in int8_mm.GEMM_KERNELS

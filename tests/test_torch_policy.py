@@ -1,5 +1,5 @@
 """The serving slice as a whole: the port's UnifiedVideoActionPolicy
-.predict_action (and, further down, the deployed tier's
+.predict_action_frames (and, further down, the deployed tier's
 .predict_action_cached) against the JAX policy's predict program on the CPU, in
 fp32, at a small size (2+2 blocks of d=64, a 32 px VAE with ch=32, a
 2-block denoiser), for 100 sampler steps and for ddim10, with the
@@ -70,7 +70,7 @@ def test_predict_action_matches_jax(steps):
     want = np.asarray(jp._build_predict_fn()(params, jnp.asarray(frames), key))
 
     noise = policy_draws(key, port.noise_shapes(3))
-    got = port.predict_action(torch.tensor(frames), noise=noise)
+    got = port.predict_action_frames(torch.tensor(frames), noise=noise)
     assert got.shape == (3, 16, 2) and got.dtype == torch.float32
     assert port.mar.diffactloss.num_steps == (100 if steps == "100" else 10)
     scale = float(port.normalizer["action"].scale.min())
@@ -80,9 +80,9 @@ def test_predict_action_matches_jax(steps):
 def test_predict_action_draws_from_a_generator():
     port = UnifiedVideoActionPolicy(**TINY_POLICY_KW, device="cpu")
     frames = torch.zeros(2, 4, 3, 32, 32, dtype=torch.uint8)
-    a = port.predict_action(frames, generator=torch.Generator().manual_seed(0))
-    b = port.predict_action(frames, generator=torch.Generator().manual_seed(0))
-    c = port.predict_action(frames, generator=torch.Generator().manual_seed(1))
+    a = port.predict_action_frames(frames, generator=torch.Generator().manual_seed(0))
+    b = port.predict_action_frames(frames, generator=torch.Generator().manual_seed(0))
+    c = port.predict_action_frames(frames, generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert not torch.equal(a, c)
 
@@ -93,9 +93,9 @@ def test_attention_routes_agree_on_the_cpu():
                            generator=torch.Generator().manual_seed(2))
     noise = port.sample_noise(2, torch.Generator().manual_seed(3))
     before = attention_ops.launch_count
-    a = port.predict_action(frames, noise=noise)
+    a = port.predict_action_frames(frames, noise=noise)
     port.set_attn_impl("plain")
-    b = port.predict_action(frames, noise=noise)
+    b = port.predict_action_frames(frames, noise=noise)
     assert attention_ops.launch_count == before  # CPU tensors never launch the kernel
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
@@ -131,9 +131,9 @@ def test_unknown_options_and_bad_noise_are_refused():
     port = UnifiedVideoActionPolicy(**TINY_POLICY_KW, device="cpu")
     noise = port.sample_noise(1)
     with pytest.raises(ValueError, match="noise"):
-        port.predict_action(torch.zeros(2, 4, 3, 32, 32, dtype=torch.uint8), noise=noise)
+        port.predict_action_frames(torch.zeros(2, 4, 3, 32, 32, dtype=torch.uint8), noise=noise)
     with pytest.raises(ValueError, match="frames"):
-        port.predict_action(torch.zeros(2, 3, 3, 32, 32, dtype=torch.uint8), noise=noise)
+        port.predict_action_frames(torch.zeros(2, 3, 3, 32, 32, dtype=torch.uint8), noise=noise)
 
 
 # The deployed tier: ddim10 + serving_quant="int8" + obs_codec="yuv420",
@@ -207,7 +207,7 @@ def test_cached_without_a_cache_equals_uncached(obs_codec):
     frames = np.round(obs["image"][:, [3, 7, 11, 15]] * 255.0).astype(np.uint8)
     if obs_codec:
         frames = encode_yuv420(frames)
-    ref = port.predict_action(torch.from_numpy(frames), noise=noise)
+    ref = port.predict_action_frames(torch.from_numpy(frames), noise=noise)
     np.testing.assert_array_equal(cached["action_pred"], ref.numpy())
     assert cache.shape == (2, 4, 8, 4, 4)
 
@@ -225,7 +225,7 @@ def test_deployed_options_are_checked():
         port.predict_action_cached({"image": np.zeros((1, 16, 3, 32, 32), np.uint8)},
                                    noise=port.sample_noise(1, n_new=2))
     with pytest.raises(ValueError, match="frames"):
-        port.predict_action(torch.zeros(1, 3, 24, dtype=torch.uint8))
+        port.predict_action_frames(torch.zeros(1, 3, 24, dtype=torch.uint8))
 
 
 def test_int8_routes_agree_on_the_cpu_and_every_quant_layer_runs():
@@ -239,12 +239,12 @@ def test_int8_routes_agree_on_the_cpu_and_every_quant_layer_runs():
         np.random.default_rng(2).integers(0, 256, (2, 4, 3, 32, 32), dtype=np.uint8)))
     noise = port.sample_noise(2, torch.Generator().manual_seed(3))
     before = dict(int8_ops.launch_count)
-    a = port.predict_action(frames, noise=noise)
+    a = port.predict_action_frames(frames, noise=noise)
     # 4 per ViT block, and per sampler step the denoiser's input_proj,
     # cond_embed, 3 per AdaLN block and the final ada_mod
     assert len(calls) == 4 * (c.encoder_depth + c.decoder_depth) + 10 * (3 * c.diffloss_act_d + 3)
     port.set_int8_impl("plain")
-    b = port.predict_action(frames, noise=noise)
+    b = port.predict_action_frames(frames, noise=noise)
     assert int8_ops.launch_count == before  # CPU tensors never launch the kernels
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 

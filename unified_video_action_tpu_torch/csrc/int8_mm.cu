@@ -4,7 +4,7 @@
 // int8_mm.py:32-39, launched through `int8_matmul_pallas` at :65) together
 // with the arithmetic of its wrapper `w8a8_matmul` (:83-107), which is also
 // the function of the XLA int8 dot that the JAX package's `QuantDense` runs
-// (ops/quant.py:38-55). Two kernels:
+// (ops/quant.py:38-55). Three kernels:
 //
 //   uva_quantize_rows  x (M, K) bf16 or fp32 -> x_q (M, K) s8, x_scale (M,)
 //                      fp32: one warp per row takes the fp32 amax, then
@@ -13,18 +13,21 @@
 //                      quotient is a true IEEE division and the rounding is
 //                      half to even, as in the reference; fl(1/127) is the
 //                      constant that XLA folds `amax / 127` into.
-//   uva_int8_gemm      x_q (M, K) s8 row-major times the weight kept as
+//   uva_int8_gemm_wgmma, uva_int8_gemm
+//                      x_q (M, K) s8 row-major times the weight kept as
 //                      (N, K) s8 with K contiguous (the transpose of JAX's
-//                      kernel_q, which is the .col operand of the mma), s32
+//                      kernel_q: both operands K-major, as s8 wgmma and the
+//                      .col operand of mma.sync want them), s32
 //                      accumulation, and an epilogue that computes
 //                      ((acc * x_scale[m]) * w_scale[n]), casts it to the
 //                      output type and then adds the bias cast to that type
-//                      in that type (models/transformer.py:78-79). It can
+//                      in that type (models/transformer.py:78-79). Either can
 //                      write the raw s32 product instead (the checks use it).
 //
 // Every float operation of the reference is written with a _rn intrinsic,
 // which the compiler never contracts into an FMA, so the kernels reproduce
-// the plain PyTorch version (ops/quant.py) bit for bit. Do not build with
+// the plain PyTorch version (ops/quant.py) bit for bit; the s32 sum is exact
+// in any order, so no tiling changes a bit. Do not build with
 // --use_fast_math: it turns the division into an approximate one.
 //
 // Bound on an H100 SXM (1,979 TOP/s int8 dense, 3.35 TB/s): the serving
@@ -34,17 +37,22 @@
 // the denoiser's K = 2 input projection they are bound by bytes, mostly the
 // weight. The row quantization is bound by bytes (read x, write x_q).
 //
-// Design, simple first: 128 x 128 output tiles, 64-deep K tiles, 8 warps of
-// 64 x 32 each issuing mma.sync.m16n8k32 s8 (not wgmma), two shared-memory
-// stages filled by 16-byte cp.async where K % 16 == 0 and the operands are
-// 16-byte aligned, else by byte loads; K is zero-filled up to the tile in
-// shared memory, so any K (2 included) and ragged M and N are exact. Rows
-// are padded to 80 bytes, which makes the 32-bit fragment loads free of
-// bank conflicts. No wgmma, TMA or deeper pipeline yet.
+// uva_int8_gemm_wgmma is the GEMM wherever TMA can read the operands (K %
+// 16 == 0, 16-byte aligned): TMA into a ring of 128-byte-swizzled stages,
+// wgmma m64nNk32 s8 from shared memory, one producer warpgroup, one or two
+// consumer warpgroups and persistent CTAs (design notes above the kernel;
+// ops/int8_mm.py's gemm_plan picks the tile). uva_int8_gemm takes what TMA
+// cannot read (the denoiser's K = 2 input projection, operands not 16-byte
+// aligned): 128 x 128 output tiles, 64-deep K tiles, 8 warps of 64 x 32
+// each issuing mma.sync.m16n8k32 s8, two shared-memory stages filled by
+// byte loads; K is zero-filled up to the tile in shared memory, so any K (2
+// included) and ragged M and N are exact. Rows are padded to 80 bytes, which
+// makes the 32-bit fragment loads free of bank conflicts.
 //
 // `faults` plants a known error for the serve checks' controls (0 in
 // normal use; see kFault* below).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +69,9 @@ constexpr float kInv127 = 1.0f / 127.0f;   // folded to fl32(1/127)
 constexpr float kScaleFloor = 1e-12f;
 
 enum OutKind { kOutF32 = 0, kOutBF16 = 1, kOutS32 = 2 };
+// uva_int8_gemm_wgmma returns kEncodeError + the CUresult when a TMA map
+// cannot be encoded
+constexpr int kEncodeError = 10000;
 
 // ---------------------------------------------------------------- quantize
 
@@ -119,35 +130,16 @@ struct GemmParams {
   int faults;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
 // One (128, 64) s8 tile of a row-major (rows, K) matrix into shared memory,
-// zero where the row or the column lies outside the matrix.
-template <bool kAligned>
+// byte by byte (any K, any alignment), zero where the row or the column lies
+// outside the matrix.
 __device__ __forceinline__ void load_tile(int8_t (*dst)[kLd], const int8_t* src, int rows,
                                           int row0, int K, int k0) {
-  if (kAligned) {  // K % 16 == 0: a 16-byte chunk lies wholly inside or outside
-    constexpr int kChunks = kBK / 16;
-    for (int c = threadIdx.x; c < kBM * kChunks; c += kGemmThreads) {
-      const int r = c / kChunks;
-      const int col = (c % kChunks) * 16;
-      const bool in = row0 + r < rows && k0 + col < K;
-      const int8_t* g = in ? src + (long long)(row0 + r) * K + k0 + col : src;
-      cp_async16(&dst[r][col], g, in ? 16 : 0);
-    }
-  } else {
-    for (int c = threadIdx.x; c < kBM * kBK; c += kGemmThreads) {
-      const int r = c / kBK;
-      const int col = c % kBK;
-      const bool in = row0 + r < rows && k0 + col < K;
-      dst[r][col] = in ? src[(long long)(row0 + r) * K + k0 + col] : int8_t(0);
-    }
+  for (int c = threadIdx.x; c < kBM * kBK; c += kGemmThreads) {
+    const int r = c / kBK;
+    const int col = c % kBK;
+    const bool in = row0 + r < rows && k0 + col < K;
+    dst[r][col] = in ? src[(long long)(row0 + r) * K + k0 + col] : int8_t(0);
   }
 }
 
@@ -164,32 +156,42 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The epilogue's arithmetic, element by element: ((acc * x_scale[m]) *
+// w_scale[n]) in fp32, cast to the output type, then the bias cast to that
+// type added in it. Both GEMM kernels compute through these.
+__device__ __forceinline__ float rescaled(int acc, float xs, float ws) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
+}
+
+__device__ __forceinline__ float with_bias_f32(float f, float b, bool has_bias) {
+  return has_bias ? __fadd_rn(f, b) : f;
+}
+
+__device__ __forceinline__ __nv_bfloat16 with_bias_bf16(float f, float b, bool has_bias, int faults) {
+  if (has_bias && (faults & kFaultBiasBeforeCast)) return __float2bfloat16_rn(__fadd_rn(f, b));
+  __nv_bfloat16 o = __float2bfloat16_rn(f);
+  if (has_bias) {
+    const float bb = __bfloat162float(__float2bfloat16_rn(b));
+    o = __float2bfloat16_rn(__fadd_rn(__bfloat162float(o), bb));
+  }
+  return o;
+}
+
 __device__ __forceinline__ void store_out(const GemmParams& p, int m, int n, int acc) {
   const long long i = (long long)m * p.N + n;
   if (p.out_kind == kOutS32) {
     static_cast<int*>(p.out)[i] = acc;
     return;
   }
-  const float ws = p.w_scale[(p.faults & kFaultPerTensorWScale) ? 0 : n];
-  const float f = __fmul_rn(__fmul_rn(__int2float_rn(acc), p.x_scale[m]), ws);
+  const float f = rescaled(acc, p.x_scale[m], p.w_scale[(p.faults & kFaultPerTensorWScale) ? 0 : n]);
+  const float b = p.bias ? p.bias[n] : 0.f;
   if (p.out_kind == kOutF32) {
-    static_cast<float*>(p.out)[i] = p.bias ? __fadd_rn(f, p.bias[n]) : f;
-    return;
-  }
-  __nv_bfloat16 o;
-  if (p.bias && (p.faults & kFaultBiasBeforeCast)) {
-    o = __float2bfloat16_rn(__fadd_rn(f, p.bias[n]));
+    static_cast<float*>(p.out)[i] = with_bias_f32(f, b, p.bias != nullptr);
   } else {
-    o = __float2bfloat16_rn(f);
-    if (p.bias) {
-      const float b = __bfloat162float(__float2bfloat16_rn(p.bias[n]));
-      o = __float2bfloat16_rn(__fadd_rn(__bfloat162float(o), b));
-    }
+    static_cast<__nv_bfloat16*>(p.out)[i] = with_bias_bf16(f, b, p.bias != nullptr, p.faults);
   }
-  static_cast<__nv_bfloat16*>(p.out)[i] = o;
 }
 
-template <bool kAligned>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 int8_gemm_kernel(const GemmParams p) {
   __shared__ __align__(16) int8_t as[2][kBM][kLd];
@@ -213,18 +215,15 @@ int8_gemm_kernel(const GemmParams p) {
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
 
   const int ktiles = (p.K + kBK - 1) / kBK;
-  load_tile<kAligned>(as[0], p.xq, p.M, m0, p.K, 0);
-  load_tile<kAligned>(bs[0], p.wq, p.N, n0, p.K, 0);
-  cp_async_commit();
+  load_tile(as[0], p.xq, p.M, m0, p.K, 0);
+  load_tile(bs[0], p.wq, p.N, n0, p.K, 0);
   for (int kt = 0; kt < ktiles; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < ktiles) {
-      load_tile<kAligned>(as[cur ^ 1], p.xq, p.M, m0, p.K, (kt + 1) * kBK);
-      load_tile<kAligned>(bs[cur ^ 1], p.wq, p.N, n0, p.K, (kt + 1) * kBK);
+      load_tile(as[cur ^ 1], p.xq, p.M, m0, p.K, (kt + 1) * kBK);
+      load_tile(bs[cur ^ 1], p.wq, p.N, n0, p.K, (kt + 1) * kBK);
     }
-    cp_async_commit();
-    cp_async_wait_prev();  // the stage of tile kt has landed
-    __syncthreads();
+    __syncthreads();  // the stage of tile kt is in shared memory
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 32) {
       uint32_t a[kMT][4];
@@ -261,6 +260,441 @@ int8_gemm_kernel(const GemmParams p) {
         const int n = n0 + wn + j * 8 + t * 2 + (r & 1);
         if (m < p.M && n < p.N) store_out(p, m, n, acc[i][j][r]);
       }
+}
+
+// ---------------------------------------------------------------- Hopper GEMM
+//
+// TMA + wgmma, in three roles of one CTA:
+// - one producer warpgroup, of which one thread keeps a ring of kStages
+//   shared-memory stages filled by TMA. A stage is a (64 kWG, 128) tile of
+//   x_q and a (kBN, 128) tile of the weight, both K-major with the 128-byte
+//   swizzle, which is the layout that s8 wgmma reads (both operands K-major)
+//   through a descriptor with SBO = 1024 B. TMA zero-fills the rows and
+//   columns outside the matrices, so ragged M, N and K (K % 16 == 0) add
+//   exact zeros;
+// - kWG consumer warpgroups, 64 rows of the output tile each and its whole
+//   width kBN: four m64nNk32 steps per stage, one wgmma group in flight
+//   while the next stage is waited for; then the s32 sums go to a staged
+//   tile in shared memory, and the consumers start on the next tile;
+// - two epilogue warpgroups, which rescale the staged tile, cast it, add
+//   the bias and store it with 16-byte vectors, while the consumers run the
+//   next tile's products. (The MAR's K = 768 layers have six stages a
+//   tile, and a tile's epilogue takes about as long: done by the consumers,
+//   it would leave the tensor cores idle that long. One epilogue warpgroup,
+//   one warp per scheduler, cannot hide its own latencies within six stages;
+//   two can.)
+//
+// The CTAs are persistent: each walks the output tiles blockIdx.x, +
+// gridDim.x, ... At small M the 64 x 64 tile gives the weight's read enough
+// CTAs (M = 16, N = 1024: 16 of them, each walking K in a 4-stage ring).
+
+constexpr int kTK = 128;  // bytes of K per stage: one 128-byte swizzle row
+
+template <int N> struct Wgmma;
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(int (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits for the phase of `parity` to complete. A phase that has not
+// completed after about 10 s of clock (a pipeline fault) traps, so the launch
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 20000000000LL) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int k0, int row0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, LBO 16 B (unused by a
+// K-major swizzled operand whose K extent is one swizzle row), SBO 1024 B
+// (the next 8-row group), 128-byte swizzle.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma.
+template <int kN>
+__device__ __forceinline__ void fence_regs(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+constexpr int kEpilogueThreads = 256;  // two warpgroups
+
+struct WgmmaParams {
+  GemmParams p;
+  int n_tiles;  // output tiles along N
+  int k_tiles;  // 128-byte K tiles
+  int tiles;    // output tiles
+};
+
+template <int kWG, int kBN, int kStages>
+struct WgmmaShape {
+  static constexpr int kBM = 64 * kWG;
+  static constexpr int kThreads = 128 * (kWG + 1) + kEpilogueThreads;
+  static constexpr int kABytes = kBM * kTK;
+  static constexpr int kBBytes = kBN * kTK;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kLd = kBN + 8;  // s32 per staged row; the pad spreads the banks
+  static constexpr int kStagedBytes = kBM * kLd * 4;
+  // the stages, the staged tile, 2 barriers per stage and 2 for the staged
+  // tile, and the slack that aligns the stages to 1024 B (the swizzle atom)
+  static constexpr int kSmem = kStages * kStageBytes + kStagedBytes + 16 * kStages + 16 + 1024;
+  static_assert(kSmem <= 232448, "shared memory of one block on an H100");
+};
+
+// Eight consecutive columns n .. n + 7 (n % 8 == 0) of row m from their s32
+// sums: rescaled, cast and biased, then stored as 16-byte vectors where the
+// eight lie inside a row whose width is a multiple of 8, else one by one.
+template <int kOut>
+__device__ __forceinline__ void store_chunk(const GemmParams& p, int m, int n, const int (&v)[8],
+                                            float xs, const float (&ws)[8], const float (&bs)[8]) {
+  const bool has_bias = p.bias != nullptr;
+  const bool vec = (p.N & 7) == 0 && n + 8 <= p.N;
+  const long long i = (long long)m * p.N + n;
+  if constexpr (kOut == kOutS32) {
+    int* o = static_cast<int*>(p.out) + i;
+    if (vec) {
+      reinterpret_cast<int4*>(o)[0] = make_int4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<int4*>(o)[1] = make_int4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (n + e < p.N) o[e] = v[e];
+    }
+  } else if constexpr (kOut == kOutF32) {
+    float r[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) r[e] = with_bias_f32(rescaled(v[e], xs, ws[e]), bs[e], has_bias);
+    float* o = static_cast<float*>(p.out) + i;
+    if (vec) {
+      reinterpret_cast<float4*>(o)[0] = make_float4(r[0], r[1], r[2], r[3]);
+      reinterpret_cast<float4*>(o)[1] = make_float4(r[4], r[5], r[6], r[7]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (n + e < p.N) o[e] = r[e];
+    }
+  } else {
+    __nv_bfloat16 r[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      r[e] = with_bias_bf16(rescaled(v[e], xs, ws[e]), bs[e], has_bias, p.faults);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.out) + i;
+    if (vec) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = (uint32_t)__bfloat16_as_ushort(r[2 * e]) |
+               ((uint32_t)__bfloat16_as_ushort(r[2 * e + 1]) << 16);
+      *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (n + e < p.N) o[e] = r[e];
+    }
+  }
+}
+
+// The epilogue warpgroup's share of one staged tile: rows r0, r0 + kStep,
+// ... of the tile, columns cc .. cc + 7 of it, from `src` (the staged tile,
+// `ld` s32 a row).
+template <int kOut, int kBM, int kStep>
+__device__ __forceinline__ void store_rows(const GemmParams& p, const int* src, int ld, int m0,
+                                           int n, int r0, const float (&xs)[kBM / kStep],
+                                           const float (&ws)[8], const float (&bs)[8]) {
+#pragma unroll
+  for (int i = 0; i < kBM / kStep; ++i) {
+    const int m = m0 + r0 + i * kStep;
+    if (m >= p.M) continue;
+    int v[8];
+    const int4* s = reinterpret_cast<const int4*>(src + (r0 + i * kStep) * ld);
+    const int4 a = s[0], b = s[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    store_chunk<kOut>(p, m, n, v, xs[i], ws, bs);
+  }
+}
+
+template <int kBM, int kStep>
+__device__ __forceinline__ void store_tile(const GemmParams& p, const int* src, int ld, int m0,
+                                           int n, int r0, const float (&xs)[kBM / kStep],
+                                           const float (&ws)[8], const float (&bs)[8]) {
+  if (p.out_kind == kOutS32) {
+    store_rows<kOutS32, kBM, kStep>(p, src, ld, m0, n, r0, xs, ws, bs);
+  } else if (p.out_kind == kOutF32) {
+    store_rows<kOutF32, kBM, kStep>(p, src, ld, m0, n, r0, xs, ws, bs);
+  } else {
+    store_rows<kOutBF16, kBM, kStep>(p, src, ld, m0, n, r0, xs, ws, bs);
+  }
+}
+
+template <int kWG, int kBN, int kStages>
+__global__ void __launch_bounds__(128 * (kWG + 1) + kEpilogueThreads, kWG == 1 ? 2 : 1)
+int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w, const WgmmaParams q) {
+  using S = WgmmaShape<kWG, kBN, kStages>;
+  constexpr int kBM = S::kBM;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t a_smem = base;
+  const uint32_t b_smem = base + kStages * S::kABytes;
+  uint8_t* aligned = smem_raw + (base - raw);
+  int* staged = reinterpret_cast<int*>(aligned + kStages * S::kStageBytes);
+  uint8_t* tail = aligned + kStages * S::kStageBytes + S::kStagedBytes;
+  const uint32_t full_bar = smem_u32(tail);
+  const uint32_t empty_bar = full_bar + 8 * kStages;
+  const uint32_t staged_full = empty_bar + 8 * kStages;  // consumers -> epilogue
+  const uint32_t staged_empty = staged_full + 8;         // epilogue -> consumers
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kWG);
+    }
+    mbar_init(staged_full, kWG * 128);
+    mbar_init(staged_empty, kEpilogueThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const GemmParams& p = q.p;
+
+  if (wg == kWG) {
+    // producer: one thread starts every TMA load
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < q.tiles; tile += gridDim.x) {
+        const int m0 = (tile / q.n_tiles) * kBM;
+        const int n0 = (tile % q.n_tiles) * kBN;
+        for (int kt = 0; kt < q.k_tiles; ++kt) {
+          mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full_bar + 8 * stage, S::kStageBytes);
+          tma_load(a_smem + stage * S::kABytes, &map_x, full_bar + 8 * stage, kt * kTK, m0);
+          tma_load(b_smem + stage * S::kBBytes, &map_w, full_bar + 8 * stage, kt * kTK, n0);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  if (wg > kWG) {
+    // epilogue: each thread owns 8 columns of the tile and every kStep-th row
+    constexpr int kChunks = kBN / 8;                   // 8-column chunks per row
+    constexpr int kStep = kEpilogueThreads / kChunks;  // rows between a thread's rows
+    const int et = threadIdx.x - 128 * (kWG + 1);
+    const int cc = (et % kChunks) * 8;
+    const int r0 = et / kChunks;
+    const bool scaled = p.out_kind != kOutS32;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < q.tiles; tile += gridDim.x, phase ^= 1) {
+      const int m0 = (tile / q.n_tiles) * kBM;
+      const int n = (tile % q.n_tiles) * kBN + cc;
+      // the scales, read while the products run
+      float ws[8], bs[8], xs[kBM / kStep];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool in = scaled && n + e < p.N;
+        ws[e] = in ? p.w_scale[(p.faults & kFaultPerTensorWScale) ? 0 : n + e] : 0.f;
+        bs[e] = (in && p.bias) ? p.bias[n + e] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kBM / kStep; ++i) {
+        const int m = m0 + r0 + i * kStep;
+        xs[i] = (scaled && m < p.M) ? p.x_scale[m] : 0.f;
+      }
+      mbar_wait(staged_full, phase);
+      store_tile<kBM, kStep>(p, staged + cc, S::kLd, m0, n, r0, xs, ws, bs);
+      mbar_arrive(staged_empty);
+    }
+    return;
+  }
+
+  // consumers: the products, then the tile's s32 sums to shared memory
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  int* frag = staged + (wg * 64 + warp * 16 + lane / 4) * S::kLd + 2 * (lane % 4);
+  int acc[kBN / 2] = {};
+  int stage = 0;
+  uint32_t phase = 0, staged_phase = 0;
+  for (int tile = blockIdx.x; tile < q.tiles; tile += gridDim.x, staged_phase ^= 1) {
+    int prev = 0;
+    for (int kt = 0; kt < q.k_tiles; ++kt) {
+      mbar_wait(full_bar + 8 * stage, phase);
+      const uint64_t da = smem_desc(a_smem + stage * S::kABytes + wg * 64 * kTK);
+      const uint64_t db = smem_desc(b_smem + stage * S::kBBytes);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTK / 32; ++kk)  // 32 bytes = 2 descriptor units per step
+        Wgmma<kBN>::mma(acc, da + 2 * kk, db + 2 * kk, (kt > 0 || kk > 0) ? 1 : 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      fence_regs(acc);
+      if (kt > 0 && tid == 0) mbar_arrive(empty_bar + 8 * prev);
+      prev = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (tid == 0) mbar_arrive(empty_bar + 8 * prev);
+    // fragment of m64nNk32: rows lane / 4 and lane / 4 + 8 of the warp's 16,
+    // columns 8 j + 2 (lane % 4) and the next
+    mbar_wait(staged_empty, staged_phase ^ 1);
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      *reinterpret_cast<int2*>(frag + 8 * j) = make_int2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<int2*>(frag + 8 * S::kLd + 8 * j) = make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    mbar_arrive(staged_full);
+  }
+}
+
+// A K-major (rows, K) s8 matrix as a TMA map of (box_rows, 128) tiles with
+// the 128-byte swizzle; rows and columns outside the matrix read as zero.
+int encode_kmajor(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {(cuuint32_t)kTK, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return (int)cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+                                     dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The current device's SM count, read from the CUDA runtime once per device.
+int num_sms() {
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device >= kMaxDevices) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    return n;
+  }
+  if (sms[device] == 0) cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+  return sms[device];
+}
+
+template <int kWG, int kBN, int kStages>
+int launch_wgmma(const void* xq, const void* wq, WgmmaParams q, cudaStream_t s) {
+  using S = WgmmaShape<kWG, kBN, kStages>;
+  auto kernel = int8_gemm_wgmma_kernel<kWG, kBN, kStages>;
+  static int blocks_per_sm = 0;  // per instantiation, found once
+  if (blocks_per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, kernel, S::kThreads, S::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  CUtensorMap map_x, map_w;
+  int rc = encode_kmajor(&map_x, xq, q.p.M, q.p.K, S::kBM);
+  if (rc != 0) return kEncodeError + rc;
+  rc = encode_kmajor(&map_w, wq, q.p.N, q.p.K, kBN);
+  if (rc != 0) return kEncodeError + rc;
+  const int grid = min(q.tiles, num_sms() * blocks_per_sm);
+  kernel<<<grid, S::kThreads, S::kSmem, s>>>(map_x, map_w, q);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -308,12 +742,39 @@ extern "C" int uva_int8_gemm(const void* xq, const float* x_scale, const void* w
   p.faults = faults;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  const bool aligned = K % 16 == 0 && (reinterpret_cast<uintptr_t>(xq) % 16) == 0 &&
-                       (reinterpret_cast<uintptr_t>(wq) % 16) == 0;
-  if (aligned) {
-    int8_gemm_kernel<true><<<grid, kGemmThreads, 0, s>>>(p);
-  } else {
-    int8_gemm_kernel<false><<<grid, kGemmThreads, 0, s>>>(p);
-  }
+  int8_gemm_kernel<<<grid, kGemmThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The Hopper kernel (TMA + wgmma) on the same operands as uva_int8_gemm,
+// which must be 16-byte aligned with K % 16 == 0 (TMA's rules). (bm, bn) is
+// the output tile: (64, 64) or (128, 128). Returns cudaGetLastError() after
+// the launch, cudaErrorInvalidValue for arguments it does not take, or
+// kEncodeError + the CUresult of a failed TMA encode.
+extern "C" int uva_int8_gemm_wgmma(const void* xq, const float* x_scale, const void* wq,
+                                   const float* w_scale, const float* bias, void* out, int M,
+                                   int N, int K, int out_kind, int faults, int bm, int bn,
+                                   void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || out_kind < kOutF32 || out_kind > kOutS32 ||
+      ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(wq)) % 16) != 0)
+    return (int)cudaErrorInvalidValue;
+  WgmmaParams q;
+  q.p.xq = static_cast<const int8_t*>(xq);
+  q.p.x_scale = x_scale;
+  q.p.wq = static_cast<const int8_t*>(wq);
+  q.p.w_scale = w_scale;
+  q.p.bias = bias;
+  q.p.out = out;
+  q.p.M = M;
+  q.p.N = N;
+  q.p.K = K;
+  q.p.out_kind = out_kind;
+  q.p.faults = faults;
+  q.n_tiles = (N + bn - 1) / bn;
+  q.k_tiles = (K + kTK - 1) / kTK;
+  q.tiles = ((M + bm - 1) / bm) * q.n_tiles;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 64 && bn == 64) return launch_wgmma<1, 64, 4>(xq, wq, q, s);
+  if (bm == 128 && bn == 128) return launch_wgmma<2, 128, 4>(xq, wq, q, s);
+  return (int)cudaErrorInvalidValue;
 }

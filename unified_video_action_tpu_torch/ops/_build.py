@@ -28,6 +28,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# after the source, so the linker keeps them: libcuda, for
+# cuTensorMapEncodeTiled (the TMA maps of csrc/int8_mm.cu)
+LINK_FLAGS = ("-lcuda",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -55,7 +58,7 @@ def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for the current source."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -70,7 +73,7 @@ def build(name: str) -> float:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0

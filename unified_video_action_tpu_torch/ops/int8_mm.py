@@ -14,12 +14,19 @@ versions are ``ops/quant.py``'s, which the kernels reproduce bit for bit.
 
 On a CUDA tensor each launches its kernel (or raises); on a CPU tensor it
 runs the plain version.
+
+:func:`int8_gemm` has two kernels, chosen by shape and alignment
+(:func:`gemm_plan`, no fallback between them): the Hopper design (TMA +
+wgmma) wherever TMA can read the operands, and an mma.sync kernel with byte
+loads where it cannot: K % 16 != 0, as the denoiser's K = 2 input
+projection, or an operand that is not 16-byte aligned.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -37,14 +44,53 @@ _OUT_S32 = 2
 # 127² · K must stay below 2³¹ for the int32 accumulator to be exact
 MAX_K = (2**31 - 1) // (127 * 127)
 
-# Incremented once for every launch of each CUDA kernel, and nowhere else.
-launch_count = {"quantize_rows": 0, "int8_gemm": 0}
+# Incremented once for every launch of each CUDA kernel, and nowhere else:
+# the row quantization and each GemmPlan.kernel of int8_gemm.
+launch_count = {"quantize_rows": 0, "int8_gemm_wgmma": 0, "int8_gemm_mma_sync": 0}
+GEMM_KERNELS = ("int8_gemm_wgmma", "int8_gemm_mma_sync")
+
+SMALL_M = 256  # up to here one 64-row consumer warpgroup per CTA
 
 # Known errors the kernels can be built to make (bit flags of csrc/int8_mm.cu's
 # ``faults``), for the controls of chip_smoke.py's serve check. 0 in use.
 FAULTS = {"round_half_away": 1, "reciprocal_scale": 2,
           "per_tensor_w_scale": 4, "bias_before_cast": 8}
 planted_faults = 0
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """Which kernel :func:`int8_gemm` launches: ``variant`` "wgmma" (output
+    tile ``bm`` x ``bn``, one of those csrc/int8_mm.cu instantiates) or
+    "mma_sync" (128 x 128 tiles; ``bm`` and ``bn`` unused)."""
+    variant: str
+    bm: int = 128
+    bn: int = 128
+
+    @property
+    def kernel(self) -> str:
+        """The key of :data:`launch_count` that a launch of this plan counts in."""
+        return f"int8_gemm_{self.variant}"
+
+
+MMA_SYNC = GemmPlan("mma_sync")
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(M: int, N: int, K: int, aligned: bool = True) -> GemmPlan:
+    """The kernel and tile of an (M, K) x (N, K) product; ``aligned`` says
+    both operands start on a 16-byte boundary. Cached: the serving path asks
+    for the same few shapes on every call.
+
+    * mma_sync where TMA cannot read the operands: K % 16 != 0 or not aligned.
+    * wgmma otherwise: 64 x 64 tiles up to M = SMALL_M (one consumer
+      warpgroup; the time is the weight's read, so narrow tiles give more
+      CTAs to read it), else 128 x 128 (two consumer warpgroups).
+    """
+    if K % 16 or not aligned:
+        return MMA_SYNC
+    tile = 64 if M <= SMALL_M else 128
+    return GemmPlan("wgmma", tile, tile)
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +104,10 @@ def _lib():
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     lib.uva_int8_gemm.restype = ctypes.c_int
+    lib.uva_int8_gemm_wgmma.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    lib.uva_int8_gemm_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -65,7 +115,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+ENCODE_ERROR = 10000  # csrc/int8_mm.cu kEncodeError
+
+
 def _raise_on(rc: int, name: str) -> None:
+    if rc >= ENCODE_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {rc - ENCODE_ERROR}")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -121,7 +176,8 @@ def int8_gemm(x_q: torch.Tensor, weight_q: torch.Tensor, x_scale: Optional[torch
     """x_q (M, K) int8 times ``weight_q`` (N, K) int8. With ``out_dtype``
     int32 (the default) the exact product; with float32 or bfloat16,
     ``((y · x_scale) · w_scale)`` cast to ``out_dtype``, then ``bias`` (N,)
-    cast to it and added, all in the kernel's epilogue."""
+    cast to it and added, all in the kernel's epilogue. The kernel is
+    :func:`gemm_plan`'s."""
     if out_dtype != torch.int32 and out_dtype not in _DTYPE_CODES:
         raise ValueError(f"out_dtype must be int32, float32 or bfloat16, got {out_dtype}")
     if out_dtype != torch.int32 and (x_scale is None or w_scale is None):
@@ -146,11 +202,16 @@ def int8_gemm(x_q: torch.Tensor, weight_q: torch.Tensor, x_scale: Optional[torch
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
     if out.numel() == 0:
         return out
+    x_ptr, w_ptr = x_q.data_ptr(), weight_q.data_ptr()
+    plan = gemm_plan(M, N, K, x_ptr % 16 == 0 and w_ptr % 16 == 0)
     kind = _OUT_S32 if out_dtype == torch.int32 else _DTYPE_CODES[out_dtype]
-    rc = _lib().uva_int8_gemm(x_q.data_ptr(), ptrs[0], weight_q.data_ptr(), ptrs[1], ptrs[2],
-                              out.data_ptr(), M, N, K, kind, planted_faults, _stream(x_q))
-    _raise_on(rc, "int8_gemm")
-    launch_count["int8_gemm"] += 1
+    args = (x_ptr, ptrs[0], w_ptr, ptrs[1], ptrs[2], out.data_ptr(), M, N, K, kind, planted_faults)
+    if plan.variant == "mma_sync":
+        rc = _lib().uva_int8_gemm(*args, _stream(x_q))
+    else:
+        rc = _lib().uva_int8_gemm_wgmma(*args, plan.bm, plan.bn, _stream(x_q))
+    _raise_on(rc, f"int8_gemm ({plan.kernel})")
+    launch_count[plan.kernel] += 1
     return out
 
 

@@ -1,15 +1,16 @@
-"""UnifiedVideoActionPolicy for serving (port of ``policy/policy.py:353-568``:
+"""UnifiedVideoActionPolicy for serving (port of ``policy/policy.py:353-630``:
 ``_prep_frames``, ``_encode_frames``, ``sample_policy``, the unnormalize
-step, and the latent-cached ``predict_action_cached``).
+step, ``predict_action`` and the latent-cached ``predict_action_cached``).
 
-``predict_action`` takes the conditioning frames the policy attends to,
-uint8 (B, 4, 3, H, W) (or packed (B, 4, P) under ``obs_codec="yuv420"``),
-and returns a (B, 16, action_dim) action chunk: decode, resize and map to
+``predict_action`` takes the observation dict, as JAX's does: it selects
+the conditioning frames of the window on the host (packed to YUV420 under
+``obs_codec="yuv420"``) and runs ``predict_action_frames`` on them, which
+returns a (B, 16, action_dim) action chunk: decode, resize and map to
 [-1, 1], VAE-encode and sample the posterior, scale the latents by
 ``LATENT_SCALE``, one MAR encoder+decoder pass, the action head's diffusion
 sampler, then unnormalize. ``predict_action_cached`` takes the observation
-window instead, selects the frames, VAE-encodes only those it has not seen
-at the previous control step and reuses the cached latents of the others.
+window too, VAE-encodes only the selected frames it has not seen at the
+previous control step and reuses the cached latents of the others.
 Randomness is either drawn from a ``torch.Generator`` or injected as a dict
 of tensors (:meth:`UnifiedVideoActionPolicy.sample_noise` says which).
 
@@ -218,7 +219,7 @@ class UnifiedVideoActionPolicy:
         return {k: noise[k].to(self.device, torch.float32) for k in want}
 
     def _prep_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        if self.obs_codec == "yuv420" and frames.dim() == 3:
+        if self.obs_codec == "yuv420":
             # packed (B, T, P) planar YUV420 -> RGB in [0, 1]
             frames = obs_codec_util.decode_yuv420(frames)
         if frames.dtype == torch.uint8:
@@ -243,21 +244,41 @@ class UnifiedVideoActionPolicy:
         return nact
 
     @torch.no_grad()
-    def predict_action(self, frames: torch.Tensor, generator: Optional[torch.Generator] = None,
-                       noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
-        """frames: uint8 (B, 4, 3, H, W), or float in [0, 1], or under
-        ``obs_codec="yuv420"`` packed uint8 (B, 4, P) -> (B, 16, A)
-        unnormalized fp32 action chunk on the policy's device (the first
+    def predict_action(self, obs_dict: Mapping[str, Any], generator: Optional[torch.Generator] = None,
+                       noise: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+        """JAX's ``predict_action`` (``policy.py:574-630``): ``obs_dict["image"]``
+        is the observation window on the host, (B, T, 3, H, W) uint8 or float
+        in [0, 1]. The frames of ``select_frame_indices(T)`` are selected on
+        the host, float frames rounded to uint8, and under
+        ``obs_codec="yuv420"`` packed to YUV420 there; one copy to the device,
+        then :meth:`predict_action_frames`. Returns numpy ``{"action": (B,
+        n_action_steps, A), "action_pred": (B, 16, A)}``, unnormalized fp32."""
+        obs = image_util.remap_image_keys(self.task_name, dict(obs_dict))
+        image = np.asarray(obs["image"])
+        sel = image[:, select_frame_indices(image.shape[1], self.mar_cfg.n_frames)]
+        if sel.dtype != np.uint8 and sel.max() <= 1.0 + 1e-6:
+            sel = np.round(sel * 255.0).astype(np.uint8)
+        if self.obs_codec == "yuv420":
+            sel = obs_codec_util.encode_yuv420(sel)
+        frames = torch.from_numpy(np.ascontiguousarray(sel))
+        action_pred = self.predict_action_frames(frames, generator, noise).cpu().numpy()
+        return {"action": action_pred[:, : self.n_action_steps], "action_pred": action_pred}
+
+    @torch.no_grad()
+    def predict_action_frames(self, frames: torch.Tensor, generator: Optional[torch.Generator] = None,
+                              noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """The counterpart of JAX's jitted predict program (``policy.py:436-451``,
+        ``_build_predict_fn``), which :meth:`predict_action` runs on the frames
+        it selected: frames as the device receives them, uint8 (B, 4, 3, H, W)
+        or float in [0, 1], and under ``obs_codec="yuv420"`` only packed uint8
+        (B, 4, P) (a 5-D tensor is refused: it would skip the codec) -> (B, 16,
+        A) unnormalized fp32 action chunk on the policy's device (the first
         ``n_action_steps`` are executed). ``noise`` injects the draws of
         :meth:`sample_noise`; otherwise they come from ``generator``."""
         n = self.mar_cfg.n_frames
-        packed = self.obs_codec == "yuv420" and frames.dim() == 3
-        if (frames.dim() != 5 and not packed) or frames.shape[1] != n:
-            raise ValueError(
-                f"frames must be (B, {n}, 3, H, W)"
-                + (f" or packed (B, {n}, P)" if self.obs_codec else "")
-                + f", got {tuple(frames.shape)}"
-            )
+        want = f"packed (B, {n}, P)" if self.obs_codec == "yuv420" else f"(B, {n}, 3, H, W)"
+        if frames.dim() != (3 if self.obs_codec == "yuv420" else 5) or frames.shape[1] != n:
+            raise ValueError(f"frames must be {want}, got {tuple(frames.shape)}")
         B = frames.shape[0]
         noise = self._noise(B, n, noise, generator)
         cond = self._encode_frames(self._prep_frames(frames.to(self.device)), noise["vae"])

@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Time the int8 GEMM of one tree of the port, for an A/B in turns on one card.
+
+    python3 unified_video_action_tpu_torch/tools/int8_gemm_ab.py --tree DIR [--out FILE]
+
+Imports ``unified_video_action_tpu_torch`` from DIR (this repository's root,
+or an earlier commit's package unpacked by ``git archive`` into a git-ignored
+directory), builds its kernels under DIR and measures, at the deployed tier's
+W8A8 shapes at mar_base width (B=128 and B=1):
+
+* device time per ``int8_gemm`` launch at each shape of chip_smoke.py's
+  ``int8_path_shapes``, by replaying a CUDA graph of 20 launches
+  (chip_smoke.py's ``graph_ms``): with the path's epilogue (rescale, cast,
+  bias) and with s32 out;
+* host time per call of ``w8a8_linear`` and of ``int8_gemm`` at the B=1
+  shapes: the wrapper's Python, its checks and the ctypes call, with 200
+  calls queued and not waited for (the card keeps up, so this is the host's
+  time);
+* the deployed tier's request (ddim10, W8A8 int8, yuv420,
+  ``predict_action_cached``), median host-clock time of cached calls at B=1
+  and B=128, with chip_smoke.py's seeded weights and windows.
+
+The config, the weights and chip_smoke.py's helpers are this repository's,
+whichever tree is timed. Run it for two trees in one call, in turns (A, B,
+B, A), and compare only within that call. Prints one JSON line, also written
+to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _load_smoke():
+    """This repository's chip_smoke.py as a module, loaded by path (a tree
+    under test may hold another chip_smoke.py)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+smoke = _load_smoke()
+
+
+def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the host time per call (us) of ``calls``
+    calls, launched without waiting for the card."""
+    fn()
+    per_round = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_round.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(per_round)
+
+
+def gemm_rows(int8_mm, cfg) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    rows = []
+    for layer, M, K, N, dtype in smoke.int8_path_shapes(cfg):
+        x, w_q, w_scale, bias = smoke.int8_inputs(M, K, N, dtype, gen)
+        x_q, x_scale = int8_mm.quantize_rows(x)
+        row = {"layer": layer, "M": M, "K": K, "N": N,
+               "epilogue_us": 1e3 * smoke.graph_ms(
+                   lambda: int8_mm.int8_gemm(x_q, w_q, x_scale, w_scale, bias, dtype)),
+               "s32_us": 1e3 * smoke.graph_ms(lambda: int8_mm.int8_gemm(x_q, w_q))}
+        if layer.endswith(" B=1"):
+            row["host_us_int8_gemm"] = host_us(
+                lambda: int8_mm.int8_gemm(x_q, w_q, x_scale, w_scale, bias, dtype))
+            row["host_us_w8a8_linear"] = host_us(lambda: int8_mm.w8a8_linear(x, w_q, w_scale, bias))
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        rows.append(row)
+    return rows
+
+
+def deployed_requests(int8_mm, meta_policy, normalizer) -> dict:
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    meta = os.path.join(smoke.LATEST, "meta.json")
+    with open(meta) as f:
+        amp = json.load(f)["cfg"]["model"]["policy"]["autoregressive_model_params"]
+    amp = dict(amp, act_diff_testing_steps="ddim10")
+    policy = UnifiedVideoActionPolicy.from_run_config(
+        meta, device="cuda", compute_dtype="bfloat16", autoregressive_model_params=amp,
+        obs_codec="yuv420", serving_quant="int8")
+    policy.set_normalizer(normalizer)
+    policy.load_params(*smoke.serving_weights(meta_policy))
+    rng = np.random.default_rng(smoke.SEED + 2)
+    out = {}
+    for B, reps in ((1, 21), (128, 5)):
+        windows = [{"image": rng.integers(0, 256, (B, 16, 3, 96, 96), dtype=np.uint8)}
+                   for _ in range(2)]
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED + 10 + B)
+        noise = (policy.sample_noise(B, gen, n_new=4), policy.sample_noise(B, gen, n_new=2))
+        _, cache = policy.predict_action_cached(windows[0], noise=noise[0])
+        policy.predict_action_cached(windows[1], cache=cache, n_shift=8, noise=noise[1])  # warm-up
+        before = dict(int8_mm.launch_count)
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            policy.predict_action_cached(windows[1], cache=cache, n_shift=8, noise=noise[1])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"B={B}"] = {"median_cached_ms": statistics.median(ms), "cached_ms": ms,
+                         "launches_per_request": {k: (int8_mm.launch_count[k] - before[k]) / reps
+                                                  for k in int8_mm.launch_count}}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", required=True, help="directory that holds unified_video_action_tpu_torch/")
+    ap.add_argument("--out", help="also write the JSON line here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("int8_gemm_ab: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    from unified_video_action_tpu_torch.ops import int8_mm
+
+    if not int8_mm.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"imported {int8_mm.__file__}, not the package under {tree}")
+    meta_policy, normalizer = smoke.flagship_config()
+    with torch.no_grad():
+        result = {"tree": args.tree, "card": smoke.card_line(),
+                  "gemm": gemm_rows(int8_mm, meta_policy.mar_cfg),
+                  "deployed": deployed_requests(int8_mm, meta_policy, normalizer)}
+    line = json.dumps(result)
+    print(line, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
