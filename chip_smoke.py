@@ -10,10 +10,12 @@ script exits non-zero without its result line):
 2. build   every kernel source of unified_video_action_tpu_torch/csrc/
            (attention.cu, int8_mm.cu) by nvcc, all started together.
 3. kernel  each kernel against its plain PyTorch version on the card, at the
-           serving paths' shapes and beyond, with times beside its bound and
-           beside one PyTorch library call computing the same function; the
-           int8 kernels must be bit-equal, also with each planted fault
-           (below) shown to break that.
+           serving paths' shapes and beyond, with times (CUDA-graph replay)
+           beside its bound and beside one PyTorch library call computing
+           the same function; every launch lands on the kernel its plan
+           names (attention_plan, quantize_plan, gemm_plan); the int8
+           kernels must be bit-equal, also with each planted fault (below)
+           shown to break that.
 4. serve   UnifiedVideoActionPolicy.predict_action_frames (the predict
            program on selected frames) at the flagship's width
            (mar_base: 12+12 blocks, d=768, 12 heads, 96 px, 144 tokens), in
@@ -22,7 +24,8 @@ script exits non-zero without its result line):
            numpy draws from a seed in the flax layout, through the weight
            bridge (the flagship's orbax checkpoint needs JAX to be read).
            Checks: shape, finite values inside the normalizer's range, the
-           kernel launched once per ViT block per call, the kernel route
+           planned attention kernel launched once per ViT block per call
+           (the single-pass wgmma kernel at both batches), the kernel route
            against the plain-attention route under the same noise, controls
            (the kernel with planted faults, which that comparison must
            reject), and the card in fp32 against the port on the CPU in fp32.
@@ -87,7 +90,10 @@ SERVE_ACTION_P99_ATOL = 5e-2
 # the planted faults (``control_faults``) that those limits must reject; the
 # smaller scale errors are printed to show how far the limits see
 REJECTED_CONTROLS = ("exp_base_2", "unmasked_kv_edge", "scale_x1.1")
-KV_TILE = 64  # the kernel's KV tile (csrc/attention.cu)
+# the unmasked_kv_edge control pads the keys and values with zeros up to a
+# multiple of this (144 -> 192): the softmax then weighs 48 zero keys, as a
+# kernel that left a 64-wide KV tile's ragged edge unmasked would
+KV_TILE = 64
 # the card in fp32 against the CPU in fp32, normalized actions, max: summation
 # order only, amplified by the sampler's first steps (tests/test_torch_policy.py)
 SERVE_FP32_ATOL = 1e-3
@@ -177,35 +183,54 @@ def attention_bound(B: int, N: int, H: int, D: int, dtype: torch.dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+ATTENTION_CASES = [
+    (128, 144, 12, torch.bfloat16),  # the serving shape at B=128
+    (1, 144, 12, torch.bfloat16),  # the serving shape at B=1
+    (128, 144, 12, torch.float32), (8, 137, 12, torch.bfloat16),  # a ragged single-pass N
+    (8, 100, 12, torch.bfloat16), (8, 100, 12, torch.float32),
+    (8, 256, 12, torch.bfloat16), (8, 257, 12, torch.bfloat16),  # the single-pass limit, + 1
+    (8, 1088, 12, torch.bfloat16), (8, 1088, 12, torch.float32),
+    (1, 2304, 12, torch.bfloat16), (1, 2304, 12, torch.float32),
+]
+
+
 def phase_kernel(attention_ops):
-    cases = [
-        (128, 144, 12, torch.bfloat16), (128, 144, 12, torch.float32),
-        (8, 100, 12, torch.bfloat16), (8, 100, 12, torch.float32),
-        (8, 1088, 12, torch.bfloat16), (8, 1088, 12, torch.float32),
-        (1, 2304, 12, torch.bfloat16), (1, 2304, 12, torch.float32),
-    ]
+    """Every case of ATTENTION_CASES: one launch, of the kernel
+    ``attention_plan`` names, within ATTN_ATOL of the plain version; then
+    its time by CUDA-graph replay beside ``scaled_dot_product_attention``'s
+    (kernel, library, library, kernel), the plain version's and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for B, N, H, dtype in cases:
+    for B, N, H, dtype in ATTENTION_CASES:
         # the layout the fused qkv projection gives the kernel: strided views
         qkv = torch.randn(B, N, 3, H, 64, generator=gen, device="cuda").to(dtype)
         q, k, v = qkv.unbind(2)
+        plan = attention_ops.attention_plan(B, N, H, dtype)
+        before = dict(attention_ops.launch_count)
         out = attention_ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in attention_ops.launch_count.items() if c != before[n]}
         ref = attention_ops.attention_plain(q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
-        ok = err <= ATTN_ATOL[dtype] and bool(torch.isfinite(out).all())
-        ms = time_ms(lambda: attention_ops.flash_attention(q, k, v))
-        plain_ms = time_ms(lambda: attention_ops.attention_plain(q, k, v), reps=5)
+        ok = (err <= ATTN_ATOL[dtype] and bool(torch.isfinite(out).all())
+              and launched == {plan.kernel: 1})
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        calls = {"kernel": lambda: attention_ops.flash_attention(q, k, v),
+                 "library": lambda: F.scaled_dot_product_attention(qt, kt, vt)}
+        readings = {k: [] for k in calls}
+        for which in ("kernel", "library", "library", "kernel"):
+            readings[which].append(graph_ms(calls[which]))
         bound_ms, bound_by = attention_bound(B, N, H, 64, dtype)
-        row = dict(B=B, N=N, H=H, D=64, dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                   atol=ATTN_ATOL[dtype], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+        ms = statistics.mean(readings["kernel"])
+        row = dict(B=B, N=N, H=H, D=64, dtype=str(dtype).split(".")[-1], kernel=plan.kernel,
+                   kv=plan.kv, split=plan.split, launched=launched, max_abs_err=err,
+                   atol=ATTN_ATOL[dtype], ms=ms, readings=readings,
+                   plain_ms=time_ms(lambda: attention_ops.attention_plain(q, k, v), reps=5),
+                   library_ms=statistics.mean(readings["library"]),
+                   bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms)
         log("attention " + json.dumps(row))
         if not ok:
-            raise AssertionError(f"attention kernel disagrees with its plain version: {row}")
+            raise AssertionError(f"attention kernel disagrees with its plain version or its plan: {row}")
         rows.append(row)
     return rows
 
@@ -228,6 +253,15 @@ def control_faults(attention_ops) -> dict:
         "scale_x1.02": scaled(1.02),
         "scale_x1.005": scaled(1.005),
     }
+
+
+def attention_launches_per_request(attention_ops, cfg, B: int, dtype) -> dict:
+    """Launches of each attention kernel in one request at batch B, from the
+    config: one per ViT block, of the kernel attention_plan names for the
+    (B, tokens, heads) of the blocks (the qkv views are 16-byte aligned)."""
+    plan = attention_ops.attention_plan(B, cfg.total_tokens, cfg.encoder_num_heads, dtype)
+    return {n: (cfg.encoder_depth + cfg.decoder_depth) * (n == plan.kernel)
+            for n in attention_ops.KERNELS}
 
 
 def normalized(policy, actions: torch.Tensor) -> torch.Tensor:
@@ -295,8 +329,23 @@ def breakdown(policy, frames: torch.Tensor, noise, reps: int = 5) -> dict:
         out["device_idle_share"] = max(0.0, 1.0 - busy_ms / wall_ms)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         out["top_device_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 for e in top}
+        out.update(kernel_device_ms(kernels))
     else:
         out["device_idle_share"] = "not measured (the profiler saw no device time)"
+    return out
+
+
+# the port's kernels by a part of their symbol names, for the profiler's sums
+PORT_KERNELS = {"attention": "attn_", "quantize_rows": "quantize_rows", "int8_gemm": "int8_gemm"}
+
+
+def kernel_device_ms(kernels) -> dict:
+    """Device ms and launches of each of the port's kernels in a profile."""
+    out = {}
+    for name, part in PORT_KERNELS.items():
+        events = [e for e in kernels if part in e.key]
+        out[f"{name}_device_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+        out[f"{name}_launches"] = sum(e.count for e in events)
     return out
 
 
@@ -362,23 +411,26 @@ def phase_serve(attention_ops, trees, normalizer):
     for B in (1, 128):
         windows[B] = np.zeros((B, 16, 3, 96, 96), dtype=np.uint8)
         windows[B][:, 3::4] = frames[B].numpy()
-    attention_ops.launch_count = 0
+    for name in attention_ops.launch_count:
+        attention_ops.launch_count[name] = 0
     actions = {}
     per_call = {}
     for B in (1, 128):
-        before = attention_ops.launch_count
+        before = dict(attention_ops.launch_count)
         res = policy.predict_action({"image": windows[B]}, noise=noise[B])
-        per_call[B] = attention_ops.launch_count - before
+        per_call[B] = {n: attention_ops.launch_count[n] - before[n] for n in before}
         if res["action"].shape != (B, policy.n_action_steps, 2):
             raise AssertionError(f"action shape {res['action'].shape}")
         actions[B] = torch.from_numpy(res["action_pred"]).cuda()
-    launches = attention_ops.launch_count
+    launches = dict(attention_ops.launch_count)
     blocks = c.encoder_depth + c.decoder_depth
-    log(f"attention launches: {per_call} per call, {launches} in all ({blocks} blocks per call)")
+    wants = {B: attention_launches_per_request(attention_ops, c, B, torch.bfloat16) for B in (1, 128)}
+    log(f"attention launches: {per_call} per call, {launches} in all; want {wants} "
+        f"({blocks} blocks per call, the kernel by attention_plan)")
     for B in (1, 128):
         check_actions(policy, actions[B], B)
-        if per_call[B] != blocks:
-            raise AssertionError(f"B={B}: {per_call[B]} attention launches, want {blocks}")
+        if per_call[B] != wants[B]:
+            raise AssertionError(f"B={B}: attention launches {per_call[B]}, want {wants[B]}")
 
     # fp32 on the card, matmuls and convolutions without TF32: the reference
     # for the bf16 routes here, and held against the CPU below
@@ -560,16 +612,18 @@ def int8_calls_per_request(policy) -> int:
     return sum(int8_layer_calls(policy).values())
 
 
-def int8_gemm_kernels_per_request(policy, int8_ops, B: int) -> dict:
-    """Launches of each int8_gemm kernel in one request at batch B, from the
-    config: every layer's shape through the wrapper's dispatch (the
-    activations come from quantize_rows and the weights are parameters,
-    both 16-byte aligned)."""
+def int8_kernels_per_request(policy, int8_ops, B: int) -> dict:
+    """Launches of each int8 kernel (every quantize_rows and int8_gemm
+    variant) in one request at batch B, from the config: every layer's
+    shape through the wrappers' plans (the activations are contiguous
+    tensors of their own and the weights parameters, both 16-byte aligned;
+    the GEMM reads quantize_rows' output)."""
     calls = int8_layer_calls(policy)
-    out = {k: 0 for k in int8_ops.GEMM_KERNELS}
-    for layer, M, K, N, _ in int8_path_shapes(policy.mar_cfg):
+    out = {k: 0 for k in int8_ops.launch_count}
+    for layer, M, K, N, dtype in int8_path_shapes(policy.mar_cfg):
         name, _, b = layer.partition(" B=")
         if b == str(B):
+            out[int8_ops.quantize_plan(K, dtype).kernel] += calls[name]
             out[int8_ops.gemm_plan(M, N, K).kernel] += calls[name]
     return out
 
@@ -636,7 +690,13 @@ def phase_kernel_int8(int8_ops, quant, cfg):
     for layer, M, K, N, dtype in int8_path_shapes(cfg):
         x, w_q, w_scale, bias = int8_inputs(M, K, N, dtype, gen)
         plan = int8_ops.gemm_plan(M, N, K)
+        rows_plan = int8_ops.quantize_plan(K, dtype)
+        before = dict(int8_ops.launch_count)
         eq = int8_against_plain(int8_ops, quant, x, w_q, w_scale, bias)
+        rows_launched = {k: int8_ops.launch_count[k] - before[k] for k in int8_ops.QUANT_KERNELS
+                         if int8_ops.launch_count[k] != before[k]}
+        if rows_launched != {rows_plan.kernel: 1}:
+            raise AssertionError(f"int8 {layer}: quantize_rows launched {rows_launched}, plan {rows_plan}")
         x_q, x_scale = int8_ops.quantize_rows(x)
         out_bytes = torch.finfo(dtype).bits // 8
         (gemm_bound, gemm_by), (rows_bound, rows_by) = int8_bounds(M, K, N, out_bytes, out_bytes)
@@ -665,7 +725,8 @@ def phase_kernel_int8(int8_ops, quant, cfg):
             gemm_plain_ms=time_ms(lambda: quant.rescale_plain(
                 quant.int8_gemm_plain(x_q, w_q), x_scale, w_scale, bias, dtype), reps=3),
             gemm_library_ms=library_ms, gemm_bound_ms=gemm_bound, gemm_bound_by=gemm_by,
-            rows_ms=time_ms(lambda: int8_ops.quantize_rows(x)),
+            rows_kernel=rows_plan.kernel,
+            rows_ms=graph_ms(lambda: int8_ops.quantize_rows(x)),
             rows_plain_ms=time_ms(lambda: quant.quantize_rows_plain(x), reps=5),
             rows_bound_ms=rows_bound, rows_bound_by=rows_by,
         )
@@ -693,6 +754,21 @@ def phase_kernel_int8(int8_ops, quant, cfg):
         raise AssertionError(f"a misaligned operand did not take the mma.sync kernel: {plan}, {launched}")
     if not torch.equal(got, want):
         raise AssertionError("the mma.sync kernel differs from the plain version on a misaligned operand")
+
+    # rows 2 bytes past a 16-byte boundary: the scalar quantize kernel
+    buf = torch.empty(M * K + 1, dtype=torch.bfloat16, device="cuda")
+    x_off = buf[1:].view(M, K)
+    x_off.copy_(x)
+    rows_plan = int8_ops.quantize_plan(K, x.dtype, x_off.data_ptr() % 16 == 0)
+    before = dict(int8_ops.launch_count)
+    got_q, got_scale = int8_ops.quantize_rows(x_off)
+    torch.cuda.synchronize()
+    launched = [k for k in int8_ops.QUANT_KERNELS if int8_ops.launch_count[k] != before[k]]
+    want_q, want_scale = quant.quantize_rows_plain(x)
+    same = torch.equal(got_q, want_q) and torch.equal(got_scale, want_scale)
+    log(f"quantize_rows on misaligned rows {(M, K)}: plan {rows_plan}, launched {launched}, bit-equal {same}")
+    if launched != [rows_plan.kernel] or rows_plan.kernel != "quantize_rows_scalar" or not same:
+        raise AssertionError(f"misaligned rows: plan {rows_plan}, launched {launched}, bit-equal {same}")
     return rows
 
 
@@ -787,9 +863,7 @@ def deployed_breakdown(policy, obs, cache, noise, reps: int = 5) -> dict:
         out["device_idle_share"] = max(0.0, 1.0 - busy_ms / wall_ms)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         out["top_device_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 for e in top}
-        gemm = [e for e in kernels if "int8_gemm" in e.key]
-        out["int8_gemm_device_ms"] = sum(e.self_device_time_total for e in gemm) / 1e3
-        out["int8_gemm_launches"] = sum(e.count for e in gemm)
+        out.update(kernel_device_ms(kernels))
     else:
         out["device_idle_share"] = "not measured (the profiler saw no device time)"
     return out
@@ -817,7 +891,6 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
     policy = make_policy("int8")
     c = policy.mar_cfg
     per_call_int8 = int8_calls_per_request(policy)
-    blocks = c.encoder_depth + c.decoder_depth
     log(f"deployed policy: {policy.mar.diffactloss.num_steps} sampler steps (ddim10), "
         f"serving_quant={policy.serving_quant}, obs_codec={policy.obs_codec}, {policy.dtype}; "
         f"{per_call_int8} W8A8 layer calls per request from the config")
@@ -843,26 +916,30 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
     torch.cuda.synchronize()
 
     # the deployed path: a full and a cached request at B=1 and at B=128, counted
-    attention_ops.launch_count = 0
-    for k in int8_ops.launch_count:
-        int8_ops.launch_count[k] = 0
+    counters = (attention_ops.launch_count, int8_ops.launch_count)
+    for counter in counters:
+        for k in counter:
+            counter[k] = 0
+
+    def counts() -> dict:
+        return {k: v for counter in counters for k, v in counter.items()}
+
     results, per_call = {}, {}
     for B in batches:
-        before = (attention_ops.launch_count, dict(int8_ops.launch_count))
+        before = counts()
         results[B] = serve(B)
         torch.cuda.synchronize()
-        per_call[B] = {
-            "attention": (attention_ops.launch_count - before[0]) / 2,
-            **{k: (int8_ops.launch_count[k] - before[1][k]) / 2 for k in int8_ops.launch_count},
-        }
-    launches = {"flash_attention": attention_ops.launch_count, **int8_ops.launch_count}
-    wants = {B: {"attention": blocks, "quantize_rows": per_call_int8,
-                 **int8_gemm_kernels_per_request(policy, int8_ops, B)} for B in batches}
+        per_call[B] = {k: (v - before[k]) / 2 for k, v in counts().items()}
+    launches = counts()
+    wants = {B: {**attention_launches_per_request(attention_ops, c, B, torch.bfloat16),
+                 **int8_kernels_per_request(policy, int8_ops, B)} for B in batches}
     log(f"deployed launches per call: {per_call}; in all: {launches}; want {wants}")
     for B in batches:
         want = wants[B]
-        if per_call[B] != want:
-            raise AssertionError(f"B={B}: launches per call {per_call[B]}, want {want}")
+        quantize = sum(per_call[B][k] for k in int8_ops.QUANT_KERNELS)
+        if per_call[B] != want or quantize != per_call_int8:
+            raise AssertionError(f"B={B}: launches per call {per_call[B]}, want {want} "
+                                 f"({per_call_int8} quantize_rows in all)")
         for res, cache in results[B]:
             check_actions(policy, torch.from_numpy(res["action_pred"]), B)
             if res["action"].shape != (B, policy.n_action_steps, 2):
@@ -996,24 +1073,32 @@ def main() -> int:
                   for B in (1, 128)}
     log(f"int8_gemm device ms per deployed request: {json.dumps(request_ms)}")
 
-    path_row = rows[0]  # B=128 N=144 H=12 D=64 bf16: the serving path's shape
+    path_row, b1_row = rows[0], rows[1]  # (128, 144, 12, 64) and (1, 144, 12, 64) bf16
     int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
-    by_path = {"predict_action_100_steps": launches,
-               "predict_action_cached_deployed": deployed["flash_attention"]}
+    attention_by_path = {"predict_action_100_steps": launches,
+                         "predict_action_cached_deployed": {
+                             k: deployed[k] for k in attention_ops.KERNELS}}
+    attention_launches = {k: sum(p[k] for p in attention_by_path.values())
+                          for k in attention_ops.KERNELS}
     gemm_launches = {k: deployed[k] for k in int8_ops.GEMM_KERNELS}
+    quant_launches = {k: deployed[k] for k in int8_ops.QUANT_KERNELS}
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "unified_video_action_tpu_torch/csrc/attention.cu",
         "replaces": "unified_video_action_tpu/ops/attention.py:33",
-        "launches": sum(by_path.values()),
-        "launches_by_path": by_path,
+        "launches": sum(attention_launches.values()),
+        "launches_by_kernel": attention_launches,
+        "launches_by_path": attention_by_path,
+        "kernel": path_row["kernel"],
         "max_abs_err": path_row["max_abs_err"],
         "ms": path_row["ms"],
         "plain_ms": path_row["plain_ms"],
         "bound_ms": path_row["bound_ms"],
         "bound_by": path_row["bound_by"],
         "library_ms": path_row["library_ms"],
+        "b1": {k: b1_row[k] for k in ("kernel", "split", "max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "library_ms")},
     }, {
         "name": "int8_gemm",
         "route": "cuda",
@@ -1036,14 +1121,17 @@ def main() -> int:
         "route": "cuda",
         "source": "unified_video_action_tpu_torch/csrc/int8_mm.cu",
         "replaces": "unified_video_action_tpu/ops/int8_mm.py:96",
-        "launches": deployed["quantize_rows"],
+        "launches": sum(quant_launches.values()),
+        "launches_by_kernel": quant_launches,
         "shape": [int8_row["M"], int8_row["K"]],
+        "kernel": int8_row["rows_kernel"],
         "max_abs_err": int8_row["bit_equal"]["x_q_max_abs_err"],
         "ms": int8_row["rows_ms"],
         "plain_ms": int8_row["rows_plain_ms"],
         "bound_ms": int8_row["rows_bound_ms"],
         "bound_by": int8_row["rows_bound_by"],
         "library_ms": None,
+        "ms_by_shape": {r["layer"]: r["rows_ms"] for r in int8_rows},
     }]}
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(card, flush=True)

@@ -53,7 +53,7 @@ def test_plain_matches_jax_flash_attention_bf16():
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch():
     q, k, v = (torch.tensor(x) for x in _qkv(2, 100, 2, seed=2))
-    before = port.launch_count
+    before = dict(port.launch_count)
     got = port.flash_attention(q, k, v)
     assert port.launch_count == before
     torch.testing.assert_close(got, port.attention_plain(q, k, v), rtol=0, atol=0)
@@ -120,4 +120,7 @@ def test_library_name_follows_the_source(tmp_path, monkeypatch):
     first = _build.library_path("k")
     assert first == _build.library_path("k")
     (csrc / "k.cu").write_text("// two\n")
-    assert _build.library_path("k") != first
+    second = _build.library_path("k")
+    assert second != first
+    (csrc / "shared.cuh").write_text("// a header\n")
+    assert _build.library_path("k") != second

@@ -1,4 +1,4 @@
-"""The CUDA attention kernel against its plain version, on the card.
+"""The CUDA attention kernels against their plain version, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a GPU. The machine with the card
 has no JAX, so this file imports only torch and the port, and runs there
@@ -7,14 +7,37 @@ without the suite's conftest (which sets up JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_attention_cuda.py
 
 Tolerances are those of tests/test_ops.py: atol 2e-5 in fp32 and 3e-2 in
-bf16. The shapes are the serving path's (B=128, N=144), ragged N, and N
-beyond the TPU's single-pass limit of 2048.
+bf16. The shapes are the serving path's (N=144 at B=128 and B=1), ragged N,
+the single-pass kernel's limit (256) and one past it, and N beyond the TPU's
+single-pass limit of 2048. Each launch must land on the kernel that
+attention_plan names.
 """
 
 import pytest
 import torch
 
 from unified_video_action_tpu_torch.ops import attention as port
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+
+
+def _launch_matches_plain(q, k, v, atol):
+    """One launch, of the kernel the plan names, within atol of the plain version."""
+    B, N, H, _ = q.shape
+    plan = port.attention_plan(B, N, H, q.dtype, port._check(q, k, v))
+    before = dict(port.launch_count)
+    got = port.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in port.launch_count.items()} == {
+        n: int(n == plan.kernel) for n in port.KERNELS}
+    want = port.attention_plain(q, k, v)
+    assert got.is_contiguous() and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    return plan
 
 
 @pytest.mark.cuda
@@ -27,17 +50,36 @@ from unified_video_action_tpu_torch.ops import attention as port
         (4, 100, 12, torch.float32, 2e-5),
         (2, 1088, 12, torch.bfloat16, 3e-2),
         (1, 2304, 12, torch.float32, 2e-5),
+        (1, 144, 12, torch.bfloat16, 3e-2),
+        (8, 137, 12, torch.bfloat16, 3e-2),
+        (8, 256, 12, torch.bfloat16, 3e-2),
+        (8, 257, 12, torch.bfloat16, 3e-2),
+        (1, 256, 12, torch.bfloat16, 3e-2),
+        (3, 1, 12, torch.bfloat16, 3e-2),
     ],
 )
-def test_kernel_matches_plain_on_the_card(B, N, H, dtype, atol):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+def test_kernel_matches_plain_on_the_card(card, B, N, H, dtype, atol):
     g = torch.Generator(device="cuda").manual_seed(0)
     qkv = torch.randn(B, N, 3, H, 64, generator=g, device="cuda").to(dtype)
     q, k, v = qkv.unbind(2)
-    before = port.launch_count
-    got = port.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert port.launch_count == before + 1
-    want = port.attention_plain(q, k, v)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    _launch_matches_plain(q, k, v, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,split", [(1, True), (4, True), (16, False)])
+def test_the_single_pass_kernel_split_and_whole(card, B, split):
+    g = torch.Generator(device="cuda").manual_seed(B)
+    q, k, v = (torch.randn(B, 144, 12, 64, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    plan = _launch_matches_plain(q, k, v, 3e-2)
+    assert plan == port.AttentionPlan("attention_wgmma", 144, split)
+
+
+@pytest.mark.cuda
+def test_rows_off_a_16_byte_boundary_take_the_mma_sync_kernel(card):
+    B, N, H = 4, 144, 12
+    g = torch.Generator(device="cuda").manual_seed(1)
+    buf = torch.randn(B * N * 3 * H * 64 + 1, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = buf[1:].view(B, N, 3, H, 64).unbind(2)
+    assert not port._check(q, k, v)
+    assert _launch_matches_plain(q, k, v, 3e-2) == port.MMA_SYNC

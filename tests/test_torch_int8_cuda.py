@@ -18,10 +18,12 @@ mlp_fc2 (M = 144 tokens per sample) and the action denoiser's ada_mod,
 fc1/fc2, final.ada_mod, cond_embed and the K = 2 input_proj (M = 16 slots
 per sample), at B=128 and B=1, and the ragged (100, 128, 130). Each runs
 with bf16 and with fp32 activations, with an outlier row and an all-zero
-row, through the wrapper's dispatch (gemm_plan). Then the wgmma kernel at
-ragged M and N with a K that ends inside a 128-byte tile, in each output
-type, and an operand that is not 16-byte aligned, which only the mma.sync
-kernel takes.
+row, through the wrappers' dispatch (quantize_plan, gemm_plan). Then the
+wgmma kernel at ragged M and N with a K that ends inside a 128-byte tile, in
+each output type, and an operand that is not 16-byte aligned, which only the
+mma.sync kernel takes; and quantize_rows at K % 8 != 0, past the vector
+kernel's widest row, and on rows off a 16-byte boundary, which only the
+scalar kernel takes.
 """
 
 import pytest
@@ -65,6 +67,20 @@ def _gemm_launches():
     return sum(int8_mm.launch_count[k] for k in int8_mm.GEMM_KERNELS)
 
 
+def _quantize_matches_plain(x):
+    """quantize_rows against the plain version: one launch, of the kernel
+    the plan names, and bit-equal x_q and x_scale."""
+    plan = int8_mm.quantize_plan(x.shape[1], x.dtype, x.data_ptr() % 16 == 0)
+    before = dict(int8_mm.launch_count)
+    x_q, x_scale = int8_mm.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert {k: int8_mm.launch_count[k] - before[k] for k in int8_mm.QUANT_KERNELS} == {
+        k: int(k == plan.kernel) for k in int8_mm.QUANT_KERNELS}
+    want_q, want_scale = quant.quantize_rows_plain(x)
+    assert torch.equal(x_q, want_q) and torch.equal(x_scale, want_scale)
+    return plan
+
+
 def _gemm_matches_plain(x_q, x_scale, w_q, w_scale, bias, out_dtype):
     """The GEMM against the plain version: one launch, of the kernel the
     dispatch plans, and a bit-equal result."""
@@ -90,13 +106,15 @@ def _gemm_matches_plain(x_q, x_scale, w_q, w_scale, bias, out_dtype):
 @pytest.mark.parametrize("M,K,N", SHAPES)
 def test_kernels_match_plain_on_the_card(card, M, K, N, dtype):
     x, w_q, w_scale, bias = _inputs(M, K, N, dtype, seed=M + K + N)
+    quantize_kernel = int8_mm.quantize_plan(K, dtype).kernel
     before = dict(int8_mm.launch_count)
     gemms = _gemm_launches()
     x_q, x_scale = int8_mm.quantize_rows(x)
     y = int8_mm.int8_gemm(x_q, w_q)
     out = int8_mm.w8a8_linear(x, w_q, w_scale, bias)
     torch.cuda.synchronize()
-    assert int8_mm.launch_count["quantize_rows"] == before["quantize_rows"] + 2
+    assert {k: int8_mm.launch_count[k] - before[k] for k in int8_mm.QUANT_KERNELS} == {
+        k: 2 * (k == quantize_kernel) for k in int8_mm.QUANT_KERNELS}
     assert _gemm_launches() == gemms + 2
     want_q, want_scale = quant.quantize_rows_plain(x)
     assert torch.equal(x_q, want_q) and torch.equal(x_scale, want_scale)
@@ -163,3 +181,37 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                              (x_q.data_ptr(), 32, 64, 128)):
         assert wgmma(x_ptr, 0, w_q.data_ptr(), 0, 0, out.data_ptr(), 8, 16, K, 2, 0, bm, bn,
                      stream) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K", [(18432, 768), (2048, 3072), (16, 1024), (1, 768), (100, 136),
+                                 (63, 1000), (64, 1028), (33, 4096), (5, 2), (1, 3)])
+def test_quantize_rows_at_every_kind_of_row(card, M, K, dtype):
+    """The vector kernel where a row fits one (K % 8 == 0, K <= 3072 in bf16
+    and 1024 in fp32), the scalar one elsewhere: both bit-equal."""
+    x = _inputs(M, K, 8, dtype, seed=M + K)[0]
+    plan = _quantize_matches_plain(x)
+    assert plan.variant == ("vector" if K % 8 == 0 and K <= {torch.bfloat16: 3072,
+                                                             torch.float32: 1024}[dtype]
+                            else "scalar")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_rows_on_rows_off_a_16_byte_boundary(card, dtype):
+    x = _off_boundary(_inputs(144, 768, 8, dtype, seed=5)[0])
+    assert x.data_ptr() % 16 != 0
+    assert _quantize_matches_plain(x) == int8_mm.QUANT_SCALAR
+
+
+@pytest.mark.cuda
+def test_quantize_rows_ties_round_half_to_even(card):
+    """Rows whose scale is a power of two put many quotients exactly on
+    k + 0.5: the vector kernel's rounding must take the even neighbour."""
+    amax = 127.0 / 64  # scale fl(amax * fl(1/127)) = 2^-6 exactly
+    x = torch.arange(-254, 258, dtype=torch.float32, device="cuda").repeat(4, 1) / 128
+    x[:, 0] = amax
+    x = x.clamp(-amax, amax)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert _quantize_matches_plain(x.to(dtype)).variant == "vector"

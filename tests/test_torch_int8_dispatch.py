@@ -1,15 +1,17 @@
-"""The int8 GEMM wrapper's dispatch (ops/int8_mm.py:gemm_plan) on the CPU:
-which kernel and tile every W8A8 shape of the deployed serving path gets,
-that the shapes TMA cannot read (the denoiser's K = 2 input projection, an
-operand off a 16-byte boundary, K % 16 != 0) go to the mma.sync kernel, and
-that plans are cached and name the launch counters. The kernels themselves
-run only on the card (tests/test_torch_int8_cuda.py).
+"""The int8 wrappers' dispatch (ops/int8_mm.py:gemm_plan, quantize_plan) on
+the CPU: which kernel and tile every W8A8 shape of the deployed serving path
+gets, that the shapes TMA cannot read (the denoiser's K = 2 input
+projection, an operand off a 16-byte boundary, K % 16 != 0) go to the
+mma.sync kernel, which rows the vector quantize kernel takes, and that plans
+are cached and name the launch counters. The kernels themselves run only on
+the card (tests/test_torch_int8_cuda.py).
 """
 
 import pytest
+import torch
 
 from unified_video_action_tpu_torch.ops import int8_mm
-from unified_video_action_tpu_torch.ops.int8_mm import GemmPlan, gemm_plan
+from unified_video_action_tpu_torch.ops.int8_mm import GemmPlan, QuantPlan, gemm_plan, quantize_plan
 
 # (K, N) of the deployed tier at mar_base width: the MAR's qkv, proj,
 # mlp_fc1, mlp_fc2 (M = 144 tokens a sample) and the denoiser's ada_mod,
@@ -45,6 +47,41 @@ def test_plans_are_cached():
 
 
 def test_plans_name_the_launch_counters():
-    assert set(int8_mm.GEMM_KERNELS) | {"quantize_rows"} == set(int8_mm.launch_count)
+    assert set(int8_mm.GEMM_KERNELS) | set(int8_mm.QUANT_KERNELS) == set(int8_mm.launch_count)
     for plan in (int8_mm.MMA_SYNC, GemmPlan("wgmma", 64, 64), GemmPlan("wgmma", 128, 128)):
         assert plan.kernel in int8_mm.GEMM_KERNELS
+    for plan in (int8_mm.QUANT_SCALAR, QuantPlan("vector", 4), QuantPlan("vector", 12)):
+        assert plan.kernel in int8_mm.QUANT_KERNELS
+
+
+# K and activation type of the deployed path's W8A8 layers, and the vector
+# instance (units of 8 a lane) each takes: 296 of a request's 306 calls
+PATH_ROWS = [(768, 4), (3072, 12), (1024, 4)]
+
+
+@pytest.mark.parametrize("K,per_lane", PATH_ROWS)
+def test_the_path_rows_take_the_vector_quantize_kernel(K, per_lane):
+    assert quantize_plan(K, torch.bfloat16) == QuantPlan("vector", per_lane)
+
+
+def test_the_input_projection_takes_the_scalar_quantize_kernel():
+    assert quantize_plan(2, torch.float32) is int8_mm.QUANT_SCALAR
+
+
+@pytest.mark.parametrize("K", [8, 256, 1024, 3072])
+def test_quantize_plan_by_k_and_alignment(K):
+    bf16, fp32 = torch.bfloat16, torch.float32
+    assert quantize_plan(K, bf16).variant == "vector"
+    assert quantize_plan(K, bf16, aligned=False) is int8_mm.QUANT_SCALAR
+    assert quantize_plan(K + 4, bf16) is int8_mm.QUANT_SCALAR  # K % 8 != 0
+    assert quantize_plan(K, fp32).variant == ("vector" if K <= 1024 else "scalar")
+    assert quantize_plan(K, bf16).per_lane * 256 >= K
+
+
+def test_rows_past_the_widest_instance_take_the_scalar_quantize_kernel():
+    assert quantize_plan(3080, torch.bfloat16) is int8_mm.QUANT_SCALAR
+    assert quantize_plan(1032, torch.float32) is int8_mm.QUANT_SCALAR
+
+
+def test_quantize_plans_are_cached():
+    assert quantize_plan(768, torch.bfloat16) is quantize_plan(768, torch.bfloat16)

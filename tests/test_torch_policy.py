@@ -92,7 +92,7 @@ def test_attention_routes_agree_on_the_cpu():
     frames = torch.randint(0, 256, (2, 4, 3, 32, 32), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(2))
     noise = port.sample_noise(2, torch.Generator().manual_seed(3))
-    before = attention_ops.launch_count
+    before = dict(attention_ops.launch_count)
     a = port.predict_action_frames(frames, noise=noise)
     port.set_attn_impl("plain")
     b = port.predict_action_frames(frames, noise=noise)

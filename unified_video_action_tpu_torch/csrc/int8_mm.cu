@@ -4,15 +4,23 @@
 // int8_mm.py:32-39, launched through `int8_matmul_pallas` at :65) together
 // with the arithmetic of its wrapper `w8a8_matmul` (:83-107), which is also
 // the function of the XLA int8 dot that the JAX package's `QuantDense` runs
-// (ops/quant.py:38-55). Three kernels:
+// (ops/quant.py:38-55). Four kernels:
 //
-//   uva_quantize_rows  x (M, K) bf16 or fp32 -> x_q (M, K) s8, x_scale (M,)
+//   uva_quantize_rows_vector, uva_quantize_rows
+//                      x (M, K) bf16 or fp32 -> x_q (M, K) s8, x_scale (M,)
 //                      fp32: one warp per row takes the fp32 amax, then
 //                      x_scale = max(amax * fl(1/127), 1e-12) and
 //                      x_q = clip(rint(x / x_scale), -127, 127). The
 //                      quotient is a true IEEE division and the rounding is
 //                      half to even, as in the reference; fl(1/127) is the
-//                      constant that XLA folds `amax / 127` into.
+//                      constant that XLA folds `amax / 127` into. The vector
+//                      kernel (K % 8 == 0, x 16-byte aligned, K <= 3072 in
+//                      bf16 and 1024 in fp32) reads x once: 8 elements a
+//                      lane per 16-byte load (two for fp32), the row's
+//                      values kept in registers from the amax to the
+//                      quotient, 8 s8 a store. The scalar kernel takes any
+//                      K and alignment (the denoiser's K = 2 input
+//                      projection) and reads the row twice.
 //   uva_int8_gemm_wgmma, uva_int8_gemm
 //                      x_q (M, K) s8 row-major times the weight kept as
 //                      (N, K) s8 with K contiguous (the transpose of JAX's
@@ -58,6 +66,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kFaultRoundHalfAway = 1;     // roundf instead of rintf
@@ -69,16 +79,33 @@ constexpr float kInv127 = 1.0f / 127.0f;   // folded to fl32(1/127)
 constexpr float kScaleFloor = 1e-12f;
 
 enum OutKind { kOutF32 = 0, kOutBF16 = 1, kOutS32 = 2 };
-// uva_int8_gemm_wgmma returns kEncodeError + the CUresult when a TMA map
-// cannot be encoded
-constexpr int kEncodeError = 10000;
 
 // ---------------------------------------------------------------- quantize
 
-constexpr int kQuantThreads = 256;  // 8 warps, one row each
+constexpr int kQuantThreads = 256;     // scalar kernel: 8 warps, one row each
+constexpr int kQuantVecThreads = 128;  // vector kernel: 4 persistent warps
+constexpr int kQuantUnit = 8;          // elements of one vector load
 
 __device__ __forceinline__ float load_float(const float* p) { return *p; }
 __device__ __forceinline__ float load_float(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+constexpr float kRoundMagic = 12582912.0f;  // 1.5 * 2^23
+
+// x_q of one element in the low byte of the result, given the row's scale s
+// and (for the reciprocal_scale fault only) 127 / amax. clip(rint(r)) is
+// computed as rint(clip(r)), which is the same for every r (NaN included:
+// fmaxf takes -127), and rint of |r| <= 127 as the float sum r + 1.5 * 2^23,
+// rounded half to even by the add, whose low mantissa byte is then the two's
+// complement of the integer: no quarter-rate rint or float-to-int conversion.
+template <bool kFaults>
+__device__ __forceinline__ uint32_t quantize_one(float v, float s, float inv, int faults) {
+  if (kFaults && (faults & kFaultRoundHalfAway)) {
+    const float r = (faults & kFaultReciprocalScale) ? __fmul_rn(v, inv) : __fdiv_rn(v, s);
+    return (uint32_t)(uint8_t)(int8_t)__float2int_rn(fminf(fmaxf(roundf(r), -127.f), 127.f));
+  }
+  const float r = (kFaults && (faults & kFaultReciprocalScale)) ? __fmul_rn(v, inv) : __fdiv_rn(v, s);
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(r, -127.f), 127.f), kRoundMagic));
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads)
@@ -97,13 +124,123 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
   const float inv = __fdiv_rn(127.f, amax);  // only the reciprocal_scale fault reads it
   if (lane == 0) x_scale[row] = s;
   int8_t* qr = xq + row * K;
-  for (int k = lane; k < K; k += 32) {
-    const float v = load_float(xr + k);
-    const float r = (faults & kFaultReciprocalScale) ? __fmul_rn(v, inv) : __fdiv_rn(v, s);
-    float q = (faults & kFaultRoundHalfAway) ? roundf(r) : rintf(r);
-    q = fminf(fmaxf(q, -127.f), 127.f);
-    qr[k] = (int8_t)__float2int_rn(q);
+  for (int k = lane; k < K; k += 32)
+    qr[k] = (int8_t)quantize_one<true>(load_float(xr + k), s, inv, faults);
+}
+
+// Eight consecutive elements of a row as loaded: one 16-byte vector of bf16,
+// two of fp32.
+template <typename T> struct Unit;
+template <>
+struct Unit<__nv_bfloat16> {
+  uint4 raw;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    raw = __ldg(reinterpret_cast<const uint4*>(p));
   }
+  __device__ __forceinline__ void floats(float (&f)[kQuantUnit]) const {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);             // the low bf16
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);  // the high bf16
+    }
+  }
+};
+template <>
+struct Unit<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void floats(float (&f)[kQuantUnit]) const {
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+};
+
+// Persistent warps, each walking rows warp, warp + warps, ...; lane l holds
+// units l, l + 32, ... of a row (kV of them at most, so K <= 256 kV) in
+// registers from the amax to the quotient, so x is read once, and loads the
+// next row's units before it divides this row's, so the loads of one row
+// overlap the arithmetic of the last (the IEEE division costs about as much
+// time as the bytes). Consecutive lanes read consecutive 16 bytes, and each
+// unit's 8 s8 go out in one 8-byte store.
+template <typename T, int kV>
+__device__ __forceinline__ void load_row(Unit<T> (&u)[kV], const T* xr, int lane, int units) {
+#pragma unroll
+  for (int i = 0; i < kV; ++i)
+    if (lane + 32 * i < units) u[i].load(xr + kQuantUnit * (lane + 32 * i));
+}
+
+// kFaults: the planted faults are read (the controls' build); without it
+// the element loop has no branch on them.
+template <typename T, int kV, bool kFaults>
+__global__ void __launch_bounds__(kQuantVecThreads)
+quantize_rows_vec_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                         float* __restrict__ x_scale, int M, int K, int faults) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (kQuantVecThreads / 32);
+  const int units = K / kQuantUnit;
+  int row = blockIdx.x * (kQuantVecThreads / 32) + (threadIdx.x >> 5);
+  Unit<T> u[kV], next[kV];
+  if (row < M) load_row(u, x + (long long)row * K, lane, units);
+  for (; row < M; row += warps) {
+    if (row + warps < M) load_row(next, x + (long long)(row + warps) * K, lane, units);
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      if (lane + 32 * i < units) {
+        float f[kQuantUnit];
+        u[i].floats(f);
+#pragma unroll
+        for (int e = 0; e < kQuantUnit; ++e) amax = fmaxf(amax, fabsf(f[e]));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float s = fmaxf(__fmul_rn(amax, kInv127), kScaleFloor);
+    const float inv = __fdiv_rn(127.f, amax);  // only the reciprocal_scale fault reads it
+    if (lane == 0) x_scale[row] = s;
+    int8_t* qr = xq + (long long)row * K;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < units) {
+        float f[kQuantUnit];
+        u[i].floats(f);
+        uint32_t b[kQuantUnit], w[2];
+#pragma unroll
+        for (int e = 0; e < kQuantUnit; ++e) b[e] = quantize_one<kFaults>(f[e], s, inv, faults);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)  // the low bytes of four results, in order
+          w[h] = __byte_perm(__byte_perm(b[4 * h], b[4 * h + 1], 0x0040),
+                             __byte_perm(b[4 * h + 2], b[4 * h + 3], 0x0040), 0x5410);
+        *reinterpret_cast<uint2*>(qr + kQuantUnit * c) = make_uint2(w[0], w[1]);
+      }
+      u[i] = next[i];
+    }
+  }
+}
+
+// The vector kernel's launch: as many warps as fit on the card at once, or
+// one per row where there are fewer rows.
+template <typename T, int kV>
+int launch_quantize_vec(const T* x, int8_t* xq, float* x_scale, int M, int K, int faults,
+                        cudaStream_t s) {
+  // the grid of the fault-free kernel (the controls' build runs on the same grid)
+  static int blocks_per_sm = 0;  // per instantiation, found once
+  if (blocks_per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm, quantize_rows_vec_kernel<T, kV, false>, kQuantVecThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int rows_per_block = kQuantVecThreads / 32;
+  const int blocks = min((M + rows_per_block - 1) / rows_per_block, num_sms() * blocks_per_sm);
+  auto kernel = faults ? quantize_rows_vec_kernel<T, kV, true> : quantize_rows_vec_kernel<T, kV, false>;
+  kernel<<<blocks, kQuantVecThreads, 0, s>>>(x, xq, x_scale, M, K, faults);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- GEMM
@@ -333,46 +470,6 @@ struct Wgmma<128> {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits for the phase of `parity` to complete. A phase that has not
-// completed after about 10 s of clock (a pipeline fault) traps, so the launch
-// fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int k0, int row0) {
   asm volatile(
@@ -380,30 +477,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0)
       : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, LBO 16 B (unused by a
-// K-major swizzled operand whose K extent is one swizzle row), SBO 1024 B
-// (the next 8-row group), 128-byte swizzle.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma.
-template <int kN>
-__device__ __forceinline__ void fence_regs(int (&d)[kN]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 constexpr int kEpilogueThreads = 256;  // two warpgroups
@@ -660,21 +733,6 @@ int encode_kmajor(CUtensorMap* map, const void* ptr, int rows, int K, int box_ro
                                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// The current device's SM count, read from the CUDA runtime once per device.
-int num_sms() {
-  constexpr int kMaxDevices = 64;
-  static int sms[kMaxDevices] = {};
-  int device = 0;
-  cudaGetDevice(&device);
-  if (device >= kMaxDevices) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    return n;
-  }
-  if (sms[device] == 0) cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
-  return sms[device];
-}
-
 template <int kWG, int kBN, int kStages>
 int launch_wgmma(const void* xq, const void* wq, WgmmaParams q, cudaStream_t s) {
   using S = WgmmaShape<kWG, kBN, kStages>;
@@ -699,8 +757,9 @@ int launch_wgmma(const void* xq, const void* wq, WgmmaParams q, cudaStream_t s) 
 
 }  // namespace
 
-// x: contiguous (M, K), dtype 0 = float32, 1 = bfloat16. Writes xq (M, K)
-// int8 and x_scale (M,) float32. Returns cudaGetLastError() after the launch.
+// The scalar kernel. x: contiguous (M, K), dtype 0 = float32, 1 = bfloat16.
+// Writes xq (M, K) int8 and x_scale (M,) float32. Returns cudaGetLastError()
+// after the launch.
 extern "C" int uva_quantize_rows(const void* x, void* xq, float* x_scale, int M, int K,
                                  int dtype, int faults, void* stream) {
   if (M <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
@@ -716,6 +775,27 @@ extern "C" int uva_quantize_rows(const void* x, void* xq, float* x_scale, int M,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The vector kernel on the same arguments, which must have K % 8 == 0,
+// K <= 256 per_lane and x (and xq) 16-byte aligned; per_lane (the units of
+// 8 elements a lane holds) is 4 (bf16 or fp32) or 12 (bf16). Returns cudaGetLastError() after the
+// launch, cudaErrorInvalidValue for arguments it does not take.
+extern "C" int uva_quantize_rows_vector(const void* x, void* xq, float* x_scale, int M, int K,
+                                        int dtype, int faults, int per_lane, void* stream) {
+  if (M <= 0 || K <= 0 || K % kQuantUnit != 0 || K > 32 * kQuantUnit * per_lane ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(xq)) % 16) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* q = static_cast<int8_t*>(xq);
+  if (dtype == 0 && per_lane == 4)
+    return launch_quantize_vec<float, 4>(static_cast<const float*>(x), q, x_scale, M, K, faults, s);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  if (dtype == 1 && per_lane == 4)
+    return launch_quantize_vec<__nv_bfloat16, 4>(xb, q, x_scale, M, K, faults, s);
+  if (dtype == 1 && per_lane == 12)
+    return launch_quantize_vec<__nv_bfloat16, 12>(xb, q, x_scale, M, K, faults, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // xq: contiguous (M, K) int8; wq: contiguous (N, K) int8; x_scale (M,),

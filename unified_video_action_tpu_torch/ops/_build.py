@@ -3,8 +3,9 @@
 ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` at first use. The library goes into
 ``build/torch_kernels/`` at the repository root (listed in ``.gitignore``)
-under a name keyed by a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.
+under a name keyed by a hash of the source, the headers of ``csrc/`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.
 
 Nothing here runs at import: the CPU tests import every module, and ``nvcc``
 is needed only when a kernel is first called on a CUDA tensor.
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # after the source, so the linker keeps them: libcuda, for
-# cuTensorMapEncodeTiled (the TMA maps of csrc/int8_mm.cu)
+# cuTensorMapEncodeTiled (the TMA maps of both sources)
 LINK_FLAGS = ("-lcuda",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -55,11 +56,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for the current source."""
-    src = CSRC / f"{name}.cu"
+    """Where the library of ``csrc/<name>.cu`` lives for the current source
+    and headers."""
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    h.update(src.read_bytes())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

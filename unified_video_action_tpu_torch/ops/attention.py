@@ -1,19 +1,31 @@
-"""Non-causal flash attention: the CUDA kernel's wrapper and its plain version.
+"""Non-causal flash attention: the CUDA kernels' wrapper and their plain version.
 
 Port of ``unified_video_action_tpu/ops/attention.py:33-191`` (the Pallas
 kernels ``_attn_kernel_single_pass`` and ``_attn_kernel`` behind
-``flash_attention``). The kernel is ``csrc/attention.cu``; its source says
-what bounds it on an H100 and how it is laid out.
+``flash_attention``). The kernels are ``csrc/attention.cu``; its source says
+what bounds them on an H100 and how they are laid out.
 
 Layout: q, k, v are (B, N, H, D), as the fused qkv projection leaves them;
-the kernel reads them through their strides, so the views that
+the kernels read them through their strides, so the views that
 ``MultiHeadAttention`` slices out of one qkv tensor go in without a copy.
+
+:func:`flash_attention` launches the kernel that :func:`attention_plan`
+names, with no fallback between kernels:
+
+* ``attention_wgmma``: bf16, N <= ``SINGLE_PASS_MAX_N`` and every operand
+  16-byte aligned. The single-pass Hopper kernel (TMA + wgmma, the exact
+  softmax of a whole row), as the TPU's ``_attn_kernel_single_pass``.
+* ``attention_mma_sync``: bf16 otherwise (longer N, or an operand off a
+  16-byte boundary): mma.sync with an online softmax over 64-wide KV tiles,
+  as the TPU's ``_attn_kernel``.
+* ``attention_f32``: fp32, scalar.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -22,8 +34,60 @@ from unified_video_action_tpu_torch.ops import _build
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Incremented once for every launch of the CUDA kernel, and nowhere else.
-launch_count = 0
+# the single-pass kernel's instances: the KV rows each holds in shared memory
+SINGLE_PASS_KV = (144, 256)
+SINGLE_PASS_MAX_N = SINGLE_PASS_KV[-1]
+KERNELS = ("attention_wgmma", "attention_mma_sync", "attention_f32")
+
+# Incremented once for every launch of each CUDA kernel, and nowhere else.
+launch_count = {k: 0 for k in KERNELS}
+
+ENCODE_ERROR = 10000  # csrc/hopper.cuh kEncodeError
+
+
+# up to this many (head, q-tile) pairs the single-pass kernel gives each pair
+# a CTA of its own (two per SM of an H100), else a CTA takes a head
+SPLIT_MAX_TILES = 264
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """Which kernel :func:`flash_attention` launches: ``kernel`` is the key of
+    :data:`launch_count`; for the single-pass kernel ``kv`` is the instance
+    (the KV rows it holds, one of ``SINGLE_PASS_KV``) and ``split`` whether a
+    CTA takes one q-tile of a head instead of the whole head."""
+    kernel: str
+    kv: int = 0
+    split: bool = False
+
+
+MMA_SYNC = AttentionPlan("attention_mma_sync")
+F32 = AttentionPlan("attention_f32")
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_plan(B: int, N: int, H: int, dtype: torch.dtype, aligned: bool = True) -> AttentionPlan:
+    """The kernel for (B, N, H, 64) attention in ``dtype``; ``aligned`` says
+    every operand's base and strides are 16-byte multiples (TMA's rules).
+    Cached: the serving path asks for the same shapes on every call.
+
+    * fp32: the scalar kernel.
+    * bf16, N <= SINGLE_PASS_MAX_N and aligned: the single-pass wgmma kernel,
+      its smallest instance that holds N rows of K and V (144 at the serving
+      N); split where B·H·⌈N/64⌉ <= SPLIT_MAX_TILES (B = 1 at the serving
+      shape: 36 q-tiles on 36 SMs instead of 12 heads on 12; B <= 7 at N = 144).
+    * bf16 otherwise: the mma.sync kernel.
+    """
+    if B <= 0 or N <= 0 or H <= 0:
+        raise ValueError(f"attention of shape ({B}, {N}, {H}) is empty")
+    if dtype == torch.float32:
+        return F32
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the kernels take float32 or bfloat16, got {dtype}")
+    if aligned and N <= SINGLE_PASS_MAX_N:
+        kv = next(kv for kv in SINGLE_PASS_KV if N <= kv)
+        return AttentionPlan("attention_wgmma", kv, B * H * -(-N // 64) <= SPLIT_MAX_TILES)
+    return MMA_SYNC
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -36,19 +100,19 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("attention").uva_flash_attention
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 4
-        + [ctypes.c_longlong] * 9
-        + [ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("attention")
+    common = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+    lib.uva_flash_attention.argtypes = common + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.uva_flash_attention.restype = ctypes.c_int
+    lib.uva_flash_attention_wgmma.argtypes = common + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.uva_flash_attention_wgmma.restype = ctypes.c_int
+    return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Raises on what no kernel takes; returns whether every tensor's base and
+    (B, N, H) strides are 16-byte multiples (``attention_plan``'s ``aligned``)."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"q, k, v must share one (B, N, H, D) shape, got "
@@ -60,38 +124,44 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(
             f"q, k, v must all be float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}"
         )
+    item = q.element_size()
+    aligned = True
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.stride(-1) != 1:
+        sb, sn, sh, sd = x.stride()
+        if sd != 1:
             raise ValueError(f"{name} must be contiguous in its last dimension")
-        item = x.element_size()
-        if x.data_ptr() % 16 or any((s * item) % 16 for s in x.stride()[:3]):
-            raise ValueError(f"{name} rows must be 16-byte aligned (strides {x.stride()})")
+        aligned = aligned and x.data_ptr() % 16 == 0 and (sb * item) % 16 == 0 \
+            and (sn * item) % 16 == 0 and (sh * item) % 16 == 0
+    return aligned
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(Q·Kᵀ·D^-½)·V over (B, N, H, D) tensors -> contiguous (B, N, H, D).
 
-    On a CUDA tensor this launches the kernel (or raises); on a CPU tensor it
-    runs the plain version.
+    On a CUDA tensor this launches the kernel :func:`attention_plan` names
+    (or raises); on a CPU tensor it runs the plain version.
     """
-    global launch_count
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    _check(q, k, v)
+    aligned = _check(q, k, v)
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    rc = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, N, H, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    plan = attention_plan(B, N, H, q.dtype, aligned)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if plan.kernel == "attention_wgmma":
+        rc = _lib().uva_flash_attention_wgmma(*args, plan.kv, int(plan.split), stream)
+    else:
+        rc = _lib().uva_flash_attention(*args, _DTYPE_CODES[q.dtype], int(aligned), stream)
+    if rc >= ENCODE_ERROR:
+        raise RuntimeError(f"flash attention ({plan.kernel}): cuTensorMapEncodeTiled failed: "
+                           f"CUresult {rc - ENCODE_ERROR}")
     if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
-    launch_count += 1
+        raise RuntimeError(f"flash attention kernel launch failed ({plan.kernel}): CUDA error {rc}")
+    launch_count[plan.kernel] += 1
     return out

@@ -6,7 +6,8 @@ Port of ``unified_video_action_tpu/ops/int8_mm.py`` (the Pallas kernel
 says what bounds them on an H100 and how they are laid out. The plain
 versions are ``ops/quant.py``'s, which the kernels reproduce bit for bit.
 
-* :func:`quantize_rows` (M, K) float -> x_q (M, K) int8, x_scale (M,) fp32
+* :func:`quantize_rows` (M, K) float -> x_q (M, K) int8, x_scale (M,) fp32,
+                        by the kernel :func:`quantize_plan` names
 * :func:`int8_gemm`     x_q (M, K) int8, weight (N, K) int8 -> (M, N) int32,
                         or rescaled to float with the bias in its epilogue
 * :func:`w8a8_linear`   the layer: :func:`quantize_rows`, then
@@ -19,7 +20,10 @@ runs the plain version.
 (:func:`gemm_plan`, no fallback between them): the Hopper design (TMA +
 wgmma) wherever TMA can read the operands, and an mma.sync kernel with byte
 loads where it cannot: K % 16 != 0, as the denoiser's K = 2 input
-projection, or an operand that is not 16-byte aligned.
+projection, or an operand that is not 16-byte aligned. :func:`quantize_rows`
+has two, likewise (:func:`quantize_plan`): a vector kernel that reads x
+once, wherever K % 8 == 0, x is 16-byte aligned and K <= 3072 (bf16) or
+1024 (fp32), and a scalar kernel for the rest (the K = 2 input projection).
 """
 
 from __future__ import annotations
@@ -44,10 +48,11 @@ _OUT_S32 = 2
 # 127² · K must stay below 2³¹ for the int32 accumulator to be exact
 MAX_K = (2**31 - 1) // (127 * 127)
 
-# Incremented once for every launch of each CUDA kernel, and nowhere else:
-# the row quantization and each GemmPlan.kernel of int8_gemm.
-launch_count = {"quantize_rows": 0, "int8_gemm_wgmma": 0, "int8_gemm_mma_sync": 0}
+QUANT_KERNELS = ("quantize_rows_vector", "quantize_rows_scalar")
 GEMM_KERNELS = ("int8_gemm_wgmma", "int8_gemm_mma_sync")
+# Incremented once for every launch of each CUDA kernel, and nowhere else:
+# each QuantPlan.kernel of quantize_rows and each GemmPlan.kernel of int8_gemm.
+launch_count = {k: 0 for k in QUANT_KERNELS + GEMM_KERNELS}
 
 SMALL_M = 256  # up to here one 64-row consumer warpgroup per CTA
 
@@ -93,6 +98,43 @@ def gemm_plan(M: int, N: int, K: int, aligned: bool = True) -> GemmPlan:
     return GemmPlan("wgmma", tile, tile)
 
 
+# the vector quantize kernel's instances: units of 8 elements a lane holds
+# (one warp per row, so a row of K <= 256 per_lane); fp32 only the first
+QUANT_PER_LANE = {torch.bfloat16: (4, 12), torch.float32: (4,)}
+
+
+@dataclass(frozen=True)
+class QuantPlan:
+    """Which kernel :func:`quantize_rows` launches: ``variant`` "vector" (an
+    instance holding ``per_lane`` units of 8 elements a lane) or "scalar"."""
+    variant: str
+    per_lane: int = 0
+
+    @property
+    def kernel(self) -> str:
+        """The key of :data:`launch_count` that a launch of this plan counts in."""
+        return f"quantize_rows_{self.variant}"
+
+
+QUANT_SCALAR = QuantPlan("scalar")
+
+
+@functools.lru_cache(maxsize=1024)
+def quantize_plan(K: int, dtype: torch.dtype, aligned: bool = True) -> QuantPlan:
+    """The kernel that quantizes rows of K elements of ``dtype``; ``aligned``
+    says x starts on a 16-byte boundary. Cached.
+
+    * vector where K % 8 == 0 and aligned (then every row is aligned too)
+      and an instance holds the row (K <= 3072 in bf16, 1024 in fp32): the
+      smallest such instance;
+    * scalar otherwise (the denoiser's K = 2 input projection).
+    """
+    fits = [n for n in QUANT_PER_LANE[dtype] if K <= 32 * 8 * n]
+    if K % 8 or not aligned or not fits:
+        return QUANT_SCALAR
+    return QuantPlan("vector", fits[0])
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("int8_mm")
@@ -100,6 +142,10 @@ def _lib():
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.uva_quantize_rows.restype = ctypes.c_int
+    lib.uva_quantize_rows_vector.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    lib.uva_quantize_rows_vector.restype = ctypes.c_int
     lib.uva_int8_gemm.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
@@ -115,7 +161,7 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-ENCODE_ERROR = 10000  # csrc/int8_mm.cu kEncodeError
+ENCODE_ERROR = 10000  # csrc/hopper.cuh kEncodeError
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -153,7 +199,7 @@ def _check_k(K: int) -> None:
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(M, K) float32 or bfloat16 -> ``(x_q, x_scale)``: int8 (M, K) and
-    float32 (M,)."""
+    float32 (M,). The kernel is :func:`quantize_plan`'s."""
     if x.device.type == "cpu":
         return quantize_rows_plain(x)
     _check_2d("x", x, tuple(_DTYPE_CODES), x.device)
@@ -163,10 +209,15 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
     if M == 0:
         return x_q, x_scale
-    rc = _lib().uva_quantize_rows(x.data_ptr(), x_q.data_ptr(), x_scale.data_ptr(), M, K,
-                                  _DTYPE_CODES[x.dtype], planted_faults, _stream(x))
-    _raise_on(rc, "quantize_rows")
-    launch_count["quantize_rows"] += 1
+    plan = quantize_plan(K, x.dtype, x.data_ptr() % 16 == 0)
+    args = (x.data_ptr(), x_q.data_ptr(), x_scale.data_ptr(), M, K, _DTYPE_CODES[x.dtype],
+            planted_faults)
+    if plan.variant == "vector":
+        rc = _lib().uva_quantize_rows_vector(*args, plan.per_lane, _stream(x))
+    else:
+        rc = _lib().uva_quantize_rows(*args, _stream(x))
+    _raise_on(rc, f"quantize_rows ({plan.kernel})")
+    launch_count[plan.kernel] += 1
     return x_q, x_scale
 
 

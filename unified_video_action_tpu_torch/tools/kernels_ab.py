@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Time the int8 GEMM of one tree of the port, for an A/B in turns on one card.
+"""Time the kernels of one tree of the port, for an A/B in turns on one card.
 
-    python3 unified_video_action_tpu_torch/tools/int8_gemm_ab.py --tree DIR [--out FILE]
+    python3 unified_video_action_tpu_torch/tools/kernels_ab.py --tree DIR [--out FILE]
 
 Imports ``unified_video_action_tpu_torch`` from DIR (this repository's root,
 or an earlier commit's package unpacked by ``git archive`` into a git-ignored
-directory), builds its kernels under DIR and measures, at the deployed tier's
-W8A8 shapes at mar_base width (B=128 and B=1):
+directory), builds its kernels under DIR and measures, at the serving
+paths' shapes at mar_base width (B=128 and B=1):
 
+* device time per ``flash_attention`` launch at (B, 144, 12, 64) bf16, by
+  replaying a CUDA graph of 20 launches (chip_smoke.py's ``graph_ms``), and
+  host time per call (below);
+* device time per ``quantize_rows`` launch at each shape of chip_smoke.py's
+  ``int8_path_shapes``, by CUDA-graph replay;
 * device time per ``int8_gemm`` launch at each shape of chip_smoke.py's
   ``int8_path_shapes``, by replaying a CUDA graph of 20 launches
   (chip_smoke.py's ``graph_ms``): with the path's epilogue (rescale, cast,
@@ -69,6 +74,33 @@ def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
     return statistics.median(per_round)
 
 
+def attention_rows(attention, cfg) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    rows = []
+    for B in (128, 1):
+        N, H = cfg.total_tokens, cfg.encoder_num_heads
+        qkv = torch.randn(B, N, 3, H, 64, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        row = {"B": B, "N": N, "H": H,
+               "us": 1e3 * smoke.graph_ms(lambda: attention.flash_attention(q, k, v)),
+               "host_us": host_us(lambda: attention.flash_attention(q, k, v))}
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        rows.append(row)
+    return rows
+
+
+def quantize_rows(int8_mm, cfg) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    rows = []
+    for layer, M, K, N, dtype in smoke.int8_path_shapes(cfg):
+        x = smoke.int8_inputs(M, K, N, dtype, gen)[0]
+        row = {"layer": layer, "M": M, "K": K, "x_dtype": str(dtype).split(".")[-1],
+               "us": 1e3 * smoke.graph_ms(lambda: int8_mm.quantize_rows(x))}
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        rows.append(row)
+    return rows
+
+
 def gemm_rows(int8_mm, cfg) -> list:
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     rows = []
@@ -128,19 +160,23 @@ def main() -> int:
     ap.add_argument("--out", help="also write the JSON line here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        print("int8_gemm_ab: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+        print("kernels_ab: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
-    from unified_video_action_tpu_torch.ops import int8_mm
+    from unified_video_action_tpu_torch.ops import attention, int8_mm
 
-    if not int8_mm.__file__.startswith(tree + os.sep):
-        raise RuntimeError(f"imported {int8_mm.__file__}, not the package under {tree}")
+    for module in (attention, int8_mm):
+        if not module.__file__.startswith(tree + os.sep):
+            raise RuntimeError(f"imported {module.__file__}, not the package under {tree}")
     meta_policy, normalizer = smoke.flagship_config()
+    cfg = meta_policy.mar_cfg
     with torch.no_grad():
         result = {"tree": args.tree, "card": smoke.card_line(),
-                  "gemm": gemm_rows(int8_mm, meta_policy.mar_cfg),
+                  "attention": attention_rows(attention, cfg),
+                  "quantize_rows": quantize_rows(int8_mm, cfg),
+                  "gemm": gemm_rows(int8_mm, cfg),
                   "deployed": deployed_requests(int8_mm, meta_policy, normalizer)}
     line = json.dumps(result)
     print(line, flush=True)
