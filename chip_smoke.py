@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PushT serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's PushT serving and evaluation paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -40,6 +41,18 @@ script exits non-zero without its result line):
            that comparison must reject), and the int8 route apart from the
            bf16 route. Request times, a stage breakdown and the device's
            busy share.
+6. rollout the PushT evaluation path: PushTImageRunner (16 test seeds from
+           100000, 32 env steps: a full and three cached calls per env) at
+           the same width and weights, closing the loop through the port's
+           env. (a) the deployed tier latent-cached over two streams, (b) the
+           same with the plain-int8 route and the same generator seed, (c)
+           bf16 ddim10 uncached over one stream. Checks: every env runs to
+           its end, every action chunk finite and inside the normalizer's
+           range, each kernel's launches over each rollout against the
+           config, (a) and (b) identical per seed (sim_max_reward and the
+           final agent position), and no OpenCV or dill loaded. Host ms per
+           env control step, ms per full and cached call, the rollouts' wall
+           time and rollout (a)'s device idle share.
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
 object with every kernel's numbers, and the result:
@@ -60,6 +73,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# what torch and numpy load by themselves (torch imports dill where it is
+# installed): the rollout phase checks that the port loads no OpenCV and no
+# dill beyond these
+MODULES_BEFORE_THE_PORT = frozenset(m.split(".")[0] for m in sys.modules)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 LATEST = os.path.join(REPO, "pretrained_models", "uva_pusht_small", "latest")
@@ -571,13 +589,14 @@ INT8_REJECTED = ("round_half_away", "reciprocal_scale", "per_tensor_w_scale",
 INT8_VS_BF16_MIN = 1e-3
 
 
-def int8_path_shapes(cfg) -> list:
+def int8_path_shapes(cfg, batches=(128, 1)) -> list:
     """(layer, M, K, N, x dtype) of every W8A8 layer shape on the deployed path
-    at B=128 and B=1, from the MAR config, and the ragged (100, 128, 130)."""
+    at each batch (B=128 and B=1), from the MAR config, and the ragged (100,
+    128, 130)."""
     D, hidden = cfg.encoder_embed_dim, int(cfg.encoder_embed_dim * cfg.mlp_ratio)
     W, Dd = cfg.diffloss_act_w, cfg.decoder_embed_dim
     shapes = []
-    for B in (128, 1):
+    for B in batches:
         m_mar, m_den = B * cfg.total_tokens, B * cfg.num_action_tokens
         shapes += [
             (f"qkv B={B}", m_mar, D, 3 * D, torch.bfloat16),
@@ -620,7 +639,7 @@ def int8_kernels_per_request(policy, int8_ops, B: int) -> dict:
     the GEMM reads quantize_rows' output)."""
     calls = int8_layer_calls(policy)
     out = {k: 0 for k in int8_ops.launch_count}
-    for layer, M, K, N, dtype in int8_path_shapes(policy.mar_cfg):
+    for layer, M, K, N, dtype in int8_path_shapes(policy.mar_cfg, (B,)):
         name, _, b = layer.partition(" B=")
         if b == str(B):
             out[int8_ops.quantize_plan(K, dtype).kernel] += calls[name]
@@ -1032,6 +1051,171 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
     return launches, gemm_request_ms, int8_layer_calls(policy)
 
 
+# the rollout phase: PushTImageRunner on the test seeds from 100000, 4
+# control steps of 8 actions each (a full and three cached calls per env)
+ROLLOUT_ENVS = 16
+ROLLOUT_MAX_STEPS = 32
+ROLLOUT_SEED = SEED + 20
+
+
+class RecordingPolicy:
+    """The policy as the runner sees it, keeping every returned action
+    tensor (on the card, not waited for) to check after the rollout."""
+
+    def __init__(self, policy):
+        self.policy, self.device, self.actions = policy, policy.device, []
+
+    def predict_action_async(self, obs_dict, generator=None):
+        out = self.policy.predict_action_async(obs_dict, generator=generator)
+        self.actions.append(out)
+        return out
+
+    def predict_action_cached_async(self, obs_dict, cache=None, n_shift=8, generator=None):
+        out, cond = self.policy.predict_action_cached_async(obs_dict, cache=cache, n_shift=n_shift,
+                                                            generator=generator)
+        self.actions.append(out)
+        return out, cond
+
+
+def device_busy_ms(prof) -> float:
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
+    """Three closed-loop rollouts of the port's PushTImageRunner on the card,
+    each with the launches of every kernel counted over the rollout:
+    (a) the deployed tier (ddim10 + int8 + yuv420, bf16), latent-cached, two
+    streams; (b) the same with the plain-int8 route and the same generator
+    seed, which must give the same per-seed results and final agent
+    positions; (c) bf16 ddim10 uncached, one stream. Returns the launches of
+    each rollout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+    from unified_video_action_tpu_torch.runners.pusht_runner import PushTImageRunner
+
+    meta = os.path.join(LATEST, "meta.json")
+    with open(meta) as f:
+        amp = json.load(f)["cfg"]["model"]["policy"]["autoregressive_model_params"]
+    amp = dict(amp, act_diff_testing_steps="ddim10")
+
+    def make_policy(serving_quant, obs_codec):
+        p = UnifiedVideoActionPolicy.from_run_config(
+            meta, device="cuda", compute_dtype="bfloat16", autoregressive_model_params=amp,
+            obs_codec=obs_codec, serving_quant=serving_quant)
+        p.set_normalizer(normalizer)
+        p.load_params(*trees)
+        return p
+
+    counters = (attention_ops.launch_count, int8_ops.launch_count)
+
+    def counts() -> dict:
+        return {k: v for counter in counters for k, v in counter.items()}
+
+    def rollout(policy, latent_cache, n_streams, profiled=False):
+        runner = PushTImageRunner(n_train=0, n_test=ROLLOUT_ENVS, max_steps=ROLLOUT_MAX_STEPS,
+                                  latent_cache=latent_cache, n_streams=n_streams)
+        recording = RecordingPolicy(policy)
+        gen = torch.Generator(device="cuda").manual_seed(ROLLOUT_SEED)
+        torch.cuda.synchronize()
+        for counter in counters:
+            for k in counter:
+                counter[k] = 0
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                log = runner.run(recording, gen)
+                torch.cuda.synchronize()
+        else:
+            log = runner.run(recording, gen)
+            torch.cuda.synchronize()
+        launches = counts()
+        calls = len(recording.actions)
+        want_calls = n_streams * ROLLOUT_MAX_STEPS // 8
+        batch = ROLLOUT_ENVS // n_streams
+        if calls != want_calls or runner.timing["env_steps"] != want_calls:
+            raise AssertionError(f"{calls} policy calls and {runner.timing['env_steps']} env "
+                                 f"steps, want {want_calls} each: an env did not run to its end")
+        for actions in recording.actions:
+            check_actions(policy, actions, batch)
+        out = {"log": log, "final_agent_pos": runner.final_agent_pos.copy(),
+               "launches": launches, "calls": calls, "batch": batch, "timing": dict(runner.timing)}
+        if profiled:
+            busy = device_busy_ms(prof)
+            out["device_busy_ms"] = busy
+            out["device_idle_share"] = (max(0.0, 1.0 - busy / (runner.timing["wall_s"] * 1e3))
+                                        if busy > 0 else "not measured (no device time profiled)")
+        return out
+
+    def want_launches(policy, calls, batch, int8_route):
+        per_call = attention_launches_per_request(attention_ops, policy.mar_cfg, batch, torch.bfloat16)
+        if int8_route:
+            per_call.update(int8_kernels_per_request(policy, int8_ops, batch))
+        return {k: calls * per_call.get(k, 0) for k in counts()}
+
+    deployed = make_policy("int8", "yuv420")
+    results = {}
+    results["a"] = rollout(deployed, latent_cache=True, n_streams=2, profiled=True)
+    deployed.set_int8_impl("plain")
+    results["b"] = rollout(deployed, latent_cache=True, n_streams=2)
+    deployed.set_int8_impl("kernel")
+    bf16 = make_policy(None, None)
+    results["c"] = rollout(bf16, latent_cache=False, n_streams=1)
+
+    wants = {"a": want_launches(deployed, results["a"]["calls"], results["a"]["batch"], True),
+             "b": want_launches(deployed, results["b"]["calls"], results["b"]["batch"], False),
+             "c": want_launches(bf16, results["c"]["calls"], results["c"]["batch"], False)}
+    for name, r in results.items():
+        log(f"rollout ({name}): {r['calls']} calls at B={r['batch']}, launches {r['launches']}, "
+            f"want {wants[name]}; test/mean_score {r['log']['test/mean_score']:.4f}; "
+            f"timing {json.dumps(r['timing'])}")
+        if r["launches"] != wants[name]:
+            raise AssertionError(f"rollout ({name}): launches {r['launches']}, want {wants[name]}")
+    if results["a"]["log"] != results["b"]["log"]:
+        raise AssertionError(f"rollouts (a) and (b) differ: {results['a']['log']} vs "
+                             f"{results['b']['log']}")
+    if not np.array_equal(results["a"]["final_agent_pos"], results["b"]["final_agent_pos"]):
+        raise AssertionError("rollouts (a) and (b) end with different agent positions")
+    loaded = {m.split(".")[0] for m in sys.modules} - MODULES_BEFORE_THE_PORT
+    if loaded & {"cv2", "dill"}:
+        raise AssertionError(f"the port loaded {sorted(loaded & {'cv2', 'dill'})}")
+    log("rollouts (a) and (b): identical per-seed sim_max_reward and final agent positions; "
+        "no cv2 or dill loaded")
+
+    # the policy calls of rollout (a) alone: a full and a cached call at the
+    # rollout's batch on the host clock, each until its action is on the host
+    # (median of 5)
+    batch = results["a"]["batch"]
+    window = {"image": np.random.default_rng(SEED + 21).random(
+        (batch, 16, 3, 96, 96)).astype(np.float32)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+
+    def call_ms(cached):
+        _, cache = deployed.predict_action_cached(window, generator=gen)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            deployed.predict_action_cached(window, cache=cache if cached else None, generator=gen)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    a, c = results["a"], results["c"]
+    timing = {
+        "full_call_ms": call_ms(False), "cached_call_ms": call_ms(True), "call_batch": batch,
+        "env_control_step_ms_16_envs": 1e3 * c["timing"]["env_step_s"] / c["timing"]["env_steps"],
+        "env_control_step_ms_8_envs": 1e3 * a["timing"]["env_step_s"] / a["timing"]["env_steps"],
+        "rollout_wall_s": {k: r["timing"]["wall_s"] for k, r in results.items()},
+        "rollout_a_device_busy_ms": a.get("device_busy_ms"),
+        "rollout_a_device_idle_share": a.get("device_idle_share"),
+        "card": card_line(),
+    }
+    log("rollout timing " + json.dumps(timing))
+    return {k: r["launches"] for k, r in results.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1064,6 +1248,8 @@ def main() -> int:
     with Phase("deployed"):
         deployed, gemm_request_ms, calls = phase_serve_deployed(
             attention_ops, int8_ops, trees, normalizer)
+    with Phase("rollout"):
+        rollouts = phase_rollout(attention_ops, int8_ops, trees, normalizer)
 
     # the int8_gemm device time of one deployed request: profiled (cached
     # request) and modelled from the kernel phase (every layer's calls times
@@ -1075,13 +1261,18 @@ def main() -> int:
 
     path_row, b1_row = rows[0], rows[1]  # (128, 144, 12, 64) and (1, 144, 12, 64) bf16
     int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
+    rollout_paths = {"rollout_deployed": rollouts["a"], "rollout_plain_int8": rollouts["b"],
+                     "rollout_bf16_uncached": rollouts["c"]}
     attention_by_path = {"predict_action_100_steps": launches,
-                         "predict_action_cached_deployed": {
-                             k: deployed[k] for k in attention_ops.KERNELS}}
+                         "predict_action_cached_deployed": deployed, **rollout_paths}
+    attention_by_path = {path: {k: n[k] for k in attention_ops.KERNELS}
+                         for path, n in attention_by_path.items()}
     attention_launches = {k: sum(p[k] for p in attention_by_path.values())
                           for k in attention_ops.KERNELS}
-    gemm_launches = {k: deployed[k] for k in int8_ops.GEMM_KERNELS}
-    quant_launches = {k: deployed[k] for k in int8_ops.QUANT_KERNELS}
+    int8_by_path = {"predict_action_cached_deployed": deployed,
+                    "rollout_deployed": rollouts["a"]}
+    gemm_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.GEMM_KERNELS}
+    quant_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.QUANT_KERNELS}
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1106,6 +1297,8 @@ def main() -> int:
         "replaces": "unified_video_action_tpu/ops/int8_mm.py:32",
         "launches": sum(gemm_launches.values()),
         "launches_by_kernel": gemm_launches,
+        "launches_by_path": {path: sum(n[k] for k in int8_ops.GEMM_KERNELS)
+                             for path, n in int8_by_path.items()},
         "shape": [int8_row["M"], int8_row["K"], int8_row["N"]],
         "kernel": int8_row["kernel"],
         "max_abs_err": int8_row["bit_equal"]["max_abs_err"],
@@ -1123,6 +1316,8 @@ def main() -> int:
         "replaces": "unified_video_action_tpu/ops/int8_mm.py:96",
         "launches": sum(quant_launches.values()),
         "launches_by_kernel": quant_launches,
+        "launches_by_path": {path: sum(n[k] for k in int8_ops.QUANT_KERNELS)
+                             for path, n in int8_by_path.items()},
         "shape": [int8_row["M"], int8_row["K"]],
         "kernel": int8_row["rows_kernel"],
         "max_abs_err": int8_row["bit_equal"]["x_q_max_abs_err"],

@@ -1,8 +1,10 @@
 """The port stands alone: importing unified_video_action_tpu_torch and every
 module in it loads no JAX, no flax, no optax, no orbax and nothing of the
-JAX package; chip_smoke.py and the card's tests import none of them either,
-and chip_smoke.py refuses to run without a CUDA device or without the
-package beside it.
+JAX package, and no OpenCV or dill (which the card's machine lacks);
+chip_smoke.py and the card's tests import none of them either, and
+chip_smoke.py refuses to run without a CUDA device or without the package
+beside it. eval_sim_torch.py imports nothing of the JAX package (orbax, to
+read an orbax checkpoint, only inside the function that reads it).
 
 The import check runs in a fresh interpreter, since this test process has
 JAX loaded already.
@@ -16,15 +18,18 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "unified_video_action_tpu")
+NOT_ON_THE_CARD = ("cv2", "dill")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
+import numpy, torch
+torch_roots = sorted({m.split(".")[0] for m in sys.modules})
 import unified_video_action_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 roots = sorted({m.split(".")[0] for m in sys.modules})
-print(json.dumps({"modules": names, "roots": roots}))
+print(json.dumps({"modules": names, "roots": roots, "torch_roots": torch_roots}))
 """
 
 
@@ -44,10 +49,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "models.mar", "models.vae", "models.heads", "models.denoiser",
                      "models.transformer", "models.diffusion.gaussian", "policy.policy",
                      "utils.image", "utils.obs_codec", "utils.frames", "utils.device",
-                     "data.normalizer"):
+                     "data.normalizer", "envs.physics2d", "envs.raster", "envs.pusht",
+                     "envs.wrappers", "runners.base", "runners.pusht_runner", "utils.ckpt_id",
+                     "config"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+    # torch itself imports dill where dill is installed; the port adds neither
+    added = loaded - set(result["torch_roots"])
+    assert not added & set(NOT_ON_THE_CARD), sorted(added & set(NOT_ON_THE_CARD))
+    assert "cv2" not in loaded
 
 
 def _imported_roots(path):
@@ -69,8 +80,30 @@ def test_chip_smoke_the_port_and_its_card_tests_import_no_jax():
     for root, _, files in os.walk(os.path.join(REPO, "unified_video_action_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in sources:
-        bad = _imported_roots(path) & set(FORBIDDEN)
+        bad = _imported_roots(path) & set(FORBIDDEN + NOT_ON_THE_CARD)
         assert not bad, (path, bad)
+
+
+def _module_level_roots(path):
+    """The roots imported at the top level of a file (not inside a function)."""
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_eval_sim_torch_imports_nothing_of_the_jax_package():
+    path = os.path.join(REPO, "eval_sim_torch.py")
+    everywhere = _imported_roots(path)
+    assert not everywhere & {"jax", "jaxlib", "flax", "optax", "unified_video_action_tpu",
+                             *NOT_ON_THE_CARD}, everywhere
+    assert "orbax" not in _module_level_roots(path)
+    out = _run([path, "--help"], cwd=REPO)
+    assert out.returncode == 0 and "--weights" in out.stdout, out.stderr
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from tests._torch_parity import (
+    FP32_TOL,
     TINY_POLICY_KW,
     assert_int8_chunks,
     policy_draws,
@@ -118,7 +119,7 @@ def test_cuda_is_required_unless_the_cpu_is_asked_for(monkeypatch):
         UnifiedVideoActionPolicy(**TINY_POLICY_KW)
 
 
-@pytest.mark.parametrize("option", [{"language_emb_model": "clip"}, {"vae_encode_chunk": 8},
+@pytest.mark.parametrize("option", [{"language_emb_model": "clip"}, {"use_history_action": True},
                                     {"use_proprioception": True}])
 def test_unported_options_are_refused(option):
     with pytest.raises(NotImplementedError):
@@ -256,3 +257,56 @@ def test_flagship_deployed_tier_builds():
     assert len(quant) == 24 * 4 + 6 * 3 + 3
     assert all(m.w_scale.dtype == m.bias.dtype == torch.float32 for m in quant)
     assert policy.noise_shapes(1, 2)["vae"] == (2, 16, 6, 6)
+
+
+@pytest.mark.parametrize("n_frames", [8, 7])
+def test_vae_encode_chunk_equals_the_unchunked_encode(n_frames):
+    # chunks of 3: two full chunks and a remainder of 2 or 1 frames, encoded
+    # as one more call. The chunked encode equals the unchunked one to float32
+    # rounding: a convolution library picks its algorithm by batch size (the
+    # port at 8 frames bit-equal, at 7 up to 9.5e-7 off through the 1-frame
+    # tail; JAX's chunked _encode_frames, lax.map over the divisible prefix
+    # then the tail, up to 1.3e-6 off its unchunked encode). Held to FP32_TOL,
+    # and the port's chunked encode to JAX's.
+    kw = _kwargs("ddim10")
+    rng = np.random.default_rng(4)
+    frames = rng.uniform(-1, 1, (n_frames, 1, 3, 32, 32)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    jp, jc = JaxPolicy(**kw), JaxPolicy(**kw, vae_encode_chunk=3)
+    params = random_params(jax.eval_shape(jp.init_params, jax.random.PRNGKey(0)), seed=0)
+    want = np.asarray(jp._encode_frames(params["vae"], jnp.asarray(frames), key))
+    np.testing.assert_allclose(np.asarray(jc._encode_frames(params["vae"], jnp.asarray(frames), key)),
+                               want, **FP32_TOL)
+
+    port = UnifiedVideoActionPolicy(**kw, vae_encode_chunk=3, device="cpu")
+    port.load_params(to_numpy(params["mar"]), to_numpy(params["vae"]))
+    assert port.vae_encode_chunk == 3
+    noise = torch.tensor(np.asarray(jax.random.normal(key, (n_frames, 8, 4, 4))))  # as sample_posterior draws
+    calls = []
+    encode = port.vae.encode
+    port.vae.encode = lambda x: (calls.append(x.shape[0]), encode(x))[1]
+    chunked = port._encode_frames(torch.from_numpy(frames), noise)
+    assert calls == [3, 3, 2] if n_frames == 8 else calls == [3, 3, 1]
+    port.vae_encode_chunk = 0
+    np.testing.assert_allclose(chunked.numpy(),
+                               port._encode_frames(torch.from_numpy(frames), noise).numpy(), **FP32_TOL)
+    np.testing.assert_allclose(chunked.numpy(), want, **FP32_TOL)
+
+
+def test_async_halves_equal_the_host_entry_points():
+    port = UnifiedVideoActionPolicy(**_kwargs("ddim10"), **DEPLOYED, device="cpu")
+    obs = {"image": np.random.default_rng(7).random((2, 16, 3, 32, 32)).astype(np.float32)}
+    noise = port.sample_noise(2, torch.Generator().manual_seed(8))
+    nact = port.predict_action_async(obs, noise=noise)
+    assert isinstance(nact, torch.Tensor) and nact.shape == (2, 16, 2)
+    np.testing.assert_array_equal(nact.cpu().numpy(), port.predict_action(obs, noise=noise)["action_pred"])
+
+    cache = None
+    for n_new in (4, 2):
+        noise = port.sample_noise(2, torch.Generator().manual_seed(9 + n_new), n_new=n_new)
+        nact, cond = port.predict_action_cached_async(obs, cache=cache, noise=noise)
+        result, cond_sync = port.predict_action_cached(obs, cache=cache, noise=noise)
+        np.testing.assert_array_equal(nact.cpu().numpy(), result["action_pred"])
+        np.testing.assert_array_equal(result["action"], result["action_pred"][:, :8])
+        assert torch.equal(cond, cond_sync)
+        cache = cond

@@ -123,3 +123,25 @@ def test_int32_product_is_exact_where_float32_is_not():
     y = quant.int8_gemm_plain(x_q, w_q)
     assert y[0, 0].item() == 127 * 127 * 3072
     assert y[1, 0].item() == 127 * 127 * 3071 - 126 * 127
+
+
+# The CPU route of the s8 product (torch._int_mm, int32 accumulation) against
+# the float64 product that stays the card's oracle, at the flagship's W8A8
+# shapes at B=2 of a runner stream of 25 envs (MAR: 144 tokens a sample; the
+# denoiser: 16 action tokens a sample), with rows and columns at +-127 so
+# that the partial sums reach 127² · K.
+PATH_SHAPES = [(25 * 144, 768, 2304), (25 * 144, 768, 768), (25 * 144, 768, 3072),
+               (25 * 144, 3072, 768), (25 * 16, 1024, 1024), (25 * 16, 1024, 3072),
+               (25 * 16, 768, 1024), (25 * 16, 2, 1024), (16, 1024, 1024), (1, 768, 768)]
+
+
+@pytest.mark.parametrize("M,K,N", PATH_SHAPES)
+def test_cpu_int8_product_equals_the_float64_product(M, K, N):
+    gen = torch.Generator().manual_seed(M + K + N)
+    x_q = torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=gen)
+    w_q = torch.randint(-127, 128, (N, K), dtype=torch.int8, generator=gen)
+    x_q[0], w_q[0], w_q[1] = 127, 127, -127
+    y = quant.int8_gemm_plain(x_q, w_q)
+    want = (x_q.double() @ w_q.double().T).to(torch.int32)
+    assert y.dtype == torch.int32 and torch.equal(y, want)
+    assert y[0, 0] == 127 * 127 * K and y[0, 1] == -127 * 127 * K

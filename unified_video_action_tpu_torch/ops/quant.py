@@ -54,7 +54,12 @@ def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def int8_gemm_plain(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 times the (N, K) int8 weight -> (M, N) int32, exact: the
     product runs in float64, whose 53-bit mantissa holds every partial sum
-    (at most 127² · K; float32 would not: 127² · 3072 > 2²⁴)."""
+    (at most 127² · K; float32 would not: 127² · 3072 > 2²⁴). This is the
+    card's oracle for the GEMM kernels. CPU tensors take ``torch._int_mm``,
+    which accumulates in int32 and so gives the same integers (every partial
+    sum fits: 127² · 3072 < 2³¹), several times faster."""
+    if x_q.device.type == "cpu":
+        return torch._int_mm(x_q, w_q.T)
     return (x_q.double() @ w_q.double().T).to(torch.int32)
 
 

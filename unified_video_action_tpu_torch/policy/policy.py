@@ -1,6 +1,7 @@
 """UnifiedVideoActionPolicy for serving (port of ``policy/policy.py:353-630``:
-``_prep_frames``, ``_encode_frames``, ``sample_policy``, the unnormalize
-step, ``predict_action`` and the latent-cached ``predict_action_cached``).
+``_prep_frames``, ``_encode_frames`` (with ``vae_encode_chunk``),
+``sample_policy``, the unnormalize step, ``predict_action`` and the
+latent-cached ``predict_action_cached``, each with its ``*_async`` half).
 
 ``predict_action`` takes the observation dict, as JAX's does: it selects
 the conditioning frames of the window on the host (packed to YUV420 under
@@ -10,8 +11,10 @@ returns a (B, 16, action_dim) action chunk: decode, resize and map to
 ``LATENT_SCALE``, one MAR encoder+decoder pass, the action head's diffusion
 sampler, then unnormalize. ``predict_action_cached`` takes the observation
 window too, VAE-encodes only the selected frames it has not seen at the
-previous control step and reuses the cached latents of the others.
-Randomness is either drawn from a ``torch.Generator`` or injected as a dict
+previous control step and reuses the cached latents of the others. Their
+``*_async`` halves do the same host work and return the action tensor on the
+device without waiting for it (the rollout runner overlaps env stepping with
+it). Randomness is either drawn from a ``torch.Generator`` or injected as a dict
 of tensors (:meth:`UnifiedVideoActionPolicy.sample_noise` says which).
 
 The constructor takes the JAX policy's keyword arguments (the
@@ -53,7 +56,6 @@ _IGNORED_KEYS = {"attn_impl"}
 _UNPORTED_KEYS = {
     "use_history_action", "use_proprioception", "different_history_freq",
     "predict_wrist_img", "predict_proprioception", "language_emb_model",
-    "vae_encode_chunk",
 }
 # Subtrees of the JAX parameter trees that no ported module holds yet.
 MAR_SKIP = (("diffloss",),)          # video head: not on the policy path
@@ -81,6 +83,7 @@ class UnifiedVideoActionPolicy:
         compute_dtype: str = "bfloat16",
         serving_quant: Optional[str] = None,
         obs_codec: Optional[str] = None,
+        vae_encode_chunk: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         **kwargs: Any,
     ):
@@ -113,6 +116,7 @@ class UnifiedVideoActionPolicy:
         self.temperature = float(_get(amp, "temperature", 1.0))
         self.serving_quant = serving_quant if serving_quant == "int8" else None
         self.obs_codec = obs_codec if obs_codec == "yuv420" else None
+        self.vae_encode_chunk = int(vae_encode_chunk or 0)
 
         model_size = _get(amp, "model_size", "mar_base")
         if model_size == "custom":
@@ -157,7 +161,12 @@ class UnifiedVideoActionPolicy:
         ``cfg`` is the run config), e.g.
         ``pretrained_models/uva_pusht_small/latest/meta.json``."""
         with open(meta_path) as f:
-            cfg = json.load(f)["cfg"]
+            return cls.from_cfg(json.load(f)["cfg"], **overrides)
+
+    @classmethod
+    def from_cfg(cls, cfg: Mapping, **overrides: Any) -> "UnifiedVideoActionPolicy":
+        """Build from a run config (a nested dict: ``model.policy`` and
+        ``task.name``)."""
         kwargs = {k: v for k, v in cfg["model"]["policy"].items() if k != "_target_"}
         kwargs["task_name"] = cfg["task"]["name"]
         kwargs.update(overrides)
@@ -228,9 +237,18 @@ class UnifiedVideoActionPolicy:
         return image_util.to_model_range(frames)
 
     def _encode_frames(self, frames: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        """(B, T, 3, H, W) in [-1, 1] -> (B, T, C, h, w) scaled latents."""
+        """(B, T, 3, H, W) in [-1, 1] -> (B, T, C, h, w) scaled latents. With
+        ``vae_encode_chunk`` = ck and more than ck frames, the VAE encodes ck
+        frames a call and the remainder in one more (``policy.py:352-384``);
+        the posterior noise is drawn for all frames at once either way."""
         B, T = frames.shape[:2]
-        mean, logvar = self.vae.encode(frames.reshape(B * T, *frames.shape[2:]))
+        flat = frames.reshape(B * T, *frames.shape[2:])
+        ck = self.vae_encode_chunk
+        if ck and flat.shape[0] > ck:
+            parts = [self.vae.encode(flat[i:i + ck]) for i in range(0, flat.shape[0], ck)]
+            mean, logvar = (torch.cat(t) for t in zip(*parts))
+        else:
+            mean, logvar = self.vae.encode(flat)
         z = sample_posterior(mean, logvar, noise) * LATENT_SCALE
         return z.reshape(B, T, *z.shape[1:])
 
@@ -243,16 +261,26 @@ class UnifiedVideoActionPolicy:
             nact = self.normalizer["action"].unnormalize(nact)
         return nact
 
-    @torch.no_grad()
     def predict_action(self, obs_dict: Mapping[str, Any], generator: Optional[torch.Generator] = None,
                        noise: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, np.ndarray]:
-        """JAX's ``predict_action`` (``policy.py:574-630``): ``obs_dict["image"]``
+        """JAX's ``predict_action`` (``policy.py:574-590``): ``obs_dict["image"]``
         is the observation window on the host, (B, T, 3, H, W) uint8 or float
-        in [0, 1]. The frames of ``select_frame_indices(T)`` are selected on
-        the host, float frames rounded to uint8, and under
-        ``obs_codec="yuv420"`` packed to YUV420 there; one copy to the device,
-        then :meth:`predict_action_frames`. Returns numpy ``{"action": (B,
-        n_action_steps, A), "action_pred": (B, 16, A)}``, unnormalized fp32."""
+        in [0, 1]. Returns numpy ``{"action": (B, n_action_steps, A),
+        "action_pred": (B, 16, A)}``, unnormalized fp32: the action of
+        :meth:`predict_action_async`, copied to the host."""
+        action_pred = self.predict_action_async(obs_dict, generator, noise).cpu().numpy()
+        return {"action": action_pred[:, : self.n_action_steps], "action_pred": action_pred}
+
+    @torch.no_grad()
+    def predict_action_async(self, obs_dict: Mapping[str, Any],
+                             generator: Optional[torch.Generator] = None,
+                             noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """The dispatch half of :meth:`predict_action` (``policy.py:592-630``):
+        the frames of ``select_frame_indices(T)`` are selected on the host,
+        float frames rounded to uint8, and under ``obs_codec="yuv420"`` packed
+        to YUV420 there; one copy to the device, then
+        :meth:`predict_action_frames`. Returns the (B, 16, A) unnormalized
+        action tensor on the policy's device, without waiting for it."""
         obs = image_util.remap_image_keys(self.task_name, dict(obs_dict))
         image = np.asarray(obs["image"])
         sel = image[:, select_frame_indices(image.shape[1], self.mar_cfg.n_frames)]
@@ -261,8 +289,7 @@ class UnifiedVideoActionPolicy:
         if self.obs_codec == "yuv420":
             sel = obs_codec_util.encode_yuv420(sel)
         frames = torch.from_numpy(np.ascontiguousarray(sel))
-        action_pred = self.predict_action_frames(frames, generator, noise).cpu().numpy()
-        return {"action": action_pred[:, : self.n_action_steps], "action_pred": action_pred}
+        return self.predict_action_frames(frames, generator, noise)
 
     @torch.no_grad()
     def predict_action_frames(self, frames: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -297,7 +324,6 @@ class UnifiedVideoActionPolicy:
             return [], idx
         return reuse_from, idx[len(reuse_from):]
 
-    @torch.no_grad()
     def predict_action_cached(
         self,
         obs_dict: Mapping[str, Any],
@@ -306,7 +332,27 @@ class UnifiedVideoActionPolicy:
         noise: Optional[Mapping[str, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[Dict[str, np.ndarray], torch.Tensor]:
-        """Rollout serving with latent reuse (``policy.py:453-568``).
+        """Rollout serving with latent reuse (``policy.py:481-509``): the
+        action of :meth:`predict_action_cached_async` copied to the host.
+
+        Returns ``({"action": (B, n_action_steps, A), "action_pred": (B, 16, A)}``
+        as numpy arrays, ``new cache``); the cache stays on the device.
+        """
+        nact, cond = self.predict_action_cached_async(obs_dict, cache, n_shift, noise, generator)
+        action_pred = nact.cpu().numpy()
+        return {"action": action_pred[:, : self.n_action_steps], "action_pred": action_pred}, cond
+
+    @torch.no_grad()
+    def predict_action_cached_async(
+        self,
+        obs_dict: Mapping[str, Any],
+        cache: Optional[torch.Tensor] = None,
+        n_shift: int = 8,
+        noise: Optional[Mapping[str, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The dispatch half of :meth:`predict_action_cached`
+        (``policy.py:511-572``).
 
         ``obs_dict["image"]``: the observation window, (B, T, 3, H, W) uint8 or
         float in [0, 1], on the host. ``cache``: the previous call's
@@ -316,8 +362,9 @@ class UnifiedVideoActionPolicy:
         under ``obs_codec="yuv420"``); ``noise["vae"]`` covers those frames
         only (``noise_shapes(B, n_new)``, ``n_new`` from :meth:`cache_plan`).
 
-        Returns ``({"action": (B, n_action_steps, A), "action_pred": (B, 16, A)}``
-        as numpy arrays, ``new cache``); the cache stays on the device.
+        Returns ``(action_pred, new cache)`` on the device without waiting
+        for them: the (B, 16, A) unnormalized actions and the (B, 4, C, h, w)
+        latents.
         """
         obs = image_util.remap_image_keys(self.task_name, dict(obs_dict))
         image = np.asarray(obs["image"])
@@ -334,8 +381,7 @@ class UnifiedVideoActionPolicy:
         if self.obs_codec == "yuv420":
             new = obs_codec_util.encode_yuv420(new)
         noise = self._noise(B, len(new_positions), noise, generator)
-        frames = self._prep_frames(torch.from_numpy(new).to(self.device))
+        frames = self._prep_frames(torch.from_numpy(np.ascontiguousarray(new)).to(self.device))
         new_lat = self._encode_frames(frames, noise["vae"])
         cond = torch.cat([cache[:, reuse_from], new_lat], dim=1) if reuse_from else new_lat
-        action_pred = self._sample(cond, noise).cpu().numpy()
-        return {"action": action_pred[:, : self.n_action_steps], "action_pred": action_pred}, cond
+        return self._sample(cond, noise), cond
