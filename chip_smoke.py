@@ -14,7 +14,9 @@ script exits non-zero without its result line):
            serving paths' shapes and beyond, with times (CUDA-graph replay)
            beside its bound and beside one PyTorch library call computing
            the same function; every launch lands on the kernel its plan
-           names (attention_plan, quantize_plan, gemm_plan); the int8
+           names (attention_plan, quantize_plan, gemm_plan); the attention
+           kernels within attention_check's limits, which a planted
+           unmasked ragged KV edge must fail at every ragged N; the int8
            kernels must be bit-equal, also with each planted fault (below)
            shown to break that.
 4. serve   UnifiedVideoActionPolicy.predict_action_frames (the predict
@@ -30,7 +32,17 @@ script exits non-zero without its result line):
            against the plain-attention route under the same noise, controls
            (the kernel with planted faults, which that comparison must
            reject), and the card in fp32 against the port on the CPU in fp32.
-5. deployed  the deployed tier, predict_action_cached with ddim10 +
+5. serve_256px  the reference's own PushT model as the JAX package's parity
+           tier serves it (config.PUSHT_256: mar_base, 96 px frames upscaled
+           to 256 on the card, 1024 tokens, the KL-16 VAE with ch 128, 100
+           sampler steps, bf16), numpy-seeded MAR, denoiser and VAE weights:
+           the obs-dict predict_action at B=1 and B=128 with the online-
+           softmax attention kernel launched once per ViT block (and no
+           other attention kernel), the kernel route against the plain
+           route at B=8 with the serve limits and the controls that can
+           plant a fault at N = 1024, request times, a stage breakdown and
+           the device's busy share.
+6. deployed  the deployed tier, predict_action_cached with ddim10 +
            serving_quant="int8" + obs_codec="yuv420", same width and
            weights, bf16, at B=1 and B=128: a full call on a 16-frame window,
            then a cached call (n_shift=8) that encodes 2 new frames. Checks:
@@ -41,7 +53,7 @@ script exits non-zero without its result line):
            that comparison must reject), and the int8 route apart from the
            bf16 route. Request times, a stage breakdown and the device's
            busy share.
-6. rollout the PushT evaluation path: PushTImageRunner (16 test seeds from
+7. rollout the PushT evaluation path: PushTImageRunner (16 test seeds from
            100000, 32 env steps: a full and three cached calls per env) at
            the same width and weights, closing the loop through the port's
            env. (a) the deployed tier latent-cached over two streams, (b) the
@@ -91,6 +103,19 @@ PEAK_INT8_OPS = 1979e12
 KERNEL_SOURCES = ("attention", "int8_mm")
 # attention: atol of tests/test_ops.py
 ATTN_ATOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+# bf16 attention, beside ATTN_ATOL, limits that scale with the output (an
+# output's RMS is about sqrt(e / N) for randn q, k, v: 0.05 at N = 1024, so
+# ATTN_ATOL alone would pass a kernel whose outputs are all a few percent
+# off): ||kernel - plain|| / ||plain|| (the bf16 roundings of P and of the
+# output give about 2.5e-3; a KV edge left unmasked at N = 1000, 24 zero keys
+# in the softmax, gives 1.4e-2) and max |kernel - plain| / RMS(plain) (about
+# 0.03; one wrong q-tile gives several)
+ATTN_BF16_REL_RMS = 6e-3
+ATTN_BF16_MAX_OVER_RMS = 0.1
+# the KV rows past N that a kernel's TMA loads fill with zeros, which only
+# its mask keeps out of the softmax: the single-pass kernel holds 144 rows,
+# the online kernel streams 128-row tiles (csrc/attention.cu)
+KV_EDGE = {"attention_wgmma": 144, "attention_wgmma_online": 128}
 # serve, the kernel route against the plain route in bf16 under the same
 # noise (P is rounded to bf16 in the kernel and not in the plain version):
 # - the decoder output that conditions the action head, after 24 bf16
@@ -201,37 +226,89 @@ def attention_bound(B: int, N: int, H: int, D: int, dtype: torch.dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# (B, N, H, dtype, aligned): aligned cases are strided views of one qkv
+# tensor, as the fused projection leaves them; the unaligned one starts them
+# an element off a 16-byte boundary (the mma.sync kernel's only inputs)
 ATTENTION_CASES = [
-    (128, 144, 12, torch.bfloat16),  # the serving shape at B=128
-    (1, 144, 12, torch.bfloat16),  # the serving shape at B=1
-    (128, 144, 12, torch.float32), (8, 137, 12, torch.bfloat16),  # a ragged single-pass N
-    (8, 100, 12, torch.bfloat16), (8, 100, 12, torch.float32),
-    (8, 256, 12, torch.bfloat16), (8, 257, 12, torch.bfloat16),  # the single-pass limit, + 1
-    (8, 1088, 12, torch.bfloat16), (8, 1088, 12, torch.float32),
-    (1, 2304, 12, torch.bfloat16), (1, 2304, 12, torch.float32),
+    (128, 144, 12, torch.bfloat16, True),  # the serving shape at B=128
+    (1, 144, 12, torch.bfloat16, True),  # the serving shape at B=1
+    (128, 1024, 12, torch.bfloat16, True),  # the 256 px path at B=128
+    (1, 1024, 12, torch.bfloat16, True),  # the 256 px path at B=1 (64-row items)
+    (128, 144, 12, torch.float32, True),
+    (8, 137, 12, torch.bfloat16, True),  # a ragged single-pass N (7 rows of edge)
+    (8, 100, 12, torch.bfloat16, True), (8, 100, 12, torch.float32, True),
+    # past the single-pass kernel's limit, the online kernel: ragged last KV
+    # tiles of 17, 1, 104 and 64 rows at N = 145, 257, 1000 and 1088, in 64-row
+    # work items at B = 1 and N <= 257 and in 128-row ones at (8, 1000), (8, 1088)
+    (8, 145, 12, torch.bfloat16, True), (8, 256, 12, torch.bfloat16, True),
+    (8, 257, 12, torch.bfloat16, True), (8, 1000, 12, torch.bfloat16, True),
+    (1, 1000, 12, torch.bfloat16, True),
+    (8, 1088, 12, torch.bfloat16, True), (8, 1088, 12, torch.float32, True),
+    (1, 2304, 12, torch.bfloat16, True), (1, 2304, 12, torch.float32, True),
+    (8, 1088, 12, torch.bfloat16, False),
 ]
+
+
+def attention_row(rows, B: int, N: int, dtype=torch.bfloat16) -> dict:
+    """The kernel phase's row of one aligned case."""
+    name = str(dtype).split(".")[-1]
+    return next(r for r in rows if (r["B"], r["N"], r["dtype"], r["aligned"]) == (B, N, name, True))
+
+
+def attention_check(out: torch.Tensor, ref: torch.Tensor):
+    """(errors, ok): a kernel's output against the plain version's, with
+    ATTN_ATOL and, in bf16, ATTN_BF16_REL_RMS and ATTN_BF16_MAX_OVER_RMS."""
+    diff, ref = out.float() - ref.float(), ref.float()
+    rms = ref.pow(2).mean().sqrt().item()
+    errs = {"max_abs_err": diff.abs().max().item(),
+            "rel_rms_err": diff.norm().item() / max(ref.norm().item(), 1e-30)}
+    errs["max_err_over_rms"] = errs["max_abs_err"] / max(rms, 1e-30)
+    ok = errs["max_abs_err"] <= ATTN_ATOL[out.dtype] and bool(torch.isfinite(out).all())
+    if out.dtype == torch.bfloat16:
+        ok = (ok and errs["rel_rms_err"] <= ATTN_BF16_REL_RMS
+              and errs["max_err_over_rms"] <= ATTN_BF16_MAX_OVER_RMS)
+    return errs, ok
+
+
+def unmasked_edge_control(attention_ops, q, k, v, edge: int) -> dict:
+    """The real kernel with its ragged KV edge left unmasked, planted by
+    padding q, k and v with zeros up to a multiple of ``edge``: the softmax
+    then weighs the zero keys that TMA fills past N. ``attention_check``
+    must reject it."""
+    n = q.shape[1]
+    padded = (F.pad(x, (0, 0, 0, 0, 0, -n % edge)) for x in (q, k, v))
+    out = attention_ops.flash_attention(*padded)[:, :n]
+    errs, ok = attention_check(out, attention_ops.attention_plain(q, k, v))
+    return {"rows": -n % edge, **errs, "rejected": not ok}
 
 
 def phase_kernel(attention_ops):
     """Every case of ATTENTION_CASES: one launch, of the kernel
-    ``attention_plan`` names, within ATTN_ATOL of the plain version; then
-    its time by CUDA-graph replay beside ``scaled_dot_product_attention``'s
-    (kernel, library, library, kernel), the plain version's and the bound."""
+    ``attention_plan`` names, within ``attention_check``'s limits of the
+    plain version, and where N leaves a ragged KV edge, that edge planted
+    unmasked must fail them; then its time by CUDA-graph replay beside
+    ``scaled_dot_product_attention``'s (kernel, library, library, kernel),
+    the plain version's and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for B, N, H, dtype in ATTENTION_CASES:
-        # the layout the fused qkv projection gives the kernel: strided views
-        qkv = torch.randn(B, N, 3, H, 64, generator=gen, device="cuda").to(dtype)
+    for B, N, H, dtype, aligned in ATTENTION_CASES:
+        shape = (B, N, 3, H, 64)
+        flat = torch.randn(int(np.prod(shape)) + (not aligned), generator=gen, device="cuda")
+        qkv = flat.to(dtype)[int(not aligned):].view(shape)
         q, k, v = qkv.unbind(2)
-        plan = attention_ops.attention_plan(B, N, H, dtype)
+        if attention_ops._check(q, k, v) != aligned:
+            raise AssertionError(f"case ({B}, {N}, {H}, {dtype}): not {'un' * (not aligned)}aligned")
+        plan = attention_ops.attention_plan(B, N, H, dtype, aligned)
         before = dict(attention_ops.launch_count)
         out = attention_ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
         launched = {n: c - before[n] for n, c in attention_ops.launch_count.items() if c != before[n]}
-        ref = attention_ops.attention_plain(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = (err <= ATTN_ATOL[dtype] and bool(torch.isfinite(out).all())
-              and launched == {plan.kernel: 1})
+        errs, ok = attention_check(out, attention_ops.attention_plain(q, k, v))
+        ok = ok and launched == {plan.kernel: 1}
+        edge = KV_EDGE.get(plan.kernel)
+        control = (unmasked_edge_control(attention_ops, q, k, v, edge)
+                   if edge and N % edge else None)
+        ok = ok and (control is None or control["rejected"])
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         calls = {"kernel": lambda: attention_ops.flash_attention(q, k, v),
                  "library": lambda: F.scaled_dot_product_attention(qt, kt, vt)}
@@ -240,15 +317,16 @@ def phase_kernel(attention_ops):
             readings[which].append(graph_ms(calls[which]))
         bound_ms, bound_by = attention_bound(B, N, H, 64, dtype)
         ms = statistics.mean(readings["kernel"])
-        row = dict(B=B, N=N, H=H, D=64, dtype=str(dtype).split(".")[-1], kernel=plan.kernel,
-                   kv=plan.kv, split=plan.split, launched=launched, max_abs_err=err,
-                   atol=ATTN_ATOL[dtype], ms=ms, readings=readings,
+        row = dict(B=B, N=N, H=H, D=64, dtype=str(dtype).split(".")[-1], aligned=aligned,
+                   kernel=plan.kernel, split=plan.split, launched=launched, **errs,
+                   atol=ATTN_ATOL[dtype], unmasked_edge_control=control, ms=ms, readings=readings,
                    plain_ms=time_ms(lambda: attention_ops.attention_plain(q, k, v), reps=5),
                    library_ms=statistics.mean(readings["library"]),
                    bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms)
         log("attention " + json.dumps(row))
         if not ok:
-            raise AssertionError(f"attention kernel disagrees with its plain version or its plan: {row}")
+            raise AssertionError(f"attention kernel disagrees with its plain version or its "
+                                 f"plan, or its checks pass an unmasked KV edge: {row}")
         rows.append(row)
     return rows
 
@@ -387,8 +465,81 @@ def serving_weights(meta_policy):
     return convert.seeded_tree(meta_policy.mar, SEED), convert.load_flat_npz(VAE_NPZ)
 
 
-def phase_serve(attention_ops, trees, normalizer):
+def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, rejected) -> dict:
+    """The kernel route of the bf16 ``policy`` against its plain-attention
+    route at each batch of ``frames`` under the same weights and noise: the
+    decoder output z, each route's mean |z - z_fp32| against ``policy32``'s
+    (fp32, plain attention) within SERVE_Z_FLOOR_RATIO of the plain route's,
+    and the normalized actions within the serve limits. Then each planted
+    fault of ``control_faults`` through the same comparison: those named in
+    ``rejected`` must fail it (at some batch), else the limits could not tell
+    a wrong kernel. Raises on a failure; returns the kernel route's
+    differences by batch."""
     from unified_video_action_tpu_torch.models import transformer
+
+    refs = {}
+    with torch.no_grad():
+        policy.set_attn_impl("plain")
+        policy32.set_attn_impl("plain")
+        for B in frames:
+            cond = policy._encode_frames(policy._prep_frames(frames[B].cuda()), noise[B]["vae"])
+            refs[B] = {
+                "cond": cond, "z_ref": policy32.mar.policy_latents(cond),
+                "z_plain": policy.mar.policy_latents(cond).float(),
+                "actions": normalized(policy, policy.predict_action_frames(frames[B], noise=noise[B])),
+            }
+        policy32.set_attn_impl("kernel")
+        policy.set_attn_impl("kernel")
+
+    def against_plain(B: int) -> dict:
+        """The route ``policy`` is set to, against the plain route, at batch B."""
+        r = refs[B]
+        with torch.no_grad():
+            z = policy.mar.policy_latents(r["cond"]).float()
+        actions = policy.predict_action_frames(frames[B], noise=noise[B])
+        da = (normalized(policy, actions) - r["actions"]).abs().flatten()
+        return {
+            "z_err_kernel": (z - r["z_ref"]).abs().mean().item(),
+            "z_err_plain": (r["z_plain"] - r["z_ref"]).abs().mean().item(),
+            "z_kernel_vs_plain_max": (z - r["z_plain"]).abs().max().item(),
+            "z_max": r["z_ref"].abs().max().item(),
+            "action_mean": da.mean().item(),
+            "action_p99": torch.quantile(da, 0.99).item(),
+            "action_max": da.max().item(),
+        }
+
+    def within_limits(d: dict) -> bool:
+        return (d["z_err_kernel"] <= SERVE_Z_FLOOR_RATIO * d["z_err_plain"]
+                and d["action_mean"] <= SERVE_ACTION_MEAN_ATOL
+                and d["action_p99"] <= SERVE_ACTION_P99_ATOL)
+
+    diffs = {B: against_plain(B) for B in frames}
+    log(f"kernel vs plain attention, bf16: {json.dumps(diffs)}; limits: z_err_kernel <= "
+        f"{SERVE_Z_FLOOR_RATIO} z_err_plain, action_mean {SERVE_ACTION_MEAN_ATOL}, "
+        f"action_p99 {SERVE_ACTION_P99_ATOL}")
+    for B, d in diffs.items():
+        if not within_limits(d):
+            raise AssertionError(f"B={B}: kernel route disagrees with the plain route: {d}")
+
+    control_diffs = {}
+    try:
+        for name, fault in control_faults(attention_ops).items():
+            transformer.ATTN_IMPLS["control"] = fault
+            policy.set_attn_impl("control")
+            control_diffs[name] = {B: against_plain(B) for B in frames}
+            control_diffs[name]["rejected"] = not all(
+                within_limits(control_diffs[name][B]) for B in frames)
+    finally:
+        policy.set_attn_impl("kernel")
+        transformer.ATTN_IMPLS.pop("control", None)
+    log(f"controls, faulty kernels against the plain route: {json.dumps(control_diffs)}")
+    passed = [name for name, d in control_diffs.items() if name in rejected and not d["rejected"]]
+    if passed:
+        raise AssertionError(f"faulty kernels pass the serve limits: {passed}")
+    return diffs
+
+
+def phase_serve(attention_ops, trees, normalizer):
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
     meta = os.path.join(LATEST, "meta.json")
@@ -456,74 +607,7 @@ def phase_serve(attention_ops, trees, normalizer):
     torch.backends.cuda.matmul.allow_tf32 = False
     policy32 = make_policy("cuda", "float32")
     policy32.load_params(mar_tree, vae_tree)
-
-    # the kernel route against the plain route, same weights and noise
-    refs = {}
-    with torch.no_grad():
-        policy.set_attn_impl("plain")
-        for B in (1, 128):
-            cond = policy._encode_frames(policy._prep_frames(frames[B].cuda()), noise[B]["vae"])
-            policy32.set_attn_impl("plain")
-            z_ref = policy32.mar.policy_latents(cond)
-            policy32.set_attn_impl("kernel")
-            refs[B] = {
-                "cond": cond, "z_ref": z_ref,
-                "z_plain": policy.mar.policy_latents(cond).float(),
-                "actions": normalized(policy, policy.predict_action_frames(frames[B], noise=noise[B])),
-            }
-        policy.set_attn_impl("kernel")
-
-    def against_plain(B: int, route_actions: torch.Tensor) -> dict:
-        """The route ``policy`` is set to, against the plain route, at batch B."""
-        r = refs[B]
-        with torch.no_grad():
-            z = policy.mar.policy_latents(r["cond"]).float()
-        da = (normalized(policy, route_actions) - r["actions"]).abs().flatten()
-        return {
-            "z_err_kernel": (z - r["z_ref"]).abs().mean().item(),
-            "z_err_plain": (r["z_plain"] - r["z_ref"]).abs().mean().item(),
-            "z_kernel_vs_plain_max": (z - r["z_plain"]).abs().max().item(),
-            "z_max": r["z_ref"].abs().max().item(),
-            "action_mean": da.mean().item(),
-            "action_p99": torch.quantile(da, 0.99).item(),
-            "action_max": da.max().item(),
-        }
-
-    def within_limits(d: dict) -> bool:
-        return (d["z_err_kernel"] <= SERVE_Z_FLOOR_RATIO * d["z_err_plain"]
-                and d["action_mean"] <= SERVE_ACTION_MEAN_ATOL
-                and d["action_p99"] <= SERVE_ACTION_P99_ATOL)
-
-    diffs = {B: against_plain(B, actions[B]) for B in (1, 128)}
-    log(f"kernel vs plain attention, bf16: {json.dumps(diffs)}; limits: z_err_kernel <= "
-        f"{SERVE_Z_FLOOR_RATIO} z_err_plain, action_mean {SERVE_ACTION_MEAN_ATOL}, "
-        f"action_p99 {SERVE_ACTION_P99_ATOL}")
-    for B, d in diffs.items():
-        if not within_limits(d):
-            raise AssertionError(f"B={B}: kernel route disagrees with the plain route: {d}")
-
-    # controls: the kernel with a planted fault must fail those limits (at
-    # B=1 or B=128), else the limits could not tell a wrong kernel
-    controls = control_faults(attention_ops)
-    control_diffs = {}
-    try:
-        for name, fault in controls.items():
-            transformer.ATTN_IMPLS["control"] = fault
-            policy.set_attn_impl("control")
-            control_diffs[name] = {
-                B: against_plain(B, policy.predict_action_frames(frames[B], noise=noise[B]))
-                for B in (1, 128)
-            }
-            control_diffs[name]["rejected"] = not all(
-                within_limits(control_diffs[name][B]) for B in (1, 128))
-    finally:
-        policy.set_attn_impl("kernel")
-        transformer.ATTN_IMPLS.pop("control", None)
-    log(f"controls, faulty kernels against the plain route: {json.dumps(control_diffs)}")
-    passed = [name for name, d in control_diffs.items()
-              if name in REJECTED_CONTROLS and not d["rejected"]]
-    if passed:
-        raise AssertionError(f"faulty kernels pass the serve limits: {passed}")
+    diffs = route_check(attention_ops, policy, policy32, frames, noise, REJECTED_CONTROLS)
 
     # timing: CUDA events around whole requests, after the warm-up
     def request_ms(B: int, reps: int):
@@ -565,6 +649,114 @@ def phase_serve(attention_ops, trees, normalizer):
     log(f"card fp32 vs CPU fp32, B=1, normalized actions: max abs {d}; atol {SERVE_FP32_ATOL}")
     if d > SERVE_FP32_ATOL:
         raise AssertionError(f"the card's fp32 run disagrees with the CPU's: {d}")
+    return launches
+
+
+# ------------------------------------------------------- 256 px PushT path
+
+# the 256 px phase's batches: B=1 (a controller) and B=128 (the JAX parity
+# tier's, bench.py); the kernel route is held against the plain route at B=8
+# (the plain version's (B, 12, 1024, 1024) fp32 scores stay small there)
+BATCHES_256 = (1, 128)
+ROUTE_BATCH_256 = 8
+# 1024 is a multiple of every KV tile, so the unmasked_kv_edge control would
+# plant no fault on this path; the kernel phase holds the online kernel's
+# ragged edge (N = 145, 257, 1000 and 1088, where the edge left unmasked must
+# fail its checks) in both work-item sizes
+REJECTED_CONTROLS_256 = ("exp_base_2", "scale_x1.1")
+
+
+def phase_serve_256px(attention_ops, normalizer) -> dict:
+    """The reference's own PushT model as the JAX package's parity tier
+    serves it (config.PUSHT_256: mar_base, 96 px frames upscaled to 256 on
+    the card, 1024 tokens, the KL-16 VAE with ch 128, 100 sampler steps,
+    bf16, VAE encodes of 64 frames), with numpy-seeded MAR, denoiser and VAE
+    weights: the obs-dict predict_action at B=1 and B=128 (counted: the
+    online-softmax kernel once per ViT block, no other attention kernel),
+    the kernel route against the plain route at B=8 with the serve limits
+    and controls, then request times (median of 5), the stage breakdown and
+    the device's busy share. Returns the launches of the counted calls."""
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.config import PUSHT_256
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    def make_policy(dtype: str):
+        p = UnifiedVideoActionPolicy.from_cfg(PUSHT_256, device="cuda", compute_dtype=dtype)
+        p.set_normalizer(normalizer)
+        return p
+
+    policy = make_policy("bfloat16")
+    c = policy.mar_cfg
+    trees = convert.seeded_tree(policy.mar, SEED), convert.seeded_tree(policy.vae, SEED + 1)
+    policy.load_params(*trees)
+    log(f"256 px policy: mar {c.encoder_depth}+{c.decoder_depth} blocks, d={c.encoder_embed_dim}, "
+        f"{c.encoder_num_heads} heads, {c.img_size}px, {c.total_tokens} tokens, VAE ch "
+        f"{policy.vae.encoder.conv_in.out_channels}, {policy.mar.diffactloss.num_steps} sampler "
+        f"steps, {policy.dtype}, vae_encode_chunk {policy.vae_encode_chunk}; MAR+denoiser "
+        f"{sum(p.numel() for p in policy.mar.parameters()) / 1e6:.1f}M and VAE encoder "
+        f"{sum(p.numel() for p in policy.vae.parameters()) / 1e6:.1f}M numpy-seeded (seeds "
+        f"{SEED}, {SEED + 1})")
+
+    rng = np.random.default_rng(SEED + 30)
+    batches = BATCHES_256 + (ROUTE_BATCH_256,)
+    frames = {B: torch.from_numpy(rng.integers(0, 256, (B, 4, 3, 96, 96), dtype=np.uint8))
+              for B in batches}
+    noise = {B: policy.sample_noise(B, torch.Generator(device="cuda").manual_seed(SEED + 30 + B))
+             for B in batches}
+    for B in BATCHES_256:  # warm-up: not counted
+        policy.predict_action_frames(frames[B], noise=noise[B])
+    torch.cuda.synchronize()
+
+    # the path: one obs-dict request at B=1 and one at B=128, counted
+    for name in attention_ops.launch_count:
+        attention_ops.launch_count[name] = 0
+    per_call = {}
+    for B in BATCHES_256:
+        window = np.zeros((B, 16, 3, 96, 96), dtype=np.uint8)
+        window[:, 3::4] = frames[B].numpy()
+        before = dict(attention_ops.launch_count)
+        res = policy.predict_action({"image": window}, noise=noise[B])
+        per_call[B] = {n: attention_ops.launch_count[n] - before[n] for n in before}
+        if res["action"].shape != (B, policy.n_action_steps, 2):
+            raise AssertionError(f"action shape {res['action'].shape}")
+        check_actions(policy, torch.from_numpy(res["action_pred"]), B)
+    launches = dict(attention_ops.launch_count)
+    wants = {B: attention_launches_per_request(attention_ops, c, B, torch.bfloat16) for B in BATCHES_256}
+    log(f"256 px attention launches: {per_call} per call, {launches} in all; want {wants}")
+    for B in BATCHES_256:
+        if per_call[B] != wants[B] or per_call[B]["attention_wgmma_online"] != c.encoder_depth + c.decoder_depth:
+            raise AssertionError(f"256 px B={B}: attention launches {per_call[B]}, want {wants[B]}")
+
+    policy32 = make_policy("float32")
+    policy32.load_params(*trees)
+    route = ROUTE_BATCH_256
+    diffs = route_check(attention_ops, policy, policy32, {route: frames[route]}, {route: noise[route]},
+                        REJECTED_CONTROLS_256)
+    del policy32
+
+    def request_ms(B: int, reps: int = 5):
+        dev, host = [], []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            policy.predict_action_frames(frames[B], noise=noise[B])
+            end.record()
+            end.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(start.elapsed_time(end))
+        return statistics.median(dev), statistics.median(host)
+
+    torch.cuda.reset_peak_memory_stats()
+    (ms_b1, host_b1), (ms_b128, host_b128) = request_ms(1), request_ms(128)
+    serve = {"median_ms_b1": ms_b1, "median_host_ms_b1": host_b1, "median_ms_b128": ms_b128,
+             "median_host_ms_b128": host_b128, "chunks_per_s_b128": 128 / (ms_b128 / 1e3),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_vs_plain": diffs,
+             "card": card_line()}
+    log("serve_256px " + json.dumps(serve))
+    for B in BATCHES_256:
+        log(f"256 px, where the time goes, B={B}: " + json.dumps(breakdown(policy, frames[B], noise[B])))
     return launches
 
 
@@ -1245,6 +1437,8 @@ def main() -> int:
     trees = serving_weights(meta_policy)
     with Phase("serve"):
         launches = phase_serve(attention_ops, trees, normalizer)
+    with Phase("serve_256px"):
+        launches_256 = phase_serve_256px(attention_ops, normalizer)
     with Phase("deployed"):
         deployed, gemm_request_ms, calls = phase_serve_deployed(
             attention_ops, int8_ops, trees, normalizer)
@@ -1259,11 +1453,12 @@ def main() -> int:
                   for B in (1, 128)}
     log(f"int8_gemm device ms per deployed request: {json.dumps(request_ms)}")
 
-    path_row, b1_row = rows[0], rows[1]  # (128, 144, 12, 64) and (1, 144, 12, 64) bf16
+    path_row, b1_row = attention_row(rows, 128, 144), attention_row(rows, 1, 144)
+    row_256, b1_row_256 = attention_row(rows, 128, 1024), attention_row(rows, 1, 1024)
     int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
     rollout_paths = {"rollout_deployed": rollouts["a"], "rollout_plain_int8": rollouts["b"],
                      "rollout_bf16_uncached": rollouts["c"]}
-    attention_by_path = {"predict_action_100_steps": launches,
+    attention_by_path = {"predict_action_100_steps": launches, "predict_action_256px": launches_256,
                          "predict_action_cached_deployed": deployed, **rollout_paths}
     attention_by_path = {path: {k: n[k] for k in attention_ops.KERNELS}
                          for path, n in attention_by_path.items()}
@@ -1273,23 +1468,38 @@ def main() -> int:
                     "rollout_deployed": rollouts["a"]}
     gemm_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.GEMM_KERNELS}
     quant_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.QUANT_KERNELS}
+
+    def timing(row: dict) -> dict:
+        return {k: row[k] for k in ("kernel", "split", "max_abs_err", "rel_rms_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    # each attention entry counts its own kernel's launches, by path; the
+    # fp32 and mma.sync kernels launch on no path (launches_by_kernel keeps
+    # every attention kernel's total) and are held in the kernel phase only
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "unified_video_action_tpu_torch/csrc/attention.cu",
         "replaces": "unified_video_action_tpu/ops/attention.py:33",
-        "launches": sum(attention_launches.values()),
+        "launches": attention_launches["attention_wgmma"],
         "launches_by_kernel": attention_launches,
-        "launches_by_path": attention_by_path,
-        "kernel": path_row["kernel"],
-        "max_abs_err": path_row["max_abs_err"],
-        "ms": path_row["ms"],
-        "plain_ms": path_row["plain_ms"],
-        "bound_ms": path_row["bound_ms"],
-        "bound_by": path_row["bound_by"],
-        "library_ms": path_row["library_ms"],
-        "b1": {k: b1_row[k] for k in ("kernel", "split", "max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "library_ms")},
+        "launches_by_path": {path: n["attention_wgmma"] for path, n in attention_by_path.items()},
+        **timing(path_row),
+        "b1": timing(b1_row),
+    }, {
+        "name": "flash_attention_online",
+        "route": "cuda",
+        "source": "unified_video_action_tpu_torch/csrc/attention.cu",
+        "replaces": "unified_video_action_tpu/ops/attention.py:67",
+        "launches": attention_launches["attention_wgmma_online"],
+        "launches_by_path": {path: n["attention_wgmma_online"]
+                             for path, n in attention_by_path.items()},
+        "shape": [128, 1024, 12, 64],
+        **timing(row_256),
+        "b1": timing(b1_row_256),
+        "by_shape": {f"({r['B']}, {r['N']})": {"ms": r["ms"], "library_ms": r["library_ms"],
+                                               "bound_ms": r["bound_ms"]}
+                     for r in rows if r["kernel"] == "attention_wgmma_online"},
     }, {
         "name": "int8_gemm",
         "route": "cuda",

@@ -31,7 +31,7 @@ def _jax_einsum(q, k, v):
     return jnp.einsum("bhqk,bkhd->bqhd", jax.nn.softmax(s, axis=-1), v)
 
 
-@pytest.mark.parametrize("N", [128, 200, 1088])
+@pytest.mark.parametrize("N", [128, 200, 1024, 1088])
 def test_plain_matches_jax_flash_attention_fp32(N):
     q, k, v = _qkv(2, N, 3)
     want = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -45,6 +45,30 @@ def test_plain_matches_jax_flash_attention_bf16():
     q, k, v = _qkv(1, 256, 2, seed=1)
     jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
     want = np.asarray(jax_flash_attention(jq, jk, jv, interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    got = port.attention_plain(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)
+
+
+# JAX's flash_attention with single_pass=False runs _attn_kernel, the online
+# softmax over 256-row KV blocks (ragged last block masked at N = 1088), which
+# the port's online-softmax kernel counterparts; the plain version is what
+# that kernel is held against on the card
+@pytest.mark.parametrize("N", [1024, 1088])
+def test_plain_matches_jax_online_kernel_fp32(N):
+    q, k, v = _qkv(2, N, 3, seed=4)
+    want = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          single_pass=False, interpret=True))
+    got = port.attention_plain(torch.tensor(q), torch.tensor(k), torch.tensor(v)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_plain_matches_jax_online_kernel_bf16():
+    q, k, v = _qkv(1, 1024, 2, seed=5)
+    jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jax_flash_attention(jq, jk, jv, single_pass=False, interpret=True)
+                      .astype(jnp.float32))
     tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
     got = port.attention_plain(tq, tk, tv)
     assert got.dtype == torch.bfloat16

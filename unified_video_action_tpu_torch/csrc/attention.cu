@@ -8,35 +8,42 @@
 // made first). Scores, row max, row sum and the accumulator are fp32; in bf16
 // P is rounded to bf16 before P V, as the TPU kernels cast P to V's dtype.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at the serving
-// shape B=128, N=144, H=12, D=64 the kernel must move 4*B*N*H*D*2 = 113 MB
-// (34 us) and compute 4*B*H*N*N*D = 8.2 GFLOP (8 us), so it is bound by
-// bytes: each head's q, k and v should be read once and its output written
-// once, and loads should overlap the math.
+// Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at the 96 px
+// serving shape B=128, N=144, H=12, D=64 the kernel must move 4*B*N*H*D*2 =
+// 113 MB (34 us) and compute 4*B*H*N*N*D = 8.2 GFLOP (8 us), so it is bound
+// by bytes: each head's q, k and v should be read once and its output
+// written once, and loads should overlap the math. At the 256 px path's
+// N=1024 it computes 412 GFLOP (0.417 ms) against 101 MB (0.030 ms), bound by
+// operations, and at D = 64 the softmax's exp2 costs the SM as many clocks
+// as the two products: hiding one behind the other is what that kernel does.
 //
-// Three kernels, picked by ops/attention.py's attention_plan:
+// Four kernels, picked by ops/attention.py's attention_plan:
 //
-//   uva_flash_attention_wgmma (bf16, N <= 256, every operand 16-byte
+//   uva_flash_attention_wgmma (bf16, N <= 144, every operand 16-byte
 //       aligned): the counterpart of `_attn_kernel_single_pass`. Persistent
 //       CTAs walk the B*H heads; per head one thread brings the head's Q, K
 //       and V into shared memory by TMA (4-D tensor maps over (D, H, N, B)
 //       straight on the strided views, 128-byte swizzle, rows past N
 //       zero-filled) into a ring of stages, so the next heads load while
 //       this one computes. Each warpgroup takes a 64-row q-tile of the
-//       head: S = Q K^T by one wgmma m64nKVk16 per 16 of D (Q as the A
+//       head: S = Q K^T by one wgmma m64n144k16 per 16 of D (Q as the A
 //       operand in registers, K as the K-major B operand), the exact softmax
 //       over the whole row in registers (columns past N masked), P rounded
 //       to bf16 into A-operand registers, O = P V by wgmma with V as an
 //       MN-major B operand (the transpose flag; no transpose through shared
 //       memory), then O / l staged in the q-tile's shared memory and stored
 //       with 16-byte vectors, rows past N never stored. K and V are read
-//       once per head, and at the serving N no KV column is padding (the
-//       KV = 144 instance: 144 = 9 x 16). Instances hold KV = 144 or 256
-//       rows; with few heads (B = 1) a split instance gives each q-tile of
+//       once per head, and at the serving N no KV column is padding (144 =
+//       9 x 16). With few heads (B = 1) a split instance gives each q-tile of
 //       each head a CTA of one warpgroup, which reads the head's K and V
 //       itself, so the q-tiles of 12 heads run on 36 SMs.
-//   uva_flash_attention, bf16: the counterpart of `_attn_kernel` for what
-//       the single-pass kernel does not take (N > 256 or an operand off a
+//   uva_flash_attention_online (bf16, N > 144, aligned): the counterpart of
+//       `_attn_kernel`, and of `_attn_kernel_single_pass` above 256 rows
+//       (the same function): q-tiles against 128-row KV tiles streamed by
+//       TMA through a ring of stages by a producer warpgroup, wgmma for both
+//       products, an online softmax in registers, two consumer warpgroups
+//       taking turns. Its section below says how.
+//   uva_flash_attention, bf16: for views TMA cannot read (an operand off a
 //       16-byte boundary): 4 warps per block, 64 query rows, mma.sync
 //       m16n8k16 with an online softmax over 64-wide KV tiles, exact at any N.
 //   uva_flash_attention, fp32: one query row per thread, scalar fp32 FMA
@@ -492,88 +499,6 @@ struct WgmmaQK<144> {
   }
   };
 
-template <>
-struct WgmmaQK<256> {
-  template <bool kAccumulate>
-  __device__ __forceinline__ static void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-    if constexpr (kAccumulate) {
-      asm volatile(
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-          "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-          "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-          "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
-          "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
-          "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-          "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
-          "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-          "%124, %125, %126, %127"
-          "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-          :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
-          "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
-          "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-          "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-          "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-    } else {
-      asm volatile(
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-          "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-          "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-          "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
-          "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
-          "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-          "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
-          "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-          "%124, %125, %126, %127"
-          "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-          :
-          "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
-          "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
-          "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
-          "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-          "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]),
-          "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
-          "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
-          "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-          "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]),
-          "=f"(d[62]), "=f"(d[63]), "=f"(d[64]), "=f"(d[65]), "=f"(d[66]), "=f"(d[67]),
-          "=f"(d[68]), "=f"(d[69]), "=f"(d[70]), "=f"(d[71]), "=f"(d[72]), "=f"(d[73]),
-          "=f"(d[74]), "=f"(d[75]), "=f"(d[76]), "=f"(d[77]), "=f"(d[78]), "=f"(d[79]),
-          "=f"(d[80]), "=f"(d[81]), "=f"(d[82]), "=f"(d[83]), "=f"(d[84]), "=f"(d[85]),
-          "=f"(d[86]), "=f"(d[87]), "=f"(d[88]), "=f"(d[89]), "=f"(d[90]), "=f"(d[91]),
-          "=f"(d[92]), "=f"(d[93]), "=f"(d[94]), "=f"(d[95]), "=f"(d[96]), "=f"(d[97]),
-          "=f"(d[98]), "=f"(d[99]), "=f"(d[100]), "=f"(d[101]), "=f"(d[102]), "=f"(d[103]),
-          "=f"(d[104]), "=f"(d[105]), "=f"(d[106]), "=f"(d[107]), "=f"(d[108]), "=f"(d[109]),
-          "=f"(d[110]), "=f"(d[111]), "=f"(d[112]), "=f"(d[113]), "=f"(d[114]), "=f"(d[115]),
-          "=f"(d[116]), "=f"(d[117]), "=f"(d[118]), "=f"(d[119]), "=f"(d[120]), "=f"(d[121]),
-          "=f"(d[122]), "=f"(d[123]), "=f"(d[124]), "=f"(d[125]), "=f"(d[126]), "=f"(d[127])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
-  }
-  }
-  };
-
 // d (64 x 64, fp32) = a (64 x 16 bf16, registers) * b (16 x 64 bf16, MN-major
 // in shared memory: the transpose flag), plus d where kAccumulate: 16 KV
 // rows of O = P V.
@@ -825,6 +750,425 @@ int launch_single_pass(const Params& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ online softmax
+//
+// uva_flash_attention_online. A work item is one q-tile of kC x 64 rows of
+// one head; persistent CTAs walk the items, q-tile fastest, so the CTAs in
+// flight share the K and V of a few heads in L2. A CTA is kC consumer
+// warpgroups and a producer warpgroup after them, which gives its registers
+// to the consumers (setmaxnreg: 24 a thread for the producer, 240 for the
+// consumers at kC = 2; ptxas holds a block to a warpgroup's multiple, so a
+// lone producer warp would leave the consumers 168 and spill).
+//
+// The producer's first thread loads each item's Q tile by TMA into one Q buffer
+// (q_full / q_empty), then the item's KV tiles of 128 rows, K and V together,
+// into a ring of kStages stages (kv_full[s] / kv_empty[s]). It runs ahead
+// across items: the next item's Q and first tiles load while this item's
+// last tiles are computed. Consumers copy their 64 Q rows into A-operand
+// registers at the start of an item and free the Q buffer at once.
+//
+// Consumer warpgroup, per KV tile j (FA3's intra-warpgroup overlap):
+//   issue S_j = Q K_j^T (four wgmma m64n128k16 over D = 64, K-major K),
+//   issue O += P_{j-1} V_{j-1} (eight wgmma m64n64k16 over the tile's rows,
+//   V MN-major through the transpose flag),
+//   wait for S_j only, then the online softmax of S_j in registers (mask
+//   the columns past N, row max, exp2 of the scaled difference) while the
+//   tensor cores run P_{j-1} V_{j-1};
+//   wait for it, free stage j - 1, rescale O by exp2(m_old - m_new), round
+//   P_j to bf16 into A-operand registers.
+// The softmax's exp2 is as costly as the products at D = 64 (an SM's 16
+// ex2 a clock against about 2048 bf16 FMA a clock at the card's peak:
+// 128 x 128 ex2 and 2 x 128 x 128 x 64 FMA per 128-row tile, 1024 clocks
+// each), so hiding one behind the other is the design's main lever. The
+// two consumer warpgroups also take turns (ping-pong, named barriers): each
+// issues its products only in its turn and hands the turn over once they
+// are issued, so one warpgroup's softmax runs beside the other's products
+// instead of both competing for the exp units and then both for the tensor
+// cores. tools/kernels_ab.py (attention_variants) at (128, 1024, 12, 64) on
+// an H100: 1.06 ms without the turns and the overlap, 0.95 with both; a
+// cubic exp2 on the FMA pipe for a quarter of the elements was slower (1.05
+// against 0.91).
+// At the end O / l goes through shared memory (the warpgroup's own 64 rows)
+// to 16-byte stores of the rows < N.
+//
+// Bound on an H100 SXM at the 256 px path's (128, 1024, 12, 64): 4 B H N^2 D
+// = 412 GFLOP at 989 TFLOP/s = 0.417 ms (operations; the 101 MB of q, k, v
+// and out take 0.030 ms).
+
+constexpr int kOnlineKV = 128;  // KV rows a stage holds
+
+template <int kC, int kStages, int kMinBlocks>
+struct Online {
+  static constexpr int kQRows = 64 * kC;
+  static constexpr int kQBytes = kQRows * kRowBytes;
+  static constexpr int kKVBytes = kOnlineKV * kRowBytes;
+  static constexpr int kStageBytes = 2 * kKVBytes;  // K, then V
+  static constexpr int kThreads = 128 * (kC + 1);
+  // setmaxnreg: the producer warpgroup drops to 24 registers a thread and
+  // the consumers take what that frees of the launch's share (up to 240)
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kLaunchRegs = (65536 / (kMinBlocks * kThreads)) / 8 * 8;
+  static constexpr int kFreed = (kLaunchRegs * (kC + 1) - kProducerRegs) / kC / 8 * 8;
+  static constexpr int kConsumerRegs = kFreed < 240 ? kFreed : 240;
+  // stages, Q, the output staging (as large as Q), 2 + 2 kStages barriers,
+  // the slack that aligns the buffers to 1024 B (the swizzle atom)
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kQBytes + 8 * (2 + 2 * kStages) + 1024;
+  static_assert(kMinBlocks * (kSmem + 1024) <= 233472, "shared memory of an H100 SM");
+};
+
+struct OnlineParams {
+  __nv_bfloat16* o;
+  int N, H;
+  int n_qtiles;  // ceil(N / (64 kC))
+  int n_kv;      // ceil(N / kOnlineKV)
+  int items;     // B * H * n_qtiles
+  float scale_log2;
+};
+
+#define UVA_QK_REGS "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+#define UVA_QK_OUT(m) m(d[0]), m(d[1]), m(d[2]), m(d[3]), m(d[4]), m(d[5]), m(d[6]), m(d[7]), \
+  m(d[8]), m(d[9]), m(d[10]), m(d[11]), m(d[12]), m(d[13]), m(d[14]), m(d[15]), m(d[16]), \
+  m(d[17]), m(d[18]), m(d[19]), m(d[20]), m(d[21]), m(d[22]), m(d[23]), m(d[24]), m(d[25]), \
+  m(d[26]), m(d[27]), m(d[28]), m(d[29]), m(d[30]), m(d[31]), m(d[32]), m(d[33]), m(d[34]), \
+  m(d[35]), m(d[36]), m(d[37]), m(d[38]), m(d[39]), m(d[40]), m(d[41]), m(d[42]), m(d[43]), \
+  m(d[44]), m(d[45]), m(d[46]), m(d[47]), m(d[48]), m(d[49]), m(d[50]), m(d[51]), m(d[52]), \
+  m(d[53]), m(d[54]), m(d[55]), m(d[56]), m(d[57]), m(d[58]), m(d[59]), m(d[60]), m(d[61]), \
+  m(d[62]), m(d[63])
+#define UVA_RW(x) "+f"(x)
+#define UVA_W(x) "=f"(x)
+// d (64 x 128, fp32) = a (64 x 16 bf16, registers) * b (16 x 128 bf16,
+// K-major in shared memory), plus d where kAccumulate: one k16 step of
+// S = Q K^T over a KV tile. Register 4 j + e: row r0 + 8 (e >> 1), column
+// 8 j + 2 t + (e & 1).
+template <bool kAccumulate>
+__device__ __forceinline__ void wgmma_qk128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kAccumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " UVA_QK_REGS
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+                 : UVA_QK_OUT(UVA_RW)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " UVA_QK_REGS
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+                 : UVA_QK_OUT(UVA_W)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  }
+}
+#undef UVA_QK_REGS
+#undef UVA_QK_OUT
+#undef UVA_RW
+#undef UVA_W
+
+// Keeps registers that an asynchronous wgmma reads as its A operand alive
+// until the wgmma_wait after it.
+template <int kN, int kM>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[kN][kM]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int j = 0; j < kM; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// S = Q K^T for one KV tile: the four k16 steps over D.
+__device__ __forceinline__ void qk_tile(float (&s)[64], const uint32_t (&qa)[4][4], uint32_t k_smem) {
+  wgmma_qk128<false>(s, qa[0], smem_desc(k_smem));
+#pragma unroll
+  for (int kk = 1; kk < kHeadDim / 16; ++kk) wgmma_qk128<true>(s, qa[kk], smem_desc(k_smem + kk * 32));
+}
+
+// O += P V for one KV tile: eight k16 steps over its rows.
+__device__ __forceinline__ void pv_tile(float (&o)[32], const uint32_t (&pa)[8][4], uint32_t v_smem) {
+#pragma unroll
+  for (int i = 0; i < kOnlineKV / 16; ++i) wgmma_pv<true>(o, pa[i], smem_desc(v_smem + i * 16 * kRowBytes));
+}
+
+// The online softmax of one tile of S (rows r0 and r0 + 8 of the
+// warpgroup's 64, 32 columns each in this thread), in place: columns at or
+// past `limit` masked, the running maxima m (raw scores) raised to the
+// tile's, s = 2^((s - m) D^-1/2 log2 e), the thread's partial row sums l
+// rescaled and increased, and the factors a by which O must be rescaled.
+__device__ __forceinline__ void online_softmax(float (&s)[64], int limit, int t, float scale_log2,
+                                               float (&m)[2], float (&l)[2], float (&a)[2]) {
+  if (limit < kOnlineKV) {
+#pragma unroll
+    for (int r = 0; r < 64; ++r)
+      if (8 * (r / 4) + 2 * t + (r & 1) >= limit) s[r] = -INFINITY;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int r = 0; r < 64; ++r) mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], s[r]);
+  float c[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = quad_max(mx[i]);  // column kv0 < N: finite
+    a[i] = ex2((m[i] - mx[i]) * scale_log2);  // 0 on the first tile (m = -inf)
+    m[i] = mx[i];
+    c[i] = -mx[i] * scale_log2;
+  }
+#pragma unroll
+  for (int r = 0; r < 64; ++r) {
+    s[r] = ex2(fmaf(s[r], scale_log2, c[(r >> 1) & 1]));
+    sum[(r >> 1) & 1] += s[r];
+  }
+  l[0] = l[0] * a[0] + sum[0];
+  l[1] = l[1] * a[1] + sum[1];
+}
+
+// Registers 8 i .. 8 i + 7 of a tile of P are the A fragment of the k16
+// step i of P V.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&s)[64]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    pa[i][0] = pack_bf16(s[8 * i], s[8 * i + 1]);
+    pa[i][1] = pack_bf16(s[8 * i + 2], s[8 * i + 3]);
+    pa[i][2] = pack_bf16(s[8 * i + 4], s[8 * i + 5]);
+    pa[i][3] = pack_bf16(s[8 * i + 6], s[8 * i + 7]);
+  }
+}
+
+// Named barriers: 0 is __syncthreads, 1 + wg the epilogue of consumer
+// warpgroup wg, kTurnBar + wg its turn to issue wgmma (ping-pong).
+constexpr int kTurnBar = 3;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int kC, int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(Online<kC, kStages, kMinBlocks>::kThreads, kMinBlocks)
+attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const OnlineParams p) {
+  using L = Online<kC, kStages, kMinBlocks>;
+  // two consumer warpgroups take turns to issue their products
+  constexpr bool kPingPong = kC == 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* aligned = smem_raw + (base - raw);
+  // [stage 0: K, V] ... [stage kStages - 1] [Q] [O staging] [barriers]
+  constexpr int kQOff = kStages * L::kStageBytes;
+  constexpr int kOOff = kQOff + L::kQBytes;
+  const uint32_t q_smem = base + kQOff;
+  const uint32_t q_full = base + kOOff + L::kQBytes;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t kv_full = q_full + 16;
+  const uint32_t kv_empty = kv_full + 8 * kStages;
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * kC);  // lane 0 of every consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 4 * kC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kC) {
+    // the producer warpgroup: its first thread waits for a buffer to be free
+    // (the first pass over each passes at once: parity 1 of a fresh
+    // barrier), then loads it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kProducerRegs));
+    if (threadIdx.x == 128 * kC) {
+      int stage = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+        const int head = item / p.n_qtiles, qt = item % p.n_qtiles;
+        const int b = head / p.H, h = head % p.H;
+        mbar_wait(q_empty, q_phase ^ 1);
+        mbar_expect_tx(q_full, L::kQBytes);
+        tma_load_rows(q_smem, &map_q, q_full, h, qt * L::kQRows, b);
+        q_phase ^= 1;
+        for (int j = 0; j < p.n_kv; ++j) {
+          const uint32_t st = base + stage * L::kStageBytes, bar = kv_full + 8 * stage;
+          mbar_wait(kv_empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(bar, L::kStageBytes);
+          tma_load_rows(st, &map_k, bar, h, j * kOnlineKV, b);
+          tma_load_rows(st + L::kKVBytes, &map_v, bar, h, j * kOnlineKV, b);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // the consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
+    const int tid = threadIdx.x % 128;
+    const int g = lane / 4;  // fragment row group: rows g and g + 8 of the warp's 16
+    const int t = lane % 4;  // fragment column pair
+    const int r0 = (tid / 32) * 16 + g;
+    const uint8_t* q_tile = aligned + kQOff + wg * 64 * kRowBytes;
+    uint8_t* o_tile = aligned + kOOff + wg * 64 * kRowBytes;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    auto advance = [&]() {
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    // Ping-pong: a warpgroup issues its wgmma only in its turn and hands the
+    // turn over right after issuing, so one warpgroup's softmax runs while
+    // the other's products occupy the tensor cores. Warpgroup 1 gives
+    // warpgroup 0 the first turn; both take the same number of turns, and
+    // warpgroup 1 hands over no turn after its last.
+    if (kPingPong && wg == 1) named_arrive(kTurnBar, 256);
+    auto my_turn = [&]() {
+      if constexpr (kPingPong) named_sync(kTurnBar + wg, 256);
+    };
+    auto hand_over = [&](bool last) {
+      if constexpr (kPingPong) {
+        if (!(last && wg == 1)) named_arrive(kTurnBar + 1 - wg, 256);
+      }
+    };
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const int head = item / p.n_qtiles, qt = item % p.n_qtiles;
+      const int b = head / p.H, h = head % p.H;
+      const bool last_item = item + gridDim.x >= p.items;
+
+      // Q rows r0 and r0 + 8 as A fragments of the four k16 steps over D
+      mbar_wait(q_full, q_phase);
+      q_phase ^= 1;
+      uint32_t qa[kHeadDim / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_tile + swizzled(r0, 2 * kk) + 4 * t);
+        qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_tile + swizzled(r0 + 8, 2 * kk) + 4 * t);
+        qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_tile + swizzled(r0, 2 * kk + 1) + 4 * t);
+        qa[kk][3] = *reinterpret_cast<const uint32_t*>(q_tile + swizzled(r0 + 8, 2 * kk + 1) + 4 * t);
+      }
+      // these generic reads come before the next TMA write into the buffer
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      release(q_empty);
+
+      float o[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
+      float s[64];
+      uint32_t pa[8][4];
+      // tile 0: S, its softmax, P
+      mbar_wait(kv_full + 8 * stage, phase);
+      my_turn();
+      wgmma_fence();
+      qk_tile(s, qa, base + stage * L::kStageBytes);
+      wgmma_commit();
+      hand_over(false);
+      wgmma_wait<0>();
+      fence_regs(s);
+      online_softmax(s, p.N, t, p.scale_log2, m, l, a);
+      pack_p(pa, s);
+      int prev = stage;
+      advance();
+      for (int j = 1; j < p.n_kv; ++j) {
+        mbar_wait(kv_full + 8 * stage, phase);
+        my_turn();
+        wgmma_fence();
+        qk_tile(s, qa, base + stage * L::kStageBytes);
+        wgmma_commit();
+        pv_tile(o, pa, base + prev * L::kStageBytes + L::kKVBytes);
+        wgmma_commit();
+        hand_over(false);
+        wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
+        fence_regs(s);
+        online_softmax(s, p.N - j * kOnlineKV, t, p.scale_log2, m, l, a);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        release(kv_empty + 8 * prev);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] *= a[(i >> 1) & 1];
+        pack_p(pa, s);
+        prev = stage;
+        advance();
+      }
+      my_turn();
+      wgmma_fence();
+      pv_tile(o, pa, base + prev * L::kStageBytes + L::kKVBytes);
+      wgmma_commit();
+      hand_over(last_item);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      release(kv_empty + 8 * prev);
+
+      // O / l into the warpgroup's 64 rows of the staging buffer, then
+      // 16-byte stores of the rows < N
+      const float inv0 = 1.f / quad_sum(l[0]);
+      const float inv1 = 1.f / quad_sum(l[1]);
+      named_sync(1 + wg, 128);  // the last item's stores are done
+#pragma unroll
+      for (int j = 0; j < kHeadDim / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(o_tile + swizzled(r0, j) + 4 * t) =
+            pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(o_tile + swizzled(r0 + 8, j) + 4 * t) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+      named_sync(1 + wg, 128);
+      const long long o_sn = (long long)p.H * kHeadDim;
+      __nv_bfloat16* o_head = p.o + ((long long)b * p.N * p.H + h) * kHeadDim;
+#pragma unroll
+      for (int c = tid; c < 64 * kHeadDim / 8; c += 128) {
+        const int r = c / 8, chunk = c % 8;
+        const int n = qt * L::kQRows + wg * 64 + r;
+        if (n < p.N)
+          *reinterpret_cast<uint4*>(o_head + n * o_sn + chunk * 8) =
+              *reinterpret_cast<const uint4*>(o_tile + swizzled(r, chunk));
+      }
+    }
+  }
+}
+
+template <int kC, int kStages, int kMinBlocks>
+int launch_online(const Params& a, cudaStream_t s) {
+  using L = Online<kC, kStages, kMinBlocks>;
+  auto kernel = attn_online_kernel<kC, kStages, kMinBlocks>;
+  static int blocks_per_sm = 0;  // per instantiation, found once
+  if (blocks_per_sm == 0) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, kernel, L::kThreads, L::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  CUtensorMap map_q, map_k, map_v;
+  int rc = encode_heads(&map_q, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh, L::kQRows);
+  if (rc == 0) rc = encode_heads(&map_k, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh, kOnlineKV);
+  if (rc == 0) rc = encode_heads(&map_v, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh, kOnlineKV);
+  if (rc != 0) return kEncodeError + rc;
+  OnlineParams p;
+  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.N = a.N;
+  p.H = a.H;
+  p.n_qtiles = (a.N + L::kQRows - 1) / L::kQRows;
+  p.n_kv = (a.N + kOnlineKV - 1) / kOnlineKV;
+  p.items = a.B * a.H * p.n_qtiles;
+  p.scale_log2 = a.scale_log2;
+  const int grid = min(p.items, num_sms() * blocks_per_sm);
+  kernel<<<grid, L::kThreads, L::kSmem, s>>>(map_q, map_k, map_v, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 namespace {
@@ -846,6 +1190,17 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int B, 
   p.v_sb = v_sb; p.v_sn = v_sn; p.v_sh = v_sh;
   p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   return p;
+}
+
+// TMA's rules for the Hopper kernels: bf16, D = 64, every base and stride a
+// multiple of 16 bytes.
+bool tma_ok(const void* q, const void* k, const void* v, int B, int N, int H, int D,
+            const long long (&strides)[9]) {
+  bool ok = D == kHeadDim && B > 0 && N > 0 && H > 0 &&
+            ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+              reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  for (long long st : strides) ok = ok && (st * 2) % 16 == 0;
+  return ok;
 }
 
 }  // namespace
@@ -880,8 +1235,8 @@ extern "C" int uva_flash_attention(const void* q, const void* k, const void* v, 
 }
 
 // The single-pass Hopper kernel, bf16 only, on the same arguments: every
-// base and stride 16-byte aligned (TMA's rules) and N <= kv, where kv is the
-// instance, 144 or 256 (the KV rows it holds in shared memory). split: one
+// base and stride 16-byte aligned (TMA's rules) and N <= 144 (the KV rows it
+// holds in shared memory). split: one
 // CTA (one warpgroup) for each q-tile of each head, for few heads; else one
 // CTA for all q-tiles of a head. Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for arguments
@@ -891,19 +1246,30 @@ extern "C" int uva_flash_attention_wgmma(const void* q, const void* k, const voi
                                          long long q_sb, long long q_sn, long long q_sh,
                                          long long k_sb, long long k_sn, long long k_sh,
                                          long long v_sb, long long v_sn, long long v_sh,
-                                         int kv, int split, void* stream) {
+                                         int split, void* stream) {
   const long long strides[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh};
-  bool ok = D == kHeadDim && B > 0 && N > 0 && H > 0 && N <= kv &&
-            ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-              reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-  for (long long st : strides) ok = ok && (st * 2) % 16 == 0;
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!tma_ok(q, k, v, B, N, H, D, strides) || N > 144) return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv == 144) return split ? launch_single_pass<9, 1, 2, true>(p, s)
-                              : launch_single_pass<9, 3, 3, false>(p, s);
-  if (kv == 256) return split ? launch_single_pass<16, 1, 2, true>(p, s)
-                              : launch_single_pass<16, 2, 2, false>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return split ? launch_single_pass<9, 1, 2, true>(p, s) : launch_single_pass<9, 3, 3, false>(p, s);
+}
+
+// The online-softmax Hopper kernel, bf16 only, any N, on the same arguments
+// and TMA's rules. split: work items of one 64-row q-tile (CTAs of one
+// consumer warpgroup, two to an SM), for few items; else
+// of 128 rows (two consumer warpgroups taking turns). Returns as
+// uva_flash_attention_wgmma.
+extern "C" int uva_flash_attention_online(const void* q, const void* k, const void* v, void* o,
+                                          int B, int N, int H, int D,
+                                          long long q_sb, long long q_sn, long long q_sh,
+                                          long long k_sb, long long k_sn, long long k_sh,
+                                          long long v_sb, long long v_sn, long long v_sh,
+                                          int split, void* stream) {
+  const long long strides[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh};
+  if (!tma_ok(q, k, v, B, N, H, D, strides)) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
+                               v_sb, v_sn, v_sh);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return split ? launch_online<1, 2, 2>(p, s) : launch_online<2, 4, 1>(p, s);
 }

@@ -12,12 +12,15 @@ the kernels read them through their strides, so the views that
 :func:`flash_attention` launches the kernel that :func:`attention_plan`
 names, with no fallback between kernels:
 
-* ``attention_wgmma``: bf16, N <= ``SINGLE_PASS_MAX_N`` and every operand
-  16-byte aligned. The single-pass Hopper kernel (TMA + wgmma, the exact
-  softmax of a whole row), as the TPU's ``_attn_kernel_single_pass``.
-* ``attention_mma_sync``: bf16 otherwise (longer N, or an operand off a
-  16-byte boundary): mma.sync with an online softmax over 64-wide KV tiles,
-  as the TPU's ``_attn_kernel``.
+* ``attention_wgmma``: bf16, N <= ``SINGLE_PASS_MAX_N`` (144) and every
+  operand 16-byte aligned. The single-pass Hopper kernel (TMA + wgmma, the
+  exact softmax of a whole row), as the TPU's ``_attn_kernel_single_pass``.
+* ``attention_wgmma_online``: bf16, N > ``SINGLE_PASS_MAX_N`` and every
+  operand 16-byte aligned. The online-softmax Hopper kernel (TMA ring of
+  128-row KV tiles, warp-specialized, wgmma for both products), as the
+  TPU's ``_attn_kernel``.
+* ``attention_mma_sync``: bf16 with an operand off a 16-byte boundary, which
+  TMA cannot read: mma.sync with an online softmax over 64-wide KV tiles.
 * ``attention_f32``: fp32, scalar.
 """
 
@@ -34,10 +37,10 @@ from unified_video_action_tpu_torch.ops import _build
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the single-pass kernel's instances: the KV rows each holds in shared memory
-SINGLE_PASS_KV = (144, 256)
-SINGLE_PASS_MAX_N = SINGLE_PASS_KV[-1]
-KERNELS = ("attention_wgmma", "attention_mma_sync", "attention_f32")
+# the KV rows the single-pass kernel holds in shared memory (the 96 px path's
+# N; above it the online kernel is the faster, attention_plan)
+SINGLE_PASS_MAX_N = 144
+KERNELS = ("attention_wgmma", "attention_wgmma_online", "attention_mma_sync", "attention_f32")
 
 # Incremented once for every launch of each CUDA kernel, and nowhere else.
 launch_count = {k: 0 for k in KERNELS}
@@ -48,16 +51,19 @@ ENCODE_ERROR = 10000  # csrc/hopper.cuh kEncodeError
 # up to this many (head, q-tile) pairs the single-pass kernel gives each pair
 # a CTA of its own (two per SM of an H100), else a CTA takes a head
 SPLIT_MAX_TILES = 264
+# the online kernel's work items are 64-row q-tiles (CTAs of one warpgroup,
+# two an SM) up to this many 128-row ones (three waves of an H100's 132
+# SMs), else 128-row q-tiles (two warpgroups taking turns)
+ONLINE_SPLIT_MAX_ITEMS = 396
 
 
 @dataclass(frozen=True)
 class AttentionPlan:
     """Which kernel :func:`flash_attention` launches: ``kernel`` is the key of
-    :data:`launch_count`; for the single-pass kernel ``kv`` is the instance
-    (the KV rows it holds, one of ``SINGLE_PASS_KV``) and ``split`` whether a
-    CTA takes one q-tile of a head instead of the whole head."""
+    :data:`launch_count`; for the single-pass kernel ``split`` says a CTA
+    takes one q-tile of a head instead of the whole head, for the online
+    kernel that its work items are 64-row q-tiles instead of 128."""
     kernel: str
-    kv: int = 0
     split: bool = False
 
 
@@ -72,11 +78,23 @@ def attention_plan(B: int, N: int, H: int, dtype: torch.dtype, aligned: bool = T
     Cached: the serving path asks for the same shapes on every call.
 
     * fp32: the scalar kernel.
-    * bf16, N <= SINGLE_PASS_MAX_N and aligned: the single-pass wgmma kernel,
-      its smallest instance that holds N rows of K and V (144 at the serving
-      N); split where B·H·⌈N/64⌉ <= SPLIT_MAX_TILES (B = 1 at the serving
-      shape: 36 q-tiles on 36 SMs instead of 12 heads on 12; B <= 7 at N = 144).
-    * bf16 otherwise: the mma.sync kernel.
+    * bf16, an operand off a 16-byte boundary: the mma.sync kernel.
+    * bf16, N <= SINGLE_PASS_MAX_N (144, the 96 px path's N): the
+      single-pass wgmma kernel, split where B·H·⌈N/64⌉ <= SPLIT_MAX_TILES
+      (B = 1 at the serving shape: 36 q-tiles on 36 SMs instead of 12 heads
+      on 12; B <= 7 at N = 144).
+    * bf16, N > 144: the online-softmax wgmma kernel (the 256 px path's N =
+      1024), in 64-row work items where B·H·⌈N/128⌉ <= ONLINE_SPLIT_MAX_ITEMS
+      (B = 1 at N = 1024: 96 items), else in 128-row ones (B = 128).
+
+    The crossover and the split follow ``tools/kernels_ab.py --parts
+    attention_variants`` on an H100 (every variant at 24 shapes, PERF.md):
+    at N = 144 the single-pass kernel takes 0.048 ms at B = 128 against the
+    online kernel's 0.065, and from N = 145 to 256 the online kernel is the
+    faster at B = 1, 8 and 128 (at (128, 256) 0.081 ms against the
+    single-pass kernel's 256-row instance's 0.101, which was therefore
+    dropped). At the path's N = 1024 the two item sizes are even at B = 1
+    and 128-row items are the faster at B = 128.
     """
     if B <= 0 or N <= 0 or H <= 0:
         raise ValueError(f"attention of shape ({B}, {N}, {H}) is empty")
@@ -84,10 +102,11 @@ def attention_plan(B: int, N: int, H: int, dtype: torch.dtype, aligned: bool = T
         return F32
     if dtype != torch.bfloat16:
         raise ValueError(f"the kernels take float32 or bfloat16, got {dtype}")
-    if aligned and N <= SINGLE_PASS_MAX_N:
-        kv = next(kv for kv in SINGLE_PASS_KV if N <= kv)
-        return AttentionPlan("attention_wgmma", kv, B * H * -(-N // 64) <= SPLIT_MAX_TILES)
-    return MMA_SYNC
+    if not aligned:
+        return MMA_SYNC
+    if N <= SINGLE_PASS_MAX_N:
+        return AttentionPlan("attention_wgmma", B * H * -(-N // 64) <= SPLIT_MAX_TILES)
+    return AttentionPlan("attention_wgmma_online", B * H * -(-N // 128) <= ONLINE_SPLIT_MAX_ITEMS)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -105,8 +124,10 @@ def _lib():
     common = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
     lib.uva_flash_attention.argtypes = common + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.uva_flash_attention.restype = ctypes.c_int
-    lib.uva_flash_attention_wgmma.argtypes = common + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.uva_flash_attention_wgmma.argtypes = common + [ctypes.c_int, ctypes.c_void_p]
     lib.uva_flash_attention_wgmma.restype = ctypes.c_int
+    lib.uva_flash_attention_online.argtypes = common + [ctypes.c_int, ctypes.c_void_p]
+    lib.uva_flash_attention_online.restype = ctypes.c_int
     return lib
 
 
@@ -155,7 +176,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if plan.kernel == "attention_wgmma":
-        rc = _lib().uva_flash_attention_wgmma(*args, plan.kv, int(plan.split), stream)
+        rc = _lib().uva_flash_attention_wgmma(*args, int(plan.split), stream)
+    elif plan.kernel == "attention_wgmma_online":
+        rc = _lib().uva_flash_attention_online(*args, int(plan.split), stream)
     else:
         rc = _lib().uva_flash_attention(*args, _DTYPE_CODES[q.dtype], int(aligned), stream)
     if rc >= ENCODE_ERROR:

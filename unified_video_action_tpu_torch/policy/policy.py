@@ -166,7 +166,9 @@ class UnifiedVideoActionPolicy:
     @classmethod
     def from_cfg(cls, cfg: Mapping, **overrides: Any) -> "UnifiedVideoActionPolicy":
         """Build from a run config (a nested dict: ``model.policy`` and
-        ``task.name``)."""
+        ``task.name``), e.g. ``from_cfg(config.PUSHT_256, device="cuda")``,
+        the reference's 256 px PushT model; ``overrides`` replace policy
+        options."""
         kwargs = {k: v for k, v in cfg["model"]["policy"].items() if k != "_target_"}
         kwargs["task_name"] = cfg["task"]["name"]
         kwargs.update(overrides)

@@ -8,9 +8,9 @@ or an earlier commit's package unpacked by ``git archive`` into a git-ignored
 directory), builds its kernels under DIR and measures, at the serving
 paths' shapes at mar_base width (B=128 and B=1):
 
-* device time per ``flash_attention`` launch at (B, 144, 12, 64) bf16, by
-  replaying a CUDA graph of 20 launches (chip_smoke.py's ``graph_ms``), and
-  host time per call (below);
+* device time per ``flash_attention`` launch at (B, 144, 12, 64) and at the
+  256 px path's (B, 1024, 12, 64) bf16, by replaying a CUDA graph of 20
+  launches (chip_smoke.py's ``graph_ms``), and host time per call (below);
 * device time per ``quantize_rows`` launch at each shape of chip_smoke.py's
   ``int8_path_shapes``, by CUDA-graph replay;
 * device time per ``int8_gemm`` launch at each shape of chip_smoke.py's
@@ -23,12 +23,25 @@ paths' shapes at mar_base width (B=128 and B=1):
   time);
 * the deployed tier's request (ddim10, W8A8 int8, yuv420,
   ``predict_action_cached``), median host-clock time of cached calls at B=1
-  and B=128, with chip_smoke.py's seeded weights and windows.
+  and B=128, with chip_smoke.py's seeded weights and windows;
+* the 256 px request (this repository's ``config.PUSHT_256``, 100 steps,
+  bf16, numpy-seeded weights): median time of ``predict_action_frames`` at
+  B=1 and B=128, by CUDA events and on the host clock;
+* ``attention_variants`` (only with ``--parts``; needs a tree with the
+  online-softmax kernel): every bf16 attention kernel variant of the tree's
+  C interface at each of ``VARIANT_SHAPES``, whatever ``attention_plan``
+  would pick (the single-pass kernel at N <= 144, split per q-tile or whole
+  heads; the online kernel in 128- or 64-row work items; the mma.sync
+  kernel), each held against ``attention_plain`` (chip_smoke.py's
+  ``attention_check``) and timed by CUDA-graph replay beside SDPA and the
+  bound: the measurement behind ``attention_plan``'s crossover and split.
+  The call exits non-zero if a variant disagrees with the plain version.
 
-The config, the weights and chip_smoke.py's helpers are this repository's,
-whichever tree is timed. Run it for two trees in one call, in turns (A, B,
-B, A), and compare only within that call. Prints one JSON line, also written
-to ``--out``.
+The configs, the weights and chip_smoke.py's helpers are this repository's,
+whichever tree is timed. ``--parts`` picks what to measure (all but
+``attention_variants`` by default).
+Run it for two trees in one call, in turns (A, B, B, A), and compare only
+within that call. Prints one JSON line, also written to ``--out``.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -74,11 +88,21 @@ def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
     return statistics.median(per_round)
 
 
+def _load_config():
+    """This repository's port config module, loaded by path (a tree under
+    test may predate ``PUSHT_256``)."""
+    path = os.path.join(REPO, "unified_video_action_tpu_torch", "config", "__init__.py")
+    spec = importlib.util.spec_from_file_location("port_config", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def attention_rows(attention, cfg) -> list:
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     rows = []
-    for B in (128, 1):
-        N, H = cfg.total_tokens, cfg.encoder_num_heads
+    H = cfg.encoder_num_heads
+    for B, N in ((128, cfg.total_tokens), (1, cfg.total_tokens), (128, 1024), (1, 1024)):
         qkv = torch.randn(B, N, 3, H, 64, generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = qkv.unbind(2)
         row = {"B": B, "N": N, "H": H,
@@ -154,10 +178,98 @@ def deployed_requests(int8_mm, meta_policy, normalizer) -> dict:
     return out
 
 
+def requests_256px(normalizer) -> dict:
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    policy = UnifiedVideoActionPolicy.from_cfg(_load_config().PUSHT_256, device="cuda")
+    policy.set_normalizer(normalizer)
+    policy.load_params(convert.seeded_tree(policy.mar, smoke.SEED),
+                       convert.seeded_tree(policy.vae, smoke.SEED + 1))
+    rng = np.random.default_rng(smoke.SEED + 30)
+    out = {}
+    for B, reps in ((1, 9), (128, 5)):
+        frames = torch.from_numpy(rng.integers(0, 256, (B, 4, 3, 96, 96), dtype=np.uint8))
+        noise = policy.sample_noise(B, torch.Generator(device="cuda").manual_seed(smoke.SEED + 30 + B))
+        policy.predict_action_frames(frames, noise=noise)  # warm-up
+        dev, host = [], []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            policy.predict_action_frames(frames, noise=noise)
+            end.record()
+            end.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(start.elapsed_time(end))
+        out[f"B={B}"] = {"median_ms": statistics.median(dev), "median_host_ms": statistics.median(host),
+                         "ms": dev}
+        print(json.dumps({"serve_256px": B, **out[f"B={B}"]}), file=sys.stderr, flush=True)
+    return out
+
+
+VARIANT_SHAPES = [
+    (128, 1024), (1, 1024), (8, 1088), (1, 2304), (2, 1088), (8, 1000), (8, 257),
+    (128, 257), (32, 512), (128, 384), (8, 384),
+    (128, 256), (8, 256), (1, 256), (128, 200), (8, 200), (1, 200),
+    (128, 145), (8, 145), (1, 145), (128, 144), (8, 144), (1, 144), (4, 1),
+]
+
+
+def attention_variants(attention) -> list:
+    lib = attention._lib()
+    if not hasattr(lib, "uva_flash_attention_online"):
+        raise RuntimeError("attention_variants needs a tree with uva_flash_attention_online")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    H, dtype = 12, torch.bfloat16
+    rows, bad = [], []
+    for B, N in VARIANT_SHAPES:
+        qkv = torch.randn(B, N, 3, H, 64, generator=gen, device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+        want = attention.attention_plain(q, k, v)
+        out = torch.empty(B, N, H, 64, dtype=dtype, device="cuda")
+        base = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, 64,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        variants = {"online": (lib.uva_flash_attention_online, (0,)),
+                    "online_split": (lib.uva_flash_attention_online, (1,)),
+                    "mma_sync": (lib.uva_flash_attention, (1, 1))}
+        if N <= attention.SINGLE_PASS_MAX_N:
+            variants.update(single_pass=(lib.uva_flash_attention_wgmma, (0,)),
+                            single_pass_split=(lib.uva_flash_attention_wgmma, (1,)))
+        row = {"B": B, "N": N, "H": H, "plan": attention.attention_plan(B, N, H, dtype).__dict__}
+        for name, (fn, extra) in variants.items():
+            def call(fn=fn, extra=extra, name=name):
+                # the current stream: a CUDA graph captures on its own
+                rc = fn(*base, *extra, torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+            out.zero_()
+            call()
+            torch.cuda.synchronize()
+            errs, ok = smoke.attention_check(out, want)
+            if not ok:
+                bad.append((B, N, name, errs))
+            row[name] = {**errs, "ok": ok, "ms": smoke.graph_ms(call) if ok else None}
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        row["sdpa_ms"] = smoke.graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        row["bound_ms"], row["bound_by"] = smoke.attention_bound(B, N, H, 64, dtype)
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        rows.append(row)
+    if bad:
+        raise AssertionError(f"attention variants disagree with the plain version: {bad}")
+    return rows
+
+
+PARTS = ("attention", "quantize_rows", "gemm", "deployed", "serve_256px", "attention_variants")
+DEFAULT_PARTS = PARTS[:-1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True, help="directory that holds unified_video_action_tpu_torch/")
     ap.add_argument("--out", help="also write the JSON line here")
+    ap.add_argument("--parts", default=",".join(DEFAULT_PARTS), help=f"comma-separated, of {PARTS}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernels_ab: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -172,12 +284,19 @@ def main() -> int:
             raise RuntimeError(f"imported {module.__file__}, not the package under {tree}")
     meta_policy, normalizer = smoke.flagship_config()
     cfg = meta_policy.mar_cfg
+    measure = {"attention": lambda: attention_rows(attention, cfg),
+               "quantize_rows": lambda: quantize_rows(int8_mm, cfg),
+               "gemm": lambda: gemm_rows(int8_mm, cfg),
+               "deployed": lambda: deployed_requests(int8_mm, meta_policy, normalizer),
+               "serve_256px": lambda: requests_256px(normalizer),
+               "attention_variants": lambda: attention_variants(attention)}
+    parts = args.parts.split(",")
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        ap.error(f"unknown parts {sorted(unknown)}")
     with torch.no_grad():
         result = {"tree": args.tree, "card": smoke.card_line(),
-                  "attention": attention_rows(attention, cfg),
-                  "quantize_rows": quantize_rows(int8_mm, cfg),
-                  "gemm": gemm_rows(int8_mm, cfg),
-                  "deployed": deployed_requests(int8_mm, meta_policy, normalizer)}
+                  **{part: measure[part]() for part in parts}}
     line = json.dumps(result)
     print(line, flush=True)
     if args.out:
