@@ -5,13 +5,17 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Phases (each prints its elapsed seconds; a phase that fails raises, and the
-script exits non-zero without its result line):
+script exits non-zero without its result line). The attention kernels are
+built for head dimensions 64 (mar_base) and 128 (mar_small); every check of
+an attention launch names the instance (kernel and D) that attention_plan
+picks.
 
 1. env     torch and CUDA versions, the card's name and power limit.
 2. build   every kernel source of unified_video_action_tpu_torch/csrc/
            (attention.cu, int8_mm.cu) by nvcc, all started together.
 3. kernel  each kernel against its plain PyTorch version on the card, at the
-           serving paths' shapes and beyond, with times (CUDA-graph replay)
+           serving paths' shapes and beyond (attention at D = 64 and at the
+           mar_small paths' D = 128), with times (CUDA-graph replay)
            beside its bound and beside one PyTorch library call computing
            the same function; every launch lands on the kernel its plan
            names (attention_plan, quantize_plan, gemm_plan); the attention
@@ -42,6 +46,25 @@ script exits non-zero without its result line):
            route at B=8 with the serve limits and the controls that can
            plant a fault at N = 1024, request times, a stage breakdown and
            the device's busy share.
+5b. serve_small96  mar_small, the single-chip PushT model (config.
+           PUSHT_SMALL96: 6+6 blocks, d=768 over 6 heads of D = 128, 96 px,
+           144 tokens, the committed pusht_vae96.npz, numpy-seeded MAR and
+           denoiser): the obs-dict predict_action (100 steps, bf16) at B=1
+           and B=128 and the deployed tier's predict_action_cached (ddim10 +
+           int8 + yuv420, full then cached) at both, each call launching the
+           single-pass kernel's D = 128 instance once per ViT block (12) and
+           no other attention kernel, and the int8 kernels as the config
+           implies; the int8 kernel route bit-equal to the plain-int8 route,
+           the kernel route against the plain route with the serve limits and
+           controls, the card in fp32 (the fp32 kernel at D = 128) against
+           the CPU, request times.
+5c. serve_kitchen128  the language-conditioned kitchen model (config.
+           KITCHEN_SMALL128: mar_small at 128 px, 256 frame tokens and the
+           64-token text buffer, 320 in all, 9-d actions, the committed
+           kitchen_vae128.npz; the goal a string through the hash text
+           encoder), the same checks with the online kernel's D = 128
+           instance (a 64-row last KV tile), one call without a goal, and
+           the goal shown to change the actions.
 6. deployed  the deployed tier, predict_action_cached with ddim10 +
            serving_quant="int8" + obs_codec="yuv420", same width and
            weights, bf16, at B=1 and B=128: a full call on a 16-frame window,
@@ -226,33 +249,44 @@ def attention_bound(B: int, N: int, H: int, D: int, dtype: torch.dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# (B, N, H, dtype, aligned): aligned cases are strided views of one qkv
-# tensor, as the fused projection leaves them; the unaligned one starts them
+# (B, N, H, D, dtype, aligned): aligned cases are strided views of one qkv
+# tensor, as the fused projection leaves them; the unaligned ones start them
 # an element off a 16-byte boundary (the mma.sync kernel's only inputs)
 ATTENTION_CASES = [
-    (128, 144, 12, torch.bfloat16, True),  # the serving shape at B=128
-    (1, 144, 12, torch.bfloat16, True),  # the serving shape at B=1
-    (128, 1024, 12, torch.bfloat16, True),  # the 256 px path at B=128
-    (1, 1024, 12, torch.bfloat16, True),  # the 256 px path at B=1 (64-row items)
-    (128, 144, 12, torch.float32, True),
-    (8, 137, 12, torch.bfloat16, True),  # a ragged single-pass N (7 rows of edge)
-    (8, 100, 12, torch.bfloat16, True), (8, 100, 12, torch.float32, True),
+    (128, 144, 12, 64, torch.bfloat16, True),  # the serving shape at B=128
+    (1, 144, 12, 64, torch.bfloat16, True),  # the serving shape at B=1
+    (128, 1024, 12, 64, torch.bfloat16, True),  # the 256 px path at B=128
+    (1, 1024, 12, 64, torch.bfloat16, True),  # the 256 px path at B=1 (64-row items)
+    (128, 144, 12, 64, torch.float32, True),
+    (8, 137, 12, 64, torch.bfloat16, True),  # a ragged single-pass N (7 rows of edge)
+    (8, 100, 12, 64, torch.bfloat16, True), (8, 100, 12, 64, torch.float32, True),
     # past the single-pass kernel's limit, the online kernel: ragged last KV
     # tiles of 17, 1, 104 and 64 rows at N = 145, 257, 1000 and 1088, in 64-row
     # work items at B = 1 and N <= 257 and in 128-row ones at (8, 1000), (8, 1088)
-    (8, 145, 12, torch.bfloat16, True), (8, 256, 12, torch.bfloat16, True),
-    (8, 257, 12, torch.bfloat16, True), (8, 1000, 12, torch.bfloat16, True),
-    (1, 1000, 12, torch.bfloat16, True),
-    (8, 1088, 12, torch.bfloat16, True), (8, 1088, 12, torch.float32, True),
-    (1, 2304, 12, torch.bfloat16, True), (1, 2304, 12, torch.float32, True),
-    (8, 1088, 12, torch.bfloat16, False),
+    (8, 145, 12, 64, torch.bfloat16, True), (8, 256, 12, 64, torch.bfloat16, True),
+    (8, 257, 12, 64, torch.bfloat16, True), (8, 1000, 12, 64, torch.bfloat16, True),
+    (1, 1000, 12, 64, torch.bfloat16, True),
+    (8, 1088, 12, 64, torch.bfloat16, True), (8, 1088, 12, 64, torch.float32, True),
+    (1, 2304, 12, 64, torch.bfloat16, True), (1, 2304, 12, 64, torch.float32, True),
+    (8, 1088, 12, 64, torch.bfloat16, False),
+    # head dimension 128 (mar_small, 6 heads): the 96 px mar_small path's N =
+    # 144 (single pass, split at every B), the kitchen path's N = 320 (online,
+    # a 64-row last KV tile, whose edge left unmasked must fail the checks;
+    # 64-row items at B = 1 and 16, 128-row ones at B = 128), unaligned views
+    # (mma.sync) and fp32
+    (1, 144, 6, 128, torch.bfloat16, True), (128, 144, 6, 128, torch.bfloat16, True),
+    (1, 320, 6, 128, torch.bfloat16, True), (16, 320, 6, 128, torch.bfloat16, True),
+    (128, 320, 6, 128, torch.bfloat16, True),
+    (8, 320, 6, 128, torch.bfloat16, False),
+    (128, 144, 6, 128, torch.float32, True),
 ]
 
 
-def attention_row(rows, B: int, N: int, dtype=torch.bfloat16) -> dict:
-    """The kernel phase's row of one aligned case."""
+def attention_row(rows, B: int, N: int, dtype=torch.bfloat16, D: int = 64, aligned: bool = True) -> dict:
+    """The kernel phase's row of one case."""
     name = str(dtype).split(".")[-1]
-    return next(r for r in rows if (r["B"], r["N"], r["dtype"], r["aligned"]) == (B, N, name, True))
+    return next(r for r in rows
+                if (r["B"], r["N"], r["D"], r["dtype"], r["aligned"]) == (B, N, D, name, aligned))
 
 
 def attention_check(out: torch.Tensor, ref: torch.Tensor):
@@ -291,20 +325,20 @@ def phase_kernel(attention_ops):
     the plain version's and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for B, N, H, dtype, aligned in ATTENTION_CASES:
-        shape = (B, N, 3, H, 64)
+    for B, N, H, D, dtype, aligned in ATTENTION_CASES:
+        shape = (B, N, 3, H, D)
         flat = torch.randn(int(np.prod(shape)) + (not aligned), generator=gen, device="cuda")
         qkv = flat.to(dtype)[int(not aligned):].view(shape)
         q, k, v = qkv.unbind(2)
         if attention_ops._check(q, k, v) != aligned:
-            raise AssertionError(f"case ({B}, {N}, {H}, {dtype}): not {'un' * (not aligned)}aligned")
-        plan = attention_ops.attention_plan(B, N, H, dtype, aligned)
-        before = dict(attention_ops.launch_count)
+            raise AssertionError(f"case ({B}, {N}, {H}, {D}, {dtype}): not {'un' * (not aligned)}aligned")
+        plan = attention_ops.attention_plan(B, N, H, D, dtype, aligned)
+        before = dict(attention_ops.instance_count)
         out = attention_ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        launched = {n: c - before[n] for n, c in attention_ops.launch_count.items() if c != before[n]}
+        launched = {n: c - before[n] for n, c in attention_ops.instance_count.items() if c != before[n]}
         errs, ok = attention_check(out, attention_ops.attention_plain(q, k, v))
-        ok = ok and launched == {plan.kernel: 1}
+        ok = ok and launched == {plan.instance: 1}
         edge = KV_EDGE.get(plan.kernel)
         control = (unmasked_edge_control(attention_ops, q, k, v, edge)
                    if edge and N % edge else None)
@@ -315,10 +349,10 @@ def phase_kernel(attention_ops):
         readings = {k: [] for k in calls}
         for which in ("kernel", "library", "library", "kernel"):
             readings[which].append(graph_ms(calls[which]))
-        bound_ms, bound_by = attention_bound(B, N, H, 64, dtype)
+        bound_ms, bound_by = attention_bound(B, N, H, D, dtype)
         ms = statistics.mean(readings["kernel"])
-        row = dict(B=B, N=N, H=H, D=64, dtype=str(dtype).split(".")[-1], aligned=aligned,
-                   kernel=plan.kernel, split=plan.split, launched=launched, **errs,
+        row = dict(B=B, N=N, H=H, D=D, dtype=str(dtype).split(".")[-1], aligned=aligned,
+                   kernel=plan.kernel, instance=plan.instance, split=plan.split, launched=launched, **errs,
                    atol=ATTN_ATOL[dtype], unmasked_edge_control=control, ms=ms, readings=readings,
                    plain_ms=time_ms(lambda: attention_ops.attention_plain(q, k, v), reps=5),
                    library_ms=statistics.mean(readings["library"]),
@@ -351,13 +385,27 @@ def control_faults(attention_ops) -> dict:
     }
 
 
+def attention_plan_of(attention_ops, cfg, B: int, dtype):
+    """The plan of every ViT block of a request at batch B: its (B, tokens,
+    heads, head dimension), the text buffer's tokens included (the qkv
+    views are 16-byte aligned)."""
+    return attention_ops.attention_plan(B, cfg.attention_tokens, cfg.encoder_num_heads,
+                                        cfg.encoder_embed_dim // cfg.encoder_num_heads, dtype)
+
+
 def attention_launches_per_request(attention_ops, cfg, B: int, dtype) -> dict:
     """Launches of each attention kernel in one request at batch B, from the
-    config: one per ViT block, of the kernel attention_plan names for the
-    (B, tokens, heads) of the blocks (the qkv views are 16-byte aligned)."""
-    plan = attention_ops.attention_plan(B, cfg.total_tokens, cfg.encoder_num_heads, dtype)
+    config: one per ViT block, of the kernel attention_plan names."""
+    plan = attention_plan_of(attention_ops, cfg, B, dtype)
     return {n: (cfg.encoder_depth + cfg.decoder_depth) * (n == plan.kernel)
             for n in attention_ops.KERNELS}
+
+
+def attention_instances_per_request(attention_ops, cfg, B: int, dtype) -> dict:
+    """As attention_launches_per_request, by instance (kernel and head dimension)."""
+    plan = attention_plan_of(attention_ops, cfg, B, dtype)
+    return {n: (cfg.encoder_depth + cfg.decoder_depth) * (n == plan.instance)
+            for n in attention_ops.INSTANCES}
 
 
 def normalized(policy, actions: torch.Tensor) -> torch.Tensor:
@@ -365,8 +413,9 @@ def normalized(policy, actions: torch.Tensor) -> torch.Tensor:
 
 
 def check_actions(policy, actions: torch.Tensor, batch: int) -> None:
-    if tuple(actions.shape) != (batch, 16, 2):
-        raise AssertionError(f"action chunk shape {tuple(actions.shape)} != {(batch, 16, 2)}")
+    if tuple(actions.shape) != (batch, 16, policy.action_dim):
+        raise AssertionError(f"action chunk shape {tuple(actions.shape)} != "
+                             f"{(batch, 16, policy.action_dim)}")
     if not bool(torch.isfinite(actions).all()):
         raise AssertionError("non-finite actions")
     # x0 is clipped to [-1, 1] and the last step adds no noise, so the
@@ -465,9 +514,11 @@ def serving_weights(meta_policy):
     return convert.seeded_tree(meta_policy.mar, SEED), convert.load_flat_npz(VAE_NPZ)
 
 
-def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, rejected) -> dict:
+def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, rejected,
+                text: dict = None) -> dict:
     """The kernel route of the bf16 ``policy`` against its plain-attention
-    route at each batch of ``frames`` under the same weights and noise: the
+    route at each batch of ``frames`` (with ``text``, the encoded goal of
+    each batch) under the same weights and noise: the
     decoder output z, each route's mean |z - z_fp32| against ``policy32``'s
     (fp32, plain attention) within SERVE_Z_FLOOR_RATIO of the plain route's,
     and the normalized actions within the serve limits. Then each planted
@@ -477,6 +528,7 @@ def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, reje
     differences by batch."""
     from unified_video_action_tpu_torch.models import transformer
 
+    text = text or {B: None for B in frames}
     refs = {}
     with torch.no_grad():
         policy.set_attn_impl("plain")
@@ -484,9 +536,10 @@ def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, reje
         for B in frames:
             cond = policy._encode_frames(policy._prep_frames(frames[B].cuda()), noise[B]["vae"])
             refs[B] = {
-                "cond": cond, "z_ref": policy32.mar.policy_latents(cond),
-                "z_plain": policy.mar.policy_latents(cond).float(),
-                "actions": normalized(policy, policy.predict_action_frames(frames[B], noise=noise[B])),
+                "cond": cond, "z_ref": policy32.mar.policy_latents(cond, text[B]),
+                "z_plain": policy.mar.policy_latents(cond, text[B]).float(),
+                "actions": normalized(policy, policy.predict_action_frames(
+                    frames[B], noise=noise[B], text_latents=text[B])),
             }
         policy32.set_attn_impl("kernel")
         policy.set_attn_impl("kernel")
@@ -495,8 +548,8 @@ def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, reje
         """The route ``policy`` is set to, against the plain route, at batch B."""
         r = refs[B]
         with torch.no_grad():
-            z = policy.mar.policy_latents(r["cond"]).float()
-        actions = policy.predict_action_frames(frames[B], noise=noise[B])
+            z = policy.mar.policy_latents(r["cond"], text[B]).float()
+        actions = policy.predict_action_frames(frames[B], noise=noise[B], text_latents=text[B])
         da = (normalized(policy, actions) - r["actions"]).abs().flatten()
         return {
             "z_err_kernel": (z - r["z_ref"]).abs().mean().item(),
@@ -580,8 +633,9 @@ def phase_serve(attention_ops, trees, normalizer):
     for B in (1, 128):
         windows[B] = np.zeros((B, 16, 3, 96, 96), dtype=np.uint8)
         windows[B][:, 3::4] = frames[B].numpy()
-    for name in attention_ops.launch_count:
-        attention_ops.launch_count[name] = 0
+    for counter in (attention_ops.launch_count, attention_ops.instance_count):
+        for name in counter:
+            counter[name] = 0
     actions = {}
     per_call = {}
     for B in (1, 128):
@@ -591,7 +645,7 @@ def phase_serve(attention_ops, trees, normalizer):
         if res["action"].shape != (B, policy.n_action_steps, 2):
             raise AssertionError(f"action shape {res['action'].shape}")
         actions[B] = torch.from_numpy(res["action_pred"]).cuda()
-    launches = dict(attention_ops.launch_count)
+    launches = {**attention_ops.launch_count, **attention_ops.instance_count}
     blocks = c.encoder_depth + c.decoder_depth
     wants = {B: attention_launches_per_request(attention_ops, c, B, torch.bfloat16) for B in (1, 128)}
     log(f"attention launches: {per_call} per call, {launches} in all; want {wants} "
@@ -600,6 +654,8 @@ def phase_serve(attention_ops, trees, normalizer):
         check_actions(policy, actions[B], B)
         if per_call[B] != wants[B]:
             raise AssertionError(f"B={B}: attention launches {per_call[B]}, want {wants[B]}")
+    if launches["attention_wgmma"] == 0 or launches["attention_wgmma_d64"] != launches["attention_wgmma"]:
+        raise AssertionError(f"the single-pass launches are not all of its D = 64 instance: {launches}")
 
     # fp32 on the card, matmuls and convolutions without TF32: the reference
     # for the bf16 routes here, and held against the CPU below
@@ -708,8 +764,9 @@ def phase_serve_256px(attention_ops, normalizer) -> dict:
     torch.cuda.synchronize()
 
     # the path: one obs-dict request at B=1 and one at B=128, counted
-    for name in attention_ops.launch_count:
-        attention_ops.launch_count[name] = 0
+    for counter in (attention_ops.launch_count, attention_ops.instance_count):
+        for name in counter:
+            counter[name] = 0
     per_call = {}
     for B in BATCHES_256:
         window = np.zeros((B, 16, 3, 96, 96), dtype=np.uint8)
@@ -720,12 +777,14 @@ def phase_serve_256px(attention_ops, normalizer) -> dict:
         if res["action"].shape != (B, policy.n_action_steps, 2):
             raise AssertionError(f"action shape {res['action'].shape}")
         check_actions(policy, torch.from_numpy(res["action_pred"]), B)
-    launches = dict(attention_ops.launch_count)
+    launches = {**attention_ops.launch_count, **attention_ops.instance_count}
     wants = {B: attention_launches_per_request(attention_ops, c, B, torch.bfloat16) for B in BATCHES_256}
     log(f"256 px attention launches: {per_call} per call, {launches} in all; want {wants}")
     for B in BATCHES_256:
         if per_call[B] != wants[B] or per_call[B]["attention_wgmma_online"] != c.encoder_depth + c.decoder_depth:
             raise AssertionError(f"256 px B={B}: attention launches {per_call[B]}, want {wants[B]}")
+    if launches["attention_wgmma_online_d64"] != launches["attention_wgmma_online"]:
+        raise AssertionError(f"the online launches are not all of its D = 64 instance: {launches}")
 
     policy32 = make_policy("float32")
     policy32.load_params(*trees)
@@ -760,6 +819,205 @@ def phase_serve_256px(attention_ops, normalizer) -> dict:
     return launches
 
 
+# ------------------------------------------------- mar_small: head dim 128
+
+# mar_small (6+6 blocks, d = 768 over 6 heads of 128) in its two single-chip
+# configurations: the 96 px PushT model (144 tokens, the single-pass kernel)
+# and the language-conditioned 128 px kitchen model (256 frame tokens and the
+# 64-token text buffer: 320, the online kernel with a 64-row last KV tile)
+SMALL_BATCHES = (1, 128)
+KITCHEN_GOAL = "open the microwave"
+# the kitchen path's N = 320 is a multiple of the unmasked_kv_edge control's
+# 64-row tile, so that control plants no fault there; the kernel phase holds
+# the online kernel's ragged 128-row edge at N = 320 (64 rows)
+REJECTED_CONTROLS_KITCHEN = ("exp_base_2", "scale_x1.1")
+
+
+def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normalizer,
+                      goal: str = None, rejected=REJECTED_CONTROLS) -> dict:
+    """One mar_small configuration at full width (``run_cfg``:
+    config.PUSHT_SMALL96 or config.KITCHEN_SMALL128), numpy-seeded MAR and
+    denoiser weights through the bridge and the committed VAE of the
+    config, bf16, 100 sampler steps. The path, counted: the obs-dict
+    predict_action at B=1 and B=128 (with ``goal``, and one more call at B=1
+    without a goal), then the deployed tier (ddim10 + int8 + yuv420)
+    predict_action_cached, a full and a cached call at both batches. Each
+    call launches the D = 128 instance that attention_plan names once per ViT
+    block and no other attention kernel, and the int8 kernels as the config
+    implies. Then the deployed kernel route against the plain-int8 route
+    (bit-equal), the kernel route against the plain route under the same
+    noise with the serve limits and the controls, the card in fp32 (the
+    fp32 kernel at D = 128) against the port on the CPU, and request times.
+    Returns the launches of the counted calls by kernel instance."""
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    amp = dict(run_cfg["model"]["policy"]["autoregressive_model_params"],
+               act_diff_testing_steps="ddim10")
+
+    def make_policy(device="cuda", dtype="bfloat16", **overrides):
+        p = UnifiedVideoActionPolicy.from_cfg(run_cfg, device=device, compute_dtype=dtype, **overrides)
+        if normalizer is not None:
+            p.set_normalizer(normalizer)
+        return p
+
+    policy = make_policy()
+    deployed = make_policy(autoregressive_model_params=amp, serving_quant="int8", obs_codec="yuv420")
+    c = policy.mar_cfg
+    D = c.encoder_embed_dim // c.encoder_num_heads
+    vae_npz = os.path.join(REPO, policy.vae_path)
+    if not os.path.isfile(vae_npz):
+        raise FileNotFoundError(f"the committed VAE weights are missing: {vae_npz}")
+    trees = convert.seeded_tree(policy.mar, SEED), convert.load_flat_npz(vae_npz)
+    for p in (policy, deployed):
+        p.load_params(*trees)
+    log(f"{name} policy: mar {c.encoder_depth}+{c.decoder_depth} blocks, d={c.encoder_embed_dim}, "
+        f"{c.encoder_num_heads} heads of D={D}, {c.img_size}px, {c.total_tokens} frame tokens, "
+        f"{c.attention_tokens} attended, {policy.mar.diffactloss.num_steps} sampler steps, "
+        f"{policy.dtype}, action dim {policy.action_dim}; text encoder "
+        f"{type(policy.text_encoder).__name__ if policy.text_encoder else None} (max_length "
+        f"{policy.max_length}); MAR+denoiser {sum(p.numel() for p in policy.mar.parameters()) / 1e6:.1f}M "
+        f"numpy-seeded (seed {SEED}), VAE encoder {sum(p.numel() for p in policy.vae.parameters()) / 1e6:.1f}M "
+        f"from {policy.vae_path}")
+    if D != 128:
+        raise AssertionError(f"{name}: head dimension {D}, want 128")
+
+    camera = "agentview_rgb" if goal else "image"
+    rng = np.random.default_rng(SEED + 40)
+    img = c.img_size
+    windows = {B: [{camera: rng.integers(0, 256, (B, 16, 3, img, img), dtype=np.uint8)}
+                   for _ in range(2)] for B in SMALL_BATCHES}
+    noise, cached_noise = {}, {}
+    for B in SMALL_BATCHES:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 40 + B)
+        noise[B] = policy.sample_noise(B, gen)
+        cached_noise[B] = (deployed.sample_noise(B, gen, n_new=4), deployed.sample_noise(B, gen, n_new=2))
+
+    def serve_cached(B):
+        full, cache = deployed.predict_action_cached(windows[B][0], noise=cached_noise[B][0],
+                                                     language_goal=goal)
+        cached, _ = deployed.predict_action_cached(windows[B][1], cache=cache, n_shift=8,
+                                                   noise=cached_noise[B][1], language_goal=goal)
+        return full, cached
+
+    for B in SMALL_BATCHES:  # warm-up: not counted
+        policy.predict_action(windows[B][0], noise=noise[B], language_goal=goal)
+        serve_cached(B)
+    torch.cuda.synchronize()
+
+    # the path: every count set to 0 just before, read just after
+    counters = (attention_ops.launch_count, attention_ops.instance_count, int8_ops.launch_count)
+    for counter in counters:
+        for k in counter:
+            counter[k] = 0
+
+    def counts() -> dict:
+        return {k: v for counter in counters for k, v in counter.items()}
+
+    calls = [(B, goal) for B in SMALL_BATCHES] + ([(1, None)] if goal else [])
+    per_call, results = {}, {}
+    for B, g in calls:
+        before = counts()
+        res = policy.predict_action(windows[B][0], noise=noise[B], language_goal=g)
+        per_call[f"predict_action B={B} goal={g is not None}"] = (
+            B, False, {k: v - before[k] for k, v in counts().items()})
+        if res["action"].shape != (B, policy.n_action_steps, policy.action_dim):
+            raise AssertionError(f"{name}: action shape {res['action'].shape}")
+        check_actions(policy, torch.from_numpy(res["action_pred"]), B)
+        results[(B, g)] = res["action_pred"]
+    for B in SMALL_BATCHES:
+        before = counts()
+        cached = serve_cached(B)
+        per_call[f"predict_action_cached B={B}"] = (
+            B, True, {k: (v - before[k]) / 2 for k, v in counts().items()})
+        for res in cached:
+            check_actions(deployed, torch.from_numpy(res["action_pred"]), B)
+        results[("cached", B)] = cached
+    torch.cuda.synchronize()
+    launches = counts()
+    blocks = c.encoder_depth + c.decoder_depth
+    for call, (B, int8_route, got) in per_call.items():
+        plan = attention_plan_of(attention_ops, c, B, torch.bfloat16)
+        want = {**attention_launches_per_request(attention_ops, c, B, torch.bfloat16),
+                **attention_instances_per_request(attention_ops, c, B, torch.bfloat16),
+                **{k: 0 for k in int8_ops.launch_count}}
+        if int8_route:
+            want.update(int8_kernels_per_request(deployed, int8_ops, B))
+        log(f"{name} {call}: plan {plan}, launches {json.dumps({k: v for k, v in got.items() if v})}")
+        if got != want or got[plan.instance] != blocks or plan.head_dim != 128:
+            raise AssertionError(f"{name} {call}: launches {got}, want {want} ({blocks} of {plan.instance})")
+    if goal is not None and np.allclose(results[(1, goal)], results[(1, None)], atol=1e-3):
+        raise AssertionError(f"{name}: the goal does not change the actions")
+
+    # the deployed kernel route against the plain-int8 route: bit-equal
+    deployed.set_int8_impl("plain")
+    plain = {B: serve_cached(B) for B in SMALL_BATCHES}
+    deployed.set_int8_impl("kernel")
+    int8_diffs = {B: max(float(np.abs(a["action_pred"] - b["action_pred"]).max())
+                         for a, b in zip(results[("cached", B)], plain[B])) for B in SMALL_BATCHES}
+    log(f"{name} deployed, kernel vs plain-int8 route, max |da|: {json.dumps(int8_diffs)}; limit: bit-equal")
+    if any(int8_diffs.values()):
+        raise AssertionError(f"{name}: the int8 kernel route differs from the plain-int8 route: {int8_diffs}")
+
+    # the kernel route against the plain route, bf16, same noise, and the
+    # controls; the reference is fp32 on the card (its attention the fp32
+    # kernel at D = 128 below), matmuls and convolutions without TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    policy32 = make_policy(dtype="float32")
+    policy32.load_params(*trees)
+    frames = {B: torch.from_numpy(windows[B][0][camera][:, 3::4].copy()) for B in SMALL_BATCHES}
+    text = {B: policy._encode_language_goal(goal, B) for B in SMALL_BATCHES}
+    diffs = route_check(attention_ops, policy, policy32, frames, noise, rejected, text)
+
+    # the card in fp32 (the fp32 kernel at D = 128) against the port on the CPU in fp32
+    cpu32 = make_policy(device="cpu", dtype="float32")
+    cpu32.load_params(*trees)
+    cpu_noise = {k: v.cpu() for k, v in noise[1].items()}
+    before = attention_ops.instance_count[f"attention_f32_d{D}"]
+    on_card = policy32.predict_action_frames(frames[1], noise=cpu_noise, text_latents=text[1]).cpu()
+    f32_launches = attention_ops.instance_count[f"attention_f32_d{D}"] - before
+    on_cpu = cpu32.predict_action_frames(frames[1], noise=cpu_noise,
+                                         text_latents=None if text[1] is None else text[1].cpu())
+    d = (normalized(policy, on_card) - normalized(policy, on_cpu)).abs().max().item()
+    log(f"{name} card fp32 ({f32_launches} launches of attention_f32_d{D}) vs CPU fp32, B=1, "
+        f"normalized actions: max abs {d}; atol {SERVE_FP32_ATOL}")
+    if d > SERVE_FP32_ATOL or f32_launches != blocks:
+        raise AssertionError(f"{name}: the card's fp32 run disagrees with the CPU's ({d}) or did not "
+                             f"launch the fp32 kernel once per block ({f32_launches})")
+    del policy32, cpu32
+
+    # request times on the host clock, each until the action is on the host
+    def request_ms(B: int, reps: int, cached: bool):
+        cache = deployed.predict_action_cached(windows[B][0], noise=cached_noise[B][0],
+                                               language_goal=goal)[1] if cached else None
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cached:
+                deployed.predict_action_cached(windows[B][1], cache=cache, n_shift=8,
+                                               noise=cached_noise[B][1], language_goal=goal)
+            else:
+                policy.predict_action(windows[B][0], noise=noise[B], language_goal=goal)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    torch.cuda.reset_peak_memory_stats()
+    serve = {"p50_ms_b1": request_ms(1, 9, False), "median_ms_b128": request_ms(128, 5, False),
+             "p50_cached_deployed_ms_b1": request_ms(1, 9, True),
+             "median_cached_deployed_ms_b128": request_ms(128, 5, True)}
+    serve["chunks_per_s_b128"] = 128 / (serve["median_ms_b128"] / 1e3)
+    serve.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, kernel_vs_plain=diffs,
+                 attention_instance=attention_plan_of(attention_ops, c, 128, torch.bfloat16).instance,
+                 card=card_line())
+    log(f"{name} " + json.dumps(serve))
+    # the stages of one request (the breakdown runs the MAR without a goal:
+    # the text buffer's 64 tokens cost the same with the null latent)
+    log(f"{name}, where the time goes, B=128: " + json.dumps(breakdown(policy, frames[128], noise[128])))
+    return launches
+
+
 # ---------------------------------------------------------------- int8 W8A8
 
 # The int8 kernels repeat their plain versions' arithmetic exactly, so every
@@ -789,7 +1047,7 @@ def int8_path_shapes(cfg, batches=(128, 1)) -> list:
     W, Dd = cfg.diffloss_act_w, cfg.decoder_embed_dim
     shapes = []
     for B in batches:
-        m_mar, m_den = B * cfg.total_tokens, B * cfg.num_action_tokens
+        m_mar, m_den = B * cfg.attention_tokens, B * cfg.num_action_tokens
         shapes += [
             (f"qkv B={B}", m_mar, D, 3 * D, torch.bfloat16),
             (f"proj B={B}", m_mar, D, D, torch.bfloat16),
@@ -1127,7 +1385,7 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
     torch.cuda.synchronize()
 
     # the deployed path: a full and a cached request at B=1 and at B=128, counted
-    counters = (attention_ops.launch_count, int8_ops.launch_count)
+    counters = (attention_ops.launch_count, attention_ops.instance_count, int8_ops.launch_count)
     for counter in counters:
         for k in counter:
             counter[k] = 0
@@ -1143,6 +1401,7 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
         per_call[B] = {k: (v - before[k]) / 2 for k, v in counts().items()}
     launches = counts()
     wants = {B: {**attention_launches_per_request(attention_ops, c, B, torch.bfloat16),
+                 **attention_instances_per_request(attention_ops, c, B, torch.bfloat16),
                  **int8_kernels_per_request(policy, int8_ops, B)} for B in batches}
     log(f"deployed launches per call: {per_call}; in all: {launches}; want {wants}")
     for B in batches:
@@ -1302,7 +1561,7 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
         p.load_params(*trees)
         return p
 
-    counters = (attention_ops.launch_count, int8_ops.launch_count)
+    counters = (attention_ops.launch_count, attention_ops.instance_count, int8_ops.launch_count)
 
     def counts() -> dict:
         return {k: v for counter in counters for k, v in counter.items()}
@@ -1342,7 +1601,9 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
         return out
 
     def want_launches(policy, calls, batch, int8_route):
-        per_call = attention_launches_per_request(attention_ops, policy.mar_cfg, batch, torch.bfloat16)
+        per_call = {**attention_launches_per_request(attention_ops, policy.mar_cfg, batch, torch.bfloat16),
+                    **attention_instances_per_request(attention_ops, policy.mar_cfg, batch,
+                                                      torch.bfloat16)}
         if int8_route:
             per_call.update(int8_kernels_per_request(policy, int8_ops, batch))
         return {k: calls * per_call.get(k, 0) for k in counts()}
@@ -1439,6 +1700,14 @@ def main() -> int:
         launches = phase_serve(attention_ops, trees, normalizer)
     with Phase("serve_256px"):
         launches_256 = phase_serve_256px(attention_ops, normalizer)
+    from unified_video_action_tpu_torch import config as port_config
+    with Phase("serve_small96"):
+        launches_small96 = phase_serve_small(attention_ops, int8_ops, "small96",
+                                             port_config.PUSHT_SMALL96, normalizer)
+    with Phase("serve_kitchen128"):
+        launches_kitchen = phase_serve_small(attention_ops, int8_ops, "kitchen128",
+                                             port_config.KITCHEN_SMALL128, None, goal=KITCHEN_GOAL,
+                                             rejected=REJECTED_CONTROLS_KITCHEN)
     with Phase("deployed"):
         deployed, gemm_request_ms, calls = phase_serve_deployed(
             attention_ops, int8_ops, trees, normalizer)
@@ -1453,91 +1722,101 @@ def main() -> int:
                   for B in (1, 128)}
     log(f"int8_gemm device ms per deployed request: {json.dumps(request_ms)}")
 
-    path_row, b1_row = attention_row(rows, 128, 144), attention_row(rows, 1, 144)
-    row_256, b1_row_256 = attention_row(rows, 128, 1024), attention_row(rows, 1, 1024)
-    int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
     rollout_paths = {"rollout_deployed": rollouts["a"], "rollout_plain_int8": rollouts["b"],
                      "rollout_bf16_uncached": rollouts["c"]}
     attention_by_path = {"predict_action_100_steps": launches, "predict_action_256px": launches_256,
-                         "predict_action_cached_deployed": deployed, **rollout_paths}
-    attention_by_path = {path: {k: n[k] for k in attention_ops.KERNELS}
+                         "predict_action_cached_deployed": deployed, **rollout_paths,
+                         "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen}
+    attention_keys = attention_ops.KERNELS + attention_ops.INSTANCES
+    attention_by_path = {path: {k: n[k] for k in attention_keys}
                          for path, n in attention_by_path.items()}
-    attention_launches = {k: sum(p[k] for p in attention_by_path.values())
-                          for k in attention_ops.KERNELS}
-    int8_by_path = {"predict_action_cached_deployed": deployed,
-                    "rollout_deployed": rollouts["a"]}
+    attention_launches = {k: sum(p[k] for p in attention_by_path.values()) for k in attention_keys}
+    int8_by_path = {"predict_action_cached_deployed": deployed, "rollout_deployed": rollouts["a"],
+                    "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen}
     gemm_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.GEMM_KERNELS}
     quant_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.QUANT_KERNELS}
+    int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
 
     def timing(row: dict) -> dict:
-        return {k: row[k] for k in ("kernel", "split", "max_abs_err", "rel_rms_err", "ms",
+        return {k: row[k] for k in ("instance", "split", "max_abs_err", "rel_rms_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
-    # each attention entry counts its own kernel's launches, by path; the
-    # fp32 and mma.sync kernels launch on no path (launches_by_kernel keeps
-    # every attention kernel's total) and are held in the kernel phase only
-    kernels = {"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "unified_video_action_tpu_torch/csrc/attention.cu",
-        "replaces": "unified_video_action_tpu/ops/attention.py:33",
-        "launches": attention_launches["attention_wgmma"],
-        "launches_by_kernel": attention_launches,
-        "launches_by_path": {path: n["attention_wgmma"] for path, n in attention_by_path.items()},
-        **timing(path_row),
-        "b1": timing(b1_row),
-    }, {
-        "name": "flash_attention_online",
-        "route": "cuda",
-        "source": "unified_video_action_tpu_torch/csrc/attention.cu",
-        "replaces": "unified_video_action_tpu/ops/attention.py:67",
-        "launches": attention_launches["attention_wgmma_online"],
-        "launches_by_path": {path: n["attention_wgmma_online"]
-                             for path, n in attention_by_path.items()},
-        "shape": [128, 1024, 12, 64],
-        **timing(row_256),
-        "b1": timing(b1_row_256),
-        "by_shape": {f"({r['B']}, {r['N']})": {"ms": r["ms"], "library_ms": r["library_ms"],
-                                               "bound_ms": r["bound_ms"]}
-                     for r in rows if r["kernel"] == "attention_wgmma_online"},
-    }, {
-        "name": "int8_gemm",
-        "route": "cuda",
-        "source": "unified_video_action_tpu_torch/csrc/int8_mm.cu",
-        "replaces": "unified_video_action_tpu/ops/int8_mm.py:32",
-        "launches": sum(gemm_launches.values()),
-        "launches_by_kernel": gemm_launches,
-        "launches_by_path": {path: sum(n[k] for k in int8_ops.GEMM_KERNELS)
-                             for path, n in int8_by_path.items()},
-        "shape": [int8_row["M"], int8_row["K"], int8_row["N"]],
-        "kernel": int8_row["kernel"],
-        "max_abs_err": int8_row["bit_equal"]["max_abs_err"],
-        "ms": int8_row["gemm_ms"],
-        "s32_ms": int8_row["gemm_s32_ms"],
-        "plain_ms": int8_row["gemm_plain_ms"],
-        "bound_ms": int8_row["gemm_bound_ms"],
-        "bound_by": int8_row["gemm_bound_by"],
-        "library_ms": int8_row["gemm_library_ms"],
-        "request_ms": request_ms,
-    }, {
-        "name": "quantize_rows",
-        "route": "cuda",
-        "source": "unified_video_action_tpu_torch/csrc/int8_mm.cu",
-        "replaces": "unified_video_action_tpu/ops/int8_mm.py:96",
-        "launches": sum(quant_launches.values()),
-        "launches_by_kernel": quant_launches,
-        "launches_by_path": {path: sum(n[k] for k in int8_ops.QUANT_KERNELS)
-                             for path, n in int8_by_path.items()},
-        "shape": [int8_row["M"], int8_row["K"]],
-        "kernel": int8_row["rows_kernel"],
-        "max_abs_err": int8_row["bit_equal"]["x_q_max_abs_err"],
-        "ms": int8_row["rows_ms"],
-        "plain_ms": int8_row["rows_plain_ms"],
-        "bound_ms": int8_row["rows_bound_ms"],
-        "bound_by": int8_row["rows_bound_by"],
-        "library_ms": None,
-        "ms_by_shape": {r["layer"]: r["rows_ms"] for r in int8_rows},
-    }]}
+    def attention_entry(name, instance, replaces, shape, **other_shapes) -> dict:
+        """One entry of an attention kernel instance: its launches over the
+        counted paths, and its kernel-phase row at ``shape`` (B, N, H, D)
+        with the rows of ``other_shapes`` beside it."""
+        B, N, H, D = shape
+        return {
+            "name": name, "route": "cuda",
+            "source": "unified_video_action_tpu_torch/csrc/attention.cu",
+            "replaces": f"unified_video_action_tpu/ops/attention.py:{replaces}",
+            "launches": attention_launches[instance],
+            "launches_by_path": {path: n[instance] for path, n in attention_by_path.items() if n[instance]},
+            "shape": list(shape), **timing(attention_row(rows, B, N, D=D)),
+            **{k: timing(attention_row(rows, b, n, D=D)) for k, (b, n) in other_shapes.items()},
+        }
+
+    # one entry per instance of the two TMA kernels, which the paths launch;
+    # the mma.sync and fp32 kernels launch on no counted path (the fp32 one
+    # in the serve phases' fp32 checks) and are held in the kernel phase,
+    # their rows under "unaligned_and_fp32"
+    side_rows = {"attention_mma_sync_d64": attention_row(rows, 8, 1088, D=64, aligned=False),
+                 "attention_mma_sync_d128": attention_row(rows, 8, 320, D=128, aligned=False),
+                 "attention_f32_d64": attention_row(rows, 128, 144, torch.float32, D=64),
+                 "attention_f32_d128": attention_row(rows, 128, 144, torch.float32, D=128)}
+    kernels = {"kernels": [
+        {**attention_entry("flash_attention", "attention_wgmma_d64", 33, (128, 144, 12, 64), b1=(1, 144)),
+         "launches_by_kernel": attention_launches,
+         "unaligned_and_fp32": {k: {**timing(r), "shape": [r["B"], r["N"], r["H"], r["D"]]}
+                                for k, r in side_rows.items()}},
+        {**attention_entry("flash_attention_online", "attention_wgmma_online_d64", 67,
+                           (128, 1024, 12, 64), b1=(1, 1024)),
+         "by_shape": {f"({r['B']}, {r['N']})": {"ms": r["ms"], "library_ms": r["library_ms"],
+                                                "bound_ms": r["bound_ms"]}
+                      for r in rows if r["instance"] == "attention_wgmma_online_d64"}},
+        attention_entry("flash_attention_d128", "attention_wgmma_d128", 33, (128, 144, 6, 128),
+                        b1=(1, 144)),
+        attention_entry("flash_attention_online_d128", "attention_wgmma_online_d128", 67,
+                        (128, 320, 6, 128), b1=(1, 320), b16=(16, 320)),
+        {
+            "name": "int8_gemm",
+            "route": "cuda",
+            "source": "unified_video_action_tpu_torch/csrc/int8_mm.cu",
+            "replaces": "unified_video_action_tpu/ops/int8_mm.py:32",
+            "launches": sum(gemm_launches.values()),
+            "launches_by_kernel": gemm_launches,
+            "launches_by_path": {path: sum(n[k] for k in int8_ops.GEMM_KERNELS)
+                                 for path, n in int8_by_path.items()},
+            "shape": [int8_row["M"], int8_row["K"], int8_row["N"]],
+            "kernel": int8_row["kernel"],
+            "max_abs_err": int8_row["bit_equal"]["max_abs_err"],
+            "ms": int8_row["gemm_ms"],
+            "s32_ms": int8_row["gemm_s32_ms"],
+            "plain_ms": int8_row["gemm_plain_ms"],
+            "bound_ms": int8_row["gemm_bound_ms"],
+            "bound_by": int8_row["gemm_bound_by"],
+            "library_ms": int8_row["gemm_library_ms"],
+            "request_ms": request_ms,
+        }, {
+            "name": "quantize_rows",
+            "route": "cuda",
+            "source": "unified_video_action_tpu_torch/csrc/int8_mm.cu",
+            "replaces": "unified_video_action_tpu/ops/int8_mm.py:96",
+            "launches": sum(quant_launches.values()),
+            "launches_by_kernel": quant_launches,
+            "launches_by_path": {path: sum(n[k] for k in int8_ops.QUANT_KERNELS)
+                                 for path, n in int8_by_path.items()},
+            "shape": [int8_row["M"], int8_row["K"]],
+            "kernel": int8_row["rows_kernel"],
+            "max_abs_err": int8_row["bit_equal"]["x_q_max_abs_err"],
+            "ms": int8_row["rows_ms"],
+            "plain_ms": int8_row["rows_plain_ms"],
+            "bound_ms": int8_row["rows_bound_ms"],
+            "bound_by": int8_row["rows_bound_by"],
+            "library_ms": None,
+            "ms_by_shape": {r["layer"]: r["rows_ms"] for r in int8_rows},
+        },
+    ]}
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,7 +1,8 @@
 """Port of ops/attention.py: the plain version against the JAX package's
 Pallas kernel (interpret mode) and einsum path, the wrapper's CPU route and
-the kernel build. The CUDA kernel itself is held against the plain version
-in tests/test_torch_attention_cuda.py, on the card.
+the kernel build, at head dimensions 64 and 128. The CUDA kernel itself is
+held against the plain version in tests/test_torch_attention_cuda.py, on the
+card.
 
 Tolerances are those of tests/test_ops.py: atol 2e-5 in fp32 (the same
 function summed in another order) and 3e-2 in bf16 (inputs rounded to bf16,
@@ -75,6 +76,33 @@ def test_plain_matches_jax_online_kernel_bf16():
     np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)
 
 
+# Both head dimensions the kernels are built for, at the mar_small paths' N
+# (144: the 96 px model; 320: the kitchen model's 256 frame tokens and 64
+# text tokens), through both Pallas kernels (single_pass True and False) in
+# interpret mode. Tolerances as above: fp32 2e-5, bf16 3e-2.
+@pytest.mark.parametrize("single_pass", [True, False])
+@pytest.mark.parametrize("N", [144, 320])
+@pytest.mark.parametrize("D", [64, 128])
+def test_plain_matches_jax_at_each_head_dim_fp32(D, N, single_pass):
+    q, k, v = _qkv(1, N, 2, D, seed=D + N)
+    want = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          single_pass=single_pass, interpret=True))
+    got = port.attention_plain(torch.tensor(q), torch.tensor(k), torch.tensor(v)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("N", [144, 320])
+@pytest.mark.parametrize("D", [64, 128])
+def test_plain_matches_jax_at_each_head_dim_bf16(D, N):
+    q, k, v = _qkv(1, N, 2, D, seed=D + N + 1)
+    jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jax_flash_attention(jq, jk, jv, interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    got = port.attention_plain(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)
+
+
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch():
     q, k, v = (torch.tensor(x) for x in _qkv(2, 100, 2, seed=2))
     before = dict(port.launch_count)
@@ -95,7 +123,7 @@ def test_plain_version_reads_strided_qkv_views():
 
 def test_wrapper_checks_reject_what_the_kernel_cannot_take():
     q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(ValueError, match="D=64"):
+    with pytest.raises(ValueError, match="D=32"):
         port._check(torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         port._check(q.half(), q.half(), q.half())

@@ -11,8 +11,11 @@ bf16; in bf16 also ||kernel - plain|| / ||plain|| <= 6e-3, chip_smoke.py's
 limit that scales with the output (the bf16 roundings give about 2.5e-3, a
 ragged KV edge left unmasked at N = 1000 1.4e-2). The shapes are the serving path's (N=144 at B=128 and B=1), the 256 px
 path's (N=1024), ragged N, the single-pass kernel's limit (144) and past
-it, and N beyond the TPU's single-pass limit of 2048. Each launch must land
-on the kernel that attention_plan names.
+it, and N beyond the TPU's single-pass limit of 2048, at head dimension 64
+(12 heads); and at head dimension 128 (6 heads, mar_small) the 96 px
+mar_small path's N = 144 and the kitchen path's N = 320 (a 64-row last KV
+tile), for every kernel. Each launch must land on the kernel, and the
+instance, that attention_plan names.
 """
 
 import pytest
@@ -31,13 +34,16 @@ def card():
 
 def _launch_matches_plain(q, k, v, atol):
     """One launch, of the kernel the plan names, within atol of the plain version."""
-    B, N, H, _ = q.shape
-    plan = port.attention_plan(B, N, H, q.dtype, port._check(q, k, v))
+    B, N, H, D = q.shape
+    plan = port.attention_plan(B, N, H, D, q.dtype, port._check(q, k, v))
     before = dict(port.launch_count)
+    before_instances = dict(port.instance_count)
     got = port.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert {n: c - before[n] for n, c in port.launch_count.items()} == {
         n: int(n == plan.kernel) for n in port.KERNELS}
+    assert {n: c - before_instances[n] for n, c in port.instance_count.items()} == {
+        n: int(n == plan.instance) for n in port.INSTANCES}
     want = port.attention_plain(q, k, v)
     assert got.is_contiguous() and got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
@@ -79,7 +85,7 @@ def test_the_single_pass_kernel_split_and_whole(card, B, split):
     q, k, v = (torch.randn(B, 144, 12, 64, generator=g, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     plan = _launch_matches_plain(q, k, v, 3e-2)
-    assert plan == port.AttentionPlan("attention_wgmma", split)
+    assert plan == port.AttentionPlan("attention_wgmma", 64, split)
 
 
 @pytest.mark.cuda
@@ -90,7 +96,7 @@ def test_the_online_kernel_past_the_single_pass_limit(card, B, N, split):
     g = torch.Generator(device="cuda").manual_seed(N)
     qkv = torch.randn(B, N, 3, 12, 64, generator=g, device="cuda").to(torch.bfloat16)
     plan = _launch_matches_plain(*qkv.unbind(2), 3e-2)
-    assert plan == port.AttentionPlan("attention_wgmma_online", split)
+    assert plan == port.AttentionPlan("attention_wgmma_online", 64, split)
 
 
 @pytest.mark.cuda
@@ -100,4 +106,75 @@ def test_rows_off_a_16_byte_boundary_take_the_mma_sync_kernel(card):
     buf = torch.randn(B * N * 3 * H * 64 + 1, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = buf[1:].view(B, N, 3, H, 64).unbind(2)
     assert not port._check(q, k, v)
-    assert _launch_matches_plain(q, k, v, 3e-2) == port.MMA_SYNC
+    assert _launch_matches_plain(q, k, v, 3e-2) == port.AttentionPlan("attention_mma_sync", 64)
+
+
+# head dimension 128 (mar_small: 768 over 6 heads): the 96 px path's N = 144
+# (the single-pass kernel, split at B = 1), the kitchen path's N = 320 (the
+# online kernel, KV tiles of 128, 128 and 64 rows), ragged N, unaligned views
+# (mma.sync) and fp32 (the scalar kernel)
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,N,dtype,aligned,kernel,atol",
+    [
+        (1, 144, torch.bfloat16, True, "attention_wgmma", 3e-2),
+        (128, 144, torch.bfloat16, True, "attention_wgmma", 3e-2),
+        (8, 137, torch.bfloat16, True, "attention_wgmma", 3e-2),
+        (1, 320, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
+        (16, 320, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
+        (128, 320, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
+        (8, 1000, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
+        (8, 320, torch.bfloat16, False, "attention_mma_sync", 3e-2),
+        (4, 137, torch.bfloat16, False, "attention_mma_sync", 3e-2),
+        (128, 144, torch.float32, True, "attention_f32", 2e-5),
+        (4, 320, torch.float32, True, "attention_f32", 2e-5),
+        (4, 100, torch.float32, False, "attention_f32", 2e-5),
+    ],
+)
+def test_head_dim_128_on_the_card(card, B, N, dtype, aligned, kernel, atol):
+    H, D = 6, 128
+    g = torch.Generator(device="cuda").manual_seed(N + B)
+    shape = (B, N, 3, H, D)
+    flat = torch.randn(B * N * 3 * H * D + (not aligned), generator=g, device="cuda").to(dtype)
+    q, k, v = flat[int(not aligned):].view(shape).unbind(2)
+    assert port._check(q, k, v) == aligned
+    plan = _launch_matches_plain(q, k, v, atol)
+    assert (plan.kernel, plan.head_dim) == (kernel, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,split", [(1, 144, True), (64, 144, True), (1, 320, True),
+                                       (1, 320, False), (128, 320, True), (128, 320, False)])
+def test_head_dim_128_both_work_item_sizes(card, B, N, split):
+    # each instance of each TMA kernel at D = 128 (the single pass has only
+    # its split one), whatever the plan would pick, against the plain version
+    g = torch.Generator(device="cuda").manual_seed(7 * N + B)
+    q, k, v = torch.randn(B, N, 3, 6, 128, generator=g, device="cuda").to(torch.bfloat16).unbind(2)
+    out = torch.empty(B, N, 6, 128, dtype=torch.bfloat16, device="cuda")
+    lib = port._lib()
+    fn = lib.uva_flash_attention_wgmma if N <= port.SINGLE_PASS_MAX_N else lib.uva_flash_attention_online
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 6, 128,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(split),
+            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = port.attention_plain(q, k, v).float()
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=3e-2)
+    assert (out.float() - want).norm() / want.norm() <= BF16_REL_RMS
+
+
+@pytest.mark.cuda
+def test_head_dim_128_has_no_whole_head_single_pass(card):
+    q, k, v = torch.zeros(4, 144, 3, 6, 128, dtype=torch.bfloat16, device="cuda").unbind(2)
+    out = torch.empty(4, 144, 6, 128, dtype=torch.bfloat16, device="cuda")
+    rc = port._lib().uva_flash_attention_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 144, 6, 128,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 0, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+@pytest.mark.cuda
+def test_a_head_dim_without_an_instance_raises(card):
+    q = torch.zeros(1, 16, 16, 80, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="D=80"):
+        port.flash_attention(q, q, q)

@@ -5,7 +5,10 @@ online-softmax wgmma kernel at the 256 px path's (B, 1024, 12, 64), in
 64-row work items at small B), where the single-pass kernel stops (N = 144)
 and the online kernel takes over, that an operand off a 16-byte boundary
 takes the mma.sync kernel, that fp32 takes the scalar kernel, and that plans
-are cached and name the launch counters. The kernels themselves run only on
+are cached and name the launch counters. At head dimension 128 (mar_small,
+6 heads) the same kernels at the 96 px mar_small path's N = 144 and the
+kitchen path's N = 320, with their own split thresholds; a head dimension
+with no instance (mar_huge's 80) raises. The kernels themselves run only on
 the card (tests/test_torch_attention_cuda.py).
 """
 
@@ -20,7 +23,7 @@ BF16 = torch.bfloat16
 
 @pytest.mark.parametrize("B,split", [(1, True), (2, True), (7, True), (8, False), (128, False)])
 def test_the_serving_shape_takes_the_single_pass_kernel(B, split):
-    assert attention_plan(B, 144, 12, BF16) == AttentionPlan("attention_wgmma", split)
+    assert attention_plan(B, 144, 12, 64, BF16) == AttentionPlan("attention_wgmma", 64, split)
 
 
 @pytest.mark.parametrize("N,kernel", [(1, "attention_wgmma"), (100, "attention_wgmma"),
@@ -30,21 +33,21 @@ def test_the_serving_shape_takes_the_single_pass_kernel(B, split):
 def test_the_smallest_instance_that_holds_n(N, kernel):
     # the single-pass kernel holds 144 rows; past it the online kernel is the
     # faster (the single-pass kernel's 256-row instance was dropped)
-    assert attention_plan(64, N, 12, BF16).kernel == kernel
+    assert attention_plan(64, N, 12, 64, BF16).kernel == kernel
 
 
 @pytest.mark.parametrize("N", [257, 1088, 2304])
 def test_past_the_single_pass_limit_takes_the_mma_sync_kernel(N):
     # past the limit the mma.sync kernel now takes only views TMA cannot read
     assert N > attention.SINGLE_PASS_MAX_N
-    assert attention_plan(1, N, 12, BF16, aligned=False) == attention.MMA_SYNC
-    assert attention_plan(1, N, 12, BF16).kernel == "attention_wgmma_online"
+    assert attention_plan(1, N, 12, 64, BF16, aligned=False) == AttentionPlan("attention_mma_sync", 64)
+    assert attention_plan(1, N, 12, 64, BF16).kernel == "attention_wgmma_online"
 
 
 @pytest.mark.parametrize("N", [257, 1000, 1024, 1088, 2304])
 @pytest.mark.parametrize("B", [1, 8, 128])
 def test_past_the_single_pass_limit_takes_the_online_kernel(B, N):
-    assert attention_plan(B, N, 12, BF16).kernel == "attention_wgmma_online"
+    assert attention_plan(B, N, 12, 64, BF16).kernel == "attention_wgmma_online"
 
 
 @pytest.mark.parametrize("B,N,split", [
@@ -54,52 +57,64 @@ def test_past_the_single_pass_limit_takes_the_online_kernel(B, N):
     (8, 384, True), (128, 384, False), (8, 145, True), (128, 145, False), (128, 256, False),
 ])
 def test_the_online_kernel_splits_for_few_items(B, N, split):
-    # 64-row work items where B·H·⌈N/128⌉ <= ONLINE_SPLIT_MAX_ITEMS (three
-    # waves of 132 SMs), else 128-row items
-    assert attention_plan(B, N, 12, BF16).split == split
-    assert split == (B * 12 * -(-N // 128) <= attention.ONLINE_SPLIT_MAX_ITEMS)
+    # 64-row work items where B·H·⌈N/128⌉ <= ONLINE_SPLIT_MAX_ITEMS[64]
+    # (three waves of 132 SMs), else 128-row items
+    assert attention_plan(B, N, 12, 64, BF16).split == split
+    assert split == (B * 12 * -(-N // 128) <= attention.ONLINE_SPLIT_MAX_ITEMS[64])
 
 
 def test_an_unaligned_operand_takes_the_mma_sync_kernel():
-    assert attention_plan(1, 144, 12, BF16, aligned=False) == attention.MMA_SYNC
-    assert attention_plan(128, 144, 12, BF16, aligned=False) == attention.MMA_SYNC
+    for B in (1, 128):
+        for D in attention.HEAD_DIMS:
+            assert attention_plan(B, 144, 12, D, BF16, aligned=False) == \
+                AttentionPlan("attention_mma_sync", D)
 
 
 @pytest.mark.parametrize("N,aligned", [(144, True), (2304, True), (144, False)])
 def test_fp32_takes_the_scalar_kernel(N, aligned):
-    assert attention_plan(2, N, 12, torch.float32, aligned) == attention.F32
+    for D in attention.HEAD_DIMS:
+        assert attention_plan(2, N, 12, D, torch.float32, aligned) == AttentionPlan("attention_f32", D)
 
 
 def test_the_split_follows_the_q_tiles_per_sm():
-    # B·H·⌈N/64⌉ q-tiles: split up to SPLIT_MAX_TILES, whole heads above
-    limit = attention.SPLIT_MAX_TILES
-    assert attention_plan(1, 64, limit, BF16).split
-    assert not attention_plan(1, 64, limit + 1, BF16).split
-    assert attention_plan(1, 128, limit // 2, BF16).split
-    assert not attention_plan(1, 129, limit // 2, BF16).split
+    # B·H·⌈N/64⌉ q-tiles: split up to SPLIT_MAX_TILES[64], whole heads above;
+    # at D = 128 always (no whole-head instance is built)
+    limit = attention.SPLIT_MAX_TILES[64]
+    assert attention_plan(1, 64, limit, 64, BF16).split
+    assert not attention_plan(1, 64, limit + 1, 64, BF16).split
+    assert attention_plan(1, 128, limit // 2, 64, BF16).split
+    assert not attention_plan(1, 129, limit // 2, 64, BF16).split
+    assert attention.SPLIT_MAX_TILES[128] is None
+    for B in (1, 16, 128, 4096):
+        assert attention_plan(B, 144, 6, 128, BF16).split
 
 
 def test_plans_refuse_what_no_kernel_takes():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        attention_plan(1, 144, 12, torch.float16)
+        attention_plan(1, 144, 12, 64, torch.float16)
     with pytest.raises(ValueError, match="empty"):
-        attention_plan(0, 144, 12, BF16)
+        attention_plan(0, 144, 12, 64, BF16)
 
 
 def test_plans_are_cached():
-    assert attention_plan(128, 144, 12, BF16) is attention_plan(128, 144, 12, BF16)
-    assert attention_plan(128, 1024, 12, BF16) is attention_plan(128, 1024, 12, BF16)
-    assert attention_plan(1, 2304, 12, BF16, aligned=False) is attention.MMA_SYNC
+    assert attention_plan(128, 144, 12, 64, BF16) is attention_plan(128, 144, 12, 64, BF16)
+    assert attention_plan(128, 1024, 12, 64, BF16) is attention_plan(128, 1024, 12, 64, BF16)
+    assert attention_plan(1, 320, 6, 128, BF16) is attention_plan(1, 320, 6, 128, BF16)
+    assert attention_plan(1, 2304, 12, 64, BF16, aligned=False) is \
+        attention_plan(1, 2304, 12, 64, BF16, aligned=False)
 
 
 def test_plans_name_the_launch_counters():
     assert set(attention.KERNELS) == set(attention.launch_count)
     assert set(attention.KERNELS) == {"attention_wgmma", "attention_wgmma_online",
                                       "attention_mma_sync", "attention_f32"}
-    plans = [attention_plan(B, N, 12, dtype, aligned)
-             for B in (1, 128) for N in (144, 256, 257, 1024) for dtype in (BF16, torch.float32)
-             for aligned in (True, False)]
+    assert set(attention.INSTANCES) == set(attention.instance_count)
+    plans = [attention_plan(B, N, 12, D, dtype, aligned)
+             for B in (1, 128) for N in (144, 256, 257, 1024) for D in attention.HEAD_DIMS
+             for dtype in (BF16, torch.float32) for aligned in (True, False)]
     assert {p.kernel for p in plans} == set(attention.KERNELS)
+    assert {p.instance for p in plans} == set(attention.INSTANCES)
+    assert attention_plan(1, 320, 6, 128, BF16).instance == "attention_wgmma_online_d128"
 
 
 def test_the_aligned_check_reads_base_and_strides():
@@ -110,3 +125,45 @@ def test_the_aligned_check_reads_base_and_strides():
     assert not attention._check(*odd.unbind(2))
     narrow = torch.zeros(2, 10, 4, 68, dtype=BF16)[..., :64]  # rows of 136 bytes
     assert not attention._check(narrow, narrow, narrow)
+    q, k, v = torch.zeros(2, 10, 3, 6, 128, dtype=BF16).unbind(2)
+    assert attention._check(q, k, v)
+
+
+# head dimension 128: mar_small's 6 heads of 128 at the 96 px path's N = 144
+# and the kitchen path's N = 320 (256 frame tokens and the 64-token text buffer)
+@pytest.mark.parametrize("B,N,kernel,split", [
+    (1, 144, "attention_wgmma", True), (128, 144, "attention_wgmma", True),
+    (1, 320, "attention_wgmma_online", True), (16, 320, "attention_wgmma_online", True),
+    (22, 320, "attention_wgmma_online", False), (128, 320, "attention_wgmma_online", False),
+])
+def test_head_dim_128_serving_shapes(B, N, kernel, split):
+    assert attention_plan(B, N, 6, 128, BF16) == AttentionPlan(kernel, 128, split)
+
+
+@pytest.mark.parametrize("B,N", [(1, 144), (128, 144), (8, 320), (128, 320)])
+def test_head_dim_128_unaligned_and_fp32(B, N):
+    assert attention_plan(B, N, 6, 128, BF16, aligned=False) == AttentionPlan("attention_mma_sync", 128)
+    assert attention_plan(B, N, 6, 128, torch.float32) == AttentionPlan("attention_f32", 128)
+
+
+@pytest.mark.parametrize("B,N", [(1, 144), (32, 144), (1, 320), (16, 320), (17, 320), (64, 320),
+                                 (128, 320), (8, 257), (8, 1000)])
+def test_head_dim_128_split_thresholds(B, N):
+    # the thresholds of D = 128 are its own (tools/kernels_ab.py's sweep at
+    # D = 128): the single pass always split, the online kernel's 64-row
+    # items up to 288 of 128 rows (B = 16 at N = 320)
+    plan = attention_plan(B, N, 6, 128, BF16)
+    if plan.kernel == "attention_wgmma":
+        assert plan.split
+    else:
+        assert plan.split == (B * 6 * -(-N // 128) <= attention.ONLINE_SPLIT_MAX_ITEMS[128] == 288)
+
+
+@pytest.mark.parametrize("D", [32, 80, 96, 256])
+def test_a_head_dim_without_an_instance_raises(D):
+    # mar_huge's 1280 / 16 heads = 80, which no config in the repository serves
+    with pytest.raises(ValueError, match=f"D={D}"):
+        attention_plan(1, 144, 16, D, BF16)
+    q = torch.zeros(1, 8, 2, D)
+    with pytest.raises(ValueError, match=f"D={D}"):
+        attention._check(q, q, q)

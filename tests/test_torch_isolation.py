@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "utils.image", "utils.obs_codec", "utils.frames", "utils.device",
                      "data.normalizer", "envs.physics2d", "envs.raster", "envs.pusht",
                      "envs.wrappers", "runners.base", "runners.pusht_runner", "utils.ckpt_id",
-                     "config"):
+                     "utils.language", "config"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))

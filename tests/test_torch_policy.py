@@ -119,7 +119,7 @@ def test_cuda_is_required_unless_the_cpu_is_asked_for(monkeypatch):
         UnifiedVideoActionPolicy(**TINY_POLICY_KW)
 
 
-@pytest.mark.parametrize("option", [{"language_emb_model": "clip"}, {"use_history_action": True},
+@pytest.mark.parametrize("option", [{"predict_wrist_img": True}, {"use_history_action": True},
                                     {"use_proprioception": True}])
 def test_unported_options_are_refused(option):
     with pytest.raises(NotImplementedError):

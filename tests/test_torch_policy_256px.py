@@ -91,7 +91,8 @@ def test_pusht_256_builds_mar_base_at_1024_tokens():
     assert 28_000_000 < sum(p.numel() for p in policy.vae.parameters()) < 28_600_000
     # every ViT block at both serving batches goes to the online kernel
     for batch in (1, 128):
-        plan = attention_ops.attention_plan(batch, c.total_tokens, c.encoder_num_heads, policy.dtype)
+        plan = attention_ops.attention_plan(batch, c.total_tokens, c.encoder_num_heads,
+                                            c.encoder_embed_dim // c.encoder_num_heads, policy.dtype)
         assert plan.kernel == "attention_wgmma_online"
 
 

@@ -3,19 +3,31 @@
 // Replaces the Pallas TPU kernels `_attn_kernel_single_pass` and
 // `_attn_kernel` (unified_video_action_tpu/ops/attention.py:33-110, launched
 // through `flash_attention` at :161). Computes out = softmax(Q K^T / sqrt(D)) V
-// for q, k, v of shape (B, N, H, D), D = 64, read in place through their
-// strides (the layout the fused qkv projection produces, so no transpose is
-// made first). Scores, row max, row sum and the accumulator are fp32; in bf16
-// P is rounded to bf16 before P V, as the TPU kernels cast P to V's dtype.
+// for q, k, v of shape (B, N, H, D), read in place through their strides (the
+// layout the fused qkv projection produces, so no transpose is made first).
+// Every kernel is a template over the head dimension D, built for D = 64
+// (mar_base: 768 / 12 heads) and D = 128 (mar_small and mar_tiny: 768 / 6
+// heads); another D is refused. Scores, row max, row sum and the accumulator
+// are fp32; in bf16 P is rounded to bf16 before P V, as the TPU kernels cast P
+// to V's dtype.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at the 96 px
 // serving shape B=128, N=144, H=12, D=64 the kernel must move 4*B*N*H*D*2 =
 // 113 MB (34 us) and compute 4*B*H*N*N*D = 8.2 GFLOP (8 us), so it is bound
 // by bytes: each head's q, k and v should be read once and its output
-// written once, and loads should overlap the math. At the 256 px path's
-// N=1024 it computes 412 GFLOP (0.417 ms) against 101 MB (0.030 ms), bound by
-// operations, and at D = 64 the softmax's exp2 costs the SM as many clocks
-// as the two products: hiding one behind the other is what that kernel does.
+// written once, and loads should overlap the math. mar_small's shapes move
+// the same bytes per token (H*D = 768) and are bound the same way. At the
+// 256 px path's N=1024 it computes 412 GFLOP (0.417 ms) against 101 MB
+// (0.030 ms), bound by operations, and at D = 64 the softmax's exp2 costs the
+// SM as many clocks as the two products: hiding one behind the other is what
+// that kernel does.
+//
+// Shared-memory tiles of the TMA kernels are 128-byte swizzle rows (64 bf16
+// columns): at D = 128 a tile is two 64-column slabs, each its own block of
+// rows (slab 0 rows, then slab 1 rows), loaded by one TMA box each. The
+// Q K^T k-steps walk into the second slab from the fifth on, and the P V
+// product reads V as an MN-major operand whose two 64-column halves lie one
+// slab apart (the descriptor's leading-byte offset).
 //
 // Four kernels, picked by ops/attention.py's attention_plan:
 //
@@ -46,8 +58,9 @@
 //   uva_flash_attention, bf16: for views TMA cannot read (an operand off a
 //       16-byte boundary): 4 warps per block, 64 query rows, mma.sync
 //       m16n8k16 with an online softmax over 64-wide KV tiles, exact at any N.
-//   uva_flash_attention, fp32: one query row per thread, scalar fp32 FMA
-//       (tensor-core TF32 would not hold the fp32 tolerance).
+//   uva_flash_attention, fp32: 64 columns of D per thread (one thread per
+//       query row at D = 64, two at D = 128), scalar fp32 FMA (tensor-core
+//       TF32 would not hold the fp32 tolerance).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,18 +71,25 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kThreads = 128;
 
 // bf16 path tiles
 constexpr int kBlockQ = 64;                 // 4 warps x 16 rows
 constexpr int kBlockKV = 64;
 constexpr int kPad = 8;                     // bf16 elements of row padding
-constexpr int kLdQK = kHeadDim + kPad;      // row stride of the q and k tiles
 constexpr int kLdVt = kBlockKV + kPad;      // row stride of the transposed v tile
 
-// fp32 path tiles
-constexpr int kF32BlockQ = kThreads;        // one query row per thread
+// The mma.sync kernel's tiles in dynamic shared memory: q and k (kD + kPad
+// bf16 a row) and v transposed (kD rows of kLdVt). 27,648 B at D = 64 and
+// 53,248 B at D = 128, above the 48 KB that static shared memory may take.
+template <int kD>
+struct MmaTiles {
+  static constexpr int kLdQK = kD + kPad;   // row stride of the q and k tiles
+  static constexpr int kSmem = ((kBlockQ + kBlockKV) * kLdQK + kD * kLdVt) * 2;
+};
+
+// fp32 path tiles: each thread takes 64 columns of D of one query row
+constexpr int kF32Cols = 64;
 constexpr int kF32BlockKV = 32;
 
 struct Params {
@@ -131,12 +151,14 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <bool kVec>
+template <int kD, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 attn_bf16_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kBlockQ][kLdQK];
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockKV][kLdQK];
-  __shared__ __align__(16) __nv_bfloat16 vt[kHeadDim][kLdVt];
+  constexpr int kLdQK = MmaTiles<kD>::kLdQK;
+  extern __shared__ uint8_t smem_raw[];  // 16-byte aligned
+  auto qs = reinterpret_cast<__nv_bfloat16 (*)[kLdQK]>(smem_raw);
+  auto ks = reinterpret_cast<__nv_bfloat16 (*)[kLdQK]>(smem_raw + kBlockQ * kLdQK * 2);
+  auto vt = reinterpret_cast<__nv_bfloat16 (*)[kLdVt]>(smem_raw + (kBlockQ + kBlockKV) * kLdQK * 2);
 
   const int b = blockIdx.x / p.H;
   const int h = blockIdx.x % p.H;
@@ -150,7 +172,7 @@ attn_bf16_kernel(const Params p) {
   const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  constexpr int kChunks = kHeadDim / 8;  // 16-byte chunks per row
+  constexpr int kChunks = kD / 8;  // 16-byte chunks per row
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   // Q tile -> shared -> A fragments held for the whole KV loop.
@@ -163,9 +185,9 @@ attn_bf16_kernel(const Params p) {
   }
   __syncthreads();
   const int r0 = warp * 16 + g;
-  uint32_t qa[kHeadDim / 16][4];
+  uint32_t qa[kD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+  for (int kk = 0; kk < kD / 16; ++kk) {
     const int c0 = kk * 16 + 2 * t;
     qa[kk][0] = *reinterpret_cast<const uint32_t*>(&qs[r0][c0]);
     qa[kk][1] = *reinterpret_cast<const uint32_t*>(&qs[r0 + 8][c0]);
@@ -173,9 +195,9 @@ attn_bf16_kernel(const Params p) {
     qa[kk][3] = *reinterpret_cast<const uint32_t*>(&qs[r0 + 8][c0 + 8]);
   }
 
-  float acc[kHeadDim / 8][4];
+  float acc[kD / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < kHeadDim / 8; ++nt)
+  for (int nt = 0; nt < kD / 8; ++nt)
     acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   // rows r0 (index 0) and r0 + 8 (index 1) of this warp's 16
   float m0 = -INFINITY, m1 = -INFINITY;
@@ -203,7 +225,7 @@ attn_bf16_kernel(const Params p) {
 #pragma unroll
     for (int nt = 0; nt < kBlockKV / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+    for (int kk = 0; kk < kD / 16; ++kk) {
 #pragma unroll
       for (int nt = 0; nt < kBlockKV / 8; ++nt) {
         const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
@@ -244,7 +266,7 @@ attn_bf16_kernel(const Params p) {
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
 #pragma unroll
-    for (int nt = 0; nt < kHeadDim / 8; ++nt) {
+    for (int nt = 0; nt < kD / 8; ++nt) {
       acc[nt][0] *= alpha0;
       acc[nt][1] *= alpha0;
       acc[nt][2] *= alpha1;
@@ -261,7 +283,7 @@ attn_bf16_kernel(const Params p) {
           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
       };
 #pragma unroll
-      for (int nt = 0; nt < kHeadDim / 8; ++nt) {
+      for (int nt = 0; nt < kD / 8; ++nt) {
         const __nv_bfloat16* vr = &vt[nt * 8 + g][kk * 16 + 2 * t];
         mma_bf16(acc[nt], pa, *reinterpret_cast<const uint32_t*>(vr),
                  *reinterpret_cast<const uint32_t*>(vr + 8));
@@ -274,10 +296,10 @@ attn_bf16_kernel(const Params p) {
   const int row0 = q0 + r0;
   const int row1 = row0 + 8;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o);
-  const long long o_sn = (long long)p.H * kHeadDim;
-  const long long base = ((long long)b * p.N * p.H + h) * kHeadDim;
+  const long long o_sn = (long long)p.H * kD;
+  const long long base = ((long long)b * p.N * p.H + h) * kD;
 #pragma unroll
-  for (int nt = 0; nt < kHeadDim / 8; ++nt) {
+  for (int nt = 0; nt < kD / 8; ++nt) {
     const int col = nt * 8 + 2 * t;
     if (row0 < p.N)
       *reinterpret_cast<uint32_t*>(o + base + row0 * o_sn + col) =
@@ -288,44 +310,53 @@ attn_bf16_kernel(const Params p) {
   }
 }
 
-template <bool kVec>
+// kD / 64 threads share a query row, each holding 64 columns of q and of the
+// accumulator in registers (128 registers at any D; a whole row of 128
+// columns would take 256 and spill): each thread's partial dot product is
+// summed over the row's threads, adjacent lanes, by shuffles, and every
+// thread of the row runs the same softmax on the sum.
+template <int kD, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 attn_f32_kernel(const Params p) {
-  __shared__ __align__(16) float ks[kF32BlockKV][kHeadDim];
-  __shared__ __align__(16) float vs[kF32BlockKV][kHeadDim];
+  constexpr int kParts = kD / kF32Cols;       // threads per query row
+  constexpr int kRows = kThreads / kParts;    // query rows per block
+  __shared__ __align__(16) float ks[kF32BlockKV][kD];
+  __shared__ __align__(16) float vs[kF32BlockKV][kD];
 
   const int b = blockIdx.x / p.H;
   const int h = blockIdx.x % p.H;
   const int tid = threadIdx.x;
-  const int row = blockIdx.y * kF32BlockQ + tid;
+  const int row = blockIdx.y * kRows + tid / kParts;
+  const int col0 = (tid % kParts) * kF32Cols;  // this thread's columns
   const bool active = row < p.N;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  constexpr int kChunks = kHeadDim / 4;  // float4 per row
+  constexpr int kChunks = kF32Cols / 4;  // float4 per thread's part of a row
+  constexpr int kRowChunks = kD / 4;     // float4 per row
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  float q[kHeadDim];
+  float q[kF32Cols];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     float4 val = zero;
-    if (active) val = load4f<kVec>(qg + row * p.q_sn + 4 * c);
+    if (active) val = load4f<kVec>(qg + row * p.q_sn + col0 + 4 * c);
     q[4 * c + 0] = val.x * p.scale_log2;
     q[4 * c + 1] = val.y * p.scale_log2;
     q[4 * c + 2] = val.z * p.scale_log2;
     q[4 * c + 3] = val.w * p.scale_log2;
   }
-  float acc[kHeadDim];
+  float acc[kF32Cols];
 #pragma unroll
-  for (int c = 0; c < kHeadDim; ++c) acc[c] = 0.f;
+  for (int c = 0; c < kF32Cols; ++c) acc[c] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   for (int kv0 = 0; kv0 < p.N; kv0 += kF32BlockKV) {
     __syncthreads();
-    for (int c = tid; c < kF32BlockKV * kChunks; c += kThreads) {
-      const int r = c / kChunks;
-      const int col = (c % kChunks) * 4;
+    for (int c = tid; c < kF32BlockKV * kRowChunks; c += kThreads) {
+      const int r = c / kRowChunks;
+      const int col = (c % kRowChunks) * 4;
       float4 kval = zero, vval = zero;
       if (kv0 + r < p.N) {
         kval = load4f<kVec>(kg + (kv0 + r) * p.k_sn + col);
@@ -343,12 +374,14 @@ attn_f32_kernel(const Params p) {
       float d = 0.f;
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        const float4 kv = *reinterpret_cast<const float4*>(&ks[j][4 * c]);
+        const float4 kv = *reinterpret_cast<const float4*>(&ks[j][col0 + 4 * c]);
         d = fmaf(q[4 * c + 0], kv.x, d);
         d = fmaf(q[4 * c + 1], kv.y, d);
         d = fmaf(q[4 * c + 2], kv.z, d);
         d = fmaf(q[4 * c + 3], kv.w, d);
       }
+#pragma unroll
+      for (int lane = 1; lane < kParts; lane *= 2) d += __shfl_xor_sync(0xffffffffu, d, lane);
       s[j] = kv0 + j < p.N ? d : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
@@ -363,12 +396,12 @@ attn_f32_kernel(const Params p) {
     }
     l = l * alpha + rs;
 #pragma unroll
-    for (int c = 0; c < kHeadDim; ++c) acc[c] *= alpha;
+    for (int c = 0; c < kF32Cols; ++c) acc[c] *= alpha;
 #pragma unroll
     for (int j = 0; j < kF32BlockKV; ++j) {
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][4 * c]);
+        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][col0 + 4 * c]);
         acc[4 * c + 0] = fmaf(s[j], vv.x, acc[4 * c + 0]);
         acc[4 * c + 1] = fmaf(s[j], vv.y, acc[4 * c + 1]);
         acc[4 * c + 2] = fmaf(s[j], vv.z, acc[4 * c + 2]);
@@ -379,7 +412,7 @@ attn_f32_kernel(const Params p) {
 
   if (!active) return;
   const float inv = 1.f / l;
-  float* o = static_cast<float*>(p.o) + (((long long)b * p.N + row) * p.H + h) * kHeadDim;
+  float* o = static_cast<float*>(p.o) + (((long long)b * p.N + row) * p.H + h) * kD + col0;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
     *reinterpret_cast<float4*>(o + 4 * c) =
@@ -394,22 +427,31 @@ attn_f32_kernel(const Params p) {
 // loads. (A separate producer warp would round the block up to another
 // warpgroup's worth of registers: 128 a thread at kWG = 3, which spills the
 // 72-register score row.) A stage holds one head: its q-tiles (kQTiles x 64
-// rows), K and V (kKV rows each), every row 128 bytes (D = 64 bf16) in the
-// 128-byte swizzle, each buffer 1024-byte aligned. full[s] completes when
+// rows), K and V (kKV rows each), each as kD / 64 slabs of 128-byte rows (64
+// bf16) in the 128-byte swizzle, each slab 1024-byte aligned. full[s] completes when
 // the stage's bytes have landed; empty[s] when every thread is done with it
 // (its output stored). Thread 0 fills the first kStages stages at the start
 // and refills a stage for the head kStages turns later as soon as it is
-// empty, so kStages - 1 heads load while one computes.
+// empty, so kStages - 1 heads load while one computes. At D = 128 a stage of
+// a whole head would be 120 KB, room for one stage and no overlap of loads
+// and math, so only the split instance is built (two stages of 88 KB);
+// tools/kernels_ab.py measured a one-stage whole-head instance slower at
+// every batch but B = 16 of (B, 144, 6, 128).
 
-constexpr int kRowBytes = kHeadDim * 2;  // one 128-byte swizzle row
+constexpr int kRowBytes = 128;  // one 128-byte swizzle row: 64 bf16 columns
+constexpr int kSlabCols = kRowBytes / 2;
 
-template <int kChunks, int kWG, int kStages, bool kSplit>
+template <int kD, int kChunks, int kWG, int kStages, bool kSplit>
 struct SinglePass {
   static_assert(!kSplit || kWG == 1, "a split CTA takes one q-tile with one warpgroup");
+  static_assert(kD % kSlabCols == 0, "D is a whole number of 64-column slabs");
+  static constexpr int kSlabs = kD / kSlabCols;
   static constexpr int kKV = 16 * kChunks;  // KV rows held: this instance takes N <= kKV
   static constexpr int kQTiles = kSplit ? 1 : (kKV + 63) / 64;  // q-tiles a stage holds
-  static constexpr int kQBytes = kQTiles * 64 * kRowBytes;
-  static constexpr int kKVBytes = kKV * kRowBytes;  // a multiple of 2048
+  static constexpr int kQSlabBytes = kQTiles * 64 * kRowBytes;  // one slab of the q-tiles
+  static constexpr int kKVSlabBytes = kKV * kRowBytes;          // a multiple of 2048
+  static constexpr int kQBytes = kSlabs * kQSlabBytes;
+  static constexpr int kKVBytes = kSlabs * kKVSlabBytes;
   static constexpr int kStageBytes = kQBytes + 2 * kKVBytes;
   static constexpr int kThreads = 128 * kWG;
   // the stages, two barriers per stage, the slack that aligns the stages to
@@ -427,15 +469,25 @@ struct SinglePassParams {
   float scale_log2;
 };
 
-// One (64, rows, 1, 1) box of a (D, H, N, B) tensor map: the rows n0 .. of
-// head h of batch b; rows past N arrive as zeros.
+// One (64, 1, rows, 1) box of a (D, H, N, B) tensor map: columns col ..
+// col + 63 of the rows n0 .. of head h of batch b; rows past N arrive as zeros.
 __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int h, int n0, int b) {
+                                              int col, int h, int n0, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(n0), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(h), "r"(n0), "r"(b)
       : "memory");
+}
+
+// The rows n0 .. of head h of batch b, all kD columns: one box per 64-column
+// slab, slab i at dst + i * slab_bytes.
+template <int kD>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int slab_bytes, int h, int n0, int b) {
+#pragma unroll
+  for (int i = 0; i < kD / kSlabCols; ++i)
+    tma_load_rows(dst + i * slab_bytes, map, bar, i * kSlabCols, h, n0, b);
 }
 
 // d (64 x kN, fp32) = a (64 x 16 bf16, registers) * b (16 x kN bf16, K-major
@@ -531,6 +583,75 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
 #undef UVA_RW
 #undef UVA_W
 
+#define UVA_QK_REGS "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+#define UVA_QK_OUT(m) m(d[0]), m(d[1]), m(d[2]), m(d[3]), m(d[4]), m(d[5]), m(d[6]), m(d[7]), \
+  m(d[8]), m(d[9]), m(d[10]), m(d[11]), m(d[12]), m(d[13]), m(d[14]), m(d[15]), m(d[16]), \
+  m(d[17]), m(d[18]), m(d[19]), m(d[20]), m(d[21]), m(d[22]), m(d[23]), m(d[24]), m(d[25]), \
+  m(d[26]), m(d[27]), m(d[28]), m(d[29]), m(d[30]), m(d[31]), m(d[32]), m(d[33]), m(d[34]), \
+  m(d[35]), m(d[36]), m(d[37]), m(d[38]), m(d[39]), m(d[40]), m(d[41]), m(d[42]), m(d[43]), \
+  m(d[44]), m(d[45]), m(d[46]), m(d[47]), m(d[48]), m(d[49]), m(d[50]), m(d[51]), m(d[52]), \
+  m(d[53]), m(d[54]), m(d[55]), m(d[56]), m(d[57]), m(d[58]), m(d[59]), m(d[60]), m(d[61]), \
+  m(d[62]), m(d[63])
+#define UVA_RW(x) "+f"(x)
+#define UVA_W(x) "=f"(x)
+// d (64 x 128, fp32) = a (64 x 16 bf16, registers) * b (16 x 128 bf16 in
+// shared memory: K-major, or MN-major where kTransB), plus d where
+// kAccumulate. K-major, one k16 step of S = Q K^T over a 128-row KV tile;
+// MN-major, 16 KV rows of O = P V at D = 128. Register 4 j + e: row r0 + 8
+// (e >> 1), column 8 j + 2 t + (e & 1).
+template <bool kAccumulate, int kTransB = 0>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kAccumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " UVA_QK_REGS
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+                 : UVA_QK_OUT(UVA_RW)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTransB));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " UVA_QK_REGS
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+                 : UVA_QK_OUT(UVA_W)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0), "n"(kTransB));
+  }
+}
+#undef UVA_QK_REGS
+#undef UVA_QK_OUT
+#undef UVA_RW
+#undef UVA_W
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled MN-major operand
+// whose 64-column halves lie lbo bytes apart (V at D = 128: one slab apart);
+// SBO 1024 B, the next group of 8 rows along K.
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// One k16 step (16 KV rows) of O = P V over D columns: V MN-major, its
+// 64-column slabs slab_bytes apart.
+template <int kD, bool kAccumulate>
+__device__ __forceinline__ void pv_step(float (&o)[kD / 2], const uint32_t (&a)[4], uint32_t v_addr,
+                                        int slab_bytes) {
+  if constexpr (kD == 64) {
+    wgmma_pv<kAccumulate>(o, a, smem_desc(v_addr));
+  } else {
+    static_assert(kD == 128, "P V is built for D = 64 and 128");
+    wgmma_n128<kAccumulate, 1>(o, a, smem_desc_mn(v_addr, slab_bytes));
+  }
+}
+
+// S = Q K^T over D: one k16 step per 16 columns, K K-major in 64-column slabs
+// slab_bytes apart (four k16 steps of 32 bytes in each 128-byte row).
+__device__ __forceinline__ uint64_t k_desc(uint32_t k_addr, int kk, int slab_bytes) {
+  return smem_desc(k_addr + (kk / 4) * slab_bytes + (kk % 4) * 32);
+}
+
 // 2^x with the hardware's approximation (2 ulp; -inf gives 0): the score
 // tolerance is bf16's, and P is rounded to bf16 next.
 __device__ __forceinline__ float ex2(float x) {
@@ -543,12 +664,18 @@ __device__ __forceinline__ float ex2(float x) {
 // 128-byte-swizzled tile whose base is 1024-byte aligned.
 __device__ __forceinline__ int swizzled(int r, int c) { return r * kRowBytes + ((c ^ (r & 7)) << 4); }
 
-template <int kChunks, int kWG, int kStages, bool kSplit>
-__global__ void __launch_bounds__(SinglePass<kChunks, kWG, kStages, kSplit>::kThreads, 1)
+// Byte offset of the 16-byte chunk c (columns 8c .. 8c + 7, any of D's) of
+// row r in a tile of 64-column slabs slab_bytes apart.
+__device__ __forceinline__ int tile_chunk(int r, int c, int slab_bytes) {
+  return (c / 8) * slab_bytes + swizzled(r, c % 8);
+}
+
+template <int kD, int kChunks, int kWG, int kStages, bool kSplit>
+__global__ void __launch_bounds__(SinglePass<kD, kChunks, kWG, kStages, kSplit>::kThreads, 1)
 attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v, const SinglePassParams p) {
-  using S = SinglePass<kChunks, kWG, kStages, kSplit>;
+  using S = SinglePass<kD, kChunks, kWG, kStages, kSplit>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -576,10 +703,11 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int stage = turn % kStages;
     const uint32_t st = base + stage * S::kStageBytes;
     const uint32_t bar = full_bar + 8 * stage;
+    const int h = head % p.H, b = head / p.H;
     mbar_expect_tx(bar, S::kStageBytes);
-    tma_load_rows(st, &map_q, bar, head % p.H, kSplit ? 64 * (item % p.n_qtiles) : 0, head / p.H);
-    tma_load_rows(st + S::kQBytes, &map_k, bar, head % p.H, 0, head / p.H);
-    tma_load_rows(st + S::kQBytes + S::kKVBytes, &map_v, bar, head % p.H, 0, head / p.H);
+    tma_load_tile<kD>(st, &map_q, bar, S::kQSlabBytes, h, kSplit ? 64 * (item % p.n_qtiles) : 0, b);
+    tma_load_tile<kD>(st + S::kQBytes, &map_k, bar, S::kKVSlabBytes, h, 0, b);
+    tma_load_tile<kD>(st + S::kQBytes + S::kKVBytes, &map_v, bar, S::kKVSlabBytes, h, 0, b);
   };
   const int turns = (p.items - blockIdx.x + gridDim.x - 1) / gridDim.x;  // items of this CTA
   if (threadIdx.x == 0)
@@ -604,14 +732,17 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int qt_first = kSplit ? item % p.n_qtiles : wg;
     const int qt_end = kSplit ? qt_first + 1 : p.n_qtiles;
     for (int qt = qt_first; qt < qt_end; qt += kWG) {
+      // the q-tile's rows in slab 0; its other slabs kQSlabBytes on
       uint8_t* q_tile = st_ptr + (kSplit ? 0 : qt) * 64 * kRowBytes;
 
-      // Q rows r0 and r0 + 8 as A fragments of the four k16 steps over D
-      uint32_t qa[kHeadDim / 16][4];
+      // Q rows r0 and r0 + 8 as A fragments of the D / 16 k16 steps over D
+      uint32_t qa[kD / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        const int lo = swizzled(r0, 2 * kk) + 4 * t, hi = swizzled(r0, 2 * kk + 1) + 4 * t;
-        const int lo8 = swizzled(r0 + 8, 2 * kk) + 4 * t, hi8 = swizzled(r0 + 8, 2 * kk + 1) + 4 * t;
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int lo = tile_chunk(r0, 2 * kk, S::kQSlabBytes) + 4 * t;
+        const int hi = tile_chunk(r0, 2 * kk + 1, S::kQSlabBytes) + 4 * t;
+        const int lo8 = tile_chunk(r0 + 8, 2 * kk, S::kQSlabBytes) + 4 * t;
+        const int hi8 = tile_chunk(r0 + 8, 2 * kk + 1, S::kQSlabBytes) + 4 * t;
         qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_tile + lo);
         qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_tile + lo8);
         qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_tile + hi);
@@ -624,8 +755,8 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_fence();
       WgmmaQK<S::kKV>::template mma<false>(s, qa[0], smem_desc(k_smem));
 #pragma unroll
-      for (int kk = 1; kk < kHeadDim / 16; ++kk)
-        WgmmaQK<S::kKV>::template mma<true>(s, qa[kk], smem_desc(k_smem + kk * 32));
+      for (int kk = 1; kk < kD / 16; ++kk)
+        WgmmaQK<S::kKV>::template mma<true>(s, qa[kk], k_desc(k_smem, kk, S::kKVSlabBytes));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -659,11 +790,12 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
 
       // O = P V. Register 4 j + e: row r0 + 8 (e >> 1), column 8 j + 2 t + (e & 1).
-      float o[32];
+      float o[kD / 2];
       wgmma_fence();
-      wgmma_pv<false>(o, pa[0], smem_desc(v_smem));
+      pv_step<kD, false>(o, pa[0], v_smem, S::kKVSlabBytes);
 #pragma unroll
-      for (int i = 1; i < kChunks; ++i) wgmma_pv<true>(o, pa[i], smem_desc(v_smem + i * 16 * kRowBytes));
+      for (int i = 1; i < kChunks; ++i)
+        pv_step<kD, true>(o, pa[i], v_smem + i * 16 * kRowBytes, S::kKVSlabBytes);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -673,22 +805,22 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const float inv0 = 1.f / quad_sum(l0);
       const float inv1 = 1.f / quad_sum(l1);
 #pragma unroll
-      for (int j = 0; j < kHeadDim / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(q_tile + swizzled(r0, j) + 4 * t) =
+      for (int j = 0; j < kD / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(q_tile + tile_chunk(r0, j, S::kQSlabBytes) + 4 * t) =
             pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-        *reinterpret_cast<uint32_t*>(q_tile + swizzled(r0 + 8, j) + 4 * t) =
+        *reinterpret_cast<uint32_t*>(q_tile + tile_chunk(r0 + 8, j, S::kQSlabBytes) + 4 * t) =
             pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-      const long long o_sn = (long long)p.H * kHeadDim;
-      __nv_bfloat16* o_head = p.o + ((long long)b * p.N * p.H + h) * kHeadDim;
+      const long long o_sn = (long long)p.H * kD;
+      __nv_bfloat16* o_head = p.o + ((long long)b * p.N * p.H + h) * kD;
 #pragma unroll
-      for (int c = tid; c < 64 * kHeadDim / 8; c += 128) {
-        const int r = c / 8, chunk = c % 8;
+      for (int c = tid; c < 64 * kD / 8; c += 128) {
+        const int r = c / (kD / 8), chunk = c % (kD / 8);
         const int n = qt * 64 + r;
         if (n < p.N)
           *reinterpret_cast<uint4*>(o_head + n * o_sn + chunk * 8) =
-              *reinterpret_cast<const uint4*>(q_tile + swizzled(r, chunk));
+              *reinterpret_cast<const uint4*>(q_tile + tile_chunk(r, chunk, S::kQSlabBytes));
       }
     }
     // this thread is done with the stage: its generic reads and writes come
@@ -706,13 +838,15 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// A (B, N, H, 64) bf16 view as a 4-D TMA map over (D, H, N, B) with
-// (64, 1, box_rows, 1) boxes and the 128-byte swizzle; rows past N read as zero.
+// A (B, N, H, kD) bf16 view as a 4-D TMA map over (D, H, N, B) with
+// (64, 1, box_rows, 1) boxes (one 64-column slab) and the 128-byte swizzle;
+// rows past N read as zero.
+template <int kD>
 int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int H, long long sb,
                  long long sn, long long sh, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kHeadDim, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kHeadDim, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)kSlabCols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return (int)cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                                      const_cast<void*>(ptr), dims, strides, box, elem_strides,
@@ -721,10 +855,10 @@ int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int H, long lo
                                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int kChunks, int kWG, int kStages, bool kSplit>
+template <int kD, int kChunks, int kWG, int kStages, bool kSplit>
 int launch_single_pass(const Params& a, cudaStream_t s) {
-  using S = SinglePass<kChunks, kWG, kStages, kSplit>;
-  auto kernel = attn_wgmma_kernel<kChunks, kWG, kStages, kSplit>;
+  using S = SinglePass<kD, kChunks, kWG, kStages, kSplit>;
+  auto kernel = attn_wgmma_kernel<kD, kChunks, kWG, kStages, kSplit>;
   static int blocks_per_sm = 0;  // per instantiation, found once
   if (blocks_per_sm == 0) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
@@ -734,9 +868,9 @@ int launch_single_pass(const Params& a, cudaStream_t s) {
     if (blocks_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   }
   CUtensorMap map_q, map_k, map_v;
-  int rc = encode_heads(&map_q, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh, S::kQTiles * 64);
-  if (rc == 0) rc = encode_heads(&map_k, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh, S::kKV);
-  if (rc == 0) rc = encode_heads(&map_v, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh, S::kKV);
+  int rc = encode_heads<kD>(&map_q, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh, S::kQTiles * 64);
+  if (rc == 0) rc = encode_heads<kD>(&map_k, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh, S::kKV);
+  if (rc == 0) rc = encode_heads<kD>(&map_v, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh, S::kKV);
   if (rc != 0) return kEncodeError + rc;
   SinglePassParams p;
   p.o = static_cast<__nv_bfloat16*>(a.o);
@@ -794,20 +928,32 @@ int launch_single_pass(const Params& a, cudaStream_t s) {
 // Bound on an H100 SXM at the 256 px path's (128, 1024, 12, 64): 4 B H N^2 D
 // = 412 GFLOP at 989 TFLOP/s = 0.417 ms (operations; the 101 MB of q, k, v
 // and out take 0.030 ms).
+//
+// At D = 128 (the kitchen path's N = 320: KV tiles of 128, 128 and 64 rows) a
+// stage of K and V is 64 KB, so the ring holds two stages; O takes 64
+// accumulator registers a consumer thread and Q's A fragments 32. The split
+// instance (one consumer warpgroup, one CTA an SM) launches with 255
+// registers a thread and needs no setmaxnreg.
 
 constexpr int kOnlineKV = 128;  // KV rows a stage holds
 
-template <int kC, int kStages, int kMinBlocks>
+template <int kD, int kC, int kStages, int kMinBlocks>
 struct Online {
+  static_assert(kStages >= 2, "tile j is loaded before tile j - 1 is freed");
+  static constexpr int kSlabs = kD / kSlabCols;
   static constexpr int kQRows = 64 * kC;
-  static constexpr int kQBytes = kQRows * kRowBytes;
-  static constexpr int kKVBytes = kOnlineKV * kRowBytes;
+  static constexpr int kQSlabBytes = kQRows * kRowBytes;
+  static constexpr int kKVSlabBytes = kOnlineKV * kRowBytes;
+  static constexpr int kQBytes = kSlabs * kQSlabBytes;
+  static constexpr int kKVBytes = kSlabs * kKVSlabBytes;
   static constexpr int kStageBytes = 2 * kKVBytes;  // K, then V
   static constexpr int kThreads = 128 * (kC + 1);
   // setmaxnreg: the producer warpgroup drops to 24 registers a thread and
-  // the consumers take what that frees of the launch's share (up to 240)
+  // the consumers take what that frees of the launch's share (up to 240),
+  // where the launch's share is less than 240
   static constexpr int kProducerRegs = 24;
   static constexpr int kLaunchRegs = (65536 / (kMinBlocks * kThreads)) / 8 * 8;
+  static constexpr bool kSetMaxNReg = kLaunchRegs < 240;
   static constexpr int kFreed = (kLaunchRegs * (kC + 1) - kProducerRegs) / kC / 8 * 8;
   static constexpr int kConsumerRegs = kFreed < 240 ? kFreed : 240;
   // stages, Q, the output staging (as large as Q), 2 + 2 kStages barriers,
@@ -825,46 +971,6 @@ struct OnlineParams {
   float scale_log2;
 };
 
-#define UVA_QK_REGS "{" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
-  "}"
-#define UVA_QK_OUT(m) m(d[0]), m(d[1]), m(d[2]), m(d[3]), m(d[4]), m(d[5]), m(d[6]), m(d[7]), \
-  m(d[8]), m(d[9]), m(d[10]), m(d[11]), m(d[12]), m(d[13]), m(d[14]), m(d[15]), m(d[16]), \
-  m(d[17]), m(d[18]), m(d[19]), m(d[20]), m(d[21]), m(d[22]), m(d[23]), m(d[24]), m(d[25]), \
-  m(d[26]), m(d[27]), m(d[28]), m(d[29]), m(d[30]), m(d[31]), m(d[32]), m(d[33]), m(d[34]), \
-  m(d[35]), m(d[36]), m(d[37]), m(d[38]), m(d[39]), m(d[40]), m(d[41]), m(d[42]), m(d[43]), \
-  m(d[44]), m(d[45]), m(d[46]), m(d[47]), m(d[48]), m(d[49]), m(d[50]), m(d[51]), m(d[52]), \
-  m(d[53]), m(d[54]), m(d[55]), m(d[56]), m(d[57]), m(d[58]), m(d[59]), m(d[60]), m(d[61]), \
-  m(d[62]), m(d[63])
-#define UVA_RW(x) "+f"(x)
-#define UVA_W(x) "=f"(x)
-// d (64 x 128, fp32) = a (64 x 16 bf16, registers) * b (16 x 128 bf16,
-// K-major in shared memory), plus d where kAccumulate: one k16 step of
-// S = Q K^T over a KV tile. Register 4 j + e: row r0 + 8 (e >> 1), column
-// 8 j + 2 t + (e & 1).
-template <bool kAccumulate>
-__device__ __forceinline__ void wgmma_qk128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (kAccumulate) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " UVA_QK_REGS
-                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-                 : UVA_QK_OUT(UVA_RW)
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  } else {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " UVA_QK_REGS
-                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-                 : UVA_QK_OUT(UVA_W)
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
-  }
-}
-#undef UVA_QK_REGS
-#undef UVA_QK_OUT
-#undef UVA_RW
-#undef UVA_W
 
 // Keeps registers that an asynchronous wgmma reads as its A operand alive
 // until the wgmma_wait after it.
@@ -876,17 +982,21 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[kN][kM]) {
     for (int j = 0; j < kM; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// S = Q K^T for one KV tile: the four k16 steps over D.
-__device__ __forceinline__ void qk_tile(float (&s)[64], const uint32_t (&qa)[4][4], uint32_t k_smem) {
-  wgmma_qk128<false>(s, qa[0], smem_desc(k_smem));
+// S = Q K^T for one KV tile: the D / 16 k16 steps over D.
+template <int kD>
+__device__ __forceinline__ void qk_tile(float (&s)[64], const uint32_t (&qa)[kD / 16][4], uint32_t k_smem) {
+  constexpr int kSlabBytes = kOnlineKV * kRowBytes;
+  wgmma_n128<false>(s, qa[0], smem_desc(k_smem));
 #pragma unroll
-  for (int kk = 1; kk < kHeadDim / 16; ++kk) wgmma_qk128<true>(s, qa[kk], smem_desc(k_smem + kk * 32));
+  for (int kk = 1; kk < kD / 16; ++kk) wgmma_n128<true>(s, qa[kk], k_desc(k_smem, kk, kSlabBytes));
 }
 
 // O += P V for one KV tile: eight k16 steps over its rows.
-__device__ __forceinline__ void pv_tile(float (&o)[32], const uint32_t (&pa)[8][4], uint32_t v_smem) {
+template <int kD>
+__device__ __forceinline__ void pv_tile(float (&o)[kD / 2], const uint32_t (&pa)[8][4], uint32_t v_smem) {
+  constexpr int kSlabBytes = kOnlineKV * kRowBytes;
 #pragma unroll
-  for (int i = 0; i < kOnlineKV / 16; ++i) wgmma_pv<true>(o, pa[i], smem_desc(v_smem + i * 16 * kRowBytes));
+  for (int i = 0; i < kOnlineKV / 16; ++i) pv_step<kD, true>(o, pa[i], v_smem + i * 16 * kRowBytes, kSlabBytes);
 }
 
 // The online softmax of one tile of S (rows r0 and r0 + 8 of the
@@ -944,12 +1054,12 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <int kC, int kStages, int kMinBlocks>
-__global__ void __launch_bounds__(Online<kC, kStages, kMinBlocks>::kThreads, kMinBlocks)
+template <int kD, int kC, int kStages, int kMinBlocks>
+__global__ void __launch_bounds__(Online<kD, kC, kStages, kMinBlocks>::kThreads, kMinBlocks)
 attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, const OnlineParams p) {
-  using L = Online<kC, kStages, kMinBlocks>;
+  using L = Online<kD, kC, kStages, kMinBlocks>;
   // two consumer warpgroups take turns to issue their products
   constexpr bool kPingPong = kC == 2;
   extern __shared__ uint8_t smem_raw[];
@@ -982,7 +1092,7 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
     // the producer warpgroup: its first thread waits for a buffer to be free
     // (the first pass over each passes at once: parity 1 of a fresh
     // barrier), then loads it
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kProducerRegs));
+    if constexpr (L::kSetMaxNReg) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kProducerRegs));
     if (threadIdx.x == 128 * kC) {
       int stage = 0;
       uint32_t phase = 0, q_phase = 0;
@@ -991,14 +1101,14 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
         const int b = head / p.H, h = head % p.H;
         mbar_wait(q_empty, q_phase ^ 1);
         mbar_expect_tx(q_full, L::kQBytes);
-        tma_load_rows(q_smem, &map_q, q_full, h, qt * L::kQRows, b);
+        tma_load_tile<kD>(q_smem, &map_q, q_full, L::kQSlabBytes, h, qt * L::kQRows, b);
         q_phase ^= 1;
         for (int j = 0; j < p.n_kv; ++j) {
           const uint32_t st = base + stage * L::kStageBytes, bar = kv_full + 8 * stage;
           mbar_wait(kv_empty + 8 * stage, phase ^ 1);
           mbar_expect_tx(bar, L::kStageBytes);
-          tma_load_rows(st, &map_k, bar, h, j * kOnlineKV, b);
-          tma_load_rows(st + L::kKVBytes, &map_v, bar, h, j * kOnlineKV, b);
+          tma_load_tile<kD>(st, &map_k, bar, L::kKVSlabBytes, h, j * kOnlineKV, b);
+          tma_load_tile<kD>(st + L::kKVBytes, &map_v, bar, L::kKVSlabBytes, h, j * kOnlineKV, b);
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -1008,11 +1118,13 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // the consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
+    if constexpr (L::kSetMaxNReg) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
     const int tid = threadIdx.x % 128;
     const int g = lane / 4;  // fragment row group: rows g and g + 8 of the warp's 16
     const int t = lane % 4;  // fragment column pair
     const int r0 = (tid / 32) * 16 + g;
+    // the warpgroup's 64 rows in slab 0 of Q and of the staging; their
+    // other slabs kQSlabBytes on
     const uint8_t* q_tile = aligned + kQOff + wg * 64 * kRowBytes;
     uint8_t* o_tile = aligned + kOOff + wg * 64 * kRowBytes;
     auto release = [&](uint32_t bar) {
@@ -1046,24 +1158,25 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
       const int b = head / p.H, h = head % p.H;
       const bool last_item = item + gridDim.x >= p.items;
 
-      // Q rows r0 and r0 + 8 as A fragments of the four k16 steps over D
+      // Q rows r0 and r0 + 8 as A fragments of the D / 16 k16 steps over D
       mbar_wait(q_full, q_phase);
       q_phase ^= 1;
-      uint32_t qa[kHeadDim / 16][4];
+      constexpr int kQSlab = L::kQSlabBytes;
+      uint32_t qa[kD / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_tile + swizzled(r0, 2 * kk) + 4 * t);
-        qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_tile + swizzled(r0 + 8, 2 * kk) + 4 * t);
-        qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_tile + swizzled(r0, 2 * kk + 1) + 4 * t);
-        qa[kk][3] = *reinterpret_cast<const uint32_t*>(q_tile + swizzled(r0 + 8, 2 * kk + 1) + 4 * t);
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_tile + tile_chunk(r0, 2 * kk, kQSlab) + 4 * t);
+        qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_tile + tile_chunk(r0 + 8, 2 * kk, kQSlab) + 4 * t);
+        qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_tile + tile_chunk(r0, 2 * kk + 1, kQSlab) + 4 * t);
+        qa[kk][3] = *reinterpret_cast<const uint32_t*>(q_tile + tile_chunk(r0 + 8, 2 * kk + 1, kQSlab) + 4 * t);
       }
       // these generic reads come before the next TMA write into the buffer
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       release(q_empty);
 
-      float o[32];
+      float o[kD / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
       float s[64];
       uint32_t pa[8][4];
@@ -1071,7 +1184,7 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(kv_full + 8 * stage, phase);
       my_turn();
       wgmma_fence();
-      qk_tile(s, qa, base + stage * L::kStageBytes);
+      qk_tile<kD>(s, qa, base + stage * L::kStageBytes);
       wgmma_commit();
       hand_over(false);
       wgmma_wait<0>();
@@ -1084,9 +1197,9 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_wait(kv_full + 8 * stage, phase);
         my_turn();
         wgmma_fence();
-        qk_tile(s, qa, base + stage * L::kStageBytes);
+        qk_tile<kD>(s, qa, base + stage * L::kStageBytes);
         wgmma_commit();
-        pv_tile(o, pa, base + prev * L::kStageBytes + L::kKVBytes);
+        pv_tile<kD>(o, pa, base + prev * L::kStageBytes + L::kKVBytes);
         wgmma_commit();
         hand_over(false);
         wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
@@ -1097,14 +1210,14 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(pa);
         release(kv_empty + 8 * prev);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) o[i] *= a[(i >> 1) & 1];
+        for (int i = 0; i < kD / 2; ++i) o[i] *= a[(i >> 1) & 1];
         pack_p(pa, s);
         prev = stage;
         advance();
       }
       my_turn();
       wgmma_fence();
-      pv_tile(o, pa, base + prev * L::kStageBytes + L::kKVBytes);
+      pv_tile<kD>(o, pa, base + prev * L::kStageBytes + L::kKVBytes);
       wgmma_commit();
       hand_over(last_item);
       wgmma_wait<0>();
@@ -1118,31 +1231,31 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
       const float inv1 = 1.f / quad_sum(l[1]);
       named_sync(1 + wg, 128);  // the last item's stores are done
 #pragma unroll
-      for (int j = 0; j < kHeadDim / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(o_tile + swizzled(r0, j) + 4 * t) =
+      for (int j = 0; j < kD / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(o_tile + tile_chunk(r0, j, kQSlab) + 4 * t) =
             pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-        *reinterpret_cast<uint32_t*>(o_tile + swizzled(r0 + 8, j) + 4 * t) =
+        *reinterpret_cast<uint32_t*>(o_tile + tile_chunk(r0 + 8, j, kQSlab) + 4 * t) =
             pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
       named_sync(1 + wg, 128);
-      const long long o_sn = (long long)p.H * kHeadDim;
-      __nv_bfloat16* o_head = p.o + ((long long)b * p.N * p.H + h) * kHeadDim;
+      const long long o_sn = (long long)p.H * kD;
+      __nv_bfloat16* o_head = p.o + ((long long)b * p.N * p.H + h) * kD;
 #pragma unroll
-      for (int c = tid; c < 64 * kHeadDim / 8; c += 128) {
-        const int r = c / 8, chunk = c % 8;
+      for (int c = tid; c < 64 * kD / 8; c += 128) {
+        const int r = c / (kD / 8), chunk = c % (kD / 8);
         const int n = qt * L::kQRows + wg * 64 + r;
         if (n < p.N)
           *reinterpret_cast<uint4*>(o_head + n * o_sn + chunk * 8) =
-              *reinterpret_cast<const uint4*>(o_tile + swizzled(r, chunk));
+              *reinterpret_cast<const uint4*>(o_tile + tile_chunk(r, chunk, kQSlab));
       }
     }
   }
 }
 
-template <int kC, int kStages, int kMinBlocks>
+template <int kD, int kC, int kStages, int kMinBlocks>
 int launch_online(const Params& a, cudaStream_t s) {
-  using L = Online<kC, kStages, kMinBlocks>;
-  auto kernel = attn_online_kernel<kC, kStages, kMinBlocks>;
+  using L = Online<kD, kC, kStages, kMinBlocks>;
+  auto kernel = attn_online_kernel<kD, kC, kStages, kMinBlocks>;
   static int blocks_per_sm = 0;  // per instantiation, found once
   if (blocks_per_sm == 0) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
@@ -1152,9 +1265,9 @@ int launch_online(const Params& a, cudaStream_t s) {
     if (blocks_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   }
   CUtensorMap map_q, map_k, map_v;
-  int rc = encode_heads(&map_q, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh, L::kQRows);
-  if (rc == 0) rc = encode_heads(&map_k, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh, kOnlineKV);
-  if (rc == 0) rc = encode_heads(&map_v, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh, kOnlineKV);
+  int rc = encode_heads<kD>(&map_q, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh, L::kQRows);
+  if (rc == 0) rc = encode_heads<kD>(&map_k, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh, kOnlineKV);
+  if (rc == 0) rc = encode_heads<kD>(&map_v, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh, kOnlineKV);
   if (rc != 0) return kEncodeError + rc;
   OnlineParams p;
   p.o = static_cast<__nv_bfloat16*>(a.o);
@@ -1192,53 +1305,78 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int B, 
   return p;
 }
 
-// TMA's rules for the Hopper kernels: bf16, D = 64, every base and stride a
-// multiple of 16 bytes.
+// A head dimension the kernels are built for.
+bool built_d(int D) { return D == 64 || D == 128; }
+
+// TMA's rules for the Hopper kernels: bf16, a built D, every base and stride
+// a multiple of 16 bytes.
 bool tma_ok(const void* q, const void* k, const void* v, int B, int N, int H, int D,
             const long long (&strides)[9]) {
-  bool ok = D == kHeadDim && B > 0 && N > 0 && H > 0 &&
+  bool ok = built_d(D) && B > 0 && N > 0 && H > 0 &&
             ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
               reinterpret_cast<uintptr_t>(v)) % 16) == 0;
   for (long long st : strides) ok = ok && (st * 2) % 16 == 0;
   return ok;
 }
 
+template <int kD, bool kVec>
+int launch_mma_sync(const Params& p, cudaStream_t s) {
+  auto kernel = attn_bf16_kernel<kD, kVec>;
+  constexpr int kSmem = MmaTiles<kD>::kSmem;
+  static bool ready = false;  // per instantiation, set once
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const dim3 grid(p.B * p.H, (p.N + kBlockQ - 1) / kBlockQ);
+  kernel<<<grid, kThreads, kSmem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int kD, bool kVec>
+int launch_f32(const Params& p, cudaStream_t s) {
+  constexpr int kRows = kThreads / (kD / kF32Cols);
+  const dim3 grid(p.B * p.H, (p.N + kRows - 1) / kRows);
+  attn_f32_kernel<kD, kVec><<<grid, kThreads, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int kD>
+int launch_scalar_or_mma(const Params& p, int dtype, int aligned, cudaStream_t s) {
+  if (dtype == 1) return aligned ? launch_mma_sync<kD, true>(p, s) : launch_mma_sync<kD, false>(p, s);
+  if (dtype == 0) return aligned ? launch_f32<kD, true>(p, s) : launch_f32<kD, false>(p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The mma.sync (bf16) and scalar (fp32) kernels. dtype: 0 = float32,
-// 1 = bfloat16. Strides are in elements; the last dimension must be
-// contiguous. aligned: every row of q, k and v starts on a 16-byte boundary
-// (16-byte loads), else element loads. The output is a contiguous
-// (B, N, H, D) tensor. Returns the value of cudaGetLastError() after the launch.
+// 1 = bfloat16. D: 64 or 128. Strides are in elements; the last dimension
+// must be contiguous. aligned: every row of q, k and v starts on a 16-byte
+// boundary (16-byte loads), else element loads. The output is a contiguous
+// (B, N, H, D) tensor. Returns the value of cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int uva_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int B, int N, int H, int D,
                                    long long q_sb, long long q_sn, long long q_sh,
                                    long long k_sb, long long k_sn, long long k_sh,
                                    long long v_sb, long long v_sn, long long v_sh,
                                    int dtype, int aligned, void* stream) {
-  if (D != kHeadDim || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (!built_d(D) || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const dim3 grid(B * H, (N + kBlockQ - 1) / kBlockQ);
-    if (aligned) attn_bf16_kernel<true><<<grid, kThreads, 0, s>>>(p);
-    else attn_bf16_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  } else if (dtype == 0) {
-    const dim3 grid(B * H, (N + kF32BlockQ - 1) / kF32BlockQ);
-    if (aligned) attn_f32_kernel<true><<<grid, kThreads, 0, s>>>(p);
-    else attn_f32_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return D == 64 ? launch_scalar_or_mma<64>(p, dtype, aligned, s)
+                 : launch_scalar_or_mma<128>(p, dtype, aligned, s);
 }
 
 // The single-pass Hopper kernel, bf16 only, on the same arguments: every
 // base and stride 16-byte aligned (TMA's rules) and N <= 144 (the KV rows it
 // holds in shared memory). split: one
 // CTA (one warpgroup) for each q-tile of each head, for few heads; else one
-// CTA for all q-tiles of a head. Returns
+// CTA for all q-tiles of a head (D = 64 only: at D = 128 split must be
+// set). Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for arguments
 // it does not take, or kEncodeError + the CUresult of a failed TMA encode.
 extern "C" int uva_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
@@ -1252,13 +1390,16 @@ extern "C" int uva_flash_attention_wgmma(const void* q, const void* k, const voi
   const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return split ? launch_single_pass<9, 1, 2, true>(p, s) : launch_single_pass<9, 3, 3, false>(p, s);
+  if (D == 64)
+    return split ? launch_single_pass<64, 9, 1, 2, true>(p, s)
+                 : launch_single_pass<64, 9, 3, 3, false>(p, s);
+  return split ? launch_single_pass<128, 9, 1, 2, true>(p, s) : (int)cudaErrorInvalidValue;
 }
 
 // The online-softmax Hopper kernel, bf16 only, any N, on the same arguments
 // and TMA's rules. split: work items of one 64-row q-tile (CTAs of one
-// consumer warpgroup, two to an SM), for few items; else
-// of 128 rows (two consumer warpgroups taking turns). Returns as
+// consumer warpgroup; two to an SM at D = 64, one at D = 128), for few
+// items; else of 128 rows (two consumer warpgroups taking turns). Returns as
 // uva_flash_attention_wgmma.
 extern "C" int uva_flash_attention_online(const void* q, const void* k, const void* v, void* o,
                                           int B, int N, int H, int D,
@@ -1271,5 +1412,6 @@ extern "C" int uva_flash_attention_online(const void* q, const void* k, const vo
   const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return split ? launch_online<1, 2, 2>(p, s) : launch_online<2, 4, 1>(p, s);
+  if (D == 64) return split ? launch_online<64, 1, 2, 2>(p, s) : launch_online<64, 2, 4, 1>(p, s);
+  return split ? launch_online<128, 1, 2, 1>(p, s) : launch_online<128, 2, 2, 1>(p, s);
 }

@@ -5,9 +5,13 @@
 
 One encoder+decoder pass over the conditioning frames' latent tokens, then
 the action head's diffusion sampler. Parameters carry the flax names so
-``convert.py`` maps the JAX tree by name. The video head (``diffloss``),
-the other task modes, text, proprioception, wrist images and history
-actions wait for later slices; the config refuses what is not ported.
+``convert.py`` maps the JAX tree by name. With ``language_emb_model="clip"``
+(the kitchen model) a 64-token text buffer goes before the frame tokens
+(``mar.py:449-475``, ``:489-495``): the projected goal latent repeated, or
+the learned ``fake_latent`` when no goal is given, plus its own position
+embeddings; the decoder drops it again. The video head (``diffloss``), the
+other task modes, proprioception, wrist images and history actions wait for
+later slices; the config refuses what is not ported.
 ``MarConfig.quant`` makes the stacks' and the action denoiser's dense layers
 W8A8 (``mar.py:104``); ``decoder_embed`` and the ``z_proj*`` layers stay
 float, as in JAX.
@@ -16,12 +20,14 @@ float, as in JAX.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
 from unified_video_action_tpu_torch.models.heads import ActionDiffusionHead
 from unified_video_action_tpu_torch.models.transformer import TransformerStack
+from unified_video_action_tpu_torch.utils.language import CLIP_DIM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +53,9 @@ class MarConfig:
     act_model_type: str = "conv_fc"
     action_dim: int = 2
     num_action_tokens: int = 16
+    # language conditioning: "clip" prepends a text buffer of this many tokens
+    language_emb_model: Optional[str] = None
+    buffer_size_text: int = 64
     # int8 W8A8 dense layers in both stacks and the action denoiser (serving)
     quant: bool = False
 
@@ -65,6 +74,16 @@ class MarConfig:
     @property
     def total_tokens(self) -> int:
         return self.n_frames * self.seq_len
+
+    @property
+    def has_text(self) -> bool:
+        return self.language_emb_model == "clip"
+
+    @property
+    def attention_tokens(self) -> int:
+        """The tokens every ViT block attends over: the frames' and, with
+        language, the text buffer's."""
+        return self.total_tokens + (self.buffer_size_text if self.has_text else 0)
 
 
 MODEL_SIZES = {
@@ -105,6 +124,11 @@ class Mar(nn.Module):
         self.z_proj_ln = nn.LayerNorm(D, eps=1e-6)
         self.fake_latent_x = nn.Parameter(torch.zeros(1, D))
         self.fake_action_latent = nn.Parameter(torch.zeros(1, D))
+        if c.has_text:
+            self.fake_latent = nn.Parameter(torch.zeros(1, D))
+            self.text_proj_cond = nn.Linear(CLIP_DIM, D)
+            self.text_pos_embed = nn.Parameter(torch.zeros(1, c.buffer_size_text, D))
+            self.decoder_text_pos_embed = nn.Parameter(torch.zeros(1, c.buffer_size_text, Dd))
         self.temporal_pos_embed = nn.Parameter(torch.zeros(1, c.n_frames, D))
         self.spatial_pos_embed = nn.Parameter(torch.zeros(1, c.seq_len, D))
         self.decoder_temporal_pos_embed = nn.Parameter(torch.zeros(1, c.n_frames, Dd))
@@ -137,10 +161,14 @@ class Mar(nn.Module):
         """(1, T, D) + (1, S, D) -> (1, T·S, D) position embedding."""
         return (temporal[:, :, None, :] + spatial[:, None, :, :]).flatten(1, 2)
 
-    def forward_encoder(self, cond_tokens: torch.Tensor) -> torch.Tensor:
+    def forward_encoder(self, cond_tokens: torch.Tensor,
+                        text_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``policy_model`` encoder: (B, T, S, C_tok) conditioning tokens ->
-        (B, T·S, D). The target stream is the learned fake latent, and the
-        action stream the fake action latent repeated over the tokens."""
+        (B, T·S, D), or with language (B, 64 + T·S, D). The target stream is
+        the learned fake latent, and the action stream the fake action
+        latent repeated over the tokens. ``text_latents``: the projected
+        goal (B, D) (:meth:`policy_latents` projects it), or None for the
+        learned null latent ``fake_latent``."""
         c = self.cfg
         B, T, S, _ = cond_tokens.shape
         L = T * S
@@ -153,27 +181,50 @@ class Mar(nn.Module):
         act = act.repeat_interleave(L // c.num_action_tokens, dim=1)
         h = self.proj_cond_x_layer(torch.cat([x, cond, act], dim=-1))
         h = h + self._factorized(self.temporal_pos_embed, self.spatial_pos_embed)
+        if c.has_text:
+            if text_latents is None:
+                txt = self.fake_latent[None].expand(B, c.buffer_size_text, -1).to(h.dtype)
+            else:
+                txt = text_latents[:, None, :].expand(B, c.buffer_size_text, -1)
+            txt = txt + self.text_pos_embed.to(txt.dtype)
+            h = torch.cat([txt.to(h.dtype), h], dim=1)
         h = self.encoder_blocks(self.z_proj_ln(h))
         return self.encoder_norm(h)
 
     def forward_decoder(self, h: torch.Tensor) -> torch.Tensor:
+        """(B, [64 +] T·S, D) encoder output -> (B, T·S, Dd): the text
+        buffer, where there is one, is dropped after the decoder's norm."""
+        c = self.cfg
         z = self.decoder_embed(h)
-        z = z + self._factorized(self.decoder_temporal_pos_embed, self.decoder_spatial_pos_embed)
+        pos = self._factorized(self.decoder_temporal_pos_embed, self.decoder_spatial_pos_embed)
+        if c.has_text:
+            pos = torch.cat([self.decoder_text_pos_embed, pos], dim=1)
+        z = z + pos
         z = self.decoder_norm(self.decoder_blocks(z))
+        if c.has_text:
+            z = z[:, c.buffer_size_text:]
         return z + self._factorized(self.diffusion_temporal_embed, self.diffusion_spatial_embed)
 
-    def policy_latents(self, cond_frames: torch.Tensor) -> torch.Tensor:
+    def policy_latents(self, cond_frames: torch.Tensor,
+                       text_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, C, h, w) conditioning latents -> (B, T·S, D) decoder output
-        that conditions the action head: one encoder+decoder pass."""
+        that conditions the action head: one encoder+decoder pass.
+        ``text_latents``: the raw (B, 512) goal latents, projected here by
+        ``text_proj_cond`` (``mar.py:670-671``); ignored without language."""
         c = self.cfg
         B, T = cond_frames.shape[:2]
         cond_tokens = patchify(cond_frames.reshape(B * T, *cond_frames.shape[2:]), c.patch_size)
         cond_tokens = cond_tokens.reshape(B, T, c.seq_len, c.token_embed_dim)
-        return self.forward_decoder(self.forward_encoder(cond_tokens))
+        if text_latents is not None and c.has_text:
+            text_latents = self.text_proj_cond(text_latents.to(self.text_proj_cond.weight.dtype))
+        else:
+            text_latents = None
+        return self.forward_decoder(self.forward_encoder(cond_tokens, text_latents))
 
     def sample_policy(self, cond_frames: torch.Tensor, noise: torch.Tensor,
-                      step_noise: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+                      step_noise: torch.Tensor, temperature: float = 1.0,
+                      text_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, C, h, w) conditioning latents -> (B, 16, action_dim): the
         decoder output, then the action sampler from injected noise."""
-        z = self.policy_latents(cond_frames)
+        z = self.policy_latents(cond_frames, text_latents)
         return self.diffactloss.sample(z, noise, step_noise, temperature=temperature)

@@ -8,6 +8,9 @@ what bounds them on an H100 and how they are laid out.
 Layout: q, k, v are (B, N, H, D), as the fused qkv projection leaves them;
 the kernels read them through their strides, so the views that
 ``MultiHeadAttention`` slices out of one qkv tensor go in without a copy.
+Every kernel is built for each head dimension of ``HEAD_DIMS``: 64
+(mar_base, 768 over 12 heads) and 128 (mar_small and mar_tiny, 768 over 6);
+another D raises ``ValueError`` on the card.
 
 :func:`flash_attention` launches the kernel that :func:`attention_plan`
 names, with no fallback between kernels:
@@ -34,7 +37,8 @@ import torch
 
 from unified_video_action_tpu_torch.ops import _build
 
-HEAD_DIM = 64
+# the head dimensions the kernels are built for (csrc/attention.cu)
+HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the KV rows the single-pass kernel holds in shared memory (the 96 px path's
@@ -42,50 +46,63 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SINGLE_PASS_MAX_N = 144
 KERNELS = ("attention_wgmma", "attention_wgmma_online", "attention_mma_sync", "attention_f32")
 
-# Incremented once for every launch of each CUDA kernel, and nowhere else.
+# Incremented once for every launch of each CUDA kernel, and nowhere else:
+# by kernel, and by kernel and head dimension (the instance, ``plan.instance``)
 launch_count = {k: 0 for k in KERNELS}
+INSTANCES = tuple(f"{k}_d{d}" for k in KERNELS for d in HEAD_DIMS)
+instance_count = {i: 0 for i in INSTANCES}
 
 ENCODE_ERROR = 10000  # csrc/hopper.cuh kEncodeError
 
 
-# up to this many (head, q-tile) pairs the single-pass kernel gives each pair
-# a CTA of its own (two per SM of an H100), else a CTA takes a head
-SPLIT_MAX_TILES = 264
-# the online kernel's work items are 64-row q-tiles (CTAs of one warpgroup,
-# two an SM) up to this many 128-row ones (three waves of an H100's 132
-# SMs), else 128-row q-tiles (two warpgroups taking turns)
-ONLINE_SPLIT_MAX_ITEMS = 396
+# by head dimension: up to this many (head, q-tile) pairs the single-pass
+# kernel gives each pair a CTA of its own (two per SM of an H100 at D = 64),
+# else a CTA takes a head. None: always, since at D = 128 a whole head's
+# stage (120 KB) leaves room for no second one, and the split instance (two
+# 88 KB stages) was the faster at every batch swept but B = 16 (below).
+SPLIT_MAX_TILES = {64: 264, 128: None}
+# by head dimension: the online kernel's work items are 64-row q-tiles (CTAs
+# of one warpgroup, two an SM at D = 64, one at D = 128) up to this many
+# 128-row ones (three waves of an H100's 132 SMs at D = 64), else 128-row
+# q-tiles (two warpgroups taking turns)
+ONLINE_SPLIT_MAX_ITEMS = {64: 396, 128: 288}
 
 
 @dataclass(frozen=True)
 class AttentionPlan:
     """Which kernel :func:`flash_attention` launches: ``kernel`` is the key of
-    :data:`launch_count`; for the single-pass kernel ``split`` says a CTA
-    takes one q-tile of a head instead of the whole head, for the online
-    kernel that its work items are 64-row q-tiles instead of 128."""
+    :data:`launch_count`, ``head_dim`` the D of its instance (``instance``
+    is the key of :data:`instance_count`); for the single-pass kernel
+    ``split`` says a CTA takes one q-tile of a head instead of the whole
+    head, for the online kernel that its work items are 64-row q-tiles
+    instead of 128."""
     kernel: str
+    head_dim: int
     split: bool = False
 
-
-MMA_SYNC = AttentionPlan("attention_mma_sync")
-F32 = AttentionPlan("attention_f32")
+    @property
+    def instance(self) -> str:
+        return f"{self.kernel}_d{self.head_dim}"
 
 
 @functools.lru_cache(maxsize=1024)
-def attention_plan(B: int, N: int, H: int, dtype: torch.dtype, aligned: bool = True) -> AttentionPlan:
-    """The kernel for (B, N, H, 64) attention in ``dtype``; ``aligned`` says
+def attention_plan(B: int, N: int, H: int, D: int, dtype: torch.dtype,
+                   aligned: bool = True) -> AttentionPlan:
+    """The kernel for (B, N, H, D) attention in ``dtype``; ``aligned`` says
     every operand's base and strides are 16-byte multiples (TMA's rules).
-    Cached: the serving path asks for the same shapes on every call.
+    Cached: the serving path asks for the same shapes on every call. A D
+    outside ``HEAD_DIMS`` raises ``ValueError``.
 
     * fp32: the scalar kernel.
     * bf16, an operand off a 16-byte boundary: the mma.sync kernel.
     * bf16, N <= SINGLE_PASS_MAX_N (144, the 96 px path's N): the
-      single-pass wgmma kernel, split where B·H·⌈N/64⌉ <= SPLIT_MAX_TILES
+      single-pass wgmma kernel, split where B·H·⌈N/64⌉ <= SPLIT_MAX_TILES[D]
       (B = 1 at the serving shape: 36 q-tiles on 36 SMs instead of 12 heads
-      on 12; B <= 7 at N = 144).
+      on 12; B <= 7 at N = 144 and H = 12), always at D = 128.
     * bf16, N > 144: the online-softmax wgmma kernel (the 256 px path's N =
-      1024), in 64-row work items where B·H·⌈N/128⌉ <= ONLINE_SPLIT_MAX_ITEMS
-      (B = 1 at N = 1024: 96 items), else in 128-row ones (B = 128).
+      1024, the kitchen path's 320), in 64-row work items where
+      B·H·⌈N/128⌉ <= ONLINE_SPLIT_MAX_ITEMS[D] (B = 1 at N = 1024: 96
+      items), else in 128-row ones (B = 128).
 
     The crossover and the split follow ``tools/kernels_ab.py --parts
     attention_variants`` on an H100 (every variant at 24 shapes, PERF.md):
@@ -94,19 +111,29 @@ def attention_plan(B: int, N: int, H: int, dtype: torch.dtype, aligned: bool = T
     faster at B = 1, 8 and 128 (at (128, 256) 0.081 ms against the
     single-pass kernel's 256-row instance's 0.101, which was therefore
     dropped). At the path's N = 1024 the two item sizes are even at B = 1
-    and 128-row items are the faster at B = 128.
+    and 128-row items are the faster at B = 128. At D = 128 (6 heads, the
+    same sweep at 23 shapes): at N = 144 the split single pass took 0.0554
+    ms at B = 128 against the whole-head instance's 0.0602 and 0.0047 at B =
+    1 against 0.0082, losing only at B = 16 (0.0104 against 0.0096); at N =
+    320 the 64-row online items were the faster up to B = 16 (288 items;
+    0.0230 ms against 0.0242) but for B = 12 (0.0182 against 0.0175), and
+    128-row items from B = 22 (396 items) on.
     """
     if B <= 0 or N <= 0 or H <= 0:
         raise ValueError(f"attention of shape ({B}, {N}, {H}) is empty")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernels are built for D in {HEAD_DIMS}, got D={D}")
     if dtype == torch.float32:
-        return F32
+        return AttentionPlan("attention_f32", D)
     if dtype != torch.bfloat16:
         raise ValueError(f"the kernels take float32 or bfloat16, got {dtype}")
     if not aligned:
-        return MMA_SYNC
+        return AttentionPlan("attention_mma_sync", D)
     if N <= SINGLE_PASS_MAX_N:
-        return AttentionPlan("attention_wgmma", B * H * -(-N // 64) <= SPLIT_MAX_TILES)
-    return AttentionPlan("attention_wgmma_online", B * H * -(-N // 128) <= ONLINE_SPLIT_MAX_ITEMS)
+        limit = SPLIT_MAX_TILES[D]
+        return AttentionPlan("attention_wgmma", D, limit is None or B * H * -(-N // 64) <= limit)
+    return AttentionPlan("attention_wgmma_online", D,
+                         B * H * -(-N // 128) <= ONLINE_SPLIT_MAX_ITEMS[D])
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -139,8 +166,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
             f"q, k, v must share one (B, N, H, D) shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the kernel is built for D={HEAD_DIM}, got D={q.shape[-1]}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the kernels are built for D in {HEAD_DIMS}, got D={q.shape[-1]}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"q, k, v must all be float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}"
@@ -171,7 +198,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    plan = attention_plan(B, N, H, q.dtype, aligned)
+    plan = attention_plan(B, N, H, D, q.dtype, aligned)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -187,4 +214,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed ({plan.kernel}): CUDA error {rc}")
     launch_count[plan.kernel] += 1
+    instance_count[plan.instance] += 1
     return out

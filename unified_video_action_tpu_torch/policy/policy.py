@@ -20,8 +20,14 @@ of tensors (:meth:`UnifiedVideoActionPolicy.sample_noise` says which).
 The constructor takes the JAX policy's keyword arguments (the
 ``model.policy`` section of a run config) so one config drives both. The
 deployed tier is ``serving_quant="int8"`` (W8A8 dense layers in the MAR and
-the action denoiser, ``QuantLinear``) with ``obs_codec="yuv420"``. Language
-goals, proprioception and training wait for later slices and are refused.
+the action denoiser, ``QuantLinear``) with ``obs_codec="yuv420"``.
+
+Tasks: PushT and the language-conditioned kitchen suite
+(``language_emb_model="clip"``: every entry point takes ``language_goal``, a
+string, a list of strings or precomputed (B or 1, 512) latents, encoded by
+``text_encoder``, which is ``utils.language.HashTextEncoder`` until the CLIP
+tower is ported). Other tasks, proprioception and training wait for later
+slices and are refused.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from unified_video_action_tpu_torch.utils import image as image_util
 from unified_video_action_tpu_torch.utils import obs_codec as obs_codec_util
 from unified_video_action_tpu_torch.utils.frames import select_frame_indices
 from unified_video_action_tpu_torch.utils.device import resolve_device
+from unified_video_action_tpu_torch.utils.language import get_text_encoder
 
 # Keys of the JAX policy's config that only training reads.
 _TRAINING_KEYS = {
@@ -55,8 +62,10 @@ _IGNORED_KEYS = {"attn_impl"}
 # be unset (None, False, "", "none" or "raw").
 _UNPORTED_KEYS = {
     "use_history_action", "use_proprioception", "different_history_freq",
-    "predict_wrist_img", "predict_proprioception", "language_emb_model",
+    "predict_wrist_img", "predict_proprioception",
 }
+# the tasks whose serving path is ported (a task matches if its name holds one)
+_PORTED_TASKS = ("pusht", "kitchen")
 # Subtrees of the JAX parameter trees that no ported module holds yet.
 MAR_SKIP = (("diffloss",),)          # video head: not on the policy path
 VAE_SKIP = (("decoder",), ("post_quant_conv",))  # decode half of the VAE
@@ -84,6 +93,7 @@ class UnifiedVideoActionPolicy:
         serving_quant: Optional[str] = None,
         obs_codec: Optional[str] = None,
         vae_encode_chunk: Optional[int] = None,
+        language_emb_model: Optional[str] = None,
         device: Union[str, torch.device] = "cuda",
         **kwargs: Any,
     ):
@@ -95,8 +105,8 @@ class UnifiedVideoActionPolicy:
                     raise NotImplementedError(f"{key}={value!r} is not ported yet")
                 continue
             raise TypeError(f"unknown policy option {key!r}")
-        if "pusht" not in task_name:
-            raise NotImplementedError(f"task {task_name!r} is not ported yet; only pusht")
+        if not any(t in task_name for t in _PORTED_TASKS):
+            raise NotImplementedError(f"task {task_name!r} is not ported yet; only {_PORTED_TASKS}")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
         if serving_quant not in (None, "", "none", "int8"):
@@ -117,6 +127,9 @@ class UnifiedVideoActionPolicy:
         self.serving_quant = serving_quant if serving_quant == "int8" else None
         self.obs_codec = obs_codec if obs_codec == "yuv420" else None
         self.vae_encode_chunk = int(vae_encode_chunk or 0)
+        self.language_emb_model = language_emb_model
+        # (encoder, CLIP token budget), or (None, None) without language
+        self.text_encoder, self.max_length = get_text_encoder(task_name, language_emb_model)
 
         model_size = _get(amp, "model_size", "mar_base")
         if model_size == "custom":
@@ -138,6 +151,7 @@ class UnifiedVideoActionPolicy:
             act_diff_testing_steps=str(_get(amp, "act_diff_testing_steps", "100")),
             act_model_type=_get(action_model_params, "act_model_type", "conv_fc"),
             action_dim=self.action_dim,
+            language_emb_model=language_emb_model,
             quant=self.serving_quant == "int8",
             **size_kwargs,
         )
@@ -254,35 +268,58 @@ class UnifiedVideoActionPolicy:
         z = sample_posterior(mean, logvar, noise) * LATENT_SCALE
         return z.reshape(B, T, *z.shape[1:])
 
-    def _sample(self, cond: torch.Tensor, noise: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    def _encode_language_goal(self, language_goal: Any, batch: int) -> Optional[torch.Tensor]:
+        """JAX's ``_encode_language_goal`` (``policy.py:632-650``): None without
+        language or without a goal; a string or a list of strings is encoded
+        by ``text_encoder``, an array passes through as precomputed latents,
+        and one goal is tiled over the batch. Returns (B, 512) fp32 on the
+        policy's device."""
+        if self.language_emb_model is None or language_goal is None:
+            return None
+        if isinstance(language_goal, (np.ndarray, torch.Tensor)):
+            lat = torch.as_tensor(language_goal)
+        else:
+            lat = torch.from_numpy(self.text_encoder.encode(language_goal))
+        if lat.dim() == 2 and lat.shape[0] == 1 and batch > 1:
+            lat = lat.expand(batch, *lat.shape[1:])
+        return lat.to(self.device, torch.float32)
+
+    def _sample(self, cond: torch.Tensor, noise: Mapping[str, torch.Tensor],
+                text_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, C, h, w) conditioning latents -> (B, 16, A) unnormalized actions."""
         nact = self.mar.sample_policy(cond, noise["init"], noise["steps"],
-                                      temperature=self.temperature)
+                                      temperature=self.temperature, text_latents=text_latents)
         nact = nact[..., : self.action_dim]
         if self.normalizer_type == "all":
             nact = self.normalizer["action"].unnormalize(nact)
         return nact
 
     def predict_action(self, obs_dict: Mapping[str, Any], generator: Optional[torch.Generator] = None,
-                       noise: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+                       noise: Optional[Mapping[str, torch.Tensor]] = None,
+                       language_goal: Any = None) -> Dict[str, np.ndarray]:
         """JAX's ``predict_action`` (``policy.py:574-590``): ``obs_dict["image"]``
-        is the observation window on the host, (B, T, 3, H, W) uint8 or float
-        in [0, 1]. Returns numpy ``{"action": (B, n_action_steps, A),
-        "action_pred": (B, 16, A)}``, unnormalized fp32: the action of
+        (or the task's camera key, e.g. the kitchen's ``agentview_rgb``) is
+        the observation window on the host, (B, T, 3, H, W) uint8 or float in
+        [0, 1]; ``language_goal`` as :meth:`_encode_language_goal` takes it.
+        Returns numpy ``{"action": (B, n_action_steps, A), "action_pred":
+        (B, 16, A)}``, unnormalized fp32: the action of
         :meth:`predict_action_async`, copied to the host."""
-        action_pred = self.predict_action_async(obs_dict, generator, noise).cpu().numpy()
+        action_pred = self.predict_action_async(obs_dict, generator, noise,
+                                                language_goal).cpu().numpy()
         return {"action": action_pred[:, : self.n_action_steps], "action_pred": action_pred}
 
     @torch.no_grad()
     def predict_action_async(self, obs_dict: Mapping[str, Any],
                              generator: Optional[torch.Generator] = None,
-                             noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+                             noise: Optional[Mapping[str, torch.Tensor]] = None,
+                             language_goal: Any = None) -> torch.Tensor:
         """The dispatch half of :meth:`predict_action` (``policy.py:592-630``):
         the frames of ``select_frame_indices(T)`` are selected on the host,
         float frames rounded to uint8, and under ``obs_codec="yuv420"`` packed
-        to YUV420 there; one copy to the device, then
-        :meth:`predict_action_frames`. Returns the (B, 16, A) unnormalized
-        action tensor on the policy's device, without waiting for it."""
+        to YUV420 there; the goal is encoded on the host; one copy to the
+        device, then :meth:`predict_action_frames`. Returns the (B, 16, A)
+        unnormalized action tensor on the policy's device, without waiting
+        for it."""
         obs = image_util.remap_image_keys(self.task_name, dict(obs_dict))
         image = np.asarray(obs["image"])
         sel = image[:, select_frame_indices(image.shape[1], self.mar_cfg.n_frames)]
@@ -291,11 +328,13 @@ class UnifiedVideoActionPolicy:
         if self.obs_codec == "yuv420":
             sel = obs_codec_util.encode_yuv420(sel)
         frames = torch.from_numpy(np.ascontiguousarray(sel))
-        return self.predict_action_frames(frames, generator, noise)
+        text_latents = self._encode_language_goal(language_goal, image.shape[0])
+        return self.predict_action_frames(frames, generator, noise, text_latents)
 
     @torch.no_grad()
     def predict_action_frames(self, frames: torch.Tensor, generator: Optional[torch.Generator] = None,
-                              noise: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+                              noise: Optional[Mapping[str, torch.Tensor]] = None,
+                              text_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The counterpart of JAX's jitted predict program (``policy.py:436-451``,
         ``_build_predict_fn``), which :meth:`predict_action` runs on the frames
         it selected: frames as the device receives them, uint8 (B, 4, 3, H, W)
@@ -303,7 +342,8 @@ class UnifiedVideoActionPolicy:
         (B, 4, P) (a 5-D tensor is refused: it would skip the codec) -> (B, 16,
         A) unnormalized fp32 action chunk on the policy's device (the first
         ``n_action_steps`` are executed). ``noise`` injects the draws of
-        :meth:`sample_noise`; otherwise they come from ``generator``."""
+        :meth:`sample_noise`; otherwise they come from ``generator``.
+        ``text_latents``: the encoded goal (B, 512), or None."""
         n = self.mar_cfg.n_frames
         want = f"packed (B, {n}, P)" if self.obs_codec == "yuv420" else f"(B, {n}, 3, H, W)"
         if frames.dim() != (3 if self.obs_codec == "yuv420" else 5) or frames.shape[1] != n:
@@ -311,7 +351,7 @@ class UnifiedVideoActionPolicy:
         B = frames.shape[0]
         noise = self._noise(B, n, noise, generator)
         cond = self._encode_frames(self._prep_frames(frames.to(self.device)), noise["vae"])
-        return self._sample(cond, noise)
+        return self._sample(cond, noise, text_latents)
 
     def cache_plan(self, total_frames: int, cache: Optional[torch.Tensor],
                    n_shift: int) -> Tuple[List[int], List[int]]:
@@ -333,6 +373,7 @@ class UnifiedVideoActionPolicy:
         n_shift: int = 8,
         noise: Optional[Mapping[str, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
+        language_goal: Any = None,
     ) -> Tuple[Dict[str, np.ndarray], torch.Tensor]:
         """Rollout serving with latent reuse (``policy.py:481-509``): the
         action of :meth:`predict_action_cached_async` copied to the host.
@@ -340,7 +381,8 @@ class UnifiedVideoActionPolicy:
         Returns ``({"action": (B, n_action_steps, A), "action_pred": (B, 16, A)}``
         as numpy arrays, ``new cache``); the cache stays on the device.
         """
-        nact, cond = self.predict_action_cached_async(obs_dict, cache, n_shift, noise, generator)
+        nact, cond = self.predict_action_cached_async(obs_dict, cache, n_shift, noise, generator,
+                                                      language_goal)
         action_pred = nact.cpu().numpy()
         return {"action": action_pred[:, : self.n_action_steps], "action_pred": action_pred}, cond
 
@@ -352,6 +394,7 @@ class UnifiedVideoActionPolicy:
         n_shift: int = 8,
         noise: Optional[Mapping[str, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
+        language_goal: Any = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The dispatch half of :meth:`predict_action_cached`
         (``policy.py:511-572``).
@@ -363,6 +406,7 @@ class UnifiedVideoActionPolicy:
         call did not encode are encoded (packed to YUV420 on the host first
         under ``obs_codec="yuv420"``); ``noise["vae"]`` covers those frames
         only (``noise_shapes(B, n_new)``, ``n_new`` from :meth:`cache_plan`).
+        ``language_goal`` as :meth:`predict_action` takes it.
 
         Returns ``(action_pred, new cache)`` on the device without waiting
         for them: the (B, 16, A) unnormalized actions and the (B, 4, C, h, w)
@@ -382,8 +426,9 @@ class UnifiedVideoActionPolicy:
         new = image[:, new_positions]
         if self.obs_codec == "yuv420":
             new = obs_codec_util.encode_yuv420(new)
+        text_latents = self._encode_language_goal(language_goal, B)
         noise = self._noise(B, len(new_positions), noise, generator)
         frames = self._prep_frames(torch.from_numpy(np.ascontiguousarray(new)).to(self.device))
         new_lat = self._encode_frames(frames, noise["vae"])
         cond = torch.cat([cache[:, reuse_from], new_lat], dim=1) if reuse_from else new_lat
-        return self._sample(cond, noise), cond
+        return self._sample(cond, noise, text_latents), cond

@@ -29,13 +29,17 @@ paths' shapes at mar_base width (B=128 and B=1):
   B=1 and B=128, by CUDA events and on the host clock;
 * ``attention_variants`` (only with ``--parts``; needs a tree with the
   online-softmax kernel): every bf16 attention kernel variant of the tree's
-  C interface at each of ``VARIANT_SHAPES``, whatever ``attention_plan``
-  would pick (the single-pass kernel at N <= 144, split per q-tile or whole
-  heads; the online kernel in 128- or 64-row work items; the mma.sync
-  kernel), each held against ``attention_plain`` (chip_smoke.py's
-  ``attention_check``) and timed by CUDA-graph replay beside SDPA and the
-  bound: the measurement behind ``attention_plan``'s crossover and split.
-  The call exits non-zero if a variant disagrees with the plain version.
+  C interface at each of ``VARIANT_SHAPES`` (head dimension 64, 12 heads:
+  mar_base) and, where the tree builds head dimension 128, of
+  ``VARIANT_SHAPES_D128`` (6 heads of 128: mar_small, the 96 px path's N =
+  144 and the kitchen path's N = 320), whatever
+  ``attention_plan`` would pick (the single-pass kernel at N <= 144, split
+  per q-tile or whole heads; the online kernel in 128- or 64-row work
+  items; the mma.sync kernel), each held against ``attention_plain``
+  (chip_smoke.py's ``attention_check``) and timed by CUDA-graph replay
+  beside SDPA and the bound: the measurement behind ``attention_plan``'s
+  crossover and split thresholds, per head dimension. The call exits
+  non-zero if a variant disagrees with the plain version.
 
 The configs, the weights and chip_smoke.py's helpers are this repository's,
 whichever tree is timed. ``--parts`` picks what to measure (all but
@@ -215,29 +219,45 @@ VARIANT_SHAPES = [
     (128, 256), (8, 256), (1, 256), (128, 200), (8, 200), (1, 200),
     (128, 145), (8, 145), (1, 145), (128, 144), (8, 144), (1, 144), (4, 1),
 ]
+# head dimension 128 (6 heads): the batches around each split threshold at
+# the mar_small paths' N = 144 (18 q-tiles of 64 rows per sample) and N =
+# 320 (18 work items of 128 rows per sample), and ragged N
+VARIANT_SHAPES_D128 = [
+    (1, 144), (2, 144), (4, 144), (8, 144), (12, 144), (16, 144), (24, 144), (32, 144),
+    (64, 144), (128, 144), (8, 137),
+    (1, 320), (4, 320), (8, 320), (12, 320), (16, 320), (22, 320), (24, 320), (32, 320),
+    (64, 320), (128, 320), (8, 257), (8, 1000),
+]
+HEADS = {64: 12, 128: 6}
 
 
-def attention_variants(attention) -> list:
+def attention_variants(attention, head_dims) -> list:
     lib = attention._lib()
     if not hasattr(lib, "uva_flash_attention_online"):
         raise RuntimeError("attention_variants needs a tree with uva_flash_attention_online")
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    H, dtype = 12, torch.bfloat16
+    dtype = torch.bfloat16
     rows, bad = [], []
-    for B, N in VARIANT_SHAPES:
-        qkv = torch.randn(B, N, 3, H, 64, generator=gen, device="cuda").to(dtype)
+    shapes = [(B, N, D) for D in head_dims
+              for B, N in (VARIANT_SHAPES if D == 64 else VARIANT_SHAPES_D128)]
+    for B, N, D in shapes:
+        H = HEADS[D]
+        qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(dtype)
         q, k, v = qkv.unbind(2)
         want = attention.attention_plain(q, k, v)
-        out = torch.empty(B, N, H, 64, dtype=dtype, device="cuda")
-        base = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, 64,
+        out = torch.empty(B, N, H, D, dtype=dtype, device="cuda")
+        base = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
         variants = {"online": (lib.uva_flash_attention_online, (0,)),
                     "online_split": (lib.uva_flash_attention_online, (1,)),
                     "mma_sync": (lib.uva_flash_attention, (1, 1))}
         if N <= attention.SINGLE_PASS_MAX_N:
-            variants.update(single_pass=(lib.uva_flash_attention_wgmma, (0,)),
-                            single_pass_split=(lib.uva_flash_attention_wgmma, (1,)))
-        row = {"B": B, "N": N, "H": H, "plan": attention.attention_plan(B, N, H, dtype).__dict__}
+            variants.update(single_pass_split=(lib.uva_flash_attention_wgmma, (1,)))
+            if D == 64:  # at D = 128 only the split instance is built
+                variants.update(single_pass=(lib.uva_flash_attention_wgmma, (0,)))
+        plan = (attention.attention_plan(B, N, H, D, dtype) if hasattr(attention, "HEAD_DIMS")
+                else attention.attention_plan(B, N, H, dtype))
+        row = {"B": B, "N": N, "H": H, "D": D, "plan": plan.__dict__}
         for name, (fn, extra) in variants.items():
             def call(fn=fn, extra=extra, name=name):
                 # the current stream: a CUDA graph captures on its own
@@ -249,11 +269,11 @@ def attention_variants(attention) -> list:
             torch.cuda.synchronize()
             errs, ok = smoke.attention_check(out, want)
             if not ok:
-                bad.append((B, N, name, errs))
+                bad.append((B, N, D, name, errs))
             row[name] = {**errs, "ok": ok, "ms": smoke.graph_ms(call) if ok else None}
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         row["sdpa_ms"] = smoke.graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        row["bound_ms"], row["bound_by"] = smoke.attention_bound(B, N, H, 64, dtype)
+        row["bound_ms"], row["bound_by"] = smoke.attention_bound(B, N, H, D, dtype)
         print(json.dumps(row), file=sys.stderr, flush=True)
         rows.append(row)
     if bad:
@@ -282,6 +302,7 @@ def main() -> int:
     for module in (attention, int8_mm):
         if not module.__file__.startswith(tree + os.sep):
             raise RuntimeError(f"imported {module.__file__}, not the package under {tree}")
+    head_dims = getattr(attention, "HEAD_DIMS", (64,))  # a tree before D = 128 builds 64 only
     meta_policy, normalizer = smoke.flagship_config()
     cfg = meta_policy.mar_cfg
     measure = {"attention": lambda: attention_rows(attention, cfg),
@@ -289,7 +310,7 @@ def main() -> int:
                "gemm": lambda: gemm_rows(int8_mm, cfg),
                "deployed": lambda: deployed_requests(int8_mm, meta_policy, normalizer),
                "serve_256px": lambda: requests_256px(normalizer),
-               "attention_variants": lambda: attention_variants(attention)}
+               "attention_variants": lambda: attention_variants(attention, head_dims)}
     parts = args.parts.split(",")
     unknown = set(parts) - set(PARTS)
     if unknown:
