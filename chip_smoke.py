@@ -6,21 +6,27 @@ NVIDIA GPU.
 
 Phases (each prints its elapsed seconds; a phase that fails raises, and the
 script exits non-zero without its result line). The attention kernels are
-built for head dimensions 64 (mar_base) and 128 (mar_small); every check of
-an attention launch names the instance (kernel and D) that attention_plan
-picks.
+built for head dimensions 64 (mar_base), 80 (mar_huge) and 128 (mar_small);
+every check of an attention launch names the instance (kernel and D) that
+attention_plan picks.
 
 1. env     torch and CUDA versions, the card's name and power limit.
 2. build   every kernel source of unified_video_action_tpu_torch/csrc/
            (attention.cu, int8_mm.cu) by nvcc, all started together.
 3. kernel  each kernel against its plain PyTorch version on the card, at the
-           serving paths' shapes and beyond (attention at D = 64 and at the
-           mar_small paths' D = 128), with times (CUDA-graph replay)
+           serving paths' shapes and beyond (attention at D = 64, at the
+           mar_small paths' D = 128 and at the mar_huge paths' D = 80; the
+           int8 kernels at mar_base's shapes and at mar_huge's MAR layers,
+           K = 1280 and the fc2 input's 5120), with times (CUDA-graph replay)
            beside its bound and beside one PyTorch library call computing
            the same function; every launch lands on the kernel its plan
            names (attention_plan, quantize_plan, gemm_plan); the attention
            kernels within attention_check's limits, which a planted
-           unmasked ragged KV edge must fail at every ragged N; the int8
+           unmasked ragged KV edge must fail at every ragged N; at D = 80
+           the head-width control: views whose next 48 columns in memory
+           hold NaN must come out finite and within the limits (columns
+           80-127 of the TMA kernels' tiles are TMA's zero fill), and a
+           planted kernel that reads all 128 columns must fail; the int8
            kernels must be bit-equal, also with each planted fault (below)
            shown to break that.
 4. serve   UnifiedVideoActionPolicy.predict_action_frames (the predict
@@ -65,6 +71,17 @@ picks.
            encoder), the same checks with the online kernel's D = 128
            instance (a 64-row last KV tile), one call without a goal, and
            the goal shown to change the actions.
+5d. serve_huge96  mar_huge, the MAR paper's largest size (config.
+           PUSHT_HUGE96: 20+20 blocks, d=1280 over 16 heads of D = 80, 96 px,
+           144 tokens, 876 M MAR and denoiser parameters, numpy-seeded, the
+           committed pusht_vae96.npz): serve_small96's checks at the D the
+           config implies (40 launches a call of the single-pass kernel's
+           D = 80 instance; the deployed tier's fc2 rows, K = 5120, through
+           the vector quantize kernel's widest instance).
+5e. serve_huge256  mar_huge at 256 px (config.PUSHT_HUGE256: 1024 tokens,
+           the seeded ch-128 KL-16 VAE): serve_256px's checks, 40 launches a
+           call of the online kernel's D = 80 instance, request times, the
+           stage breakdown and the device's busy share.
 6. deployed  the deployed tier, predict_action_cached with ddim10 +
            serving_quant="int8" + obs_codec="yuv420", same width and
            weights, bf16, at B=1 and B=128: a full call on a 16-frame window,
@@ -279,6 +296,19 @@ ATTENTION_CASES = [
     (128, 320, 6, 128, torch.bfloat16, True),
     (8, 320, 6, 128, torch.bfloat16, False),
     (128, 144, 6, 128, torch.float32, True),
+    # head dimension 80 (mar_huge, 16 heads; held in D = 128's tiles with
+    # columns 80-127 from TMA's zero fill): the 96 px path's N = 144 (single
+    # pass, split at every B), the 256 px path's N = 1024 (online, 128-row
+    # items at B = 1, 16 and 128), ragged online N whose edge left unmasked
+    # must fail the checks (64-row items at (1, 500), 128-row ones at
+    # (8, 1000)), unaligned views (mma.sync) and fp32 (two threads of 40
+    # columns a row)
+    (1, 144, 16, 80, torch.bfloat16, True), (128, 144, 16, 80, torch.bfloat16, True),
+    (1, 1024, 16, 80, torch.bfloat16, True), (16, 1024, 16, 80, torch.bfloat16, True),
+    (128, 1024, 16, 80, torch.bfloat16, True), (8, 1000, 16, 80, torch.bfloat16, True),
+    (1, 500, 16, 80, torch.bfloat16, True),
+    (8, 1024, 16, 80, torch.bfloat16, False),
+    (128, 144, 16, 80, torch.float32, True),
 ]
 
 
@@ -361,6 +391,59 @@ def phase_kernel(attention_ops):
         if not ok:
             raise AssertionError(f"attention kernel disagrees with its plain version or its "
                                  f"plan, or its checks pass an unmasked KV edge: {row}")
+        rows.append(row)
+    return rows
+
+
+# the head-width control's shapes (B, N, dtype): D = 80 views of (B, N, 3, 16,
+# 128) buffers whose columns 80-127 hold NaN, through the instance the plan
+# names (the single pass, the online kernel in both item sizes, fp32)
+HEAD_WIDTH_CASES = [(1, 144, torch.bfloat16), (128, 144, torch.bfloat16),
+                    (1, 500, torch.bfloat16), (1, 1024, torch.bfloat16),
+                    (16, 1024, torch.bfloat16), (8, 144, torch.float32)]
+
+
+def reads_128_columns(attention_ops, buf):
+    """The planted fault of the head-width control: a kernel that reads all
+    128 columns of each row from memory (the D = 128 instance on the whole
+    rows, q scaled by sqrt(128 / 80) so that with zeros past column 79 it
+    computes the D = 80 function), cut back to 80 columns."""
+    q, k, v = buf.unbind(2)
+    return attention_ops.flash_attention(q * (128 / 80) ** 0.5, k, v)[..., :80]
+
+
+def head_width_control(attention_ops) -> list:
+    """D = 80 views whose next 48 columns in memory hold NaN: the kernel the
+    plan names must launch, and its output be finite and within
+    ``attention_check``'s limits of the plain version (the TMA kernels take
+    columns 80-127 of their 128-column tiles from TMA's zero fill, never from
+    memory); the planted kernel reading 128 columns must fail those limits,
+    and pass them where the neighbouring columns hold zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    rows = []
+    for B, N, dtype in HEAD_WIDTH_CASES:
+        buf = torch.randn(B, N, 3, 16, 128, generator=gen, device="cuda").to(dtype)
+        buf[..., 80:] = float("nan")
+        q, k, v = buf[..., :80].unbind(2)
+        plan = attention_ops.attention_plan(B, N, 16, 80, dtype, attention_ops._check(q, k, v))
+        before = dict(attention_ops.instance_count)
+        out = attention_ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in attention_ops.instance_count.items() if c != before[n]}
+        want = attention_ops.attention_plain(q, k, v)
+        errs, ok = attention_check(out, want)
+        _, faulty_ok = attention_check(reads_128_columns(attention_ops, buf), want)
+        zeros = buf.clone()
+        zeros[..., 80:] = 0
+        _, faulty_on_zeros_ok = attention_check(reads_128_columns(attention_ops, zeros), want)
+        row = dict(B=B, N=N, dtype=str(dtype).split(".")[-1], instance=plan.instance, launched=launched,
+                   finite=bool(torch.isfinite(out).all()), **errs, ok=ok,
+                   faulty_rejected=not faulty_ok, faulty_passes_on_zeros=faulty_on_zeros_ok)
+        log("head-width control " + json.dumps(row))
+        if not (ok and launched == {plan.instance: 1} and plan.head_dim == 80):
+            raise AssertionError(f"a D = 80 kernel reads past column 79, or disagrees: {row}")
+        if not (row["faulty_rejected"] and faulty_on_zeros_ok):
+            raise AssertionError(f"the head-width control cannot tell a kernel reading 128 columns: {row}")
         rows.append(row)
     return rows
 
@@ -722,31 +805,33 @@ ROUTE_BATCH_256 = 8
 REJECTED_CONTROLS_256 = ("exp_base_2", "scale_x1.1")
 
 
-def phase_serve_256px(attention_ops, normalizer) -> dict:
-    """The reference's own PushT model as the JAX package's parity tier
-    serves it (config.PUSHT_256: mar_base, 96 px frames upscaled to 256 on
-    the card, 1024 tokens, the KL-16 VAE with ch 128, 100 sampler steps,
-    bf16, VAE encodes of 64 frames), with numpy-seeded MAR, denoiser and VAE
+def phase_serve_256px(attention_ops, normalizer, name: str, run_cfg: dict) -> dict:
+    """A 256 px PushT model (``run_cfg``: config.PUSHT_256, the reference's
+    own model as the JAX package's parity tier serves it, mar_base; or
+    config.PUSHT_HUGE256, mar_huge): 96 px frames upscaled to 256 on the
+    card, 1024 tokens, the KL-16 VAE with ch 128, 100 sampler steps, bf16,
+    VAE encodes of 64 frames, with numpy-seeded MAR, denoiser and VAE
     weights: the obs-dict predict_action at B=1 and B=128 (counted: the
-    online-softmax kernel once per ViT block, no other attention kernel),
-    the kernel route against the plain route at B=8 with the serve limits
-    and controls, then request times (median of 5), the stage breakdown and
-    the device's busy share. Returns the launches of the counted calls."""
+    online-softmax kernel's instance at the D the config implies once per
+    ViT block, no other attention kernel), the kernel route against the
+    plain route at B=8 with the serve limits and controls, then request
+    times (median of 5), the stage breakdown and the device's busy share.
+    Returns the launches of the counted calls."""
     from unified_video_action_tpu_torch import convert
-    from unified_video_action_tpu_torch.config import PUSHT_256
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
     def make_policy(dtype: str):
-        p = UnifiedVideoActionPolicy.from_cfg(PUSHT_256, device="cuda", compute_dtype=dtype)
+        p = UnifiedVideoActionPolicy.from_cfg(run_cfg, device="cuda", compute_dtype=dtype)
         p.set_normalizer(normalizer)
         return p
 
     policy = make_policy("bfloat16")
     c = policy.mar_cfg
+    D = c.encoder_embed_dim // c.encoder_num_heads
     trees = convert.seeded_tree(policy.mar, SEED), convert.seeded_tree(policy.vae, SEED + 1)
     policy.load_params(*trees)
-    log(f"256 px policy: mar {c.encoder_depth}+{c.decoder_depth} blocks, d={c.encoder_embed_dim}, "
-        f"{c.encoder_num_heads} heads, {c.img_size}px, {c.total_tokens} tokens, VAE ch "
+    log(f"{name} policy: mar {c.encoder_depth}+{c.decoder_depth} blocks, d={c.encoder_embed_dim}, "
+        f"{c.encoder_num_heads} heads of D={D}, {c.img_size}px, {c.total_tokens} tokens, VAE ch "
         f"{policy.vae.encoder.conv_in.out_channels}, {policy.mar.diffactloss.num_steps} sampler "
         f"steps, {policy.dtype}, vae_encode_chunk {policy.vae_encode_chunk}; MAR+denoiser "
         f"{sum(p.numel() for p in policy.mar.parameters()) / 1e6:.1f}M and VAE encoder "
@@ -765,8 +850,8 @@ def phase_serve_256px(attention_ops, normalizer) -> dict:
 
     # the path: one obs-dict request at B=1 and one at B=128, counted
     for counter in (attention_ops.launch_count, attention_ops.instance_count):
-        for name in counter:
-            counter[name] = 0
+        for k in counter:
+            counter[k] = 0
     per_call = {}
     for B in BATCHES_256:
         window = np.zeros((B, 16, 3, 96, 96), dtype=np.uint8)
@@ -779,12 +864,12 @@ def phase_serve_256px(attention_ops, normalizer) -> dict:
         check_actions(policy, torch.from_numpy(res["action_pred"]), B)
     launches = {**attention_ops.launch_count, **attention_ops.instance_count}
     wants = {B: attention_launches_per_request(attention_ops, c, B, torch.bfloat16) for B in BATCHES_256}
-    log(f"256 px attention launches: {per_call} per call, {launches} in all; want {wants}")
+    log(f"{name} attention launches: {per_call} per call, {launches} in all; want {wants}")
     for B in BATCHES_256:
         if per_call[B] != wants[B] or per_call[B]["attention_wgmma_online"] != c.encoder_depth + c.decoder_depth:
-            raise AssertionError(f"256 px B={B}: attention launches {per_call[B]}, want {wants[B]}")
-    if launches["attention_wgmma_online_d64"] != launches["attention_wgmma_online"]:
-        raise AssertionError(f"the online launches are not all of its D = 64 instance: {launches}")
+            raise AssertionError(f"{name} B={B}: attention launches {per_call[B]}, want {wants[B]}")
+    if launches[f"attention_wgmma_online_d{D}"] != launches["attention_wgmma_online"]:
+        raise AssertionError(f"{name}: the online launches are not all of its D = {D} instance: {launches}")
 
     policy32 = make_policy("float32")
     policy32.load_params(*trees)
@@ -813,9 +898,9 @@ def phase_serve_256px(attention_ops, normalizer) -> dict:
              "median_host_ms_b128": host_b128, "chunks_per_s_b128": 128 / (ms_b128 / 1e3),
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_vs_plain": diffs,
              "card": card_line()}
-    log("serve_256px " + json.dumps(serve))
+    log(f"{name} " + json.dumps(serve))
     for B in BATCHES_256:
-        log(f"256 px, where the time goes, B={B}: " + json.dumps(breakdown(policy, frames[B], noise[B])))
+        log(f"{name}, where the time goes, B={B}: " + json.dumps(breakdown(policy, frames[B], noise[B])))
     return launches
 
 
@@ -835,20 +920,21 @@ REJECTED_CONTROLS_KITCHEN = ("exp_base_2", "scale_x1.1")
 
 def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normalizer,
                       goal: str = None, rejected=REJECTED_CONTROLS) -> dict:
-    """One mar_small configuration at full width (``run_cfg``:
-    config.PUSHT_SMALL96 or config.KITCHEN_SMALL128), numpy-seeded MAR and
-    denoiser weights through the bridge and the committed VAE of the
-    config, bf16, 100 sampler steps. The path, counted: the obs-dict
-    predict_action at B=1 and B=128 (with ``goal``, and one more call at B=1
-    without a goal), then the deployed tier (ddim10 + int8 + yuv420)
-    predict_action_cached, a full and a cached call at both batches. Each
-    call launches the D = 128 instance that attention_plan names once per ViT
-    block and no other attention kernel, and the int8 kernels as the config
-    implies. Then the deployed kernel route against the plain-int8 route
-    (bit-equal), the kernel route against the plain route under the same
-    noise with the serve limits and the controls, the card in fp32 (the
-    fp32 kernel at D = 128) against the port on the CPU, and request times.
-    Returns the launches of the counted calls by kernel instance."""
+    """One configuration at full width and depth (``run_cfg``:
+    config.PUSHT_SMALL96 or config.KITCHEN_SMALL128, mar_small at D = 128;
+    config.PUSHT_HUGE96, mar_huge at D = 80), numpy-seeded MAR and denoiser
+    weights through the bridge and the committed VAE of the config, bf16,
+    100 sampler steps. The path, counted: the obs-dict predict_action at B=1
+    and B=128 (with ``goal``, and one more call at B=1 without a goal), then
+    the deployed tier (ddim10 + int8 + yuv420) predict_action_cached, a full
+    and a cached call at both batches. Each call launches the instance that
+    attention_plan names at the D the config implies once per ViT block and
+    no other attention kernel, and the int8 kernels as the config implies.
+    Then the deployed kernel route against the plain-int8 route (bit-equal),
+    the kernel route against the plain route under the same noise with the
+    serve limits and the controls, the card in fp32 (the fp32 kernel at the
+    config's D) against the port on the CPU, and request times. Returns the
+    launches of the counted calls by kernel instance."""
     from unified_video_action_tpu_torch import convert
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
@@ -879,8 +965,8 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
         f"{policy.max_length}); MAR+denoiser {sum(p.numel() for p in policy.mar.parameters()) / 1e6:.1f}M "
         f"numpy-seeded (seed {SEED}), VAE encoder {sum(p.numel() for p in policy.vae.parameters()) / 1e6:.1f}M "
         f"from {policy.vae_path}")
-    if D != 128:
-        raise AssertionError(f"{name}: head dimension {D}, want 128")
+    if D not in attention_ops.HEAD_DIMS:
+        raise AssertionError(f"{name}: head dimension {D} has no kernel instance")
 
     camera = "agentview_rgb" if goal else "image"
     rng = np.random.default_rng(SEED + 40)
@@ -944,7 +1030,7 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
         if int8_route:
             want.update(int8_kernels_per_request(deployed, int8_ops, B))
         log(f"{name} {call}: plan {plan}, launches {json.dumps({k: v for k, v in got.items() if v})}")
-        if got != want or got[plan.instance] != blocks or plan.head_dim != 128:
+        if got != want or got[plan.instance] != blocks or plan.head_dim != D:
             raise AssertionError(f"{name} {call}: launches {got}, want {want} ({blocks} of {plan.instance})")
     if goal is not None and np.allclose(results[(1, goal)], results[(1, None)], atol=1e-3):
         raise AssertionError(f"{name}: the goal does not change the actions")
@@ -961,7 +1047,7 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
 
     # the kernel route against the plain route, bf16, same noise, and the
     # controls; the reference is fp32 on the card (its attention the fp32
-    # kernel at D = 128 below), matmuls and convolutions without TF32
+    # kernel at the config's D below), matmuls and convolutions without TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     policy32 = make_policy(dtype="float32")
@@ -970,7 +1056,7 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
     text = {B: policy._encode_language_goal(goal, B) for B in SMALL_BATCHES}
     diffs = route_check(attention_ops, policy, policy32, frames, noise, rejected, text)
 
-    # the card in fp32 (the fp32 kernel at D = 128) against the port on the CPU in fp32
+    # the card in fp32 (the fp32 kernel at the config's D) against the port on the CPU in fp32
     cpu32 = make_policy(device="cpu", dtype="float32")
     cpu32.load_params(*trees)
     cpu_noise = {k: v.cpu() for k, v in noise[1].items()}
@@ -1064,6 +1150,18 @@ def int8_path_shapes(cfg, batches=(128, 1)) -> list:
     return shapes
 
 
+def int8_mar_shapes(cfg, B: int = 128) -> list:
+    """(layer, M, K, N, x dtype) of the MAR's W8A8 layers at batch B (qkv,
+    proj, mlp_fc1, mlp_fc2), named with the model's size: at mar_huge's d =
+    1280, K = 1280 and mlp_fc2's K = 5120, whose rows the vector quantize
+    kernel's widest instance (per_lane 20) takes."""
+    D, hidden = cfg.encoder_embed_dim, int(cfg.encoder_embed_dim * cfg.mlp_ratio)
+    m = B * cfg.attention_tokens
+    return [(f"d{D} {name} B={B}", m, k, n, torch.bfloat16)
+            for name, k, n in (("qkv", D, 3 * D), ("proj", D, D), ("mlp_fc1", D, hidden),
+                               ("mlp_fc2", hidden, D))]
+
+
 def int8_layer_calls(policy) -> dict:
     """W8A8 calls of one request for each layer of ``int8_path_shapes``: qkv,
     proj, mlp_fc1, mlp_fc2 once in every ViT block, and per sampler step the
@@ -1145,18 +1243,43 @@ def int8_bounds(M: int, K: int, N: int, x_bytes: int, out_bytes: int):
     return gemm, rows
 
 
-def phase_kernel_int8(int8_ops, quant, cfg):
-    """Every shape of ``int8_path_shapes``: both kernels bit-equal to their
-    plain versions (the GEMM through the wrapper's dispatch), then the GEMM's
+def scalar_rows_ms(int8_ops, quant, x) -> float:
+    """The scalar quantize kernel on rows ``x``, by a direct call of its C
+    entry point (no plan sends such rows there): bit-equal to the plain
+    version, and its time, the kernel that rows wider than 3072 took before
+    the vector kernel's per_lane 20 instance held them."""
+    M, K = x.shape
+    x_q = torch.empty(M, K, dtype=torch.int8, device="cuda")
+    x_scale = torch.empty(M, dtype=torch.float32, device="cuda")
+
+    def call():
+        rc = int8_ops._lib().uva_quantize_rows(x.data_ptr(), x_q.data_ptr(), x_scale.data_ptr(), M, K,
+                                               int8_ops._DTYPE_CODES[x.dtype], 0,
+                                               torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"uva_quantize_rows: CUDA error {rc}")
+
+    call()
+    torch.cuda.synchronize()
+    want_q, want_scale = quant.quantize_rows_plain(x)
+    if not (torch.equal(x_q, want_q) and torch.equal(x_scale, want_scale)):
+        raise AssertionError(f"the scalar quantize kernel differs from the plain version at {(M, K)}")
+    return graph_ms(call)
+
+
+def phase_kernel_int8(int8_ops, quant, shapes, misaligned: bool = True):
+    """Every shape of ``shapes`` (``int8_path_shapes``, ``int8_mar_shapes``):
+    both kernels bit-equal to their plain versions (the GEMM through the
+    wrapper's dispatch), then the GEMM's
     device time by CUDA-graph replay, in turns: with the path's epilogue
     (rescale, cast, bias), with s32 out, and ``torch._int_mm`` (s32 out, the
     same function as the s32 kernel), each read twice (epilogue, s32,
-    library, library, s32, epilogue); with the bound of each. Then an operand
-    that is not 16-byte aligned, which must go to the mma.sync kernel and
-    stay bit-equal."""
+    library, library, s32, epilogue); with the bound of each. Then, where
+    ``misaligned``, an operand that is not 16-byte aligned, which must go to
+    the mma.sync kernel and stay bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for layer, M, K, N, dtype in int8_path_shapes(cfg):
+    for layer, M, K, N, dtype in shapes:
         x, w_q, w_scale, bias = int8_inputs(M, K, N, dtype, gen)
         plan = int8_ops.gemm_plan(M, N, K)
         rows_plan = int8_ops.quantize_plan(K, dtype)
@@ -1199,10 +1322,14 @@ def phase_kernel_int8(int8_ops, quant, cfg):
             rows_plain_ms=time_ms(lambda: quant.quantize_rows_plain(x), reps=5),
             rows_bound_ms=rows_bound, rows_bound_by=rows_by,
         )
+        if K > 3072 and rows_plan.variant == "vector":  # the rows the per_lane 20 instance took over
+            row["rows_scalar_ms"] = scalar_rows_ms(int8_ops, quant, x)
         log("int8 " + json.dumps(row))
         if not all(eq[k] for k in BIT_EQUAL_PARTS):
             raise AssertionError(f"int8 kernels differ from their plain versions: {row}")
         rows.append(row)
+    if not misaligned:
+        return rows
 
     # an operand 1 byte past a 16-byte boundary: TMA cannot read it
     M, K, N = 144, 768, 768
@@ -1691,16 +1818,20 @@ def main() -> int:
         for name in KERNEL_SOURCES:
             log(f"nvcc csrc/{name}.cu: {seconds[name]:.1f}s\n{_build.build_log(name)}")
     meta_policy, normalizer = flagship_config()
+    from unified_video_action_tpu_torch import config as port_config
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+    huge_cfg = UnifiedVideoActionPolicy.from_cfg(port_config.PUSHT_HUGE96, device="meta").mar_cfg
     with Phase("kernel"):
         rows = phase_kernel(attention_ops)
-        int8_rows = phase_kernel_int8(int8_ops, quant, meta_policy.mar_cfg)
+        width_rows = head_width_control(attention_ops)
+        int8_rows = phase_kernel_int8(int8_ops, quant, int8_path_shapes(meta_policy.mar_cfg))
+        int8_huge_rows = phase_kernel_int8(int8_ops, quant, int8_mar_shapes(huge_cfg), misaligned=False)
         int8_kernel_controls(int8_ops, quant, meta_policy.mar_cfg)
     trees = serving_weights(meta_policy)
     with Phase("serve"):
         launches = phase_serve(attention_ops, trees, normalizer)
     with Phase("serve_256px"):
-        launches_256 = phase_serve_256px(attention_ops, normalizer)
-    from unified_video_action_tpu_torch import config as port_config
+        launches_256 = phase_serve_256px(attention_ops, normalizer, "serve_256px", port_config.PUSHT_256)
     with Phase("serve_small96"):
         launches_small96 = phase_serve_small(attention_ops, int8_ops, "small96",
                                              port_config.PUSHT_SMALL96, normalizer)
@@ -1708,6 +1839,12 @@ def main() -> int:
         launches_kitchen = phase_serve_small(attention_ops, int8_ops, "kitchen128",
                                              port_config.KITCHEN_SMALL128, None, goal=KITCHEN_GOAL,
                                              rejected=REJECTED_CONTROLS_KITCHEN)
+    with Phase("serve_huge96"):
+        launches_huge96 = phase_serve_small(attention_ops, int8_ops, "huge96",
+                                            port_config.PUSHT_HUGE96, normalizer)
+    with Phase("serve_huge256"):
+        launches_huge256 = phase_serve_256px(attention_ops, normalizer, "serve_huge256",
+                                             port_config.PUSHT_HUGE256)
     with Phase("deployed"):
         deployed, gemm_request_ms, calls = phase_serve_deployed(
             attention_ops, int8_ops, trees, normalizer)
@@ -1726,13 +1863,15 @@ def main() -> int:
                      "rollout_bf16_uncached": rollouts["c"]}
     attention_by_path = {"predict_action_100_steps": launches, "predict_action_256px": launches_256,
                          "predict_action_cached_deployed": deployed, **rollout_paths,
-                         "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen}
+                         "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen,
+                         "serve_huge96": launches_huge96, "serve_huge256": launches_huge256}
     attention_keys = attention_ops.KERNELS + attention_ops.INSTANCES
     attention_by_path = {path: {k: n[k] for k in attention_keys}
                          for path, n in attention_by_path.items()}
     attention_launches = {k: sum(p[k] for p in attention_by_path.values()) for k in attention_keys}
     int8_by_path = {"predict_action_cached_deployed": deployed, "rollout_deployed": rollouts["a"],
-                    "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen}
+                    "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen,
+                    "serve_huge96": launches_huge96}
     gemm_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.GEMM_KERNELS}
     quant_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.QUANT_KERNELS}
     int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
@@ -1761,8 +1900,10 @@ def main() -> int:
     # in the serve phases' fp32 checks) and are held in the kernel phase,
     # their rows under "unaligned_and_fp32"
     side_rows = {"attention_mma_sync_d64": attention_row(rows, 8, 1088, D=64, aligned=False),
+                 "attention_mma_sync_d80": attention_row(rows, 8, 1024, D=80, aligned=False),
                  "attention_mma_sync_d128": attention_row(rows, 8, 320, D=128, aligned=False),
                  "attention_f32_d64": attention_row(rows, 128, 144, torch.float32, D=64),
+                 "attention_f32_d80": attention_row(rows, 128, 144, torch.float32, D=80),
                  "attention_f32_d128": attention_row(rows, 128, 144, torch.float32, D=128)}
     kernels = {"kernels": [
         {**attention_entry("flash_attention", "attention_wgmma_d64", 33, (128, 144, 12, 64), b1=(1, 144)),
@@ -1778,6 +1919,11 @@ def main() -> int:
                         b1=(1, 144)),
         attention_entry("flash_attention_online_d128", "attention_wgmma_online_d128", 67,
                         (128, 320, 6, 128), b1=(1, 320), b16=(16, 320)),
+        {**attention_entry("flash_attention_d80", "attention_wgmma_d80", 33, (128, 144, 16, 80),
+                           b1=(1, 144)),
+         "head_width_control": width_rows},
+        attention_entry("flash_attention_online_d80", "attention_wgmma_online_d80", 67,
+                        (128, 1024, 16, 80), b1=(1, 1024), b16=(16, 1024)),
         {
             "name": "int8_gemm",
             "route": "cuda",
@@ -1814,7 +1960,12 @@ def main() -> int:
             "bound_ms": int8_row["rows_bound_ms"],
             "bound_by": int8_row["rows_bound_by"],
             "library_ms": None,
-            "ms_by_shape": {r["layer"]: r["rows_ms"] for r in int8_rows},
+            "ms_by_shape": {f"{r['layer']} ({r['M']}, {r['K']})": r["rows_ms"]
+                            for r in int8_rows + int8_huge_rows},
+            "kernel_by_shape": {f"{r['layer']} ({r['M']}, {r['K']})": r["rows_kernel"]
+                                for r in int8_rows + int8_huge_rows},
+            "scalar_ms_by_shape": {f"{r['layer']} ({r['M']}, {r['K']})": r["rows_scalar_ms"]
+                                   for r in int8_rows + int8_huge_rows if "rows_scalar_ms" in r},
         },
     ]}
     log(f"total {time.perf_counter() - _T0:.1f}s")

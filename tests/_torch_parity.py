@@ -147,3 +147,41 @@ def assert_int8_chunks(got, want, want_float, min_exact):
     assert exact.sum() >= min_exact, (d, gap)
     assert (gap[exact] >= 30 * INT8_CHUNK_ATOL).all(), (d, gap)
     assert d.mean() < gap.mean(), (d, gap)
+
+
+# Run configs. bench.py's parity tier (bench.py:64-74, :128-145) on top of
+# uva_pusht.yaml: the action head on, 100 sampler steps, bf16, VAE encodes of
+# 64 frames, the default VAE width written out, and no checkpoint paths
+# (weights load apart); the port's config.PUSHT_256 and PUSHT_HUGE256
+BENCH_PARITY_OVERRIDES = [
+    "model.policy.action_model_params.predict_action=true",
+    "model.policy.autoregressive_model_params.act_diff_testing_steps=100",
+    "model.policy.autoregressive_model_params.pretrained_model_path=null",
+    "model.policy.vae_model_params.autoencoder_path=null",
+    "model.policy.vae_model_params.ddconfig.ch=128",
+    "model.policy.compute_dtype=bfloat16",
+    "model.policy.vae_encode_chunk=64",
+]
+
+
+def leaves(tree, prefix=()):
+    """(path, value) of every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def assert_same_run_config(got: dict, jax_cfg: dict, as_str=()):
+    """The port's run config ``got`` against the JAX package's composed
+    ``jax_cfg``: every leaf of ``model.policy`` (those named in ``as_str``
+    compared as strings: an override reads 100 as an int where the yaml
+    quotes "100"), and the task's name and shape_meta."""
+    want = dict(leaves(jax_cfg["model"]["policy"]))
+    have = dict(leaves(got["model"]["policy"]))
+    assert sorted(have) == sorted(want)
+    for path, value in want.items():
+        assert have[path] == (str(value) if path[-1] in as_str else value), path
+    assert got["task"] == {"name": jax_cfg["task"]["name"],
+                           "shape_meta": jax_cfg["task"]["shape_meta"]}

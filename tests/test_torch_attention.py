@@ -1,6 +1,6 @@
 """Port of ops/attention.py: the plain version against the JAX package's
 Pallas kernel (interpret mode) and einsum path, the wrapper's CPU route and
-the kernel build, at head dimensions 64 and 128. The CUDA kernel itself is
+the kernel build, at head dimensions 64, 80 and 128. The CUDA kernel itself is
 held against the plain version in tests/test_torch_attention_cuda.py, on the
 card.
 
@@ -76,13 +76,14 @@ def test_plain_matches_jax_online_kernel_bf16():
     np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)
 
 
-# Both head dimensions the kernels are built for, at the mar_small paths' N
-# (144: the 96 px model; 320: the kitchen model's 256 frame tokens and 64
-# text tokens), through both Pallas kernels (single_pass True and False) in
-# interpret mode. Tolerances as above: fp32 2e-5, bf16 3e-2.
+# Every head dimension the kernels are built for (64 mar_base, 80 mar_huge,
+# 128 mar_small), at the 96 px paths' N = 144 and the kitchen model's 320
+# (256 frame tokens and 64 text tokens), through both Pallas kernels
+# (single_pass True and False) in interpret mode. Tolerances as above: fp32
+# 2e-5, bf16 3e-2.
 @pytest.mark.parametrize("single_pass", [True, False])
 @pytest.mark.parametrize("N", [144, 320])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 def test_plain_matches_jax_at_each_head_dim_fp32(D, N, single_pass):
     q, k, v = _qkv(1, N, 2, D, seed=D + N)
     want = np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -92,7 +93,7 @@ def test_plain_matches_jax_at_each_head_dim_fp32(D, N, single_pass):
 
 
 @pytest.mark.parametrize("N", [144, 320])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 def test_plain_matches_jax_at_each_head_dim_bf16(D, N):
     q, k, v = _qkv(1, N, 2, D, seed=D + N + 1)
     jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))

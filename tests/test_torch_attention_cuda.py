@@ -14,8 +14,13 @@ path's (N=1024), ragged N, the single-pass kernel's limit (144) and past
 it, and N beyond the TPU's single-pass limit of 2048, at head dimension 64
 (12 heads); and at head dimension 128 (6 heads, mar_small) the 96 px
 mar_small path's N = 144 and the kitchen path's N = 320 (a 64-row last KV
-tile), for every kernel. Each launch must land on the kernel, and the
-instance, that attention_plan names.
+tile), for every kernel; at head dimension 80 (16 heads, mar_huge) its N =
+144 and N = 1024, for every kernel, and the head-width control: D = 80
+views whose next 48 columns in memory hold NaN, which every kernel must
+leave unread (the TMA kernels take columns 80-127 of their 128-column tiles
+from TMA's zero fill), and which a kernel reading 128 columns must fail.
+Each launch must land on the kernel, and the instance, that attention_plan
+names.
 """
 
 import pytest
@@ -175,6 +180,114 @@ def test_head_dim_128_has_no_whole_head_single_pass(card):
 
 @pytest.mark.cuda
 def test_a_head_dim_without_an_instance_raises(card):
-    q = torch.zeros(1, 16, 16, 80, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="D=80"):
+    q = torch.zeros(1, 16, 16, 48, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="D=48"):
         port.flash_attention(q, q, q)
+
+
+# head dimension 80 (mar_huge: 1280 over 16 heads), held in D = 128's
+# shared-memory layout with columns 80-127 from TMA's zero fill: the 96 px
+# path's N = 144 (the single pass, always split), the 256 px path's N = 1024
+# (the online kernel), ragged N, unaligned views (mma.sync: five k-steps and
+# ten n-tiles) and fp32 (two threads of 40 columns a row)
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,N,dtype,aligned,kernel,atol",
+    [
+        (1, 144, torch.bfloat16, True, "attention_wgmma", 3e-2),
+        (128, 144, torch.bfloat16, True, "attention_wgmma", 3e-2),
+        (8, 137, torch.bfloat16, True, "attention_wgmma", 3e-2),
+        (3, 1, torch.bfloat16, True, "attention_wgmma", 3e-2),
+        (1, 1024, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
+        (8, 1024, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
+        (4, 1000, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
+        (8, 1024, torch.bfloat16, False, "attention_mma_sync", 3e-2),
+        (4, 137, torch.bfloat16, False, "attention_mma_sync", 3e-2),
+        (128, 144, torch.float32, True, "attention_f32", 2e-5),
+        (2, 1024, torch.float32, True, "attention_f32", 2e-5),
+        (4, 100, torch.float32, False, "attention_f32", 2e-5),
+    ],
+)
+def test_head_dim_80_on_the_card(card, B, N, dtype, aligned, kernel, atol):
+    H, D = 16, 80
+    g = torch.Generator(device="cuda").manual_seed(N + B + 80)
+    shape = (B, N, 3, H, D)
+    flat = torch.randn(B * N * 3 * H * D + (not aligned), generator=g, device="cuda").to(dtype)
+    q, k, v = flat[int(not aligned):].view(shape).unbind(2)
+    assert port._check(q, k, v) == aligned
+    plan = _launch_matches_plain(q, k, v, atol)
+    assert (plan.kernel, plan.head_dim) == (kernel, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,split", [(1, 144, True), (64, 144, True), (1, 1024, True),
+                                       (1, 1024, False), (8, 1024, True), (8, 1000, False)])
+def test_head_dim_80_both_work_item_sizes(card, B, N, split):
+    # each instance of each TMA kernel at D = 80 (the single pass has only
+    # its split one), whatever the plan would pick, against the plain version
+    g = torch.Generator(device="cuda").manual_seed(5 * N + B)
+    q, k, v = torch.randn(B, N, 3, 16, 80, generator=g, device="cuda").to(torch.bfloat16).unbind(2)
+    out = torch.empty(B, N, 16, 80, dtype=torch.bfloat16, device="cuda")
+    lib = port._lib()
+    fn = lib.uva_flash_attention_wgmma if N <= port.SINGLE_PASS_MAX_N else lib.uva_flash_attention_online
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 16, 80,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(split),
+            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = port.attention_plain(q, k, v).float()
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=3e-2)
+    assert (out.float() - want).norm() / want.norm() <= BF16_REL_RMS
+
+
+@pytest.mark.cuda
+def test_head_dim_80_has_no_whole_head_single_pass(card):
+    q, k, v = torch.zeros(4, 144, 3, 16, 80, dtype=torch.bfloat16, device="cuda").unbind(2)
+    out = torch.empty(4, 144, 16, 80, dtype=torch.bfloat16, device="cuda")
+    rc = port._lib().uva_flash_attention_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 144, 16, 80,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 0, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+def _nan_neighbours(B, N, H, dtype, seed):
+    """q, k, v: (B, N, H, 80) views of one (B, N, 3, H, 128) buffer whose
+    columns 80-127 hold NaN, and the buffer."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn(B, N, 3, H, 128, generator=g, device="cuda").to(dtype)
+    buf[..., 80:] = float("nan")
+    q, k, v = buf[..., :80].unbind(2)
+    return q, k, v, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,dtype", [(1, 144, torch.bfloat16), (128, 144, torch.bfloat16),
+                                       (1, 1024, torch.bfloat16), (8, 1000, torch.bfloat16),
+                                       (4, 144, torch.float32)])
+def test_head_dim_80_reads_no_column_past_80(card, B, N, dtype):
+    q, k, v, _ = _nan_neighbours(B, N, 16, dtype, seed=N + B)
+    assert port._check(q, k, v)  # aligned: the TMA kernels take these views
+    got = port.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _launch_matches_plain(q, k, v, 3e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+def _reads_128_columns(buf):
+    """The planted fault: the D = 128 instance on the whole (B, N, H, 128)
+    rows (q scaled by sqrt(128 / 80), so that with zeros past column 79 it
+    computes the D = 80 function), cut back to 80 columns."""
+    q, k, v = buf.unbind(2)
+    return port.flash_attention(q * (128 / 80) ** 0.5, k, v)[..., :80]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(1, 144), (2, 1024)])
+def test_the_head_width_control_rejects_a_kernel_reading_128_columns(card, B, N):
+    q, k, v, buf = _nan_neighbours(B, N, 16, torch.bfloat16, seed=3 * N + B)
+    want = port.attention_plain(q, k, v).float()
+    assert not bool(torch.isfinite(_reads_128_columns(buf)).all())
+    zeros = buf.clone()
+    zeros[..., 80:] = 0
+    fine = _reads_128_columns(zeros).float()
+    torch.testing.assert_close(fine, want, rtol=0, atol=3e-2)

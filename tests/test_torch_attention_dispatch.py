@@ -7,8 +7,9 @@ and the online kernel takes over, that an operand off a 16-byte boundary
 takes the mma.sync kernel, that fp32 takes the scalar kernel, and that plans
 are cached and name the launch counters. At head dimension 128 (mar_small,
 6 heads) the same kernels at the 96 px mar_small path's N = 144 and the
-kitchen path's N = 320, with their own split thresholds; a head dimension
-with no instance (mar_huge's 80) raises. The kernels themselves run only on
+kitchen path's N = 320, with their own split thresholds; at head dimension
+80 (mar_huge, 16 heads) the same kernels at its N = 144 and N = 1024; a
+head dimension with no instance raises. The kernels themselves run only on
 the card (tests/test_torch_attention_cuda.py).
 """
 
@@ -159,11 +160,56 @@ def test_head_dim_128_split_thresholds(B, N):
         assert plan.split == (B * 6 * -(-N // 128) <= attention.ONLINE_SPLIT_MAX_ITEMS[128] == 288)
 
 
-@pytest.mark.parametrize("D", [32, 80, 96, 256])
+@pytest.mark.parametrize("D", [32, 48, 96, 256])
 def test_a_head_dim_without_an_instance_raises(D):
-    # mar_huge's 1280 / 16 heads = 80, which no config in the repository serves
+    # every head dimension of the JAX package's MODEL_SIZES has an instance
+    # (64, 80, 128); these have none
     with pytest.raises(ValueError, match=f"D={D}"):
         attention_plan(1, 144, 16, D, BF16)
     q = torch.zeros(1, 8, 2, D)
     with pytest.raises(ValueError, match=f"D={D}"):
         attention._check(q, q, q)
+
+
+# head dimension 80: mar_huge's 16 heads of 80 at the 96 px path's N = 144
+# (the single pass, always split: D = 80 is held in D = 128's layout, whose
+# whole-head stage leaves no room for a second) and the 256 px path's N =
+# 1024 (the online kernel, 64-row items up to ONLINE_SPLIT_MAX_ITEMS[80]
+# 128-row ones)
+@pytest.mark.parametrize("B,N,kernel,split", [
+    (1, 144, "attention_wgmma", True), (8, 144, "attention_wgmma", True),
+    (128, 144, "attention_wgmma", True), (1, 137, "attention_wgmma", True),
+    (1, 145, "attention_wgmma_online", True), (128, 145, "attention_wgmma_online", False),
+    (1, 500, "attention_wgmma_online", True), (1, 1024, "attention_wgmma_online", False),
+    (2, 1024, "attention_wgmma_online", False), (128, 1024, "attention_wgmma_online", False),
+])
+def test_head_dim_80_serving_shapes(B, N, kernel, split):
+    assert attention_plan(B, N, 16, 80, BF16) == AttentionPlan(kernel, 80, split)
+    assert attention_plan(B, N, 16, 80, BF16).instance == f"{kernel}_d80"
+
+
+@pytest.mark.parametrize("B,N", [(1, 144), (128, 144), (8, 1024), (128, 1024)])
+def test_head_dim_80_unaligned_and_fp32(B, N):
+    assert attention_plan(B, N, 16, 80, BF16, aligned=False) == AttentionPlan("attention_mma_sync", 80)
+    assert attention_plan(B, N, 16, 80, torch.float32) == AttentionPlan("attention_f32", 80)
+
+
+@pytest.mark.parametrize("B,N", [(1, 144), (4096, 144), (1, 1024), (2, 1024), (3, 1024),
+                                 (4, 1024), (16, 1024), (128, 1024), (8, 1000), (8, 257)])
+def test_head_dim_80_split_thresholds(B, N):
+    # the thresholds of D = 80 are its own (tools/kernels_ab.py's sweep at D = 80)
+    plan = attention_plan(B, N, 16, 80, BF16)
+    assert attention.SPLIT_MAX_TILES[80] is None
+    if plan.kernel == "attention_wgmma":
+        assert plan.split
+    else:
+        assert plan.split == (B * 16 * -(-N // 128) <= attention.ONLINE_SPLIT_MAX_ITEMS[80])
+
+
+def test_head_dim_80_views_of_a_fused_qkv_are_aligned():
+    # 80 bf16 columns are 160 bytes, a multiple of 16: mar_huge's qkv views
+    # and views of wider rows both meet TMA's rules
+    q, k, v = torch.zeros(2, 10, 3, 16, 80, dtype=BF16).unbind(2)
+    assert attention._check(q, k, v)
+    wide = torch.zeros(2, 10, 16, 128, dtype=BF16)[..., :80]
+    assert attention._check(wide, wide, wide)

@@ -16,7 +16,8 @@ Shapes (M, K, N): those of chip_smoke.py's kernel phase, the deployed
 tier's W8A8 layers at mar_base width: the MAR's qkv, proj, mlp_fc1 and
 mlp_fc2 (M = 144 tokens per sample) and the action denoiser's ada_mod,
 fc1/fc2, final.ada_mod, cond_embed and the K = 2 input_proj (M = 16 slots
-per sample), at B=128 and B=1, and the ragged (100, 128, 130). Each runs
+per sample), at B=128 and B=1, mar_huge's MAR layers at B=128 (d = 1280:
+K = 1280 and the fc2 input's K = 5120), and the ragged (100, 128, 130). Each runs
 with bf16 and with fp32 activations, with an outlier row and an all-zero
 row, through the wrappers' dispatch (quantize_plan, gemm_plan). Then the
 wgmma kernel at ragged M and N with a K that ends inside a 128-byte tile, in
@@ -40,7 +41,9 @@ def _path_shapes(B):
             (den, 2, 1024)]
 
 
-SHAPES = _path_shapes(128) + _path_shapes(1) + [(100, 128, 130)]
+# mar_huge's qkv, proj, mlp_fc1 and mlp_fc2 at B=128 (144 tokens a sample)
+HUGE_SHAPES = [(18432, 1280, 3840), (18432, 1280, 1280), (18432, 1280, 5120), (18432, 5120, 1280)]
+SHAPES = _path_shapes(128) + _path_shapes(1) + HUGE_SHAPES + [(100, 128, 130)]
 RAGGED = [(M, 784, N) for M in (1, 16, 63, 64, 65, 144, 2048) for N in (130, 1000)]
 OUT_DTYPES = [torch.int32, torch.bfloat16, torch.float32]
 
@@ -186,15 +189,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,K", [(18432, 768), (2048, 3072), (16, 1024), (1, 768), (100, 136),
-                                 (63, 1000), (64, 1028), (33, 4096), (5, 2), (1, 3)])
+                                 (63, 1000), (64, 1028), (33, 4096), (5, 2), (1, 3),
+                                 (18432, 5120), (144, 5120), (7, 5128)])
 def test_quantize_rows_at_every_kind_of_row(card, M, K, dtype):
-    """The vector kernel where a row fits one (K % 8 == 0, K <= 3072 in bf16
-    and 1024 in fp32), the scalar one elsewhere: both bit-equal."""
+    """The vector kernel where a row fits one (K % 8 == 0, K <= 5120 in bf16,
+    mar_huge's fc2 input, and 1024 in fp32), the scalar one elsewhere: both
+    bit-equal."""
     x = _inputs(M, K, 8, dtype, seed=M + K)[0]
     plan = _quantize_matches_plain(x)
-    assert plan.variant == ("vector" if K % 8 == 0 and K <= {torch.bfloat16: 3072,
+    assert plan.variant == ("vector" if K % 8 == 0 and K <= {torch.bfloat16: 5120,
                                                              torch.float32: 1024}[dtype]
                             else "scalar")
+    if plan.variant == "vector" and dtype == torch.bfloat16 and K > 3072:
+        assert plan.per_lane == 20
 
 
 @pytest.mark.cuda

@@ -79,9 +79,28 @@ def test_quantize_plan_by_k_and_alignment(K):
 
 
 def test_rows_past_the_widest_instance_take_the_scalar_quantize_kernel():
-    assert quantize_plan(3080, torch.bfloat16) is int8_mm.QUANT_SCALAR
+    # the widest bf16 instance holds 5120 (per_lane 20); fp32's 1024
+    assert quantize_plan(5128, torch.bfloat16) is int8_mm.QUANT_SCALAR
     assert quantize_plan(1032, torch.float32) is int8_mm.QUANT_SCALAR
 
 
 def test_quantize_plans_are_cached():
     assert quantize_plan(768, torch.bfloat16) is quantize_plan(768, torch.bfloat16)
+
+
+# mar_large's and mar_huge's fc2 inputs (4 x 1024 and 4 x 1280 columns) and
+# mar_huge's other W8A8 inputs (d = 1280): the per_lane 20 instance takes the
+# rows past 3072, so no MAR layer of any size falls to the scalar kernel
+@pytest.mark.parametrize("K,per_lane", [(4096, 20), (5120, 20), (3080, 20), (1280, 12),
+                                        (1024, 4), (3072, 12)])
+def test_wide_rows_take_the_per_lane_20_instance(K, per_lane):
+    assert quantize_plan(K, torch.bfloat16) == QuantPlan("vector", per_lane)
+    assert quantize_plan(K, torch.bfloat16, aligned=False) is int8_mm.QUANT_SCALAR
+
+
+@pytest.mark.parametrize("rows,K,N", [(144, 1280, 3840), (144, 1280, 1280), (144, 1280, 5120),
+                                      (144, 5120, 1280)])
+def test_mar_huge_shapes_take_the_wgmma_kernel(rows, K, N):
+    # K = 1280 and 5120 are multiples of 16: gemm_plan needs no change
+    for B, tile in ((128, 128), (1, 64)):
+        assert gemm_plan(rows * B, N, K) == GemmPlan("wgmma", tile, tile)

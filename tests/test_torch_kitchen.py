@@ -32,6 +32,7 @@ import torch
 from tests._torch_parity import (
     FP32_TOL,
     TINY_POLICY_KW,
+    assert_same_run_config,
     init_shapes,
     policy_draws,
     random_params,
@@ -52,34 +53,16 @@ NORMALIZED_ATOL = 1e-4
 GOAL = "open the microwave"
 
 
-def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, prefix + (k,))
-    else:
-        yield prefix, tree
-
-
-def _assert_same_run_config(got: dict, jax_cfg: dict):
-    want = dict(_leaves(jax_cfg["model"]["policy"]))
-    have = dict(_leaves(got["model"]["policy"]))
-    assert sorted(have) == sorted(want)
-    for path, value in want.items():
-        assert have[path] == value, path
-    assert got["task"] == {"name": jax_cfg["task"]["name"],
-                           "shape_meta": jax_cfg["task"]["shape_meta"]}
-
-
 def test_pusht_small96_is_the_jax_config_with_the_action_head_on():
     # the serving stage of scripts/training/train_pusht_small.sh turns the
     # action head on; everything else is uva_pusht_small.yaml as composed
     jax_cfg = load_config("uva_pusht_small",
                           ["model.policy.action_model_params.predict_action=true"]).to_dict()
-    _assert_same_run_config(config.PUSHT_SMALL96, jax_cfg)
+    assert_same_run_config(config.PUSHT_SMALL96, jax_cfg)
 
 
 def test_kitchen_small128_is_the_jax_config():
-    _assert_same_run_config(config.KITCHEN_SMALL128, load_config("uva_kitchen_small").to_dict())
+    assert_same_run_config(config.KITCHEN_SMALL128, load_config("uva_kitchen_small").to_dict())
 
 
 @pytest.mark.parametrize("name,tokens,attended,kernel,action_dim,vae", [

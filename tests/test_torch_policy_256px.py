@@ -25,7 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_parity import TINY_POLICY_KW, policy_draws, random_params, to_numpy
+from tests._torch_parity import (
+    BENCH_PARITY_OVERRIDES,
+    TINY_POLICY_KW,
+    assert_same_run_config,
+    policy_draws,
+    random_params,
+    to_numpy,
+)
 from unified_video_action_tpu.config import load_config
 from unified_video_action_tpu.data.normalizer import LinearNormalizer as JaxNormalizer
 from unified_video_action_tpu.policy.policy import UnifiedVideoActionPolicy as JaxPolicy
@@ -39,41 +46,11 @@ NORMALIZER = os.path.join(REPO, "pretrained_models", "uva_pusht_small", "latest"
 NORMALIZED_ATOL = 1e-4
 B = 2
 
-# bench.py's parity tier (bench.py:64-74, :128-145) on top of uva_pusht.yaml:
-# the action head on, 100 sampler steps, bf16, VAE encodes of 64 frames, the
-# default VAE width written out, and no checkpoint paths (weights load apart)
-BENCH_PARITY_OVERRIDES = [
-    "model.policy.action_model_params.predict_action=true",
-    "model.policy.autoregressive_model_params.act_diff_testing_steps=100",
-    "model.policy.autoregressive_model_params.pretrained_model_path=null",
-    "model.policy.vae_model_params.autoencoder_path=null",
-    "model.policy.vae_model_params.ddconfig.ch=128",
-    "model.policy.compute_dtype=bfloat16",
-    "model.policy.vae_encode_chunk=64",
-]
-
-
-def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, prefix + (k,))
-    else:
-        yield prefix, tree
-
-
 def test_pusht_256_is_the_jax_config_with_bench_overrides():
+    # bench.py's parity overrides (tests/_torch_parity.py); the yaml reads
+    # "100" as a string where quoted, the override reads 100 as an int
     jax_cfg = load_config("uva_pusht", BENCH_PARITY_OVERRIDES).to_dict()
-    want = dict(_leaves(jax_cfg["model"]["policy"]))
-    got = dict(_leaves(PUSHT_256["model"]["policy"]))
-    assert sorted(got) == sorted(want)
-    for path, value in want.items():
-        # the yaml reads "100" as a string where quoted; overrides read 100 as an int
-        if path[-1] == "act_diff_testing_steps":
-            assert got[path] == str(value)
-        else:
-            assert got[path] == value, path
-    assert PUSHT_256["task"] == {"name": jax_cfg["task"]["name"],
-                                 "shape_meta": jax_cfg["task"]["shape_meta"]}
+    assert_same_run_config(PUSHT_256, jax_cfg, as_str=("act_diff_testing_steps",))
 
 
 def test_pusht_256_builds_mar_base_at_1024_tokens():

@@ -8,7 +8,7 @@ lists and maps, and otherwise the string. Composing a config from the JAX
 package's yaml files is not ported: the port reads the ``cfg`` that an
 exported checkpoint's ``meta.json`` embeds, or a config kept here as data.
 
-Three run configs are kept here as data, each the ``cfg`` that the JAX
+Five run configs are kept here as data, each the ``cfg`` that the JAX
 package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
 ``model.policy``: what serving reads), with the overrides named below.
 ``UnifiedVideoActionPolicy.from_cfg(cfg, device=...)`` builds each:
@@ -35,6 +35,15 @@ package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
   tokens plus the 64-token text buffer of ``language_emb_model="clip"``,
   320 in all, 9-d actions, the VAE ``pretrained_models/vae/kitchen_vae128.npz``),
   as composed.
+* ``PUSHT_HUGE96``: ``PUSHT_SMALL96`` with ``model_size`` mar_huge (the
+  MAR paper's MAR-H, the largest size of ``MODEL_SIZES``: 20+20 blocks of d
+  = 1280 over 16 heads, so head dimension 80), at 96 px, 144 tokens, with
+  the same VAE: ``load_config("uva_pusht_small")`` with the action head on
+  and ``model.policy.autoregressive_model_params.model_size=mar_huge``.
+* ``PUSHT_HUGE256``: ``PUSHT_256`` with ``model_size`` mar_huge: 1024
+  tokens at head dimension 80, the KL-16 VAE with ``ch`` 128,
+  ``vae_encode_chunk`` 64: ``PUSHT_256``'s composition plus the same
+  ``model_size`` override.
 """
 
 from __future__ import annotations
@@ -120,6 +129,9 @@ def _run_config(task: str, shape_meta: dict, model_size: str, img_size: int, ch:
 PUSHT_256 = _run_config("pusht", _PUSHT_SHAPE_META, "mar_base", 256, 128, None, vae_encode_chunk=64)
 PUSHT_SMALL96 = _run_config("pusht", _PUSHT_SHAPE_META, "mar_small", 96, 64,
                             "pretrained_models/vae/pusht_vae96.npz")
+PUSHT_HUGE96 = _run_config("pusht", _PUSHT_SHAPE_META, "mar_huge", 96, 64,
+                           "pretrained_models/vae/pusht_vae96.npz")
+PUSHT_HUGE256 = _run_config("pusht", _PUSHT_SHAPE_META, "mar_huge", 256, 128, None, vae_encode_chunk=64)
 KITCHEN_SMALL128 = _run_config("kitchen", _KITCHEN_SHAPE_META, "mar_small", 128, 64,
                                "pretrained_models/vae/kitchen_vae128.npz",
                                selected_training_mode="policy_model_full_dynamics_model",

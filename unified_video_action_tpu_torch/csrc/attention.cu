@@ -6,10 +6,10 @@
 // for q, k, v of shape (B, N, H, D), read in place through their strides (the
 // layout the fused qkv projection produces, so no transpose is made first).
 // Every kernel is a template over the head dimension D, built for D = 64
-// (mar_base: 768 / 12 heads) and D = 128 (mar_small and mar_tiny: 768 / 6
-// heads); another D is refused. Scores, row max, row sum and the accumulator
-// are fp32; in bf16 P is rounded to bf16 before P V, as the TPU kernels cast P
-// to V's dtype.
+// (mar_base: 768 / 12 heads), D = 80 (mar_huge: 1280 / 16 heads) and D = 128
+// (mar_small and mar_tiny: 768 / 6 heads); another D is refused. Scores, row
+// max, row sum and the accumulator are fp32; in bf16 P is rounded to bf16
+// before P V, as the TPU kernels cast P to V's dtype.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at the 96 px
 // serving shape B=128, N=144, H=12, D=64 the kernel must move 4*B*N*H*D*2 =
@@ -28,6 +28,18 @@
 // Q K^T k-steps walk into the second slab from the fifth on, and the P V
 // product reads V as an MN-major operand whose two 64-column halves lie one
 // slab apart (the descriptor's leading-byte offset).
+//
+// D = 80 (160 bytes a row, not a whole number of 128-byte swizzle rows) is
+// held in the D = 128 layout, padded: the TMA maps' inner extent is the true
+// 80, so the second slab's box (columns 64-127) brings columns 64-79 from
+// memory and fills 80-127 with zeros, as it fills rows past N; nothing past
+// column 79 is read from memory. Q K^T runs the five k-steps of the true D
+// (the fifth in the second slab); P V is one m64n128k16 a k-step whose
+// columns 80-127 are zeros and never stored; the epilogue stores 80 columns
+// with a row stride of H * 80. The products do (80 + 128) / (80 + 80) = 1.3x
+// the work of the true D; the bytes moved from memory do not grow. (An exact
+// layout, a 64-column slab and a 16-column slab in the 32-byte swizzle with
+// their own descriptors, is ROADMAP's later redesign.)
 //
 // Four kernels, picked by ops/attention.py's attention_plan:
 //
@@ -58,9 +70,9 @@
 //   uva_flash_attention, bf16: for views TMA cannot read (an operand off a
 //       16-byte boundary): 4 warps per block, 64 query rows, mma.sync
 //       m16n8k16 with an online softmax over 64-wide KV tiles, exact at any N.
-//   uva_flash_attention, fp32: 64 columns of D per thread (one thread per
-//       query row at D = 64, two at D = 128), scalar fp32 FMA (tensor-core
-//       TF32 would not hold the fp32 tolerance).
+//   uva_flash_attention, fp32: D / f32_parts(D) columns of D per thread
+//       (one thread per query row at D = 64, two at D = 80 and 128), scalar
+//       fp32 FMA (tensor-core TF32 would not hold the fp32 tolerance).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,16 +92,18 @@ constexpr int kPad = 8;                     // bf16 elements of row padding
 constexpr int kLdVt = kBlockKV + kPad;      // row stride of the transposed v tile
 
 // The mma.sync kernel's tiles in dynamic shared memory: q and k (kD + kPad
-// bf16 a row) and v transposed (kD rows of kLdVt). 27,648 B at D = 64 and
-// 53,248 B at D = 128, above the 48 KB that static shared memory may take.
+// bf16 a row) and v transposed (kD rows of kLdVt). 27,648 B at D = 64,
+// 34,048 B at D = 80 and 53,248 B at D = 128, the last above the 48 KB that
+// static shared memory may take.
 template <int kD>
 struct MmaTiles {
   static constexpr int kLdQK = kD + kPad;   // row stride of the q and k tiles
   static constexpr int kSmem = ((kBlockQ + kBlockKV) * kLdQK + kD * kLdVt) * 2;
 };
 
-// fp32 path tiles: each thread takes 64 columns of D of one query row
-constexpr int kF32Cols = 64;
+// fp32 path tiles: f32_parts(D) threads share a query row, each taking
+// D / f32_parts(D) columns of it: 64 at D = 64 and 128, 40 at D = 80
+__host__ __device__ constexpr int f32_parts(int d) { return d % 64 == 0 ? d / 64 : 2; }
 constexpr int kF32BlockKV = 32;
 
 struct Params {
@@ -310,15 +324,19 @@ attn_bf16_kernel(const Params p) {
   }
 }
 
-// kD / 64 threads share a query row, each holding 64 columns of q and of the
-// accumulator in registers (128 registers at any D; a whole row of 128
-// columns would take 256 and spill): each thread's partial dot product is
-// summed over the row's threads, adjacent lanes, by shuffles, and every
-// thread of the row runs the same softmax on the sum.
+// f32_parts(kD) threads share a query row, each holding its columns of q
+// and of the accumulator in registers (128 registers at D = 64 and 128, 80
+// at D = 80; a whole row of 128 columns would take 256 and spill): each
+// thread's partial dot product is summed over the row's threads, adjacent
+// lanes, by shuffles, and every thread of the row runs the same softmax on
+// the sum.
 template <int kD, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 attn_f32_kernel(const Params p) {
-  constexpr int kParts = kD / kF32Cols;       // threads per query row
+  constexpr int kParts = f32_parts(kD);       // threads per query row
+  constexpr int kF32Cols = kD / kParts;       // columns per thread
+  static_assert(kF32Cols % 4 == 0 && (kParts & (kParts - 1)) == 0,
+                "float4 columns, a power of two of threads a row");
   constexpr int kRows = kThreads / kParts;    // query rows per block
   __shared__ __align__(16) float ks[kF32BlockKV][kD];
   __shared__ __align__(16) float vs[kF32BlockKV][kD];
@@ -427,25 +445,29 @@ attn_f32_kernel(const Params p) {
 // loads. (A separate producer warp would round the block up to another
 // warpgroup's worth of registers: 128 a thread at kWG = 3, which spills the
 // 72-register score row.) A stage holds one head: its q-tiles (kQTiles x 64
-// rows), K and V (kKV rows each), each as kD / 64 slabs of 128-byte rows (64
-// bf16) in the 128-byte swizzle, each slab 1024-byte aligned. full[s] completes when
-// the stage's bytes have landed; empty[s] when every thread is done with it
-// (its output stored). Thread 0 fills the first kStages stages at the start
+// rows), K and V (kKV rows each), each as held_cols(kD) / 64 slabs of
+// 128-byte rows (64 bf16) in the 128-byte swizzle, each slab 1024-byte
+// aligned. full[s] completes when the stage's bytes have landed; empty[s]
+// when every thread is done with it (its output stored). Thread 0 fills the first kStages stages at the start
 // and refills a stage for the head kStages turns later as soon as it is
-// empty, so kStages - 1 heads load while one computes. At D = 128 a stage of
-// a whole head would be 120 KB, room for one stage and no overlap of loads
-// and math, so only the split instance is built (two stages of 88 KB);
-// tools/kernels_ab.py measured a one-stage whole-head instance slower at
-// every batch but B = 16 of (B, 144, 6, 128).
+// empty, so kStages - 1 heads load while one computes. At D = 128 (and D =
+// 80, held as 128) a stage of a whole head would be 120 KB, room for one
+// stage and no overlap of loads and math, so only the split instance is
+// built (two stages of 88 KB); tools/kernels_ab.py measured a one-stage
+// whole-head instance slower at every batch but B = 16 of (B, 144, 6, 128).
 
 constexpr int kRowBytes = 128;  // one 128-byte swizzle row: 64 bf16 columns
 constexpr int kSlabCols = kRowBytes / 2;
 
+// The columns of D that a TMA kernel's shared-memory tile holds: whole
+// 64-column slabs (D = 80 is held as 128, columns 80-127 TMA's zero fill).
+__host__ __device__ constexpr int held_cols(int d) { return (d + kSlabCols - 1) / kSlabCols * kSlabCols; }
+
 template <int kD, int kChunks, int kWG, int kStages, bool kSplit>
 struct SinglePass {
   static_assert(!kSplit || kWG == 1, "a split CTA takes one q-tile with one warpgroup");
-  static_assert(kD % kSlabCols == 0, "D is a whole number of 64-column slabs");
-  static constexpr int kSlabs = kD / kSlabCols;
+  static_assert(kD % 16 == 0 && kD <= 128, "D is a whole number of k16 steps, at most two slabs");
+  static constexpr int kSlabs = held_cols(kD) / kSlabCols;
   static constexpr int kKV = 16 * kChunks;  // KV rows held: this instance takes N <= kKV
   static constexpr int kQTiles = kSplit ? 1 : (kKV + 63) / 64;  // q-tiles a stage holds
   static constexpr int kQSlabBytes = kQTiles * 64 * kRowBytes;  // one slab of the q-tiles
@@ -481,12 +503,13 @@ __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* m
 }
 
 // The rows n0 .. of head h of batch b, all kD columns: one box per 64-column
-// slab, slab i at dst + i * slab_bytes.
+// slab, slab i at dst + i * slab_bytes (the columns of a box past kD, the
+// map's inner extent, arrive as zeros).
 template <int kD>
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                               int slab_bytes, int h, int n0, int b) {
 #pragma unroll
-  for (int i = 0; i < kD / kSlabCols; ++i)
+  for (int i = 0; i < held_cols(kD) / kSlabCols; ++i)
     tma_load_rows(dst + i * slab_bytes, map, bar, i * kSlabCols, h, n0, b);
 }
 
@@ -633,15 +656,16 @@ __device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// One k16 step (16 KV rows) of O = P V over D columns: V MN-major, its
-// 64-column slabs slab_bytes apart.
+// One k16 step (16 KV rows) of O = P V over the held columns of D: V
+// MN-major, its 64-column slabs slab_bytes apart (at D = 80 the product's
+// columns 80-127 are V's zero fill, zeros).
 template <int kD, bool kAccumulate>
-__device__ __forceinline__ void pv_step(float (&o)[kD / 2], const uint32_t (&a)[4], uint32_t v_addr,
-                                        int slab_bytes) {
+__device__ __forceinline__ void pv_step(float (&o)[held_cols(kD) / 2], const uint32_t (&a)[4],
+                                        uint32_t v_addr, int slab_bytes) {
   if constexpr (kD == 64) {
     wgmma_pv<kAccumulate>(o, a, smem_desc(v_addr));
   } else {
-    static_assert(kD == 128, "P V is built for D = 64 and 128");
+    static_assert(held_cols(kD) == 128, "P V is built for one slab or two");
     wgmma_n128<kAccumulate, 1>(o, a, smem_desc_mn(v_addr, slab_bytes));
   }
 }
@@ -790,7 +814,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
 
       // O = P V. Register 4 j + e: row r0 + 8 (e >> 1), column 8 j + 2 t + (e & 1).
-      float o[kD / 2];
+      float o[held_cols(kD) / 2];
       wgmma_fence();
       pv_step<kD, false>(o, pa[0], v_smem, S::kKVSlabBytes);
 #pragma unroll
@@ -840,7 +864,8 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // A (B, N, H, kD) bf16 view as a 4-D TMA map over (D, H, N, B) with
 // (64, 1, box_rows, 1) boxes (one 64-column slab) and the 128-byte swizzle;
-// rows past N read as zero.
+// rows past N, and at D = 80 the columns 80-127 of the second slab's box,
+// read as zero and are not read from memory.
 template <int kD>
 int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int H, long long sb,
                  long long sn, long long sh, int box_rows) {
@@ -933,14 +958,16 @@ int launch_single_pass(const Params& a, cudaStream_t s) {
 // stage of K and V is 64 KB, so the ring holds two stages; O takes 64
 // accumulator registers a consumer thread and Q's A fragments 32. The split
 // instance (one consumer warpgroup, one CTA an SM) launches with 255
-// registers a thread and needs no setmaxnreg.
+// registers a thread and needs no setmaxnreg. D = 80 (mar_huge) runs in the
+// same layout and stages, with Q's A fragments in 20 registers (five k-steps).
 
 constexpr int kOnlineKV = 128;  // KV rows a stage holds
 
 template <int kD, int kC, int kStages, int kMinBlocks>
 struct Online {
   static_assert(kStages >= 2, "tile j is loaded before tile j - 1 is freed");
-  static constexpr int kSlabs = kD / kSlabCols;
+  static_assert(kD % 16 == 0 && kD <= 128, "D is a whole number of k16 steps, at most two slabs");
+  static constexpr int kSlabs = held_cols(kD) / kSlabCols;
   static constexpr int kQRows = 64 * kC;
   static constexpr int kQSlabBytes = kQRows * kRowBytes;
   static constexpr int kKVSlabBytes = kOnlineKV * kRowBytes;
@@ -993,7 +1020,8 @@ __device__ __forceinline__ void qk_tile(float (&s)[64], const uint32_t (&qa)[kD 
 
 // O += P V for one KV tile: eight k16 steps over its rows.
 template <int kD>
-__device__ __forceinline__ void pv_tile(float (&o)[kD / 2], const uint32_t (&pa)[8][4], uint32_t v_smem) {
+__device__ __forceinline__ void pv_tile(float (&o)[held_cols(kD) / 2], const uint32_t (&pa)[8][4],
+                                        uint32_t v_smem) {
   constexpr int kSlabBytes = kOnlineKV * kRowBytes;
 #pragma unroll
   for (int i = 0; i < kOnlineKV / 16; ++i) pv_step<kD, true>(o, pa[i], v_smem + i * 16 * kRowBytes, kSlabBytes);
@@ -1174,9 +1202,11 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       release(q_empty);
 
-      float o[kD / 2];
+      // the held columns' accumulators (at D = 80 those of columns 80-127
+      // stay zero: V's zero fill)
+      float o[held_cols(kD) / 2];
 #pragma unroll
-      for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < held_cols(kD) / 2; ++i) o[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
       float s[64];
       uint32_t pa[8][4];
@@ -1209,6 +1239,7 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(o);
         fence_regs(pa);
         release(kv_empty + 8 * prev);
+        // the columns < D (past D the accumulators are zeros)
 #pragma unroll
         for (int i = 0; i < kD / 2; ++i) o[i] *= a[(i >> 1) & 1];
         pack_p(pa, s);
@@ -1306,7 +1337,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int B, 
 }
 
 // A head dimension the kernels are built for.
-bool built_d(int D) { return D == 64 || D == 128; }
+bool built_d(int D) { return D == 64 || D == 80 || D == 128; }
 
 // TMA's rules for the Hopper kernels: bf16, a built D, every base and stride
 // a multiple of 16 bytes.
@@ -1336,7 +1367,7 @@ int launch_mma_sync(const Params& p, cudaStream_t s) {
 
 template <int kD, bool kVec>
 int launch_f32(const Params& p, cudaStream_t s) {
-  constexpr int kRows = kThreads / (kD / kF32Cols);
+  constexpr int kRows = kThreads / f32_parts(kD);
   const dim3 grid(p.B * p.H, (p.N + kRows - 1) / kRows);
   attn_f32_kernel<kD, kVec><<<grid, kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
@@ -1352,7 +1383,7 @@ int launch_scalar_or_mma(const Params& p, int dtype, int aligned, cudaStream_t s
 }  // namespace
 
 // The mma.sync (bf16) and scalar (fp32) kernels. dtype: 0 = float32,
-// 1 = bfloat16. D: 64 or 128. Strides are in elements; the last dimension
+// 1 = bfloat16. D: 64, 80 or 128. Strides are in elements; the last dimension
 // must be contiguous. aligned: every row of q, k and v starts on a 16-byte
 // boundary (16-byte loads), else element loads. The output is a contiguous
 // (B, N, H, D) tensor. Returns the value of cudaGetLastError() after the
@@ -1367,16 +1398,17 @@ extern "C" int uva_flash_attention(const void* q, const void* k, const void* v, 
   const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_scalar_or_mma<64>(p, dtype, aligned, s)
-                 : launch_scalar_or_mma<128>(p, dtype, aligned, s);
+  if (D == 64) return launch_scalar_or_mma<64>(p, dtype, aligned, s);
+  if (D == 80) return launch_scalar_or_mma<80>(p, dtype, aligned, s);
+  return launch_scalar_or_mma<128>(p, dtype, aligned, s);
 }
 
 // The single-pass Hopper kernel, bf16 only, on the same arguments: every
 // base and stride 16-byte aligned (TMA's rules) and N <= 144 (the KV rows it
 // holds in shared memory). split: one
 // CTA (one warpgroup) for each q-tile of each head, for few heads; else one
-// CTA for all q-tiles of a head (D = 64 only: at D = 128 split must be
-// set). Returns
+// CTA for all q-tiles of a head (D = 64 only: at D = 80 and 128 split must
+// be set). Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for arguments
 // it does not take, or kEncodeError + the CUresult of a failed TMA encode.
 extern "C" int uva_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
@@ -1393,12 +1425,13 @@ extern "C" int uva_flash_attention_wgmma(const void* q, const void* k, const voi
   if (D == 64)
     return split ? launch_single_pass<64, 9, 1, 2, true>(p, s)
                  : launch_single_pass<64, 9, 3, 3, false>(p, s);
-  return split ? launch_single_pass<128, 9, 1, 2, true>(p, s) : (int)cudaErrorInvalidValue;
+  if (!split) return (int)cudaErrorInvalidValue;
+  return D == 80 ? launch_single_pass<80, 9, 1, 2, true>(p, s) : launch_single_pass<128, 9, 1, 2, true>(p, s);
 }
 
 // The online-softmax Hopper kernel, bf16 only, any N, on the same arguments
 // and TMA's rules. split: work items of one 64-row q-tile (CTAs of one
-// consumer warpgroup; two to an SM at D = 64, one at D = 128), for few
+// consumer warpgroup; two to an SM at D = 64, one at D = 80 and 128), for few
 // items; else of 128 rows (two consumer warpgroups taking turns). Returns as
 // uva_flash_attention_wgmma.
 extern "C" int uva_flash_attention_online(const void* q, const void* k, const void* v, void* o,
@@ -1413,5 +1446,6 @@ extern "C" int uva_flash_attention_online(const void* q, const void* k, const vo
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return split ? launch_online<64, 1, 2, 2>(p, s) : launch_online<64, 2, 4, 1>(p, s);
+  if (D == 80) return split ? launch_online<80, 1, 2, 1>(p, s) : launch_online<80, 2, 2, 1>(p, s);
   return split ? launch_online<128, 1, 2, 1>(p, s) : launch_online<128, 2, 2, 1>(p, s);
 }

@@ -14,7 +14,7 @@
 //                      quotient is a true IEEE division and the rounding is
 //                      half to even, as in the reference; fl(1/127) is the
 //                      constant that XLA folds `amax / 127` into. The vector
-//                      kernel (K % 8 == 0, x 16-byte aligned, K <= 3072 in
+//                      kernel (K % 8 == 0, x 16-byte aligned, K <= 5120 in
 //                      bf16 and 1024 in fp32) reads x once: 8 elements a
 //                      lane per 16-byte load (two for fp32), the row's
 //                      values kept in registers from the amax to the
@@ -779,8 +779,9 @@ extern "C" int uva_quantize_rows(const void* x, void* xq, float* x_scale, int M,
 
 // The vector kernel on the same arguments, which must have K % 8 == 0,
 // K <= 256 per_lane and x (and xq) 16-byte aligned; per_lane (the units of
-// 8 elements a lane holds) is 4 (bf16 or fp32) or 12 (bf16). Returns cudaGetLastError() after the
-// launch, cudaErrorInvalidValue for arguments it does not take.
+// 8 elements a lane holds) is 4 (bf16 or fp32), 12 or 20 (bf16: rows up to
+// K = 3072, and up to 5120, mar_huge's fc2 input). Returns cudaGetLastError()
+// after the launch, cudaErrorInvalidValue for arguments it does not take.
 extern "C" int uva_quantize_rows_vector(const void* x, void* xq, float* x_scale, int M, int K,
                                         int dtype, int faults, int per_lane, void* stream) {
   if (M <= 0 || K <= 0 || K % kQuantUnit != 0 || K > 32 * kQuantUnit * per_lane ||
@@ -795,6 +796,8 @@ extern "C" int uva_quantize_rows_vector(const void* x, void* xq, float* x_scale,
     return launch_quantize_vec<__nv_bfloat16, 4>(xb, q, x_scale, M, K, faults, s);
   if (dtype == 1 && per_lane == 12)
     return launch_quantize_vec<__nv_bfloat16, 12>(xb, q, x_scale, M, K, faults, s);
+  if (dtype == 1 && per_lane == 20)
+    return launch_quantize_vec<__nv_bfloat16, 20>(xb, q, x_scale, M, K, faults, s);
   return (int)cudaErrorInvalidValue;
 }
 

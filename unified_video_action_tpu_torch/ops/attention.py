@@ -9,8 +9,9 @@ Layout: q, k, v are (B, N, H, D), as the fused qkv projection leaves them;
 the kernels read them through their strides, so the views that
 ``MultiHeadAttention`` slices out of one qkv tensor go in without a copy.
 Every kernel is built for each head dimension of ``HEAD_DIMS``: 64
-(mar_base, 768 over 12 heads) and 128 (mar_small and mar_tiny, 768 over 6);
-another D raises ``ValueError`` on the card.
+(mar_base, 768 over 12 heads), 80 (mar_huge, 1280 over 16) and 128
+(mar_small and mar_tiny, 768 over 6); another D raises ``ValueError`` on
+the card.
 
 :func:`flash_attention` launches the kernel that :func:`attention_plan`
 names, with no fallback between kernels:
@@ -38,7 +39,7 @@ import torch
 from unified_video_action_tpu_torch.ops import _build
 
 # the head dimensions the kernels are built for (csrc/attention.cu)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the KV rows the single-pass kernel holds in shared memory (the 96 px path's
@@ -59,13 +60,15 @@ ENCODE_ERROR = 10000  # csrc/hopper.cuh kEncodeError
 # kernel gives each pair a CTA of its own (two per SM of an H100 at D = 64),
 # else a CTA takes a head. None: always, since at D = 128 a whole head's
 # stage (120 KB) leaves room for no second one, and the split instance (two
-# 88 KB stages) was the faster at every batch swept but B = 16 (below).
-SPLIT_MAX_TILES = {64: 264, 128: None}
+# 88 KB stages) was the faster at every batch swept but B = 16 (below). D =
+# 80 is held in D = 128's layout (csrc/attention.cu), so the same holds.
+SPLIT_MAX_TILES = {64: 264, 80: None, 128: None}
 # by head dimension: the online kernel's work items are 64-row q-tiles (CTAs
-# of one warpgroup, two an SM at D = 64, one at D = 128) up to this many
-# 128-row ones (three waves of an H100's 132 SMs at D = 64), else 128-row
-# q-tiles (two warpgroups taking turns)
-ONLINE_SPLIT_MAX_ITEMS = {64: 396, 128: 288}
+# of one warpgroup, two an SM at D = 64, one at D = 80 and 128) up to this
+# many 128-row ones (three waves of an H100's 132 SMs at D = 64; at D = 80
+# half the SMs, so the 64-row items fill one wave), else 128-row q-tiles
+# (two warpgroups taking turns)
+ONLINE_SPLIT_MAX_ITEMS = {64: 396, 80: 66, 128: 288}
 
 
 @dataclass(frozen=True)
@@ -98,7 +101,7 @@ def attention_plan(B: int, N: int, H: int, D: int, dtype: torch.dtype,
     * bf16, N <= SINGLE_PASS_MAX_N (144, the 96 px path's N): the
       single-pass wgmma kernel, split where B·H·⌈N/64⌉ <= SPLIT_MAX_TILES[D]
       (B = 1 at the serving shape: 36 q-tiles on 36 SMs instead of 12 heads
-      on 12; B <= 7 at N = 144 and H = 12), always at D = 128.
+      on 12; B <= 7 at N = 144 and H = 12), always at D = 80 and 128.
     * bf16, N > 144: the online-softmax wgmma kernel (the 256 px path's N =
       1024, the kitchen path's 320), in 64-row work items where
       B·H·⌈N/128⌉ <= ONLINE_SPLIT_MAX_ITEMS[D] (B = 1 at N = 1024: 96
@@ -117,7 +120,12 @@ def attention_plan(B: int, N: int, H: int, D: int, dtype: torch.dtype,
     1 against 0.0082, losing only at B = 16 (0.0104 against 0.0096); at N =
     320 the 64-row online items were the faster up to B = 16 (288 items;
     0.0230 ms against 0.0242) but for B = 12 (0.0182 against 0.0175), and
-    128-row items from B = 22 (396 items) on.
+    128-row items from B = 22 (396 items) on. At D = 80 (16 heads, the same
+    sweep at 21 shapes): at N = 144 the split single pass was the faster at
+    every B (0.1135 ms at B = 128 against the online kernel's 0.1365); past
+    it 64-row online items were the faster up to 64 items of 128 rows (at
+    (1, 512) 0.0096 ms against 0.0110) and 128-row items from 80 items (at
+    (1, 640) 0.0131 against 0.0177; at (1, 1024) 0.0205 against 0.0287).
     """
     if B <= 0 or N <= 0 or H <= 0:
         raise ValueError(f"attention of shape ({B}, {N}, {H}) is empty")

@@ -22,7 +22,7 @@ wgmma) wherever TMA can read the operands, and an mma.sync kernel with byte
 loads where it cannot: K % 16 != 0, as the denoiser's K = 2 input
 projection, or an operand that is not 16-byte aligned. :func:`quantize_rows`
 has two, likewise (:func:`quantize_plan`): a vector kernel that reads x
-once, wherever K % 8 == 0, x is 16-byte aligned and K <= 3072 (bf16) or
+once, wherever K % 8 == 0, x is 16-byte aligned and K <= 5120 (bf16) or
 1024 (fp32), and a scalar kernel for the rest (the K = 2 input projection).
 """
 
@@ -99,8 +99,10 @@ def gemm_plan(M: int, N: int, K: int, aligned: bool = True) -> GemmPlan:
 
 
 # the vector quantize kernel's instances: units of 8 elements a lane holds
-# (one warp per row, so a row of K <= 256 per_lane); fp32 only the first
-QUANT_PER_LANE = {torch.bfloat16: (4, 12), torch.float32: (4,)}
+# (one warp per row, so a row of K <= 256 per_lane: 1024, 3072 and 5120, the
+# last for mar_large's and mar_huge's fc2 inputs, K = 4096 and 5120); fp32
+# only the first
+QUANT_PER_LANE = {torch.bfloat16: (4, 12, 20), torch.float32: (4,)}
 
 
 @dataclass(frozen=True)
@@ -125,7 +127,7 @@ def quantize_plan(K: int, dtype: torch.dtype, aligned: bool = True) -> QuantPlan
     says x starts on a 16-byte boundary. Cached.
 
     * vector where K % 8 == 0 and aligned (then every row is aligned too)
-      and an instance holds the row (K <= 3072 in bf16, 1024 in fp32): the
+      and an instance holds the row (K <= 5120 in bf16, 1024 in fp32): the
       smallest such instance;
     * scalar otherwise (the denoiser's K = 2 input projection).
     """

@@ -30,9 +30,11 @@ paths' shapes at mar_base width (B=128 and B=1):
 * ``attention_variants`` (only with ``--parts``; needs a tree with the
   online-softmax kernel): every bf16 attention kernel variant of the tree's
   C interface at each of ``VARIANT_SHAPES`` (head dimension 64, 12 heads:
-  mar_base) and, where the tree builds head dimension 128, of
+  mar_base) and, at each other head dimension the tree builds, of
   ``VARIANT_SHAPES_D128`` (6 heads of 128: mar_small, the 96 px path's N =
-  144 and the kitchen path's N = 320), whatever
+  144 and the kitchen path's N = 320) and ``VARIANT_SHAPES_D80`` (16 heads
+  of 80: mar_huge, the 96 px path's N = 144 and the 256 px path's N =
+  1024), whatever
   ``attention_plan`` would pick (the single-pass kernel at N <= 144, split
   per q-tile or whole heads; the online kernel in 128- or 64-row work
   items; the mma.sync kernel), each held against ``attention_plain``
@@ -228,7 +230,17 @@ VARIANT_SHAPES_D128 = [
     (1, 320), (4, 320), (8, 320), (12, 320), (16, 320), (22, 320), (24, 320), (32, 320),
     (64, 320), (128, 320), (8, 257), (8, 1000),
 ]
-HEADS = {64: 12, 128: 6}
+# head dimension 80 (16 heads): mar_huge's N = 144 and N = 1024 (128 work
+# items of 128 rows per sample), the item counts around the online kernel's
+# split threshold (16 heads x 2 to 6 KV tiles at B = 1: 32 to 96 items),
+# and ragged N
+VARIANT_SHAPES_D80 = [
+    (1, 144), (8, 144), (16, 144), (128, 144), (8, 137),
+    (1, 145), (1, 256), (1, 384), (1, 500), (1, 512), (1, 640), (1, 768), (2, 512),
+    (1, 1024), (2, 1024), (3, 1024), (4, 1024), (8, 1024), (16, 1024), (128, 1024), (8, 1000),
+]
+VARIANT_SHAPES_BY_D = {64: VARIANT_SHAPES, 80: VARIANT_SHAPES_D80, 128: VARIANT_SHAPES_D128}
+HEADS = {64: 12, 80: 16, 128: 6}
 
 
 def attention_variants(attention, head_dims) -> list:
@@ -238,8 +250,7 @@ def attention_variants(attention, head_dims) -> list:
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     dtype = torch.bfloat16
     rows, bad = [], []
-    shapes = [(B, N, D) for D in head_dims
-              for B, N in (VARIANT_SHAPES if D == 64 else VARIANT_SHAPES_D128)]
+    shapes = [(B, N, D) for D in head_dims for B, N in VARIANT_SHAPES_BY_D[D]]
     for B, N, D in shapes:
         H = HEADS[D]
         qkv = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(dtype)
@@ -253,7 +264,7 @@ def attention_variants(attention, head_dims) -> list:
                     "mma_sync": (lib.uva_flash_attention, (1, 1))}
         if N <= attention.SINGLE_PASS_MAX_N:
             variants.update(single_pass_split=(lib.uva_flash_attention_wgmma, (1,)))
-            if D == 64:  # at D = 128 only the split instance is built
+            if D == 64:  # at D = 80 and 128 only the split instance is built
                 variants.update(single_pass=(lib.uva_flash_attention_wgmma, (0,)))
         plan = (attention.attention_plan(B, N, H, D, dtype) if hasattr(attention, "HEAD_DIMS")
                 else attention.attention_plan(B, N, H, dtype))
