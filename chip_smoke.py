@@ -26,7 +26,10 @@ attention_plan picks.
            the head-width control: views whose next 48 columns in memory
            hold NaN must come out finite and within the limits (columns
            80-127 of the TMA kernels' tiles are TMA's zero fill), and a
-           planted kernel that reads all 128 columns must fail; the int8
+           planted kernel that reads all 128 columns must fail; the fp32
+           (3xTF32) kernel at every D within 2e-5 at N = 144, a ragged N,
+           unaligned views and N = 2304, and at the 256 px path's fp32
+           (128, 1024, 12, 64); the int8
            kernels must be bit-equal, also with each planted fault (below)
            shown to break that.
 4. serve   UnifiedVideoActionPolicy.predict_action_frames (the predict
@@ -41,7 +44,9 @@ attention_plan picks.
            (the single-pass wgmma kernel at both batches), the kernel route
            against the plain-attention route under the same noise, controls
            (the kernel with planted faults, which that comparison must
-           reject), and the card in fp32 against the port on the CPU in fp32.
+           reject), and the card in fp32 against the port on the CPU in fp32;
+           one fp32 request at B=128 (the fp32 kernel once per block), its
+           device time, stages and attention device ms.
 5. serve_256px  the reference's own PushT model as the JAX package's parity
            tier serves it (config.PUSHT_256: mar_base, 96 px frames upscaled
            to 256 on the card, 1024 tokens, the KL-16 VAE with ch 128, 100
@@ -140,6 +145,11 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: outside the tensor cores
 PEAK_INT8_OPS = 1979e12
+# fp32 attention runs both products on the tensor cores as three TF32
+# products each (3xTF32, csrc/attention.cu): its bound counts 3 x the
+# products' operations at the TF32 dense peak
+PEAK_TF32_FLOPS = 495e12
+TF32_PRODUCTS = 3
 KERNEL_SOURCES = ("attention", "int8_mm")
 # attention: atol of tests/test_ops.py
 ATTN_ATOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
@@ -152,10 +162,11 @@ ATTN_ATOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
 # 0.03; one wrong q-tile gives several)
 ATTN_BF16_REL_RMS = 6e-3
 ATTN_BF16_MAX_OVER_RMS = 0.1
-# the KV rows past N that a kernel's TMA loads fill with zeros, which only
-# its mask keeps out of the softmax: the single-pass kernel holds 144 rows,
-# the online kernel streams 128-row tiles (csrc/attention.cu)
-KV_EDGE = {"attention_wgmma": 144, "attention_wgmma_online": 128}
+# the KV rows past N that a kernel's loads fill with zeros, which only its
+# mask keeps out of the softmax: the single-pass kernel holds 144 rows, the
+# online kernel streams 128-row tiles, the fp32 kernel 32-row ones
+# (csrc/attention.cu)
+KV_EDGE = {"attention_wgmma": 144, "attention_wgmma_online": 128, "attention_f32": 32}
 # serve, the kernel route against the plain route in bf16 under the same
 # noise (P is rounded to bf16 in the kernel and not in the plain version):
 # - the decoder output that conditions the action head, after 24 bf16
@@ -259,10 +270,13 @@ def graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 
 def attention_bound(B: int, N: int, H: int, D: int, dtype: torch.dtype):
     """Least time for (B, N, H, D) attention: q, k, v read once, out written
-    once, and 4·B·H·N²·D operations at the type's peak."""
+    once, and 4·B·H·N²·D operations at the bf16 peak, or in fp32 three times
+    as many at the TF32 peak (the 3xTF32 kernel's work)."""
     item = torch.finfo(dtype).bits // 8
     t_bytes = 4 * B * N * H * D * item / HBM_BYTES_PER_S
-    t_ops = 4 * B * H * N * N * D / PEAK_FLOPS[dtype]
+    ops = 4 * B * H * N * N * D
+    t_ops = (TF32_PRODUCTS * ops / PEAK_TF32_FLOPS if dtype == torch.float32
+             else ops / PEAK_FLOPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -286,6 +300,9 @@ ATTENTION_CASES = [
     (8, 1088, 12, 64, torch.bfloat16, True), (8, 1088, 12, 64, torch.float32, True),
     (1, 2304, 12, 64, torch.bfloat16, True), (1, 2304, 12, 64, torch.float32, True),
     (8, 1088, 12, 64, torch.bfloat16, False),
+    # fp32 (the 3xTF32 kernel) beyond the serving shape: the 256 px path's
+    # (128, 1024) and unaligned views (4-byte copies)
+    (128, 1024, 12, 64, torch.float32, True), (8, 1088, 12, 64, torch.float32, False),
     # head dimension 128 (mar_small, 6 heads): the 96 px mar_small path's N =
     # 144 (single pass, split at every B), the kitchen path's N = 320 (online,
     # a 64-row last KV tile, whose edge left unmasked must fail the checks;
@@ -296,19 +313,24 @@ ATTENTION_CASES = [
     (128, 320, 6, 128, torch.bfloat16, True),
     (8, 320, 6, 128, torch.bfloat16, False),
     (128, 144, 6, 128, torch.float32, True),
+    # fp32: a ragged N (its edge left unmasked must fail the checks),
+    # unaligned views and N = 2304
+    (8, 1000, 6, 128, torch.float32, True), (8, 320, 6, 128, torch.float32, False),
+    (1, 2304, 6, 128, torch.float32, True),
     # head dimension 80 (mar_huge, 16 heads; held in D = 128's tiles with
     # columns 80-127 from TMA's zero fill): the 96 px path's N = 144 (single
     # pass, split at every B), the 256 px path's N = 1024 (online, 128-row
     # items at B = 1, 16 and 128), ragged online N whose edge left unmasked
     # must fail the checks (64-row items at (1, 500), 128-row ones at
-    # (8, 1000)), unaligned views (mma.sync) and fp32 (two threads of 40
-    # columns a row)
+    # (8, 1000)), unaligned views (mma.sync) and fp32 (exact width: ten
+    # k-steps and n-tiles of 8) at N = 144, a ragged N, unaligned and N = 2304
     (1, 144, 16, 80, torch.bfloat16, True), (128, 144, 16, 80, torch.bfloat16, True),
     (1, 1024, 16, 80, torch.bfloat16, True), (16, 1024, 16, 80, torch.bfloat16, True),
     (128, 1024, 16, 80, torch.bfloat16, True), (8, 1000, 16, 80, torch.bfloat16, True),
     (1, 500, 16, 80, torch.bfloat16, True),
     (8, 1024, 16, 80, torch.bfloat16, False),
-    (128, 144, 16, 80, torch.float32, True),
+    (128, 144, 16, 80, torch.float32, True), (8, 1000, 16, 80, torch.float32, True),
+    (8, 1024, 16, 80, torch.float32, False), (1, 2304, 16, 80, torch.float32, True),
 ]
 
 
@@ -374,6 +396,10 @@ def phase_kernel(attention_ops):
                    if edge and N % edge else None)
         ok = ok and (control is None or control["rejected"])
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if dtype == torch.float32 and not aligned:
+            # SDPA faults (misaligned address) on fp32 views 4 bytes off a
+            # 16-byte boundary: it is timed on aligned copies of the same values
+            qt, kt, vt = qt.contiguous(), kt.contiguous(), vt.contiguous()
         calls = {"kernel": lambda: attention_ops.flash_attention(q, k, v),
                  "library": lambda: F.scaled_dot_product_attention(qt, kt, vt)}
         readings = {k: [] for k in calls}
@@ -675,6 +701,41 @@ def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, reje
     return diffs
 
 
+# the fp32 request's batch: the serving batch of the throughput metric
+FP32_REQUEST_BATCH = 128
+
+
+def fp32_request(policy32, reps: int = 5) -> dict:
+    """One fp32 ``predict_action_frames`` request of ``policy32`` (a mar_base
+    policy with compute_dtype="float32") at FP32_REQUEST_BATCH, 100 steps,
+    on seeded frames and noise: the attention launches of one request by
+    instance (``attention_instances``), the median device time of ``reps``
+    requests by CUDA events after a warm-up, and one profiled request's
+    stages with the attention kernel's device ms (``breakdown``)."""
+    from unified_video_action_tpu_torch.ops import attention as attention_ops
+
+    B = FP32_REQUEST_BATCH
+    rng = np.random.default_rng(SEED + 13)
+    frames = torch.from_numpy(rng.integers(0, 256, (B, 4, 3, 96, 96), dtype=np.uint8))
+    noise = policy32.sample_noise(B, torch.Generator(device="cuda").manual_seed(SEED + 13))
+    policy32.predict_action_frames(frames, noise=noise)  # warm-up
+    torch.cuda.synchronize()
+    before = dict(attention_ops.instance_count)
+    policy32.predict_action_frames(frames, noise=noise)
+    launches = {k: v - before[k] for k, v in attention_ops.instance_count.items() if v != before[k]}
+    ms = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        policy32.predict_action_frames(frames, noise=noise)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return {"B": B, "median_ms": statistics.median(ms), "ms": ms, "attention_instances": launches,
+            **breakdown(policy32, frames, noise)}
+
+
 def phase_serve(attention_ops, trees, normalizer):
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
@@ -748,6 +809,14 @@ def phase_serve(attention_ops, trees, normalizer):
     policy32.load_params(mar_tree, vae_tree)
     diffs = route_check(attention_ops, policy, policy32, frames, noise, REJECTED_CONTROLS)
 
+    # one fp32 request at B=128: the fp32 kernel's D = 64 instance once per
+    # ViT block, its time and where it goes
+    fp32 = fp32_request(policy32)
+    log("fp32 request " + json.dumps(fp32))
+    if fp32["attention_instances"] != {"attention_f32_d64": blocks}:
+        raise AssertionError(f"the fp32 request launched {fp32['attention_instances']}, want "
+                             f"{blocks} of attention_f32_d64")
+
     # timing: CUDA events around whole requests, after the warm-up
     def request_ms(B: int, reps: int):
         dev, host = [], []
@@ -782,13 +851,19 @@ def phase_serve(attention_ops, trees, normalizer):
     cpu32 = make_policy("cpu", "float32")
     cpu32.load_params(mar_tree, vae_tree)
     cpu_noise = {k: v.cpu() for k, v in noise[1].items()}
+    before = attention_ops.instance_count["attention_f32_d64"]
     on_card = policy32.predict_action_frames(frames[1], noise=cpu_noise).cpu()
+    f32_launches = attention_ops.instance_count["attention_f32_d64"] - before
     on_cpu = cpu32.predict_action_frames(frames[1], noise=cpu_noise)
     d = (normalized(policy, on_card) - normalized(policy, on_cpu)).abs().max().item()
-    log(f"card fp32 vs CPU fp32, B=1, normalized actions: max abs {d}; atol {SERVE_FP32_ATOL}")
-    if d > SERVE_FP32_ATOL:
-        raise AssertionError(f"the card's fp32 run disagrees with the CPU's: {d}")
-    return launches
+    log(f"card fp32 ({f32_launches} launches of attention_f32_d64) vs CPU fp32, B=1, normalized "
+        f"actions: max abs {d}; atol {SERVE_FP32_ATOL}")
+    if d > SERVE_FP32_ATOL or f32_launches != blocks:
+        raise AssertionError(f"the card's fp32 run disagrees with the CPU's ({d}) or did not "
+                             f"launch the fp32 kernel once per block ({f32_launches})")
+    fp32_paths = {"serve_fp32_b128": fp32["attention_instances"],
+                  "serve_fp32_vs_cpu_b1": {"attention_f32_d64": f32_launches}}
+    return launches, fp32_paths, fp32
 
 
 # ------------------------------------------------------- 256 px PushT path
@@ -934,7 +1009,8 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
     the kernel route against the plain route under the same noise with the
     serve limits and the controls, the card in fp32 (the fp32 kernel at the
     config's D) against the port on the CPU, and request times. Returns the
-    launches of the counted calls by kernel instance."""
+    launches of the counted calls by kernel instance, and those of the fp32
+    kernel in the fp32 call by path."""
     from unified_video_action_tpu_torch import convert
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
@@ -1071,6 +1147,7 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
     if d > SERVE_FP32_ATOL or f32_launches != blocks:
         raise AssertionError(f"{name}: the card's fp32 run disagrees with the CPU's ({d}) or did not "
                              f"launch the fp32 kernel once per block ({f32_launches})")
+    fp32_paths = {f"{name}_fp32_vs_cpu_b1": {f"attention_f32_d{D}": f32_launches}}
     del policy32, cpu32
 
     # request times on the host clock, each until the action is on the host
@@ -1101,7 +1178,7 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
     # the stages of one request (the breakdown runs the MAR without a goal:
     # the text buffer's 64 tokens cost the same with the null latent)
     log(f"{name}, where the time goes, B=128: " + json.dumps(breakdown(policy, frames[128], noise[128])))
-    return launches
+    return launches, fp32_paths
 
 
 # ---------------------------------------------------------------- int8 W8A8
@@ -1829,19 +1906,22 @@ def main() -> int:
         int8_kernel_controls(int8_ops, quant, meta_policy.mar_cfg)
     trees = serving_weights(meta_policy)
     with Phase("serve"):
-        launches = phase_serve(attention_ops, trees, normalizer)
+        launches, fp32_paths, fp32 = phase_serve(attention_ops, trees, normalizer)
     with Phase("serve_256px"):
         launches_256 = phase_serve_256px(attention_ops, normalizer, "serve_256px", port_config.PUSHT_256)
     with Phase("serve_small96"):
-        launches_small96 = phase_serve_small(attention_ops, int8_ops, "small96",
-                                             port_config.PUSHT_SMALL96, normalizer)
+        launches_small96, paths = phase_serve_small(attention_ops, int8_ops, "small96",
+                                                    port_config.PUSHT_SMALL96, normalizer)
+        fp32_paths.update(paths)
     with Phase("serve_kitchen128"):
-        launches_kitchen = phase_serve_small(attention_ops, int8_ops, "kitchen128",
-                                             port_config.KITCHEN_SMALL128, None, goal=KITCHEN_GOAL,
-                                             rejected=REJECTED_CONTROLS_KITCHEN)
+        launches_kitchen, paths = phase_serve_small(attention_ops, int8_ops, "kitchen128",
+                                                    port_config.KITCHEN_SMALL128, None, goal=KITCHEN_GOAL,
+                                                    rejected=REJECTED_CONTROLS_KITCHEN)
+        fp32_paths.update(paths)
     with Phase("serve_huge96"):
-        launches_huge96 = phase_serve_small(attention_ops, int8_ops, "huge96",
-                                            port_config.PUSHT_HUGE96, normalizer)
+        launches_huge96, paths = phase_serve_small(attention_ops, int8_ops, "huge96",
+                                                   port_config.PUSHT_HUGE96, normalizer)
+        fp32_paths.update(paths)
     with Phase("serve_huge256"):
         launches_huge256 = phase_serve_256px(attention_ops, normalizer, "serve_huge256",
                                              port_config.PUSHT_HUGE256)
@@ -1895,16 +1975,32 @@ def main() -> int:
             **{k: timing(attention_row(rows, b, n, D=D)) for k, (b, n) in other_shapes.items()},
         }
 
-    # one entry per instance of the two TMA kernels, which the paths launch;
-    # the mma.sync and fp32 kernels launch on no counted path (the fp32 one
-    # in the serve phases' fp32 checks) and are held in the kernel phase,
-    # their rows under "unaligned_and_fp32"
+    # one entry per instance of the two TMA kernels, which the counted paths
+    # launch, and of the fp32 kernel, which the fp32 request and the serve
+    # phases' fp32 checks launch; the mma.sync kernel launches on no path and
+    # is held in the kernel phase. Its rows and every fp32 row are under
+    # "unaligned_and_fp32".
     side_rows = {"attention_mma_sync_d64": attention_row(rows, 8, 1088, D=64, aligned=False),
                  "attention_mma_sync_d80": attention_row(rows, 8, 1024, D=80, aligned=False),
                  "attention_mma_sync_d128": attention_row(rows, 8, 320, D=128, aligned=False),
-                 "attention_f32_d64": attention_row(rows, 128, 144, torch.float32, D=64),
-                 "attention_f32_d80": attention_row(rows, 128, 144, torch.float32, D=80),
-                 "attention_f32_d128": attention_row(rows, 128, 144, torch.float32, D=128)}
+                 **{f"{r['instance']} ({r['B']}, {r['N']}){'' if r['aligned'] else ' unaligned'}": r
+                    for r in rows if r["kernel"] == "attention_f32"}}
+    fp32_instances = [f"attention_f32_d{D}" for D in attention_ops.HEAD_DIMS]
+    fp32_launches = {i: sum(n.get(i, 0) for n in fp32_paths.values()) for i in fp32_instances}
+    if not all(fp32_launches.values()):
+        raise AssertionError(f"an fp32 instance launched on no path: {fp32_launches}")
+
+    def fp32_entry(instance: str, shape) -> dict:
+        B, N, H, D = shape
+        return {
+            "name": f"flash_attention_f32_d{D}", "route": "cuda",
+            "source": "unified_video_action_tpu_torch/csrc/attention.cu",
+            "replaces": "unified_video_action_tpu/ops/attention.py:33",
+            "launches": fp32_launches[instance],
+            "launches_by_path": {path: n[instance] for path, n in fp32_paths.items() if n.get(instance)},
+            "shape": list(shape), **timing(attention_row(rows, B, N, torch.float32, D=D)),
+        }
+
     kernels = {"kernels": [
         {**attention_entry("flash_attention", "attention_wgmma_d64", 33, (128, 144, 12, 64), b1=(1, 144)),
          "launches_by_kernel": attention_launches,
@@ -1924,6 +2020,11 @@ def main() -> int:
          "head_width_control": width_rows},
         attention_entry("flash_attention_online_d80", "attention_wgmma_online_d80", 67,
                         (128, 1024, 16, 80), b1=(1, 1024), b16=(16, 1024)),
+        {**fp32_entry("attention_f32_d64", (128, 144, 12, 64)),
+         "request_b128": {k: fp32[k] for k in ("median_ms", "attention_device_ms", "attention_instances")
+                          if k in fp32}},
+        fp32_entry("attention_f32_d128", (128, 144, 6, 128)),
+        fp32_entry("attention_f32_d80", (128, 144, 16, 80)),
         {
             "name": "int8_gemm",
             "route": "cuda",

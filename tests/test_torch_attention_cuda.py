@@ -20,7 +20,9 @@ views whose next 48 columns in memory hold NaN, which every kernel must
 leave unread (the TMA kernels take columns 80-127 of their 128-column tiles
 from TMA's zero fill), and which a kernel reading 128 columns must fail.
 Each launch must land on the kernel, and the instance, that attention_plan
-names.
+names. The fp32 kernel (3xTF32 on the tensor cores) is held at every head
+dimension at N = 1088, ragged N and N = 2304, on aligned and unaligned
+views, and at every tile its sweep entry builds.
 """
 
 import pytest
@@ -291,3 +293,45 @@ def test_the_head_width_control_rejects_a_kernel_reading_128_columns(card, B, N)
     zeros[..., 80:] = 0
     fine = _reads_128_columns(zeros).float()
     torch.testing.assert_close(fine, want, rtol=0, atol=3e-2)
+
+
+# the fp32 kernel (3xTF32 on the tensor cores) at every head dimension:
+# N = 1088 (17 KV tiles of 64), ragged N (a last KV tile short of the tile,
+# and a last q-tile of a few rows), N = 2304 (the accumulator's longest
+# chain in these tests), on aligned views of one qkv tensor and on views an
+# element off a 16-byte boundary (4-byte copies)
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(64, 12), (80, 16), (128, 6)])
+@pytest.mark.parametrize("B,N,aligned", [(2, 1088, True), (2, 1088, False), (3, 201, True),
+                                         (3, 201, False), (2, 77, True), (2, 77, False),
+                                         (1, 2304, True)])
+def test_fp32_kernel_at_every_head_dim(card, D, H, B, N, aligned):
+    g = torch.Generator(device="cuda").manual_seed(N + D + B)
+    flat = torch.randn(B * N * 3 * H * D + (not aligned), generator=g, device="cuda")
+    q, k, v = flat[int(not aligned):].view(B, N, 3, H, D).unbind(2)
+    assert port._check(q, k, v) == aligned
+    plan = _launch_matches_plain(q, k, v, 2e-5)
+    assert plan == port.AttentionPlan("attention_f32", D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(64, 12), (80, 16), (128, 6)])
+@pytest.mark.parametrize("m_tiles,kv_rows", [(1, 32), (1, 48), (1, 64), (2, 32), (2, 64)])
+@pytest.mark.parametrize("B,N", [(2, 144), (1, 1000)])
+def test_every_fp32_tile(card, D, H, m_tiles, kv_rows, B, N):
+    # each tile the fp32 kernel's sweep entry builds (two m16 tiles a warp at
+    # D = 64 only: the entry refuses them elsewhere), whatever the wrapper
+    # would pick, against the plain version
+    g = torch.Generator(device="cuda").manual_seed(N + D + kv_rows)
+    q, k, v = torch.randn(B, N, 3, H, D, generator=g, device="cuda").unbind(2)
+    out = torch.full((B, N, H, D), float("nan"), device="cuda")
+    rc = port._lib().uva_flash_attention_tf32_tile(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], m_tiles, kv_rows,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if m_tiles == 2 and D != 64:
+        assert rc != 0
+        return
+    assert rc == 0
+    torch.testing.assert_close(out, port.attention_plain(q, k, v), rtol=0, atol=2e-5)

@@ -70,9 +70,14 @@
 //   uva_flash_attention, bf16: for views TMA cannot read (an operand off a
 //       16-byte boundary): 4 warps per block, 64 query rows, mma.sync
 //       m16n8k16 with an online softmax over 64-wide KV tiles, exact at any N.
-//   uva_flash_attention, fp32: D / f32_parts(D) columns of D per thread
-//       (one thread per query row at D = 64, two at D = 80 and 128), scalar
-//       fp32 FMA (tensor-core TF32 would not hold the fp32 tolerance).
+//   uva_flash_attention, fp32, aligned or not: both products on the tensor
+//       cores in 3xTF32 (each operand split into two TF32 halves, three
+//       mma.sync m16n8k8 products; one TF32 product would not hold the fp32
+//       tolerance), 16 or 32 query rows a warp, K and V streamed in 32-row
+//       tiles by cp.async, an online softmax in registers. Its section
+//       below says how. At (128, 144, 12, 64) it must move 226 MB (0.068 ms) and do
+//       3 x 8.2 GFLOP of TF32 products (0.049 ms at 495 TFLOP/s): bound by
+//       bytes at the serving N, by the products from N of about 200 on.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,11 +105,6 @@ struct MmaTiles {
   static constexpr int kLdQK = kD + kPad;   // row stride of the q and k tiles
   static constexpr int kSmem = ((kBlockQ + kBlockKV) * kLdQK + kD * kLdVt) * 2;
 };
-
-// fp32 path tiles: f32_parts(D) threads share a query row, each taking
-// D / f32_parts(D) columns of it: 64 at D = 64 and 128, 40 at D = 80
-__host__ __device__ constexpr int f32_parts(int d) { return d % 64 == 0 ? d / 64 : 2; }
-constexpr int kF32BlockKV = 32;
 
 struct Params {
   const void* q;
@@ -147,12 +147,6 @@ __device__ __forceinline__ uint4 load16(const void* p) {
     for (int i = 0; i < 8; ++i) dst[i] = src[i];
     return v;
   }
-}
-
-template <bool kVec>
-__device__ __forceinline__ float4 load4f(const float* p) {
-  if constexpr (kVec) return *reinterpret_cast<const float4*>(p);
-  return make_float4(p[0], p[1], p[2], p[3]);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -324,118 +318,351 @@ attn_bf16_kernel(const Params p) {
   }
 }
 
-// f32_parts(kD) threads share a query row, each holding its columns of q
-// and of the accumulator in registers (128 registers at D = 64 and 128, 80
-// at D = 80; a whole row of 128 columns would take 256 and spill): each
-// thread's partial dot product is summed over the row's threads, adjacent
-// lanes, by shuffles, and every thread of the row runs the same softmax on
-// the sum.
-template <int kD, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-attn_f32_kernel(const Params p) {
-  constexpr int kParts = f32_parts(kD);       // threads per query row
-  constexpr int kF32Cols = kD / kParts;       // columns per thread
-  static_assert(kF32Cols % 4 == 0 && (kParts & (kParts - 1)) == 0,
-                "float4 columns, a power of two of threads a row");
-  constexpr int kRows = kThreads / kParts;    // query rows per block
-  __shared__ __align__(16) float ks[kF32BlockKV][kD];
-  __shared__ __align__(16) float vs[kF32BlockKV][kD];
+// ------------------------------------------------------------ fp32: 3xTF32
+//
+// uva_flash_attention with dtype 0 (and uva_flash_attention_tf32_tile, the
+// tile sweep's entry): both products on the tensor cores as three TF32
+// mma.sync m16n8k8 products each. One TF32 product keeps 10 mantissa bits of
+// each operand (about 5e-4 relative), which would put the output about 1e-4
+// to 5e-4 off the fp32 einsum, outside the fp32 tolerance of 2e-5. So every
+// operand x is split in registers into hi = x with its low 13 bits cleared
+// and lo = x - hi (exact in fp32), and a b is summed as lo(a) hi(b) +
+// hi(a) lo(b) + hi(a) hi(b), the small products first. The tensor core reads
+// the top 19 bits of each register, so hi is used whole and lo cut to its
+// top 11 significant bits (about 2^-21 of x); the dropped lo(a) lo(b) is
+// about 2^-20 of a b. The split is two full-rate instructions (LOP3, FADD).
+// tests/test_torch_attention_tf32.py emulates the arithmetic on the CPU.
+//
+// A CTA of 4 warps takes 4 x kMT x 16 query rows of one head (a warp kMT
+// m16 tiles, so that each K and V fragment it loads and splits serves
+// kMT x 3 products) and streams the head's K and V in KV tiles of
+// kBlockKV rows through a two-stage cp.async ring in shared memory (16-byte
+// copies where every row lies on a 16-byte boundary, 4-byte ones where it
+// does not; rows past N are zero-filled and masked out of the softmax). Q
+// waits in shared memory, loaded with the first KV tile, and each k-step
+// reads and splits its A fragments; the softmax is online, in registers, on
+// the SFU's exp2 with D^-1/2 log2(e) applied in the exponent. The CTAs of
+// one head are adjacent in the grid, so the head's K and V come from L2
+// after the first.
+//
+// The tensor core adds into its fp32 accumulator rounding toward zero, so a
+// sum carried through every KV tile drifts: O accumulated over N = 2304 rows
+// that way missed the fp32 tolerance on the card. Each KV tile's P V starts
+// from zero instead (its chain is the tile's 3 kBlockKV / 8 products), and
+// O = O alpha + P V is an fp32 FMA; S's chain is 3 D / 8 products.
+//
+// No shuffle and no shared-memory round trip turns S into the A operand of
+// P V: a contraction does not depend on the order of its index, so k-step
+// index t of a fragment stands for column 2t and t + 4 for 2t + 1. Then the
+// thread holding S's accumulator columns 2t and 2t + 1 (rows g and g + 8)
+// holds exactly the A fragment of P, and V's B fragment is rows 2t and
+// 2t + 1 of the tile (column g). The same relabelling in Q K^T makes Q's A
+// fragment and K's B fragment two adjacent columns, one 8-byte load each.
+// Row strides in shared memory are padded against bank conflicts: Q's and
+// K's to 8 mod 32 words at D = 64 and 128, 24 at D = 80 (a half-warp's
+// 8-byte loads of rows g, columns 2t hit 16 distinct bank pairs), V's to
+// 4 mod 16 (rows 2t and 2t + 1, column g: 32 distinct banks).
+//
+// At D = 80 the products are exact width: 10 k-steps of 8 in Q K^T, 10
+// n-tiles of 8 in P V. Registers a thread: O and the tile's P V kMT D / 2
+// each, S kMT kBlockKV / 2.
+template <int kD, int kMT, int kBlockKV>
+struct Tf32Tiles {
+  static constexpr int kThreads = 128;          // 4 warps
+  static constexpr int kRows = 4 * kMT * 16;    // query rows a CTA
+  static constexpr int kLdQK = kD + 8;
+  static constexpr int kLdV = kD + 4;
+  static constexpr int kStage = kBlockKV * (kLdQK + kLdV);  // floats
+  static constexpr int kSmem = (kRows * kLdQK + 2 * kStage) * 4;
+  static_assert(kD % 8 == 0 && kBlockKV % 8 == 0, "whole k-steps and n-tiles");
+};
 
-  const int b = blockIdx.x / p.H;
-  const int h = blockIdx.x % p.H;
-  const int tid = threadIdx.x;
-  const int row = blockIdx.y * kRows + tid / kParts;
-  const int col0 = (tid % kParts) * kF32Cols;  // this thread's columns
-  const bool active = row < p.N;
+// x = hi + lo: hi is x with the 13 bits below TF32's mantissa cleared, lo
+// the rest, exact; the tensor core reads lo's top 19 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
 
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+// D += A * B for one 16x8x8 TF32 tile (A row-major, B column-major).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D = A * B for one 16x8x8 TF32 tile, from a zero accumulator.
+__device__ __forceinline__ void mma_tf32_from_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                   uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// 2^x by the SFU (relative error about 2^-22; results below 2^-126 flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// An A fragment (a0..a3) split into its hi and lo registers.
+__device__ __forceinline__ void split_a(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// D += A * B in 3xTF32 on A's split fragment and B's (b0, b1), the small
+// products first; kFromZero: D = A * B.
+template <bool kFromZero = false>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  if constexpr (kFromZero) {
+    mma_tf32_from_zero(d, a_lo, b_hi[0], b_hi[1]);
+  } else {
+    mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  }
+  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
+}
+
+// One 16-byte (kVec) or 4-byte piece of a row into shared memory by
+// cp.async, or zeros where !valid (src-size 0: nothing is read).
+template <bool kVec>
+__device__ __forceinline__ void cp_async_piece(float* dst, const float* src, bool valid) {
+  if constexpr (kVec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// kTileRows rows from `row0` on (zeros from row N on) of a (rows, D) fp32
+// view with row stride `sn` into shared-memory rows of `ld` floats, by
+// cp.async.
+template <int kD, int kTileRows, int kThreads, bool kVec>
+__device__ __forceinline__ void cp_async_rows(float* dst, int ld, const float* src, long long sn,
+                                              int row0, int N) {
+  constexpr int kPiece = kVec ? 4 : 1;
+  constexpr int kPieces = kD / kPiece;  // pieces a row
+  for (int c = threadIdx.x; c < kTileRows * kPieces; c += kThreads) {
+    const int r = c / kPieces;
+    const int col = (c % kPieces) * kPiece;
+    const bool valid = row0 + r < N;
+    cp_async_piece<kVec>(dst + r * ld + col, src + (valid ? row0 + r : 0) * sn + col, valid);
+  }
+}
+
+template <int kD, int kMT, int kBlockKV, bool kVec>
+__global__ void __launch_bounds__(128)
+attn_tf32_kernel(const Params p, const int n_qtiles) {
+  using T = Tf32Tiles<kD, kMT, kBlockKV>;
+  constexpr int kKSteps = kD / 8;      // k-steps of Q K^T, n-tiles of P V
+  constexpr int kNT = kBlockKV / 8;    // n-tiles of S, k-steps of P V
+  extern __shared__ __align__(16) float tf32_smem[];
+  float* qs = tf32_smem;
+  float* stages = tf32_smem + T::kRows * T::kLdQK;
+
+  const int q_tile = blockIdx.x % n_qtiles;
+  const int bh = blockIdx.x / n_qtiles;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread within the group
+  const int q0 = q_tile * T::kRows;
+  const int warp_row = warp * kMT * 16;     // in the CTA's rows
+  const bool active = q0 + warp_row < p.N;  // a warp past the last row only loads
+
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  constexpr int kChunks = kF32Cols / 4;  // float4 per thread's part of a row
-  constexpr int kRowChunks = kD / 4;     // float4 per row
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto load_kv = [&](int stage, int kv0) {
+    float* ks = stages + stage * T::kStage;
+    cp_async_rows<kD, kBlockKV, T::kThreads, kVec>(ks, T::kLdQK, kg, p.k_sn, kv0, p.N);
+    cp_async_rows<kD, kBlockKV, T::kThreads, kVec>(ks + kBlockKV * T::kLdQK, T::kLdV, vg, p.v_sn,
+                                                  kv0, p.N);
+    cp_async_commit();
+  };
 
-  float q[kF32Cols];
+  const int n_kv = (p.N + kBlockKV - 1) / kBlockKV;
+  cp_async_rows<kD, T::kRows, T::kThreads, kVec>(
+      qs, T::kLdQK, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_sn, q0, p.N);
+  load_kv(0, 0);  // one group with Q
+
+  float o[kMT][kKSteps][4];
+  float m[kMT][2], l[kMT][2];  // rows g and g + 8 of each m-tile; l per thread, reduced at the end
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    float4 val = zero;
-    if (active) val = load4f<kVec>(qg + row * p.q_sn + col0 + 4 * c);
-    q[4 * c + 0] = val.x * p.scale_log2;
-    q[4 * c + 1] = val.y * p.scale_log2;
-    q[4 * c + 2] = val.z * p.scale_log2;
-    q[4 * c + 3] = val.w * p.scale_log2;
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int nd = 0; nd < kKSteps; ++nd) o[mt][nd][0] = o[mt][nd][1] = o[mt][nd][2] = o[mt][nd][3] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
   }
-  float acc[kF32Cols];
-#pragma unroll
-  for (int c = 0; c < kF32Cols; ++c) acc[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
 
-  for (int kv0 = 0; kv0 < p.N; kv0 += kF32BlockKV) {
-    __syncthreads();
-    for (int c = tid; c < kF32BlockKV * kRowChunks; c += kThreads) {
-      const int r = c / kRowChunks;
-      const int col = (c % kRowChunks) * 4;
-      float4 kval = zero, vval = zero;
-      if (kv0 + r < p.N) {
-        kval = load4f<kVec>(kg + (kv0 + r) * p.k_sn + col);
-        vval = load4f<kVec>(vg + (kv0 + r) * p.v_sn + col);
-      }
-      *reinterpret_cast<float4*>(&ks[r][col]) = kval;
-      *reinterpret_cast<float4*>(&vs[r][col]) = vval;
+  for (int it = 0; it < n_kv; ++it) {
+    const int kv0 = it * kBlockKV;
+    if (it + 1 < n_kv) {
+      load_kv((it + 1) & 1, kv0 + kBlockKV);  // its stage was freed at the end of it - 1
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    if (active) {
+      const float* ks = stages + (it & 1) * T::kStage;
+      const float* vs = ks + kBlockKV * T::kLdQK;
 
-    float s[kF32BlockKV];
-    float mx = -INFINITY;
+      // S = Q K^T, kMT x 16 rows x kBlockKV columns: at k-step kk, Q's
+      // a0..a3 are rows (g, g + 8, g, g + 8) at columns (c, c, c + 1, c + 1)
+      // and K's b0, b1 row g of the n-tile at columns c and c + 1, c = 8 kk + 2t
+      float s[kMT][kNT][4];
 #pragma unroll
-    for (int j = 0; j < kF32BlockKV; ++j) {
-      float d = 0.f;
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        const int c = 8 * kk + 2 * t;
+        uint32_t a_hi[kMT][4], a_lo[kMT][4];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kv = *reinterpret_cast<const float4*>(&ks[j][col0 + 4 * c]);
-        d = fmaf(q[4 * c + 0], kv.x, d);
-        d = fmaf(q[4 * c + 1], kv.y, d);
-        d = fmaf(q[4 * c + 2], kv.z, d);
-        d = fmaf(q[4 * c + 3], kv.w, d);
+        for (int mt = 0; mt < kMT; ++mt) {
+          const float* qr = qs + (warp_row + mt * 16 + g) * T::kLdQK + c;
+          const float2 x0 = *reinterpret_cast<const float2*>(qr);
+          const float2 x1 = *reinterpret_cast<const float2*>(qr + 8 * T::kLdQK);
+          const float qa[4] = {x0.x, x1.x, x0.y, x1.y};
+          split_a(qa, a_hi[mt], a_lo[mt]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const float2 kb = *reinterpret_cast<const float2*>(ks + (nt * 8 + g) * T::kLdQK + c);
+          uint32_t b_hi[2], b_lo[2];
+          split_tf32(kb.x, b_hi[0], b_lo[0]);
+          split_tf32(kb.y, b_hi[1], b_lo[1]);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            if (kk == 0)
+              mma_3xtf32<true>(s[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
+            else
+              mma_3xtf32(s[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
+          }
+        }
+      }
+
+      // the online softmax on exp2, D^-1/2 log2(e) applied in the exponent:
+      // p = 2^(s scale - m), m the running max of s scale
+      float alpha[kMT][2];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (kv0 + kBlockKV > p.N) {  // the ragged last tile: zero-filled rows out of the softmax
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (kv0 + nt * 8 + 2 * t + (i & 1) >= p.N) s[mt][nt][i] = -INFINITY;
+        }
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          mx0 = fmaxf(mx0, fmaxf(s[mt][nt][0], s[mt][nt][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[mt][nt][2], s[mt][nt][3]));
+        }
+        // every tile holds column kv0 < N, so the tile max is finite
+        const float mn0 = fmaxf(m[mt][0], quad_max(mx0) * p.scale_log2);
+        const float mn1 = fmaxf(m[mt][1], quad_max(mx1) * p.scale_log2);
+        alpha[mt][0] = fast_exp2(m[mt][0] - mn0);  // 0 on the first tile
+        alpha[mt][1] = fast_exp2(m[mt][1] - mn1);
+        m[mt][0] = mn0;
+        m[mt][1] = mn1;
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          s[mt][nt][0] = fast_exp2(fmaf(s[mt][nt][0], p.scale_log2, -mn0));
+          s[mt][nt][1] = fast_exp2(fmaf(s[mt][nt][1], p.scale_log2, -mn0));
+          s[mt][nt][2] = fast_exp2(fmaf(s[mt][nt][2], p.scale_log2, -mn1));
+          s[mt][nt][3] = fast_exp2(fmaf(s[mt][nt][3], p.scale_log2, -mn1));
+          rs0 += s[mt][nt][0] + s[mt][nt][1];
+          rs1 += s[mt][nt][2] + s[mt][nt][3];
+        }
+        l[mt][0] = l[mt][0] * alpha[mt][0] + rs0;
+        l[mt][1] = l[mt][1] * alpha[mt][1] + rs1;
+      }
+
+      // P V of this tile into its own accumulator, from zero, then O = O
+      // alpha + P V in fp32: the tensor core's accumulation (which rounds
+      // toward zero) never runs longer than one tile's 3 kNT products. S's
+      // n-tile j is P's k-step j, its k index t column 2t and t + 4 column
+      // 2t + 1, so a0..a3 = s[j][0], s[j][2], s[j][1], s[j][3], and V's b0,
+      // b1 are rows 8j + 2t and 8j + 2t + 1 at column g of the n-tile
+      float pv[kMT][kKSteps][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          const float pa[4] = {s[mt][j][0], s[mt][j][2], s[mt][j][1], s[mt][j][3]};
+          split_a(pa, a_hi[mt], a_lo[mt]);
+        }
+        const float* vr = vs + (8 * j + 2 * t) * T::kLdV + g;
+#pragma unroll
+        for (int nd = 0; nd < kKSteps; ++nd) {
+          uint32_t b_hi[2], b_lo[2];
+          split_tf32(vr[8 * nd], b_hi[0], b_lo[0]);
+          split_tf32(vr[T::kLdV + 8 * nd], b_hi[1], b_lo[1]);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            if (j == 0)
+              mma_3xtf32<true>(pv[mt][nd], a_hi[mt], a_lo[mt], b_hi, b_lo);
+            else
+              mma_3xtf32(pv[mt][nd], a_hi[mt], a_lo[mt], b_hi, b_lo);
+          }
+        }
       }
 #pragma unroll
-      for (int lane = 1; lane < kParts; lane *= 2) d += __shfl_xor_sync(0xffffffffu, d, lane);
-      s[j] = kv0 + j < p.N ? d : -INFINITY;
-      mx = fmaxf(mx, s[j]);
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nd = 0; nd < kKSteps; ++nd) {
+          o[mt][nd][0] = fmaf(o[mt][nd][0], alpha[mt][0], pv[mt][nd][0]);
+          o[mt][nd][1] = fmaf(o[mt][nd][1], alpha[mt][0], pv[mt][nd][1]);
+          o[mt][nd][2] = fmaf(o[mt][nd][2], alpha[mt][1], pv[mt][nd][2]);
+          o[mt][nd][3] = fmaf(o[mt][nd][3], alpha[mt][1], pv[mt][nd][3]);
+        }
     }
-    const float mn = fmaxf(m, mx);
-    const float alpha = exp2f(m - mn);
-    m = mn;
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < kF32BlockKV; ++j) {
-      s[j] = exp2f(s[j] - mn);
-      rs += s[j];
-    }
-    l = l * alpha + rs;
-#pragma unroll
-    for (int c = 0; c < kF32Cols; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kF32BlockKV; ++j) {
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][col0 + 4 * c]);
-        acc[4 * c + 0] = fmaf(s[j], vv.x, acc[4 * c + 0]);
-        acc[4 * c + 1] = fmaf(s[j], vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(s[j], vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(s[j], vv.w, acc[4 * c + 3]);
-      }
-    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
   if (!active) return;
-  const float inv = 1.f / l;
-  float* o = static_cast<float*>(p.o) + (((long long)b * p.N + row) * p.H + h) * kD + col0;
+  float* out = static_cast<float*>(p.o);
+  const long long o_sn = (long long)p.H * kD;
+  const long long base = ((long long)b * p.N * p.H + h) * kD;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-    *reinterpret_cast<float4*>(o + 4 * c) =
-        make_float4(acc[4 * c + 0] * inv, acc[4 * c + 1] * inv,
-                    acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int row0 = q0 + warp_row + mt * 16 + g;
+    const int row1 = row0 + 8;
+    const float inv0 = 1.f / quad_sum(l[mt][0]);
+    const float inv1 = 1.f / quad_sum(l[mt][1]);
+#pragma unroll
+    for (int nd = 0; nd < kKSteps; ++nd) {
+      const int col = nd * 8 + 2 * t;
+      if (row0 < p.N)
+        *reinterpret_cast<float2*>(out + base + row0 * o_sn + col) =
+            make_float2(o[mt][nd][0] * inv0, o[mt][nd][1] * inv0);
+      if (row1 < p.N)
+        *reinterpret_cast<float2*>(out + base + row1 * o_sn + col) =
+            make_float2(o[mt][nd][2] * inv1, o[mt][nd][3] * inv1);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- single pass
@@ -1365,24 +1592,62 @@ int launch_mma_sync(const Params& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int kD, bool kVec>
-int launch_f32(const Params& p, cudaStream_t s) {
-  constexpr int kRows = kThreads / f32_parts(kD);
-  const dim3 grid(p.B * p.H, (p.N + kRows - 1) / kRows);
-  attn_f32_kernel<kD, kVec><<<grid, kThreads, 0, s>>>(p);
+template <int kD, int kMT, int kBlockKV, bool kVec>
+int launch_tf32(const Params& p, cudaStream_t s) {
+  using T = Tf32Tiles<kD, kMT, kBlockKV>;
+  auto kernel = attn_tf32_kernel<kD, kMT, kBlockKV, kVec>;
+  static bool ready = false;  // per instantiation, set once
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const int n_qtiles = (p.N + T::kRows - 1) / T::kRows;
+  const long long blocks = (long long)n_qtiles * p.B * p.H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, T::kThreads, T::kSmem, s>>>(p, n_qtiles);
   return (int)cudaGetLastError();
 }
 
+// The fp32 kernel's tile (tools/kernels_ab.py --parts tf32_tiles, PERF.md):
+// CTAs of 4 warps, KV tiles of 32 rows; a warp takes two m16 tiles (each K
+// and V fragment it splits serves six products) at D = 64 past N = 144, else
+// one (at N <= 144 a CTA of 128 rows leaves 112 of a head's 256 idle; at
+// D = 80 and 128 two m16 tiles a warp spill).
+constexpr int kTf32BlockKV = 32;
+
+template <int kD, bool kVec>
+int launch_tf32_default(const Params& p, cudaStream_t s) {
+  if constexpr (kD == 64) {
+    if (p.N > 144) return launch_tf32<kD, 2, kTf32BlockKV, kVec>(p, s);
+  }
+  return launch_tf32<kD, 1, kTf32BlockKV, kVec>(p, s);
+}
+
+// Every tile the sweep times, on aligned views: (m16 tiles a warp, KV rows),
+// 4 warps a CTA; two m16 tiles at D = 64 only.
 template <int kD>
-int launch_scalar_or_mma(const Params& p, int dtype, int aligned, cudaStream_t s) {
+int launch_tf32_tile(const Params& p, int m_tiles, int kv_rows, cudaStream_t s) {
+  if (m_tiles == 1 && kv_rows == 32) return launch_tf32<kD, 1, 32, true>(p, s);
+  if (m_tiles == 1 && kv_rows == 48) return launch_tf32<kD, 1, 48, true>(p, s);
+  if (m_tiles == 1 && kv_rows == 64) return launch_tf32<kD, 1, 64, true>(p, s);
+  if constexpr (kD == 64) {
+    if (m_tiles == 2 && kv_rows == 32) return launch_tf32<kD, 2, 32, true>(p, s);
+    if (m_tiles == 2 && kv_rows == 64) return launch_tf32<kD, 2, 64, true>(p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int kD>
+int launch_mma_or_tf32(const Params& p, int dtype, int aligned, cudaStream_t s) {
   if (dtype == 1) return aligned ? launch_mma_sync<kD, true>(p, s) : launch_mma_sync<kD, false>(p, s);
-  if (dtype == 0) return aligned ? launch_f32<kD, true>(p, s) : launch_f32<kD, false>(p, s);
+  if (dtype == 0) return aligned ? launch_tf32_default<kD, true>(p, s) : launch_tf32_default<kD, false>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The mma.sync (bf16) and scalar (fp32) kernels. dtype: 0 = float32,
+// The mma.sync (bf16) and 3xTF32 (fp32) kernels. dtype: 0 = float32,
 // 1 = bfloat16. D: 64, 80 or 128. Strides are in elements; the last dimension
 // must be contiguous. aligned: every row of q, k and v starts on a 16-byte
 // boundary (16-byte loads), else element loads. The output is a contiguous
@@ -1398,9 +1663,33 @@ extern "C" int uva_flash_attention(const void* q, const void* k, const void* v, 
   const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_scalar_or_mma<64>(p, dtype, aligned, s);
-  if (D == 80) return launch_scalar_or_mma<80>(p, dtype, aligned, s);
-  return launch_scalar_or_mma<128>(p, dtype, aligned, s);
+  if (D == 64) return launch_mma_or_tf32<64>(p, dtype, aligned, s);
+  if (D == 80) return launch_mma_or_tf32<80>(p, dtype, aligned, s);
+  return launch_mma_or_tf32<128>(p, dtype, aligned, s);
+}
+
+// The fp32 kernel at a tile of its sweep (m16 tiles a warp, KV rows a tile:
+// (1, 32), (1, 48), (1, 64) at every D; (2, 32), (2, 64) at D = 64), 4 warps
+// a CTA, aligned views only, on the same arguments; uva_flash_attention
+// takes the tile launch_tf32_default names. Returns as uva_flash_attention.
+extern "C" int uva_flash_attention_tf32_tile(const void* q, const void* k, const void* v, void* o,
+                                             int B, int N, int H, int D,
+                                             long long q_sb, long long q_sn, long long q_sh,
+                                             long long k_sb, long long k_sn, long long k_sh,
+                                             long long v_sb, long long v_sn, long long v_sh,
+                                             int m_tiles, int kv_rows, void* stream) {
+  const long long strides[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh};
+  bool ok = built_d(D) && B > 0 && N > 0 && H > 0 &&
+            ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+              reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  for (long long st : strides) ok = ok && (st * 4) % 16 == 0;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
+                               v_sb, v_sn, v_sh);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_tf32_tile<64>(p, m_tiles, kv_rows, s);
+  if (D == 80) return launch_tf32_tile<80>(p, m_tiles, kv_rows, s);
+  return launch_tf32_tile<128>(p, m_tiles, kv_rows, s);
 }
 
 // The single-pass Hopper kernel, bf16 only, on the same arguments: every

@@ -25,7 +25,12 @@ names, with no fallback between kernels:
   TPU's ``_attn_kernel``.
 * ``attention_mma_sync``: bf16 with an operand off a 16-byte boundary, which
   TMA cannot read: mma.sync with an online softmax over 64-wide KV tiles.
-* ``attention_f32``: fp32, scalar.
+* ``attention_f32``: fp32, aligned or not. Both products on the tensor
+  cores in 3xTF32 (each operand split into two TF32 halves, three mma.sync
+  m16n8k8 products, within the fp32 tolerance of 2e-5 where one TF32
+  product is not), K and V streamed in KV tiles by cp.async, an online
+  softmax in registers; its tile by D and N is ``launch_tf32_default`` in
+  the source.
 """
 
 from __future__ import annotations
@@ -96,7 +101,7 @@ def attention_plan(B: int, N: int, H: int, D: int, dtype: torch.dtype,
     Cached: the serving path asks for the same shapes on every call. A D
     outside ``HEAD_DIMS`` raises ``ValueError``.
 
-    * fp32: the scalar kernel.
+    * fp32: the 3xTF32 tensor-core kernel, aligned or not.
     * bf16, an operand off a 16-byte boundary: the mma.sync kernel.
     * bf16, N <= SINGLE_PASS_MAX_N (144, the 96 px path's N): the
       single-pass wgmma kernel, split where B·H·⌈N/64⌉ <= SPLIT_MAX_TILES[D]
@@ -159,6 +164,8 @@ def _lib():
     common = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
     lib.uva_flash_attention.argtypes = common + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.uva_flash_attention.restype = ctypes.c_int
+    lib.uva_flash_attention_tf32_tile.argtypes = common + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.uva_flash_attention_tf32_tile.restype = ctypes.c_int
     lib.uva_flash_attention_wgmma.argtypes = common + [ctypes.c_int, ctypes.c_void_p]
     lib.uva_flash_attention_wgmma.restype = ctypes.c_int
     lib.uva_flash_attention_online.argtypes = common + [ctypes.c_int, ctypes.c_void_p]

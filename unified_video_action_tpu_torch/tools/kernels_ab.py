@@ -43,9 +43,19 @@ paths' shapes at mar_base width (B=128 and B=1):
   crossover and split thresholds, per head dimension. The call exits
   non-zero if a variant disagrees with the plain version.
 
+* ``fp32_attention``: ``flash_attention`` in fp32 at the three serving
+  shapes at N = 144, (8, 1088, 12, 64) and (128, 1024, 12, 64), beside SDPA;
+  ``fp32_request``: the fp32 mar_base request at B=128 (chip_smoke.py's
+  ``fp32_request``). Both run on any tree: the before and after of the fp32
+  kernel.
+* ``tf32_tiles`` (only with ``--parts``; needs a tree with the 3xTF32
+  kernel): every tile of the fp32 kernel at each head dimension beside SDPA
+  and the bound; ``tf32_sass``: each fp32 instance's machine code, its
+  instructions per tensor-core product.
+
 The configs, the weights and chip_smoke.py's helpers are this repository's,
 whichever tree is timed. ``--parts`` picks what to measure (all but
-``attention_variants`` by default).
+``attention_variants``, ``tf32_tiles`` and ``tf32_sass`` by default).
 Run it for two trees in one call, in turns (A, B, B, A), and compare only
 within that call. Prints one JSON line, also written to ``--out``.
 """
@@ -215,6 +225,25 @@ def requests_256px(normalizer) -> dict:
     return out
 
 
+def fp32_request(meta_policy, normalizer) -> dict:
+    """The flagship's width in fp32 (compute_dtype="float32": the fp32
+    attention kernel at D = 64 in each of the 24 ViT blocks; matmuls and
+    convolutions without TF32), chip_smoke.py's seeded weights and frames:
+    ``predict_action_frames`` at B=128, 100 steps, by CUDA events
+    (chip_smoke.py's ``fp32_request``)."""
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    policy = UnifiedVideoActionPolicy.from_run_config(os.path.join(smoke.LATEST, "meta.json"),
+                                                      device="cuda", compute_dtype="float32")
+    policy.set_normalizer(normalizer)
+    policy.load_params(*smoke.serving_weights(meta_policy))
+    out = smoke.fp32_request(policy)
+    print(json.dumps({"fp32_request": out}), file=sys.stderr, flush=True)
+    return out
+
+
 VARIANT_SHAPES = [
     (128, 1024), (1, 1024), (8, 1088), (1, 2304), (2, 1088), (8, 1000), (8, 257),
     (128, 257), (32, 512), (128, 384), (8, 384),
@@ -292,8 +321,122 @@ def attention_variants(attention, head_dims) -> list:
     return rows
 
 
-PARTS = ("attention", "quantize_rows", "gemm", "deployed", "serve_256px", "attention_variants")
-DEFAULT_PARTS = PARTS[:-1]
+# the fp32 kernel's tiles (m16 tiles a warp, KV rows a tile; 4 warps a CTA)
+# that uva_flash_attention_tf32_tile builds at each head dimension, and the
+# fp32 shapes they are swept at: each fp32 serving path's N (144; the
+# kitchen's 320 at D = 128; the 256 px paths' 1024) at B = 1 and 128, a
+# ragged N and N = 2304 (the longest accumulation)
+TF32_TILES = {64: ((1, 32), (1, 48), (1, 64), (2, 32), (2, 64)),
+              80: ((1, 32), (1, 48), (1, 64)), 128: ((1, 32), (1, 48), (1, 64))}
+TF32_SHAPES = {
+    64: [(1, 144), (128, 144), (8, 1088), (128, 1024), (1, 2304)],
+    80: [(1, 144), (128, 144), (8, 1000), (128, 1024), (1, 2304)],
+    128: [(1, 144), (128, 144), (16, 320), (128, 320), (8, 1000), (1, 2304)],
+}
+
+
+# the fp32 shapes the wrapper is timed at, any tree: the three serving
+# shapes at N = 144, a long row, and the 256 px path's fp32 shape
+FP32_SHAPES = [(128, 144, 12, 64), (128, 144, 6, 128), (128, 144, 16, 80), (8, 1088, 12, 64),
+               (128, 1024, 12, 64)]
+
+
+def fp32_attention(attention) -> list:
+    """``flash_attention`` on fp32 views of one qkv tensor at each of
+    ``FP32_SHAPES`` (the kernel the tree's plan names), held against
+    ``attention_plain`` and timed by CUDA-graph replay beside SDPA and the
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    rows = []
+    for B, N, H, D in FP32_SHAPES:
+        q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").unbind(2)
+        errs, ok = smoke.attention_check(attention.flash_attention(q, k, v),
+                                         attention.attention_plain(q, k, v))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        row = {"B": B, "N": N, "H": H, "D": D, **errs, "ok": ok,
+               "ms": smoke.graph_ms(lambda: attention.flash_attention(q, k, v)),
+               "sdpa_ms": smoke.graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+               "bound_ms": smoke.attention_bound(B, N, H, D, torch.float32)[0]}
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        rows.append(row)
+    return rows
+
+
+def tf32_tiles(attention, head_dims) -> list:
+    """Every tile of the fp32 (3xTF32) kernel at each of ``TF32_SHAPES``,
+    held against ``attention_plain`` (chip_smoke.py's ``attention_check``)
+    and timed by CUDA-graph replay beside the wrapper (the tile it takes),
+    SDPA and the bound: the measurement behind csrc/attention.cu's
+    ``launch_tf32_default``. Raises if a tile disagrees with the plain version."""
+    lib = attention._lib()
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    rows, bad = [], []
+    for D in head_dims:
+        H = HEADS[D]
+        for B, N in TF32_SHAPES[D]:
+            q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").unbind(2)
+            want = attention.attention_plain(q, k, v)
+            out = torch.empty(B, N, H, D, device="cuda")
+            base = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+            row = {"B": B, "N": N, "H": H, "D": D}
+            for tile in TF32_TILES[D]:
+                def call(tile=tile):
+                    rc = lib.uva_flash_attention_tf32_tile(*base, *tile, torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"tf32 tile {tile}: CUDA error {rc}")
+                out.fill_(float("nan"))
+                call()
+                torch.cuda.synchronize()
+                errs, ok = smoke.attention_check(out, want)
+                if not ok:
+                    bad.append((B, N, D, tile, errs))
+                row["x".join(map(str, tile))] = {**errs, "ok": ok, "ms": smoke.graph_ms(call) if ok else None}
+            row["wrapper_ms"] = smoke.graph_ms(lambda: attention.flash_attention(q, k, v))
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            row["sdpa_ms"] = smoke.graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            row["bound_ms"], row["bound_by"] = smoke.attention_bound(B, N, H, D, torch.float32)
+            print(json.dumps(row), file=sys.stderr, flush=True)
+            rows.append(row)
+    if bad:
+        raise AssertionError(f"tf32 tiles disagree with the plain version: {bad}")
+    return rows
+
+
+def tf32_sass(attention) -> dict:
+    """The machine code of each fp32 (3xTF32) kernel instance in the tree's
+    built library, by ``cuobjdump -sass`` (beside nvcc): its instructions,
+    its HMMA (tensor-core) instructions among them and the most frequent
+    opcodes. The kernel's loop over a KV tile is unrolled whole, so their
+    ratio bounds from above the instructions issued per tensor-core product
+    (the code run once a CTA, before and after the loop, counts too)."""
+    import collections
+    import re
+    import subprocess
+
+    from unified_video_action_tpu_torch.ops import _build
+
+    attention._lib()
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "attn_tf32_kernel" not in name:
+            continue
+        ops = collections.Counter(re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body))
+        args = re.search(r"attn_tf32_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", name)
+        key = "D={} m_tiles={} kv_rows={} aligned={}".format(*args.groups()) if args else name
+        out[key] = {"instructions": sum(ops.values()), "hmma": ops["HMMA"],
+                    "per_hmma": sum(ops.values()) / max(ops["HMMA"], 1), "top": ops.most_common(12)}
+    print(json.dumps({"tf32_sass": out}), file=sys.stderr, flush=True)
+    return out
+
+
+PARTS = ("attention", "quantize_rows", "gemm", "deployed", "serve_256px", "fp32_attention",
+         "fp32_request", "attention_variants", "tf32_tiles", "tf32_sass")
+DEFAULT_PARTS = PARTS[:-3]
 
 
 def main() -> int:
@@ -321,7 +464,11 @@ def main() -> int:
                "gemm": lambda: gemm_rows(int8_mm, cfg),
                "deployed": lambda: deployed_requests(int8_mm, meta_policy, normalizer),
                "serve_256px": lambda: requests_256px(normalizer),
-               "attention_variants": lambda: attention_variants(attention, head_dims)}
+               "fp32_attention": lambda: fp32_attention(attention),
+               "fp32_request": lambda: fp32_request(meta_policy, normalizer),
+               "attention_variants": lambda: attention_variants(attention, head_dims),
+               "tf32_tiles": lambda: tf32_tiles(attention, head_dims),
+               "tf32_sass": lambda: tf32_sass(attention)}
     parts = args.parts.split(",")
     unknown = set(parts) - set(PARTS)
     if unknown:
