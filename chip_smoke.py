@@ -22,11 +22,14 @@ attention_plan picks.
            the same function; every launch lands on the kernel its plan
            names (attention_plan, quantize_plan, gemm_plan); the attention
            kernels within attention_check's limits, which a planted
-           unmasked ragged KV edge must fail at every ragged N; at D = 80
-           the head-width control: views whose next 48 columns in memory
-           hold NaN must come out finite and within the limits (columns
-           80-127 of the TMA kernels' tiles are TMA's zero fill), and a
-           planted kernel that reads all 128 columns must fail; the fp32
+           unmasked ragged KV edge must fail at every ragged N; bf16 views
+           off a 16-byte boundary through the staging copy (bit-equal to
+           torch.stack) and the TMA kernels; at D = 80 the online kernel's
+           exact-width tiles at ragged N (137, 500, 1000) in both work-item
+           sizes, and the head-width control: views whose next 48 columns
+           in memory hold NaN must come out finite and within the limits
+           (no kernel reads a column past 79 from memory), and a planted
+           kernel that reads all 128 columns must fail; the fp32
            (3xTF32) kernel at every D within 2e-5 at N = 144, a ragged N,
            unaligned views and N = 2304, and at the 256 px path's fp32
            (128, 1024, 12, 64); the int8
@@ -282,7 +285,7 @@ def attention_bound(B: int, N: int, H: int, D: int, dtype: torch.dtype):
 
 # (B, N, H, D, dtype, aligned): aligned cases are strided views of one qkv
 # tensor, as the fused projection leaves them; the unaligned ones start them
-# an element off a 16-byte boundary (the mma.sync kernel's only inputs)
+# an element off a 16-byte boundary (bf16: staged, then the TMA kernels)
 ATTENTION_CASES = [
     (128, 144, 12, 64, torch.bfloat16, True),  # the serving shape at B=128
     (1, 144, 12, 64, torch.bfloat16, True),  # the serving shape at B=1
@@ -307,7 +310,7 @@ ATTENTION_CASES = [
     # 144 (single pass, split at every B), the kitchen path's N = 320 (online,
     # a 64-row last KV tile, whose edge left unmasked must fail the checks;
     # 64-row items at B = 1 and 16, 128-row ones at B = 128), unaligned views
-    # (mma.sync) and fp32
+    # (staged) and fp32
     (1, 144, 6, 128, torch.bfloat16, True), (128, 144, 6, 128, torch.bfloat16, True),
     (1, 320, 6, 128, torch.bfloat16, True), (16, 320, 6, 128, torch.bfloat16, True),
     (128, 320, 6, 128, torch.bfloat16, True),
@@ -317,13 +320,12 @@ ATTENTION_CASES = [
     # unaligned views and N = 2304
     (8, 1000, 6, 128, torch.float32, True), (8, 320, 6, 128, torch.float32, False),
     (1, 2304, 6, 128, torch.float32, True),
-    # head dimension 80 (mar_huge, 16 heads; held in D = 128's tiles with
-    # columns 80-127 from TMA's zero fill): the 96 px path's N = 144 (single
-    # pass, split at every B), the 256 px path's N = 1024 (online, 128-row
-    # items at B = 1, 16 and 128), ragged online N whose edge left unmasked
-    # must fail the checks (64-row items at (1, 500), 128-row ones at
-    # (8, 1000)), unaligned views (mma.sync) and fp32 (exact width: ten
-    # k-steps and n-tiles of 8) at N = 144, a ragged N, unaligned and N = 2304
+    # head dimension 80 (mar_huge, 16 heads): the 96 px path's N = 144 (single
+    # pass, split at every B, in D = 128's tiles with columns 80-127 from
+    # TMA's zero fill), the 256 px path's N = 1024 (online, exact width), ragged
+    # online N whose edge left unmasked must fail the checks, unaligned views
+    # (staged) and fp32 (exact width: ten k-steps and n-tiles of 8) at N =
+    # 144, a ragged N, unaligned and N = 2304
     (1, 144, 16, 80, torch.bfloat16, True), (128, 144, 16, 80, torch.bfloat16, True),
     (1, 1024, 16, 80, torch.bfloat16, True), (16, 1024, 16, 80, torch.bfloat16, True),
     (128, 1024, 16, 80, torch.bfloat16, True), (8, 1000, 16, 80, torch.bfloat16, True),
@@ -368,13 +370,44 @@ def unmasked_edge_control(attention_ops, q, k, v, edge: int) -> dict:
     return {"rows": -n % edge, **errs, "rejected": not ok}
 
 
+def stage_bound(q) -> tuple:
+    """Least time for the staging copy of (B, N, H, D) q, k, v: each value
+    read once and written once."""
+    return 2 * 3 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def stage_check(attention_ops, q, k, v) -> dict:
+    """The staging copy on views off a 16-byte boundary: one launch,
+    bit-equal to its plain version (torch.stack), views that TMA can read;
+    its time by CUDA-graph replay beside torch.stack's and the bound."""
+    before = attention_ops.launch_count[attention_ops.STAGE]
+    staged = attention_ops.stage_qkv(q, k, v)
+    torch.cuda.synchronize()
+    launches = attention_ops.launch_count[attention_ops.STAGE] - before
+    want = attention_ops.stage_plain(q, k, v)
+    got = torch.stack(staged, dim=2)
+    bound_ms, bound_by = stage_bound(q)
+    out = dict(launches=launches, bit_equal=bool(torch.equal(got, want)),
+               max_abs_err=(got.float() - want.float()).abs().max().item(),
+               aligned=attention_ops._check(*staged),
+               ms=graph_ms(lambda: attention_ops.stage_qkv(q, k, v)),
+               plain_ms=time_ms(lambda: attention_ops.stage_plain(q, k, v), reps=5),
+               library_ms=graph_ms(lambda: torch.stack((q, k, v), dim=2)),
+               bound_ms=bound_ms, bound_by=bound_by)
+    if not (launches == 1 and out["bit_equal"] and out["aligned"]):
+        raise AssertionError(f"the staging copy is not one launch bit-equal to torch.stack "
+                             f"into views TMA can read: {out}")
+    return out
+
+
 def phase_kernel(attention_ops):
     """Every case of ATTENTION_CASES: one launch, of the kernel
-    ``attention_plan`` names, within ``attention_check``'s limits of the
-    plain version, and where N leaves a ragged KV edge, that edge planted
-    unmasked must fail them; then its time by CUDA-graph replay beside
-    ``scaled_dot_product_attention``'s (kernel, library, library, kernel),
-    the plain version's and the bound."""
+    ``attention_plan`` names (after one of the staging copy where the plan
+    is staged, the copy held bit-equal to torch.stack by ``stage_check``),
+    within ``attention_check``'s limits of the plain version, and where N
+    leaves a ragged KV edge, that edge planted unmasked must fail them; then
+    its time by CUDA-graph replay beside ``scaled_dot_product_attention``'s
+    (kernel, library, library, kernel), the plain version's and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     for B, N, H, D, dtype, aligned in ATTENTION_CASES:
@@ -385,12 +418,16 @@ def phase_kernel(attention_ops):
         if attention_ops._check(q, k, v) != aligned:
             raise AssertionError(f"case ({B}, {N}, {H}, {D}, {dtype}): not {'un' * (not aligned)}aligned")
         plan = attention_ops.attention_plan(B, N, H, D, dtype, aligned)
+        if plan.staged != (dtype == torch.bfloat16 and not aligned):
+            raise AssertionError(f"case ({B}, {N}, {H}, {D}, {dtype}, {aligned}): plan {plan}")
         before = dict(attention_ops.instance_count)
+        stages_before = attention_ops.launch_count[attention_ops.STAGE]
         out = attention_ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
         launched = {n: c - before[n] for n, c in attention_ops.instance_count.items() if c != before[n]}
+        stages = attention_ops.launch_count[attention_ops.STAGE] - stages_before
         errs, ok = attention_check(out, attention_ops.attention_plain(q, k, v))
-        ok = ok and launched == {plan.instance: 1}
+        ok = ok and launched == {plan.instance: 1} and stages == int(plan.staged)
         edge = KV_EDGE.get(plan.kernel)
         control = (unmasked_edge_control(attention_ops, q, k, v, edge)
                    if edge and N % edge else None)
@@ -408,16 +445,53 @@ def phase_kernel(attention_ops):
         bound_ms, bound_by = attention_bound(B, N, H, D, dtype)
         ms = statistics.mean(readings["kernel"])
         row = dict(B=B, N=N, H=H, D=D, dtype=str(dtype).split(".")[-1], aligned=aligned,
-                   kernel=plan.kernel, instance=plan.instance, split=plan.split, launched=launched, **errs,
+                   kernel=plan.kernel, instance=plan.instance, split=plan.split, staged=plan.staged,
+                   launched=launched, **errs,
                    atol=ATTN_ATOL[dtype], unmasked_edge_control=control, ms=ms, readings=readings,
                    plain_ms=time_ms(lambda: attention_ops.attention_plain(q, k, v), reps=5),
                    library_ms=statistics.mean(readings["library"]),
                    bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms)
+        if plan.staged:
+            row["stage"] = stage_check(attention_ops, q, k, v)
         log("attention " + json.dumps(row))
         if not ok:
             raise AssertionError(f"attention kernel disagrees with its plain version or its "
                                  f"plan, or its checks pass an unmasked KV edge: {row}")
         rows.append(row)
+    return rows
+
+
+# the online kernel's exact-width D = 80 tiles at ragged N (one KV tile of
+# 137 rows; last tiles of 116 and 104 rows), at B = 1 and 16, in both
+# work-item sizes whatever the plan picks (at N = 137 it picks the single pass)
+ONLINE_D80_RAGGED = [(B, N) for B in (1, 16) for N in (137, 500, 1000)]
+
+
+def online_d80_ragged(attention_ops) -> list:
+    """Each case of ONLINE_D80_RAGGED through ``uva_flash_attention_online``
+    in both item sizes, into a NaN-filled output, within
+    ``attention_check``'s limits of the plain version (a wrong 32-byte-swizzle
+    descriptor or barrier count would give finite, wrong numbers). Direct
+    calls: no launch is counted."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    lib = attention_ops._lib()
+    rows = []
+    for B, N in ONLINE_D80_RAGGED:
+        q, k, v = torch.randn(B, N, 3, 16, 80, generator=gen, device="cuda").to(torch.bfloat16).unbind(2)
+        want = attention_ops.attention_plain(q, k, v)
+        for split in (True, False):
+            out = torch.full((B, N, 16, 80), float("nan"), dtype=torch.bfloat16, device="cuda")
+            rc = lib.uva_flash_attention_online(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 16, 80,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(split),
+                torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            errs, ok = attention_check(out, want)
+            row = dict(B=B, N=N, split=split, rc=rc, **errs, ok=ok and rc == 0)
+            log("online D = 80 ragged " + json.dumps(row))
+            if not row["ok"]:
+                raise AssertionError(f"the online kernel's D = 80 tiles disagree at a ragged N: {row}")
+            rows.append(row)
     return rows
 
 
@@ -441,10 +515,11 @@ def reads_128_columns(attention_ops, buf):
 def head_width_control(attention_ops) -> list:
     """D = 80 views whose next 48 columns in memory hold NaN: the kernel the
     plan names must launch, and its output be finite and within
-    ``attention_check``'s limits of the plain version (the TMA kernels take
-    columns 80-127 of their 128-column tiles from TMA's zero fill, never from
-    memory); the planted kernel reading 128 columns must fail those limits,
-    and pass them where the neighbouring columns hold zeros."""
+    ``attention_check``'s limits of the plain version (the single pass takes
+    columns 80-127 of its 128-column tiles from TMA's zero fill, the online
+    kernel's boxes end at column 79); the planted kernel reading 128 columns
+    must fail those limits, and pass them where the neighbouring columns
+    hold zeros."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
     rows = []
     for B, N, dtype in HEAD_WIDTH_CASES:
@@ -506,8 +581,9 @@ def attention_launches_per_request(attention_ops, cfg, B: int, dtype) -> dict:
     """Launches of each attention kernel in one request at batch B, from the
     config: one per ViT block, of the kernel attention_plan names."""
     plan = attention_plan_of(attention_ops, cfg, B, dtype)
-    return {n: (cfg.encoder_depth + cfg.decoder_depth) * (n == plan.kernel)
-            for n in attention_ops.KERNELS}
+    return {n: (cfg.encoder_depth + cfg.decoder_depth) * (n == plan.kernel or (n == attention_ops.STAGE
+                                                                                and plan.staged))
+            for n in attention_ops.launch_count}
 
 
 def attention_instances_per_request(attention_ops, cfg, B: int, dtype) -> dict:
@@ -1900,6 +1976,7 @@ def main() -> int:
     huge_cfg = UnifiedVideoActionPolicy.from_cfg(port_config.PUSHT_HUGE96, device="meta").mar_cfg
     with Phase("kernel"):
         rows = phase_kernel(attention_ops)
+        ragged_d80_rows = online_d80_ragged(attention_ops)
         width_rows = head_width_control(attention_ops)
         int8_rows = phase_kernel_int8(int8_ops, quant, int8_path_shapes(meta_policy.mar_cfg))
         int8_huge_rows = phase_kernel_int8(int8_ops, quant, int8_mar_shapes(huge_cfg), misaligned=False)
@@ -1945,7 +2022,7 @@ def main() -> int:
                          "predict_action_cached_deployed": deployed, **rollout_paths,
                          "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen,
                          "serve_huge96": launches_huge96, "serve_huge256": launches_huge256}
-    attention_keys = attention_ops.KERNELS + attention_ops.INSTANCES
+    attention_keys = tuple(attention_ops.launch_count) + attention_ops.INSTANCES
     attention_by_path = {path: {k: n[k] for k in attention_keys}
                          for path, n in attention_by_path.items()}
     attention_launches = {k: sum(p[k] for p in attention_by_path.values()) for k in attention_keys}
@@ -1977,12 +2054,27 @@ def main() -> int:
 
     # one entry per instance of the two TMA kernels, which the counted paths
     # launch, and of the fp32 kernel, which the fp32 request and the serve
-    # phases' fp32 checks launch; the mma.sync kernel launches on no path and
-    # is held in the kernel phase. Its rows and every fp32 row are under
-    # "unaligned_and_fp32".
-    side_rows = {"attention_mma_sync_d64": attention_row(rows, 8, 1088, D=64, aligned=False),
-                 "attention_mma_sync_d80": attention_row(rows, 8, 1024, D=80, aligned=False),
-                 "attention_mma_sync_d128": attention_row(rows, 8, 320, D=128, aligned=False),
+    # phases' fp32 checks launch. The staged route (the staging copy, then a
+    # TMA kernel) serves bf16 views off a 16-byte boundary, which no path
+    # makes: it is held in the kernel phase, and its rows, the copy's entry
+    # and every fp32 row are under "unaligned_and_fp32".
+    staged_rows = {"attention_staged_d64": attention_row(rows, 8, 1088, D=64, aligned=False),
+                   "attention_staged_d80": attention_row(rows, 8, 1024, D=80, aligned=False),
+                   "attention_staged_d128": attention_row(rows, 8, 320, D=128, aligned=False)}
+    stage_entry = {
+        "name": "attention_stage", "route": "cuda",
+        "source": "unified_video_action_tpu_torch/csrc/attention.cu",
+        "replaces": "unified_video_action_tpu/ops/attention.py:161",
+        "role": "copies bf16 q, k, v views that TMA cannot read into one buffer for the TMA kernels",
+        "launches": attention_launches[attention_ops.STAGE],
+        "launches_kernel_phase": sum(r["stage"]["launches"] for r in rows if r["staged"]),
+        "shape": [8, 1088, 12, 64],
+        **{k: staged_rows["attention_staged_d64"]["stage"][k]
+           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "by_d": {name: {k: r["stage"][k] for k in ("ms", "library_ms", "bound_ms")}
+                 for name, r in staged_rows.items()},
+    }
+    side_rows = {**staged_rows,
                  **{f"{r['instance']} ({r['B']}, {r['N']}){'' if r['aligned'] else ' unaligned'}": r
                     for r in rows if r["kernel"] == "attention_f32"}}
     fp32_instances = [f"attention_f32_d{D}" for D in attention_ops.HEAD_DIMS]
@@ -2004,8 +2096,9 @@ def main() -> int:
     kernels = {"kernels": [
         {**attention_entry("flash_attention", "attention_wgmma_d64", 33, (128, 144, 12, 64), b1=(1, 144)),
          "launches_by_kernel": attention_launches,
-         "unaligned_and_fp32": {k: {**timing(r), "shape": [r["B"], r["N"], r["H"], r["D"]]}
-                                for k, r in side_rows.items()}},
+         "unaligned_and_fp32": {**{k: {**timing(r), "shape": [r["B"], r["N"], r["H"], r["D"]]}
+                                   for k, r in side_rows.items()},
+                                "attention_stage": stage_entry}},
         {**attention_entry("flash_attention_online", "attention_wgmma_online_d64", 67,
                            (128, 1024, 12, 64), b1=(1, 1024)),
          "by_shape": {f"({r['B']}, {r['N']})": {"ms": r["ms"], "library_ms": r["library_ms"],
@@ -2018,8 +2111,9 @@ def main() -> int:
         {**attention_entry("flash_attention_d80", "attention_wgmma_d80", 33, (128, 144, 16, 80),
                            b1=(1, 144)),
          "head_width_control": width_rows},
-        attention_entry("flash_attention_online_d80", "attention_wgmma_online_d80", 67,
-                        (128, 1024, 16, 80), b1=(1, 1024), b16=(16, 1024)),
+        {**attention_entry("flash_attention_online_d80", "attention_wgmma_online_d80", 67,
+                           (128, 1024, 16, 80), b1=(1, 1024), b16=(16, 1024)),
+         "ragged_n": ragged_d80_rows},
         {**fp32_entry("attention_f32_d64", (128, 144, 12, 64)),
          "request_b128": {k: fp32[k] for k in ("median_ms", "attention_device_ms", "attention_instances")
                           if k in fp32}},

@@ -15,14 +15,17 @@ it, and N beyond the TPU's single-pass limit of 2048, at head dimension 64
 (12 heads); and at head dimension 128 (6 heads, mar_small) the 96 px
 mar_small path's N = 144 and the kitchen path's N = 320 (a 64-row last KV
 tile), for every kernel; at head dimension 80 (16 heads, mar_huge) its N =
-144 and N = 1024, for every kernel, and the head-width control: D = 80
-views whose next 48 columns in memory hold NaN, which every kernel must
-leave unread (the TMA kernels take columns 80-127 of their 128-column tiles
-from TMA's zero fill), and which a kernel reading 128 columns must fail.
-Each launch must land on the kernel, and the instance, that attention_plan
-names. The fp32 kernel (3xTF32 on the tensor cores) is held at every head
-dimension at N = 1088, ragged N and N = 2304, on aligned and unaligned
-views, and at every tile its sweep entry builds.
+144 and N = 1024, for every kernel, the online kernel's exact-width tiles
+(a 64-column and a 16-column slab, each with its own TMA box and wgmma
+descriptor) at ragged N (137, 500, 1000) in both work-item sizes, and the
+head-width control: D = 80 views whose next 48 columns in memory hold NaN,
+which every kernel must leave unread, and which a kernel reading 128
+columns must fail. bf16 views off a 16-byte boundary go through the staging
+copy (bit-equal to torch.stack) and then the TMA kernels. Each launch must
+land on the kernel, and the instance, that attention_plan names. The fp32
+kernel (3xTF32 on the tensor cores) is held at every head dimension at N =
+1088, ragged N and N = 2304, on aligned and unaligned views, and at every
+tile its sweep entry builds.
 """
 
 import pytest
@@ -40,7 +43,8 @@ def card():
 
 
 def _launch_matches_plain(q, k, v, atol):
-    """One launch, of the kernel the plan names, within atol of the plain version."""
+    """One launch, of the kernel the plan names (after one launch of the
+    staging copy where the plan is staged), within atol of the plain version."""
     B, N, H, D = q.shape
     plan = port.attention_plan(B, N, H, D, q.dtype, port._check(q, k, v))
     before = dict(port.launch_count)
@@ -48,7 +52,7 @@ def _launch_matches_plain(q, k, v, atol):
     got = port.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert {n: c - before[n] for n, c in port.launch_count.items()} == {
-        n: int(n == plan.kernel) for n in port.KERNELS}
+        n: int(n == plan.kernel or (n == port.STAGE and plan.staged)) for n in port.launch_count}
     assert {n: c - before_instances[n] for n, c in port.instance_count.items()} == {
         n: int(n == plan.instance) for n in port.INSTANCES}
     want = port.attention_plain(q, k, v)
@@ -107,19 +111,41 @@ def test_the_online_kernel_past_the_single_pass_limit(card, B, N, split):
 
 
 @pytest.mark.cuda
-def test_rows_off_a_16_byte_boundary_take_the_mma_sync_kernel(card):
+def test_rows_off_a_16_byte_boundary_are_staged(card):
     B, N, H = 4, 144, 12
     g = torch.Generator(device="cuda").manual_seed(1)
     buf = torch.randn(B * N * 3 * H * 64 + 1, generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = buf[1:].view(B, N, 3, H, 64).unbind(2)
     assert not port._check(q, k, v)
-    assert _launch_matches_plain(q, k, v, 3e-2) == port.AttentionPlan("attention_mma_sync", 64)
+    assert _launch_matches_plain(q, k, v, 3e-2) == port.AttentionPlan("attention_wgmma", 64, True, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(64, 12), (80, 16), (128, 6)])
+@pytest.mark.parametrize("offset_bytes", [2, 4, 8, 16])
+def test_the_staging_copy_is_bit_equal_to_stack(card, D, H, offset_bytes):
+    # views whose base lies 2, 4, 8 or 16 bytes past a 16-byte boundary (the
+    # copy's 2-, 4-, 8- and 16-byte loads), and a q with rows of a wider
+    # tensor: one launch, bit-equal to torch.stack, into views TMA can read
+    B, N = 3, 201
+    g = torch.Generator(device="cuda").manual_seed(D + offset_bytes)
+    buf = torch.randn(B * N * 3 * H * D + 8, generator=g, device="cuda").to(torch.bfloat16)
+    qkv = buf[offset_bytes // 2:][:B * N * 3 * H * D].view(B, N, 3, H, D)
+    _, k, v = qkv.unbind(2)
+    q = torch.randn(B, N, H, D + 8, generator=g, device="cuda").to(torch.bfloat16)[..., 4:4 + D]
+    before = port.launch_count[port.STAGE]
+    staged = port.stage_qkv(q, k, v)
+    torch.cuda.synchronize()
+    assert port.launch_count[port.STAGE] == before + 1
+    assert port._check(*staged)
+    for got, want in zip(staged, (q, k, v)):
+        assert torch.equal(got, want)
 
 
 # head dimension 128 (mar_small: 768 over 6 heads): the 96 px path's N = 144
 # (the single-pass kernel, split at B = 1), the kitchen path's N = 320 (the
 # online kernel, KV tiles of 128, 128 and 64 rows), ragged N, unaligned views
-# (mma.sync) and fp32 (the scalar kernel)
+# (staged, then the TMA kernel of the aligned call) and fp32 (3xTF32)
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "B,N,dtype,aligned,kernel,atol",
@@ -131,8 +157,8 @@ def test_rows_off_a_16_byte_boundary_take_the_mma_sync_kernel(card):
         (16, 320, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
         (128, 320, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
         (8, 1000, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
-        (8, 320, torch.bfloat16, False, "attention_mma_sync", 3e-2),
-        (4, 137, torch.bfloat16, False, "attention_mma_sync", 3e-2),
+        (8, 320, torch.bfloat16, False, "attention_wgmma_online", 3e-2),
+        (4, 137, torch.bfloat16, False, "attention_wgmma", 3e-2),
         (128, 144, torch.float32, True, "attention_f32", 2e-5),
         (4, 320, torch.float32, True, "attention_f32", 2e-5),
         (4, 100, torch.float32, False, "attention_f32", 2e-5),
@@ -146,7 +172,7 @@ def test_head_dim_128_on_the_card(card, B, N, dtype, aligned, kernel, atol):
     q, k, v = flat[int(not aligned):].view(shape).unbind(2)
     assert port._check(q, k, v) == aligned
     plan = _launch_matches_plain(q, k, v, atol)
-    assert (plan.kernel, plan.head_dim) == (kernel, D)
+    assert (plan.kernel, plan.head_dim, plan.staged) == (kernel, D, not aligned and dtype == torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -187,11 +213,11 @@ def test_a_head_dim_without_an_instance_raises(card):
         port.flash_attention(q, q, q)
 
 
-# head dimension 80 (mar_huge: 1280 over 16 heads), held in D = 128's
-# shared-memory layout with columns 80-127 from TMA's zero fill: the 96 px
-# path's N = 144 (the single pass, always split), the 256 px path's N = 1024
-# (the online kernel), ragged N, unaligned views (mma.sync: five k-steps and
-# ten n-tiles) and fp32 (two threads of 40 columns a row)
+# head dimension 80 (mar_huge: 1280 over 16 heads): the 96 px path's N = 144
+# (the single pass, always split, in D = 128's layout with columns 80-127
+# from TMA's zero fill), the 256 px path's N = 1024 (the online kernel at
+# exact width), ragged N, unaligned views (staged, then the TMA kernel of the
+# aligned call) and fp32 (exact width: ten k-steps and n-tiles of 8)
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "B,N,dtype,aligned,kernel,atol",
@@ -203,8 +229,8 @@ def test_a_head_dim_without_an_instance_raises(card):
         (1, 1024, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
         (8, 1024, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
         (4, 1000, torch.bfloat16, True, "attention_wgmma_online", 3e-2),
-        (8, 1024, torch.bfloat16, False, "attention_mma_sync", 3e-2),
-        (4, 137, torch.bfloat16, False, "attention_mma_sync", 3e-2),
+        (8, 1024, torch.bfloat16, False, "attention_wgmma_online", 3e-2),
+        (4, 137, torch.bfloat16, False, "attention_wgmma", 3e-2),
         (128, 144, torch.float32, True, "attention_f32", 2e-5),
         (2, 1024, torch.float32, True, "attention_f32", 2e-5),
         (4, 100, torch.float32, False, "attention_f32", 2e-5),
@@ -218,7 +244,7 @@ def test_head_dim_80_on_the_card(card, B, N, dtype, aligned, kernel, atol):
     q, k, v = flat[int(not aligned):].view(shape).unbind(2)
     assert port._check(q, k, v) == aligned
     plan = _launch_matches_plain(q, k, v, atol)
-    assert (plan.kernel, plan.head_dim) == (kernel, D)
+    assert (plan.kernel, plan.head_dim, plan.staged) == (kernel, D, not aligned and dtype == torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -235,6 +261,28 @@ def test_head_dim_80_both_work_item_sizes(card, B, N, split):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 16, 80,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(split),
             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = port.attention_plain(q, k, v).float()
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=3e-2)
+    assert (out.float() - want).norm() / want.norm() <= BF16_REL_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("N", [137, 500, 1000])
+def test_head_dim_80_online_tiles_at_ragged_n(card, N, B, split):
+    # the online kernel's exact-width D = 80 tiles (a wrong 32-byte-swizzle
+    # descriptor or barrier count gives finite, wrong numbers) at ragged N:
+    # one KV tile of 137 rows, a last one of 116 (500) or 104 (1000), in
+    # both work-item sizes, whatever the plan would pick
+    g = torch.Generator(device="cuda").manual_seed(11 * N + B)
+    q, k, v = torch.randn(B, N, 3, 16, 80, generator=g, device="cuda").to(torch.bfloat16).unbind(2)
+    out = torch.full((B, N, 16, 80), float("nan"), dtype=torch.bfloat16, device="cuda")
+    rc = port._lib().uva_flash_attention_online(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, 16, 80,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(split), torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
     want = port.attention_plain(q, k, v).float()

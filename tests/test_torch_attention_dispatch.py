@@ -4,8 +4,10 @@ CPU: which kernel the serving shapes get (the single-pass wgmma kernel at
 online-softmax wgmma kernel at the 256 px path's (B, 1024, 12, 64), in
 64-row work items at small B), where the single-pass kernel stops (N = 144)
 and the online kernel takes over, that an operand off a 16-byte boundary
-takes the mma.sync kernel, that fp32 takes the scalar kernel, and that plans
-are cached and name the launch counters. At head dimension 128 (mar_small,
+takes the plan of the aligned call, staged (copied by the staging kernel
+into one buffer TMA can read; its plain version on CPU tensors returns
+views the check calls aligned, equal to the inputs), that fp32 takes the
+3xTF32 kernel, and that plans are cached and name the launch counters. At head dimension 128 (mar_small,
 6 heads) the same kernels at the 96 px mar_small path's N = 144 and the
 kitchen path's N = 320, with their own split thresholds; at head dimension
 80 (mar_huge, 16 heads) the same kernels at its N = 144 and N = 1024; a
@@ -13,6 +15,9 @@ head dimension with no instance raises. The kernels themselves run only on
 the card (tests/test_torch_attention_cuda.py).
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -37,12 +42,17 @@ def test_the_smallest_instance_that_holds_n(N, kernel):
     assert attention_plan(64, N, 12, 64, BF16).kernel == kernel
 
 
+def _staged(plan: AttentionPlan) -> AttentionPlan:
+    return dataclasses.replace(plan, staged=True)
+
+
 @pytest.mark.parametrize("N", [257, 1088, 2304])
-def test_past_the_single_pass_limit_takes_the_mma_sync_kernel(N):
-    # past the limit the mma.sync kernel now takes only views TMA cannot read
+def test_past_the_single_pass_limit_unaligned_views_are_staged(N):
+    # views TMA cannot read take the online kernel too, after the staging copy
     assert N > attention.SINGLE_PASS_MAX_N
-    assert attention_plan(1, N, 12, 64, BF16, aligned=False) == AttentionPlan("attention_mma_sync", 64)
-    assert attention_plan(1, N, 12, 64, BF16).kernel == "attention_wgmma_online"
+    aligned = attention_plan(1, N, 12, 64, BF16)
+    assert aligned.kernel == "attention_wgmma_online" and not aligned.staged
+    assert attention_plan(1, N, 12, 64, BF16, aligned=False) == _staged(aligned)
 
 
 @pytest.mark.parametrize("N", [257, 1000, 1024, 1088, 2304])
@@ -64,15 +74,16 @@ def test_the_online_kernel_splits_for_few_items(B, N, split):
     assert split == (B * 12 * -(-N // 128) <= attention.ONLINE_SPLIT_MAX_ITEMS[64])
 
 
-def test_an_unaligned_operand_takes_the_mma_sync_kernel():
+def test_an_unaligned_operand_takes_the_staged_plan():
     for B in (1, 128):
         for D in attention.HEAD_DIMS:
-            assert attention_plan(B, 144, 12, D, BF16, aligned=False) == \
-                AttentionPlan("attention_mma_sync", D)
+            plan = attention_plan(B, 144, 12, D, BF16, aligned=False)
+            assert plan == _staged(attention_plan(B, 144, 12, D, BF16))
+            assert plan.kernel == "attention_wgmma" and plan.instance == f"attention_wgmma_d{D}"
 
 
 @pytest.mark.parametrize("N,aligned", [(144, True), (2304, True), (144, False)])
-def test_fp32_takes_the_scalar_kernel(N, aligned):
+def test_fp32_takes_the_tf32_kernel(N, aligned):
     for D in attention.HEAD_DIMS:
         assert attention_plan(2, N, 12, D, torch.float32, aligned) == AttentionPlan("attention_f32", D)
 
@@ -106,15 +117,17 @@ def test_plans_are_cached():
 
 
 def test_plans_name_the_launch_counters():
-    assert set(attention.KERNELS) == set(attention.launch_count)
-    assert set(attention.KERNELS) == {"attention_wgmma", "attention_wgmma_online",
-                                      "attention_mma_sync", "attention_f32"}
+    assert set(attention.KERNELS) | {attention.STAGE} == set(attention.launch_count)
+    assert set(attention.KERNELS) == {"attention_wgmma", "attention_wgmma_online", "attention_f32"}
+    assert attention.STAGE == "attention_stage"
     assert set(attention.INSTANCES) == set(attention.instance_count)
     plans = [attention_plan(B, N, 12, D, dtype, aligned)
              for B in (1, 128) for N in (144, 256, 257, 1024) for D in attention.HEAD_DIMS
              for dtype in (BF16, torch.float32) for aligned in (True, False)]
     assert {p.kernel for p in plans} == set(attention.KERNELS)
     assert {p.instance for p in plans} == set(attention.INSTANCES)
+    assert {p.staged for p in plans if p.kernel != "attention_f32"} == {True, False}
+    assert not any(p.staged for p in plans if p.kernel == "attention_f32")
     assert attention_plan(1, 320, 6, 128, BF16).instance == "attention_wgmma_online_d128"
 
 
@@ -143,7 +156,7 @@ def test_head_dim_128_serving_shapes(B, N, kernel, split):
 
 @pytest.mark.parametrize("B,N", [(1, 144), (128, 144), (8, 320), (128, 320)])
 def test_head_dim_128_unaligned_and_fp32(B, N):
-    assert attention_plan(B, N, 6, 128, BF16, aligned=False) == AttentionPlan("attention_mma_sync", 128)
+    assert attention_plan(B, N, 6, 128, BF16, aligned=False) == _staged(attention_plan(B, N, 6, 128, BF16))
     assert attention_plan(B, N, 6, 128, torch.float32) == AttentionPlan("attention_f32", 128)
 
 
@@ -190,20 +203,22 @@ def test_head_dim_80_serving_shapes(B, N, kernel, split):
 
 @pytest.mark.parametrize("B,N", [(1, 144), (128, 144), (8, 1024), (128, 1024)])
 def test_head_dim_80_unaligned_and_fp32(B, N):
-    assert attention_plan(B, N, 16, 80, BF16, aligned=False) == AttentionPlan("attention_mma_sync", 80)
+    assert attention_plan(B, N, 16, 80, BF16, aligned=False) == _staged(attention_plan(B, N, 16, 80, BF16))
     assert attention_plan(B, N, 16, 80, torch.float32) == AttentionPlan("attention_f32", 80)
 
 
 @pytest.mark.parametrize("B,N", [(1, 144), (4096, 144), (1, 1024), (2, 1024), (3, 1024),
                                  (4, 1024), (16, 1024), (128, 1024), (8, 1000), (8, 257)])
 def test_head_dim_80_split_thresholds(B, N):
-    # the thresholds of D = 80 are its own (tools/kernels_ab.py's sweep at D = 80)
+    # the thresholds of D = 80 are its own (tools/kernels_ab.py's sweep at
+    # D = 80, rerun on the online kernel's exact-width tiles: 64-row items
+    # up to 64 of 128 rows, 128-row ones from 80)
     plan = attention_plan(B, N, 16, 80, BF16)
     assert attention.SPLIT_MAX_TILES[80] is None
     if plan.kernel == "attention_wgmma":
         assert plan.split
     else:
-        assert plan.split == (B * 16 * -(-N // 128) <= attention.ONLINE_SPLIT_MAX_ITEMS[80])
+        assert plan.split == (B * 16 * -(-N // 128) <= attention.ONLINE_SPLIT_MAX_ITEMS[80] == 66)
 
 
 def test_head_dim_80_views_of_a_fused_qkv_are_aligned():
@@ -213,3 +228,33 @@ def test_head_dim_80_views_of_a_fused_qkv_are_aligned():
     assert attention._check(q, k, v)
     wide = torch.zeros(2, 10, 16, 128, dtype=BF16)[..., :80]
     assert attention._check(wide, wide, wide)
+
+
+def _off_boundary(B, N, H, D, offset_bytes, seed):
+    """q, k, v: (B, N, H, D) bf16 views of one (B, N, 3, H, D) buffer whose
+    base lies ``offset_bytes`` past a 16-byte boundary, from a numpy seed."""
+    shift = offset_bytes // 2
+    values = np.random.default_rng(seed).standard_normal(B * N * 3 * H * D + 8).astype(np.float32)
+    flat = torch.from_numpy(values).to(BF16)
+    start = (-flat.data_ptr() // 2) % 8 + shift  # 16-byte boundary, then the offset
+    return flat[start:start + B * N * 3 * H * D].view(B, N, 3, H, D).unbind(2)
+
+
+@pytest.mark.parametrize("D", attention.HEAD_DIMS)
+@pytest.mark.parametrize("offset_bytes", [2, 4, 8])
+def test_the_staging_plain_version_makes_aligned_views(D, offset_bytes):
+    # views off a 16-byte boundary by 2, 4 and 8 bytes (the widths of the
+    # copy kernel's 2-, 4- and 8-byte loads) come back as views TMA can read,
+    # equal to the inputs; attention on them equals attention on the inputs
+    B, N, H = 2, 37, {64: 12, 80: 16, 128: 6}[D]
+    q, k, v = _off_boundary(B, N, H, D, offset_bytes, seed=D + offset_bytes)
+    assert q.data_ptr() % 16 == offset_bytes
+    assert not attention._check(q, k, v)
+    assert attention_plan(B, N, H, D, BF16, aligned=False).staged
+    staged = attention.stage_qkv(q, k, v)
+    assert attention._check(*staged)
+    for got, want in zip(staged, (q, k, v)):
+        assert got.shape == want.shape and got.dtype == BF16
+        assert torch.equal(got, want)
+    torch.testing.assert_close(attention.flash_attention(*staged), attention.attention_plain(q, k, v),
+                               rtol=0, atol=0)

@@ -29,19 +29,19 @@
 // product reads V as an MN-major operand whose two 64-column halves lie one
 // slab apart (the descriptor's leading-byte offset).
 //
-// D = 80 (160 bytes a row, not a whole number of 128-byte swizzle rows) is
-// held in the D = 128 layout, padded: the TMA maps' inner extent is the true
-// 80, so the second slab's box (columns 64-127) brings columns 64-79 from
-// memory and fills 80-127 with zeros, as it fills rows past N; nothing past
-// column 79 is read from memory. Q K^T runs the five k-steps of the true D
-// (the fifth in the second slab); P V is one m64n128k16 a k-step whose
-// columns 80-127 are zeros and never stored; the epilogue stores 80 columns
-// with a row stride of H * 80. The products do (80 + 128) / (80 + 80) = 1.3x
-// the work of the true D; the bytes moved from memory do not grow. (An exact
-// layout, a 64-column slab and a 16-column slab in the 32-byte swizzle with
-// their own descriptors, is ROADMAP's later redesign.)
+// D = 80 (160 bytes a row, not a whole number of 128-byte swizzle rows):
+// the online kernel holds it at exact width, a 64-column slab in the
+// 128-byte swizzle and a 16-column slab of 32-byte rows in the 32-byte
+// swizzle, each loaded by its own TMA box (no box reaches past column 79);
+// its section below says how. The single-pass kernel holds it in the D = 128
+// layout, padded: the TMA maps' inner extent is the true 80, so the second
+// slab's box (columns 64-127) brings columns 64-79 from memory and fills
+// 80-127 with zeros; its P V is one m64n128k16 a k-step whose columns 80-127
+// are zeros and never stored (1.3x the true work, the bytes moved unchanged).
+// Neither reads a column past 79 from memory; the epilogues store 80 columns
+// with a row stride of H * 80.
 //
-// Four kernels, picked by ops/attention.py's attention_plan:
+// Three kernels, picked by ops/attention.py's attention_plan, and a copy:
 //
 //   uva_flash_attention_wgmma (bf16, N <= 144, every operand 16-byte
 //       aligned): the counterpart of `_attn_kernel_single_pass`. Persistent
@@ -67,9 +67,6 @@
 //       TMA through a ring of stages by a producer warpgroup, wgmma for both
 //       products, an online softmax in registers, two consumer warpgroups
 //       taking turns. Its section below says how.
-//   uva_flash_attention, bf16: for views TMA cannot read (an operand off a
-//       16-byte boundary): 4 warps per block, 64 query rows, mma.sync
-//       m16n8k16 with an online softmax over 64-wide KV tiles, exact at any N.
 //   uva_flash_attention, fp32, aligned or not: both products on the tensor
 //       cores in 3xTF32 (each operand split into two TF32 halves, three
 //       mma.sync m16n8k8 products; one TF32 product would not hold the fp32
@@ -78,6 +75,10 @@
 //       below says how. At (128, 144, 12, 64) it must move 226 MB (0.068 ms) and do
 //       3 x 8.2 GFLOP of TF32 products (0.049 ms at 495 TFLOP/s): bound by
 //       bytes at the serving N, by the products from N of about 200 on.
+//   uva_stage_qkv: bf16 views TMA cannot read (an operand off a 16-byte
+//       boundary) copied in one launch into one contiguous (B, N, 3, H, D)
+//       buffer, whose views the two TMA kernels then take. Its section below
+//       says how.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,24 +88,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-
-// bf16 path tiles
-constexpr int kBlockQ = 64;                 // 4 warps x 16 rows
-constexpr int kBlockKV = 64;
-constexpr int kPad = 8;                     // bf16 elements of row padding
-constexpr int kLdVt = kBlockKV + kPad;      // row stride of the transposed v tile
-
-// The mma.sync kernel's tiles in dynamic shared memory: q and k (kD + kPad
-// bf16 a row) and v transposed (kD rows of kLdVt). 27,648 B at D = 64,
-// 34,048 B at D = 80 and 53,248 B at D = 128, the last above the 48 KB that
-// static shared memory may take.
-template <int kD>
-struct MmaTiles {
-  static constexpr int kLdQK = kD + kPad;   // row stride of the q and k tiles
-  static constexpr int kSmem = ((kBlockQ + kBlockKV) * kLdQK + kD * kLdVt) * 2;
-};
 
 struct Params {
   const void* q;
@@ -123,32 +106,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D += A * B for one 16x8x16 tile (A row-major, B column-major).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Eight bf16 (or four fp32) from a row: one 16-byte load where the rows lie
-// on 16-byte boundaries, else element by element.
-template <bool kVec>
-__device__ __forceinline__ uint4 load16(const void* p) {
-  if constexpr (kVec) {
-    return *reinterpret_cast<const uint4*>(p);
-  } else {
-    uint4 v;
-    const uint16_t* src = static_cast<const uint16_t*>(p);
-    uint16_t* dst = reinterpret_cast<uint16_t*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = src[i];
-    return v;
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -157,165 +114,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int kD, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-attn_bf16_kernel(const Params p) {
-  constexpr int kLdQK = MmaTiles<kD>::kLdQK;
-  extern __shared__ uint8_t smem_raw[];  // 16-byte aligned
-  auto qs = reinterpret_cast<__nv_bfloat16 (*)[kLdQK]>(smem_raw);
-  auto ks = reinterpret_cast<__nv_bfloat16 (*)[kLdQK]>(smem_raw + kBlockQ * kLdQK * 2);
-  auto vt = reinterpret_cast<__nv_bfloat16 (*)[kLdVt]>(smem_raw + (kBlockQ + kBlockKV) * kLdQK * 2);
-
-  const int b = blockIdx.x / p.H;
-  const int h = blockIdx.x % p.H;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread within the group
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  constexpr int kChunks = kD / 8;  // 16-byte chunks per row
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  // Q tile -> shared -> A fragments held for the whole KV loop.
-  for (int c = tid; c < kBlockQ * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = zero;
-    if (q0 + r < p.N) val = load16<kVec>(qg + (q0 + r) * p.q_sn + col);
-    *reinterpret_cast<uint4*>(&qs[r][col]) = val;
-  }
-  __syncthreads();
-  const int r0 = warp * 16 + g;
-  uint32_t qa[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c0 = kk * 16 + 2 * t;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(&qs[r0][c0]);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(&qs[r0 + 8][c0]);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(&qs[r0][c0 + 8]);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(&qs[r0 + 8][c0 + 8]);
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < kD / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  // rows r0 (index 0) and r0 + 8 (index 1) of this warp's 16
-  float m0 = -INFINITY, m1 = -INFINITY;
-  float l0 = 0.f, l1 = 0.f;  // per-thread partial sums, reduced at the end
-
-  for (int kv0 = 0; kv0 < p.N; kv0 += kBlockKV) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < kBlockKV * kChunks; c += kThreads) {
-      const int r = c / kChunks;
-      const int col = (c % kChunks) * 8;
-      uint4 kval = zero, vval = zero;
-      if (kv0 + r < p.N) {
-        kval = load16<kVec>(kg + (kv0 + r) * p.k_sn + col);
-        vval = load16<kVec>(vg + (kv0 + r) * p.v_sn + col);
-      }
-      *reinterpret_cast<uint4*>(&ks[r][col]) = kval;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vval);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt[col + i][r] = ve[i];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns.
-    float s[kBlockKV / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockKV / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockKV / 8; ++nt) {
-        const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // Scale, mask the ragged edge, online softmax update.
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kBlockKV / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = kv0 + nt * 8 + 2 * t + (i & 1);
-        s[nt][i] = col < p.N ? s[nt][i] * p.scale_log2 : -INFINITY;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    // every tile holds column kv0 < N, so the tile max is finite
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float alpha0 = exp2f(m0 - mn0);  // 0 on the first tile
-    const float alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBlockKV / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int nt = 0; nt < kD / 8; ++nt) {
-      acc[nt][0] *= alpha0;
-      acc[nt][1] *= alpha0;
-      acc[nt][2] *= alpha1;
-      acc[nt][3] *= alpha1;
-    }
-
-    // O += P V: two adjacent 16x8 score fragments form one 16x16 A fragment.
-#pragma unroll
-    for (int kk = 0; kk < kBlockKV / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int nt = 0; nt < kD / 8; ++nt) {
-        const __nv_bfloat16* vr = &vt[nt * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(acc[nt], pa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
-      }
-    }
-  }
-
-  const float inv0 = 1.f / quad_sum(l0);
-  const float inv1 = 1.f / quad_sum(l1);
-  const int row0 = q0 + r0;
-  const int row1 = row0 + 8;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o);
-  const long long o_sn = (long long)p.H * kD;
-  const long long base = ((long long)b * p.N * p.H + h) * kD;
-#pragma unroll
-  for (int nt = 0; nt < kD / 8; ++nt) {
-    const int col = nt * 8 + 2 * t;
-    if (row0 < p.N)
-      *reinterpret_cast<uint32_t*>(o + base + row0 * o_sn + col) =
-          pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
-    if (row1 < p.N)
-      *reinterpret_cast<uint32_t*>(o + base + row1 * o_sn + col) =
-          pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
-  }
 }
 
 // ------------------------------------------------------------ fp32: 3xTF32
@@ -686,8 +484,9 @@ attn_tf32_kernel(const Params p, const int n_qtiles) {
 constexpr int kRowBytes = 128;  // one 128-byte swizzle row: 64 bf16 columns
 constexpr int kSlabCols = kRowBytes / 2;
 
-// The columns of D that a TMA kernel's shared-memory tile holds: whole
-// 64-column slabs (D = 80 is held as 128, columns 80-127 TMA's zero fill).
+// The columns of D that the single-pass kernel's shared-memory tile holds:
+// whole 64-column slabs (D = 80 is held as 128, columns 80-127 TMA's zero
+// fill). The online kernel's tiles hold D exactly (exact_chunk, below).
 __host__ __device__ constexpr int held_cols(int d) { return (d + kSlabCols - 1) / kSlabCols * kSlabCols; }
 
 template <int kD, int kChunks, int kWG, int kStages, bool kSplit>
@@ -801,9 +600,9 @@ struct WgmmaQK<144> {
   }
   };
 
-// d (64 x 64, fp32) = a (64 x 16 bf16, registers) * b (16 x 64 bf16, MN-major
-// in shared memory: the transpose flag), plus d where kAccumulate: 16 KV
-// rows of O = P V.
+// d (64 x 64, fp32: d[0 .. 31]) = a (64 x 16 bf16, registers) * b (16 x 64
+// bf16, MN-major in shared memory: the transpose flag), plus d where
+// kAccumulate: 16 KV rows of O = P V over a 64-column slab.
 #define UVA_PV_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 #define UVA_PV_OUT(m) m(d[0]), m(d[1]), m(d[2]), m(d[3]), m(d[4]), m(d[5]), m(d[6]), m(d[7]), \
@@ -813,7 +612,7 @@ struct WgmmaQK<144> {
 #define UVA_RW(x) "+f"(x)
 #define UVA_W(x) "=f"(x)
 template <bool kAccumulate>
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t (&a)[4], uint64_t b) {
   if constexpr (kAccumulate) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " UVA_PV_REGS
@@ -832,6 +631,19 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
 #undef UVA_PV_OUT
 #undef UVA_RW
 #undef UVA_W
+
+// d (64 x 16, fp32: d[0 .. 7]) += a (64 x 16 bf16, registers) * b (16 x 16
+// bf16, MN-major in shared memory): 16 KV rows of O = P V over the D = 80
+// tiles' 16-column slab. Register 4 j + e: row r0 + 8 (e >> 1), column
+// 8 j + 2 t + (e & 1) of the slab.
+__device__ __forceinline__ void wgmma_pv_n16(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+               "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
 #define UVA_QK_REGS "{" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
@@ -881,6 +693,17 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4
 __device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma shared-memory descriptor of a 32-byte-swizzled operand (the D = 80
+// online tiles' 16-column slab, 32-byte rows): LBO 16 B (unused: the operand
+// spans one swizzle row along its contiguous dimension, K for K-major K in
+// Q K^T, N for MN-major V in P V), SBO 256 B (the next group of 8 rows:
+// along N for K, along K for V), layout type 3 (32-byte swizzle). The
+// address is a multiple of 256 B, the swizzle's atom (8 rows of 32 B).
+__device__ __forceinline__ uint64_t smem_desc_32b(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(256 >> 4) << 32) |
+         ((uint64_t)3 << 62);
 }
 
 // One k16 step (16 KV rows) of O = P V over the held columns of D: V
@@ -1090,19 +913,22 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // A (B, N, H, kD) bf16 view as a 4-D TMA map over (D, H, N, B) with
-// (64, 1, box_rows, 1) boxes (one 64-column slab) and the 128-byte swizzle;
-// rows past N, and at D = 80 the columns 80-127 of the second slab's box,
+// (box_cols, 1, box_rows, 1) boxes: by default one 64-column slab in the
+// 128-byte swizzle; the online kernel's 16-column slab at D = 80 takes
+// (16, 1, box_rows, 1) boxes in the 32-byte swizzle. Rows past N, and for
+// the single pass at D = 80 the columns 80-127 of its second slab's box,
 // read as zero and are not read from memory.
 template <int kD>
 int encode_heads(CUtensorMap* map, const void* ptr, int B, int N, int H, long long sb,
-                 long long sn, long long sh, int box_rows) {
+                 long long sn, long long sh, int box_rows, int box_cols = kSlabCols,
+                 CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kSlabCols, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return (int)cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                                      const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                     CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -1185,21 +1011,65 @@ int launch_single_pass(const Params& a, cudaStream_t s) {
 // stage of K and V is 64 KB, so the ring holds two stages; O takes 64
 // accumulator registers a consumer thread and Q's A fragments 32. The split
 // instance (one consumer warpgroup, one CTA an SM) launches with 255
-// registers a thread and needs no setmaxnreg. D = 80 (mar_huge) runs in the
-// same layout and stages, with Q's A fragments in 20 registers (five k-steps).
+// registers a thread and needs no setmaxnreg.
+//
+// D = 80 (mar_huge) at exact width. A tile of `rows` rows is a 64-column
+// slab (rows x 128 bytes, 128-byte swizzle) and then a 16-column slab (rows
+// x 32 bytes, 32-byte swizzle: 16-byte chunk c of row r at c ^ ((r >> 2) &
+// 1)), each at a 1024-byte multiple from the 1024-byte-aligned tile and
+// each loaded by its own TMA box: (64, 1, rows, 1) at column 0 and (16, 1,
+// rows, 1) at column 64 through a second map with the 32-byte swizzle, so
+// no box reaches past column 79 and the barriers count 160 bytes a row.
+// Q K^T is four k16 steps from the 128-byte slab and a fifth from the
+// 32-byte slab (one swizzle row is one k16 step; K-major, SBO 256 B). P V is
+// an m64n64k16 over the 128-byte slab and an m64n16k16 over the 32-byte one
+// a k-step (V MN-major in both): 80 columns of work, O in 40 accumulator
+// registers a thread, Q's A fragments in 20. A stage of K and V is 40 KB
+// (64 KB padded to D = 128's layout), so the two-warpgroup instance keeps
+// four stages, as D = 64's, and the split instance's 101 KB (two stages, Q
+// and the output staging) lets two CTAs share an SM, as at D = 64 (128
+// registers a thread at launch; setmaxnreg gives the consumers 232).
 
 constexpr int kOnlineKV = 128;  // KV rows a stage holds
+constexpr int kNarrowRowBytes = 32;  // one 32-byte swizzle row: 16 bf16 columns
+
+// The 16-byte chunks of a row in an online tile's 128-byte-swizzle slabs
+// (D = 64: 8, D = 80: 8, D = 128: 16); at D = 80 chunks 8 and 9 lie in the
+// 16-column slab after them.
+__host__ __device__ constexpr int wide_chunks(int d) { return d / kSlabCols * kSlabCols / 8; }
+
+// Byte offset of the 16-byte chunk c (columns 8c .. 8c + 7) of row r in an
+// online-kernel tile of `rows` rows held at exact width kD.
+template <int kD>
+__device__ __forceinline__ int exact_chunk(int r, int c, int rows) {
+  if (c < wide_chunks(kD)) return tile_chunk(r, c, rows * kRowBytes);
+  return kD / kSlabCols * rows * kRowBytes + r * kNarrowRowBytes +
+         (((c - wide_chunks(kD)) ^ ((r >> 2) & 1)) << 4);
+}
+
+// The rows n0 .. of head h of batch b into an online-kernel tile of `rows`
+// rows: one (64, 1, rows, 1) box of `map` per 64-column slab and at D = 80
+// one (16, 1, rows, 1) box of `narrow` (the 32-byte swizzle) at column 64.
+template <int kD>
+__device__ __forceinline__ void tma_load_exact(uint32_t dst, const CUtensorMap* map,
+                                               const CUtensorMap* narrow, uint32_t bar, int rows,
+                                               int h, int n0, int b) {
+#pragma unroll
+  for (int i = 0; i < kD / kSlabCols; ++i)
+    tma_load_rows(dst + i * rows * kRowBytes, map, bar, i * kSlabCols, h, n0, b);
+  if constexpr (kD % kSlabCols != 0)
+    tma_load_rows(dst + kD / kSlabCols * rows * kRowBytes, narrow, bar, kD / kSlabCols * kSlabCols, h,
+                  n0, b);
+}
 
 template <int kD, int kC, int kStages, int kMinBlocks>
 struct Online {
   static_assert(kStages >= 2, "tile j is loaded before tile j - 1 is freed");
-  static_assert(kD % 16 == 0 && kD <= 128, "D is a whole number of k16 steps, at most two slabs");
-  static constexpr int kSlabs = held_cols(kD) / kSlabCols;
+  static_assert(kD % 16 == 0 && kD <= 128 && (kD % kSlabCols == 0 || kD % kSlabCols == 16),
+                "D is whole 64-column slabs, or one and a 16-column slab");
   static constexpr int kQRows = 64 * kC;
-  static constexpr int kQSlabBytes = kQRows * kRowBytes;
-  static constexpr int kKVSlabBytes = kOnlineKV * kRowBytes;
-  static constexpr int kQBytes = kSlabs * kQSlabBytes;
-  static constexpr int kKVBytes = kSlabs * kKVSlabBytes;
+  static constexpr int kQBytes = kQRows * 2 * kD;       // exact width: 2 kD bytes a row
+  static constexpr int kKVBytes = kOnlineKV * 2 * kD;   // a multiple of 1024
   static constexpr int kStageBytes = 2 * kKVBytes;  // K, then V
   static constexpr int kThreads = 128 * (kC + 1);
   // setmaxnreg: the producer warpgroup drops to 24 registers a thread and
@@ -1236,22 +1106,35 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[kN][kM]) {
     for (int j = 0; j < kM; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// S = Q K^T for one KV tile: the D / 16 k16 steps over D.
+// S = Q K^T for one KV tile: the D / 16 k16 steps over D, four in each
+// 128-byte-swizzle slab and at D = 80 the fifth from the 32-byte one.
 template <int kD>
 __device__ __forceinline__ void qk_tile(float (&s)[64], const uint32_t (&qa)[kD / 16][4], uint32_t k_smem) {
   constexpr int kSlabBytes = kOnlineKV * kRowBytes;
   wgmma_n128<false>(s, qa[0], smem_desc(k_smem));
 #pragma unroll
-  for (int kk = 1; kk < kD / 16; ++kk) wgmma_n128<true>(s, qa[kk], k_desc(k_smem, kk, kSlabBytes));
+  for (int kk = 1; kk < kD / 16; ++kk) {
+    if (kk < wide_chunks(kD) / 2)
+      wgmma_n128<true>(s, qa[kk], k_desc(k_smem, kk, kSlabBytes));
+    else
+      wgmma_n128<true>(s, qa[kk], smem_desc_32b(k_smem + kD / kSlabCols * kSlabBytes));
+  }
 }
 
-// O += P V for one KV tile: eight k16 steps over its rows.
+// O += P V for one KV tile: eight k16 steps over its rows (at D = 80 an
+// n64 over the 128-byte-swizzle slab and an n16 over the 32-byte one each).
 template <int kD>
-__device__ __forceinline__ void pv_tile(float (&o)[held_cols(kD) / 2], const uint32_t (&pa)[8][4],
-                                        uint32_t v_smem) {
+__device__ __forceinline__ void pv_tile(float (&o)[kD / 2], const uint32_t (&pa)[8][4], uint32_t v_smem) {
   constexpr int kSlabBytes = kOnlineKV * kRowBytes;
 #pragma unroll
-  for (int i = 0; i < kOnlineKV / 16; ++i) pv_step<kD, true>(o, pa[i], v_smem + i * 16 * kRowBytes, kSlabBytes);
+  for (int i = 0; i < kOnlineKV / 16; ++i) {
+    if constexpr (kD % kSlabCols == 0) {
+      pv_step<kD, true>(o, pa[i], v_smem + i * 16 * kRowBytes, kSlabBytes);
+    } else {
+      wgmma_pv<true>(o, pa[i], smem_desc(v_smem + i * 16 * kRowBytes));
+      wgmma_pv_n16(o + 32, pa[i], smem_desc_32b(v_smem + kSlabBytes + i * 16 * kNarrowRowBytes));
+    }
+  }
 }
 
 // The online softmax of one tile of S (rows r0 and r0 + 8 of the
@@ -1313,7 +1196,10 @@ template <int kD, int kC, int kStages, int kMinBlocks>
 __global__ void __launch_bounds__(Online<kD, kC, kStages, kMinBlocks>::kThreads, kMinBlocks)
 attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
-                   const __grid_constant__ CUtensorMap map_v, const OnlineParams p) {
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap narrow_q,
+                   const __grid_constant__ CUtensorMap narrow_k,
+                   const __grid_constant__ CUtensorMap narrow_v, const OnlineParams p) {
   using L = Online<kD, kC, kStages, kMinBlocks>;
   // two consumer warpgroups take turns to issue their products
   constexpr bool kPingPong = kC == 2;
@@ -1356,14 +1242,14 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
         const int b = head / p.H, h = head % p.H;
         mbar_wait(q_empty, q_phase ^ 1);
         mbar_expect_tx(q_full, L::kQBytes);
-        tma_load_tile<kD>(q_smem, &map_q, q_full, L::kQSlabBytes, h, qt * L::kQRows, b);
+        tma_load_exact<kD>(q_smem, &map_q, &narrow_q, q_full, L::kQRows, h, qt * L::kQRows, b);
         q_phase ^= 1;
         for (int j = 0; j < p.n_kv; ++j) {
           const uint32_t st = base + stage * L::kStageBytes, bar = kv_full + 8 * stage;
           mbar_wait(kv_empty + 8 * stage, phase ^ 1);
           mbar_expect_tx(bar, L::kStageBytes);
-          tma_load_tile<kD>(st, &map_k, bar, L::kKVSlabBytes, h, j * kOnlineKV, b);
-          tma_load_tile<kD>(st + L::kKVBytes, &map_v, bar, L::kKVSlabBytes, h, j * kOnlineKV, b);
+          tma_load_exact<kD>(st, &map_k, &narrow_k, bar, kOnlineKV, h, j * kOnlineKV, b);
+          tma_load_exact<kD>(st + L::kKVBytes, &map_v, &narrow_v, bar, kOnlineKV, h, j * kOnlineKV, b);
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -1378,10 +1264,11 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
     const int g = lane / 4;  // fragment row group: rows g and g + 8 of the warp's 16
     const int t = lane % 4;  // fragment column pair
     const int r0 = (tid / 32) * 16 + g;
-    // the warpgroup's 64 rows in slab 0 of Q and of the staging; their
-    // other slabs kQSlabBytes on
-    const uint8_t* q_tile = aligned + kQOff + wg * 64 * kRowBytes;
-    uint8_t* o_tile = aligned + kOOff + wg * 64 * kRowBytes;
+    // Q and the output staging, each a tile of kQRows rows; the
+    // warpgroup's 64 are rows wg * 64 .. of each
+    const uint8_t* q_tile = aligned + kQOff;
+    uint8_t* o_tile = aligned + kOOff;
+    const int row0 = wg * 64 + r0;
     auto release = [&](uint32_t bar) {
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
@@ -1416,24 +1303,25 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
       // Q rows r0 and r0 + 8 as A fragments of the D / 16 k16 steps over D
       mbar_wait(q_full, q_phase);
       q_phase ^= 1;
-      constexpr int kQSlab = L::kQSlabBytes;
+      constexpr int kQRows = L::kQRows;
       uint32_t qa[kD / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_tile + tile_chunk(r0, 2 * kk, kQSlab) + 4 * t);
-        qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_tile + tile_chunk(r0 + 8, 2 * kk, kQSlab) + 4 * t);
-        qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_tile + tile_chunk(r0, 2 * kk + 1, kQSlab) + 4 * t);
-        qa[kk][3] = *reinterpret_cast<const uint32_t*>(q_tile + tile_chunk(r0 + 8, 2 * kk + 1, kQSlab) + 4 * t);
+        qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_tile + exact_chunk<kD>(row0, 2 * kk, kQRows) + 4 * t);
+        qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_tile + exact_chunk<kD>(row0 + 8, 2 * kk, kQRows) + 4 * t);
+        qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_tile + exact_chunk<kD>(row0, 2 * kk + 1, kQRows) + 4 * t);
+        qa[kk][3] =
+            *reinterpret_cast<const uint32_t*>(q_tile + exact_chunk<kD>(row0 + 8, 2 * kk + 1, kQRows) + 4 * t);
       }
       // these generic reads come before the next TMA write into the buffer
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       release(q_empty);
 
-      // the held columns' accumulators (at D = 80 those of columns 80-127
-      // stay zero: V's zero fill)
-      float o[held_cols(kD) / 2];
+      // O's accumulators, D / 2 a thread (at D = 80: 32 of the n64 product,
+      // then 8 of the n16)
+      float o[kD / 2];
 #pragma unroll
-      for (int i = 0; i < held_cols(kD) / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2];
       float s[64];
       uint32_t pa[8][4];
@@ -1466,7 +1354,6 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(o);
         fence_regs(pa);
         release(kv_empty + 8 * prev);
-        // the columns < D (past D the accumulators are zeros)
 #pragma unroll
         for (int i = 0; i < kD / 2; ++i) o[i] *= a[(i >> 1) & 1];
         pack_p(pa, s);
@@ -1490,9 +1377,9 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
       named_sync(1 + wg, 128);  // the last item's stores are done
 #pragma unroll
       for (int j = 0; j < kD / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(o_tile + tile_chunk(r0, j, kQSlab) + 4 * t) =
+        *reinterpret_cast<uint32_t*>(o_tile + exact_chunk<kD>(row0, j, kQRows) + 4 * t) =
             pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-        *reinterpret_cast<uint32_t*>(o_tile + tile_chunk(r0 + 8, j, kQSlab) + 4 * t) =
+        *reinterpret_cast<uint32_t*>(o_tile + exact_chunk<kD>(row0 + 8, j, kQRows) + 4 * t) =
             pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
       named_sync(1 + wg, 128);
@@ -1504,7 +1391,7 @@ attn_online_kernel(const __grid_constant__ CUtensorMap map_q,
         const int n = qt * L::kQRows + wg * 64 + r;
         if (n < p.N)
           *reinterpret_cast<uint4*>(o_head + n * o_sn + chunk * 8) =
-              *reinterpret_cast<const uint4*>(o_tile + tile_chunk(r, chunk, kQSlab));
+              *reinterpret_cast<const uint4*>(o_tile + exact_chunk<kD>(wg * 64 + r, chunk, kQRows));
       }
     }
   }
@@ -1526,6 +1413,18 @@ int launch_online(const Params& a, cudaStream_t s) {
   int rc = encode_heads<kD>(&map_q, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh, L::kQRows);
   if (rc == 0) rc = encode_heads<kD>(&map_k, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh, kOnlineKV);
   if (rc == 0) rc = encode_heads<kD>(&map_v, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh, kOnlineKV);
+  // the 16-column slab's maps (read at D = 80 only)
+  CUtensorMap narrow_q = map_q, narrow_k = map_k, narrow_v = map_v;
+  if constexpr (kD % kSlabCols != 0) {
+    constexpr int kCols = kD % kSlabCols;
+    constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_32B;
+    if (rc == 0)
+      rc = encode_heads<kD>(&narrow_q, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh, L::kQRows, kCols, kSwizzle);
+    if (rc == 0)
+      rc = encode_heads<kD>(&narrow_k, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh, kOnlineKV, kCols, kSwizzle);
+    if (rc == 0)
+      rc = encode_heads<kD>(&narrow_v, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh, kOnlineKV, kCols, kSwizzle);
+  }
   if (rc != 0) return kEncodeError + rc;
   OnlineParams p;
   p.o = static_cast<__nv_bfloat16*>(a.o);
@@ -1536,8 +1435,91 @@ int launch_online(const Params& a, cudaStream_t s) {
   p.items = a.B * a.H * p.n_qtiles;
   p.scale_log2 = a.scale_log2;
   const int grid = min(p.items, num_sms() * blocks_per_sm);
-  kernel<<<grid, L::kThreads, L::kSmem, s>>>(map_q, map_k, map_v, p);
+  kernel<<<grid, L::kThreads, L::kSmem, s>>>(map_q, map_k, map_v, narrow_q, narrow_k, narrow_v, p);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ staging copy
+//
+// uva_stage_qkv: bf16 q, k and v of shape (B, N, H, D), read through their
+// strides (any base and stride a multiple of 2 bytes), copied in one launch
+// into one contiguous (B, N, 3, H, D) buffer with a 16-byte-aligned base.
+// Every base and stride of the buffer's three views is then a multiple of
+// D * 2 or H * D * 2 bytes, so the TMA kernels take them: ops/attention.py
+// stages the views TMA cannot read (an operand off a 16-byte boundary) this
+// way. One thread a 16-byte chunk of the buffer (8 columns of one row of one
+// operand), consecutive threads on consecutive chunks: it reads the chunk
+// with the widest loads its operand's base and strides allow (16, 8, 4 or 2
+// bytes) and writes it with one 16-byte store. Bound by bytes: 3 B N H D
+// values read once and written once, 12 B N H D bytes.
+
+constexpr int kStageThreads = 256;
+
+struct StageOperand {
+  const uint8_t* ptr;
+  long long sb, sn, sh;  // byte strides of batch, token, head
+  int width;             // bytes a load: 16, 8, 4 or 2
+};
+
+struct StageParams {
+  StageOperand q, k, v;
+  uint4* qkv;
+  int N, H;
+  unsigned chunks;  // B N 3 H D / 8
+};
+
+// The 16 bytes at p in loads of kWidth bytes.
+template <int kWidth>
+__device__ __forceinline__ uint4 load_chunk(const uint8_t* p) {
+  if constexpr (kWidth == 16) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else if constexpr (kWidth == 8) {
+    const uint2 a = reinterpret_cast<const uint2*>(p)[0], b = reinterpret_cast<const uint2*>(p)[1];
+    return make_uint4(a.x, a.y, b.x, b.y);
+  } else if constexpr (kWidth == 4) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+    return make_uint4(h[0] | (uint32_t)h[1] << 16, h[2] | (uint32_t)h[3] << 16, h[4] | (uint32_t)h[5] << 16,
+                      h[6] | (uint32_t)h[7] << 16);
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kStageThreads) stage_qkv_kernel(const __grid_constant__ StageParams p) {
+  const unsigned i = blockIdx.x * kStageThreads + threadIdx.x;
+  if (i >= p.chunks) return;
+  constexpr unsigned kRowChunks = kD / 8;
+  const unsigned row = i / kRowChunks;  // row (b, n, operand, h) of the buffer
+  const int c = i % kRowChunks;
+  const int h = row % p.H;
+  const unsigned bnw = row / p.H;
+  const int w = bnw % 3;
+  const unsigned bn = bnw / 3;
+  const long long n = bn % p.N, b = bn / p.N;
+  const StageOperand& op = w == 0 ? p.q : (w == 1 ? p.k : p.v);
+  const uint8_t* src = op.ptr + b * op.sb + n * op.sn + h * op.sh + c * 16;
+  uint4 val;
+  switch (op.width) {
+    case 16: val = load_chunk<16>(src); break;
+    case 8: val = load_chunk<8>(src); break;
+    case 4: val = load_chunk<4>(src); break;
+    default: val = load_chunk<2>(src); break;
+  }
+  p.qkv[i] = val;
+}
+
+// The widest load (16, 8, 4 or 2 bytes) that every chunk of a view with
+// this base and these byte strides allows.
+int load_width(const void* ptr, long long sb, long long sn, long long sh) {
+  const unsigned long long bits = reinterpret_cast<uintptr_t>(ptr) | (unsigned long long)sb |
+                                  (unsigned long long)sn | (unsigned long long)sh;
+  return bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8 : bits % 4 == 0 ? 4 : 2;
+}
+
+StageOperand stage_operand(const void* ptr, long long sb, long long sn, long long sh) {
+  return {static_cast<const uint8_t*>(ptr), sb * 2, sn * 2, sh * 2, load_width(ptr, sb * 2, sn * 2, sh * 2)};
 }
 
 }  // namespace
@@ -1575,21 +1557,6 @@ bool tma_ok(const void* q, const void* k, const void* v, int B, int N, int H, in
               reinterpret_cast<uintptr_t>(v)) % 16) == 0;
   for (long long st : strides) ok = ok && (st * 2) % 16 == 0;
   return ok;
-}
-
-template <int kD, bool kVec>
-int launch_mma_sync(const Params& p, cudaStream_t s) {
-  auto kernel = attn_bf16_kernel<kD, kVec>;
-  constexpr int kSmem = MmaTiles<kD>::kSmem;
-  static bool ready = false;  // per instantiation, set once
-  if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return (int)e;
-    ready = true;
-  }
-  const dim3 grid(p.B * p.H, (p.N + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, kSmem, s>>>(p);
-  return (int)cudaGetLastError();
 }
 
 template <int kD, int kMT, int kBlockKV, bool kVec>
@@ -1638,19 +1605,14 @@ int launch_tf32_tile(const Params& p, int m_tiles, int kv_rows, cudaStream_t s) 
   return (int)cudaErrorInvalidValue;
 }
 
-template <int kD>
-int launch_mma_or_tf32(const Params& p, int dtype, int aligned, cudaStream_t s) {
-  if (dtype == 1) return aligned ? launch_mma_sync<kD, true>(p, s) : launch_mma_sync<kD, false>(p, s);
-  if (dtype == 0) return aligned ? launch_tf32_default<kD, true>(p, s) : launch_tf32_default<kD, false>(p, s);
-  return (int)cudaErrorInvalidValue;
-}
 
 }  // namespace
 
-// The mma.sync (bf16) and 3xTF32 (fp32) kernels. dtype: 0 = float32,
-// 1 = bfloat16. D: 64, 80 or 128. Strides are in elements; the last dimension
+// The 3xTF32 (fp32) kernel. dtype: 0 = float32; any other (1, bfloat16,
+// which goes to the TMA kernels, staged where TMA cannot read it) is
+// refused. D: 64, 80 or 128. Strides are in elements; the last dimension
 // must be contiguous. aligned: every row of q, k and v starts on a 16-byte
-// boundary (16-byte loads), else element loads. The output is a contiguous
+// boundary (16-byte copies), else 4-byte ones. The output is a contiguous
 // (B, N, H, D) tensor. Returns the value of cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int uva_flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -1659,13 +1621,13 @@ extern "C" int uva_flash_attention(const void* q, const void* k, const void* v, 
                                    long long k_sb, long long k_sn, long long k_sh,
                                    long long v_sb, long long v_sn, long long v_sh,
                                    int dtype, int aligned, void* stream) {
-  if (!built_d(D) || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (!built_d(D) || B <= 0 || N <= 0 || H <= 0 || dtype != 0) return (int)cudaErrorInvalidValue;
   const Params p = make_params(q, k, v, o, B, N, H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_mma_or_tf32<64>(p, dtype, aligned, s);
-  if (D == 80) return launch_mma_or_tf32<80>(p, dtype, aligned, s);
-  return launch_mma_or_tf32<128>(p, dtype, aligned, s);
+  if (D == 64) return aligned ? launch_tf32_default<64, true>(p, s) : launch_tf32_default<64, false>(p, s);
+  if (D == 80) return aligned ? launch_tf32_default<80, true>(p, s) : launch_tf32_default<80, false>(p, s);
+  return aligned ? launch_tf32_default<128, true>(p, s) : launch_tf32_default<128, false>(p, s);
 }
 
 // The fp32 kernel at a tile of its sweep (m16 tiles a warp, KV rows a tile:
@@ -1690,6 +1652,37 @@ extern "C" int uva_flash_attention_tf32_tile(const void* q, const void* k, const
   if (D == 64) return launch_tf32_tile<64>(p, m_tiles, kv_rows, s);
   if (D == 80) return launch_tf32_tile<80>(p, m_tiles, kv_rows, s);
   return launch_tf32_tile<128>(p, m_tiles, kv_rows, s);
+}
+
+// The staging copy: bf16 q, k, v of shape (B, N, H, D) (D: 64, 80 or 128;
+// strides in elements, the last dimension contiguous, every base and stride
+// a multiple of 2 bytes) into qkv, a contiguous (B, N, 3, H, D) bf16 buffer
+// whose base is 16-byte aligned, in one launch. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for arguments it does not take.
+extern "C" int uva_stage_qkv(const void* q, const void* k, const void* v, void* qkv,
+                             int B, int N, int H, int D,
+                             long long q_sb, long long q_sn, long long q_sh,
+                             long long k_sb, long long k_sn, long long k_sh,
+                             long long v_sb, long long v_sn, long long v_sh, void* stream) {
+  const long long chunks = 3LL * B * N * H * D / 8;
+  if (!built_d(D) || B <= 0 || N <= 0 || H <= 0 || reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 2) != 0 ||
+      chunks > 0xffffffffLL - kStageThreads)
+    return (int)cudaErrorInvalidValue;
+  StageParams p;
+  p.q = stage_operand(q, q_sb, q_sn, q_sh);
+  p.k = stage_operand(k, k_sb, k_sn, k_sh);
+  p.v = stage_operand(v, v_sb, v_sn, v_sh);
+  p.qkv = static_cast<uint4*>(qkv);
+  p.N = N;
+  p.H = H;
+  p.chunks = (unsigned)chunks;
+  const unsigned grid = (unsigned)((chunks + kStageThreads - 1) / kStageThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) stage_qkv_kernel<64><<<grid, kStageThreads, 0, s>>>(p);
+  else if (D == 80) stage_qkv_kernel<80><<<grid, kStageThreads, 0, s>>>(p);
+  else stage_qkv_kernel<128><<<grid, kStageThreads, 0, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // The single-pass Hopper kernel, bf16 only, on the same arguments: every
@@ -1720,9 +1713,9 @@ extern "C" int uva_flash_attention_wgmma(const void* q, const void* k, const voi
 
 // The online-softmax Hopper kernel, bf16 only, any N, on the same arguments
 // and TMA's rules. split: work items of one 64-row q-tile (CTAs of one
-// consumer warpgroup; two to an SM at D = 64, one at D = 80 and 128), for few
-// items; else of 128 rows (two consumer warpgroups taking turns). Returns as
-// uva_flash_attention_wgmma.
+// consumer warpgroup; two to an SM at D = 64 and 80, one at D = 128), for
+// few items; else of 128 rows (two consumer warpgroups taking turns).
+// Returns as uva_flash_attention_wgmma.
 extern "C" int uva_flash_attention_online(const void* q, const void* k, const void* v, void* o,
                                           int B, int N, int H, int D,
                                           long long q_sb, long long q_sn, long long q_sh,
@@ -1735,6 +1728,6 @@ extern "C" int uva_flash_attention_online(const void* q, const void* k, const vo
                                v_sb, v_sn, v_sh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return split ? launch_online<64, 1, 2, 2>(p, s) : launch_online<64, 2, 4, 1>(p, s);
-  if (D == 80) return split ? launch_online<80, 1, 2, 1>(p, s) : launch_online<80, 2, 2, 1>(p, s);
+  if (D == 80) return split ? launch_online<80, 1, 2, 2>(p, s) : launch_online<80, 2, 4, 1>(p, s);
   return split ? launch_online<128, 1, 2, 1>(p, s) : launch_online<128, 2, 2, 1>(p, s);
 }

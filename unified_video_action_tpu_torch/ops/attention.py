@@ -16,21 +16,26 @@ the card.
 :func:`flash_attention` launches the kernel that :func:`attention_plan`
 names, with no fallback between kernels:
 
-* ``attention_wgmma``: bf16, N <= ``SINGLE_PASS_MAX_N`` (144) and every
-  operand 16-byte aligned. The single-pass Hopper kernel (TMA + wgmma, the
-  exact softmax of a whole row), as the TPU's ``_attn_kernel_single_pass``.
-* ``attention_wgmma_online``: bf16, N > ``SINGLE_PASS_MAX_N`` and every
-  operand 16-byte aligned. The online-softmax Hopper kernel (TMA ring of
-  128-row KV tiles, warp-specialized, wgmma for both products), as the
-  TPU's ``_attn_kernel``.
-* ``attention_mma_sync``: bf16 with an operand off a 16-byte boundary, which
-  TMA cannot read: mma.sync with an online softmax over 64-wide KV tiles.
+* ``attention_wgmma``: bf16, N <= ``SINGLE_PASS_MAX_N`` (144). The
+  single-pass Hopper kernel (TMA + wgmma, the exact softmax of a whole
+  row), as the TPU's ``_attn_kernel_single_pass``.
+* ``attention_wgmma_online``: bf16, N > ``SINGLE_PASS_MAX_N``. The
+  online-softmax Hopper kernel (TMA ring of 128-row KV tiles,
+  warp-specialized, wgmma for both products; at D = 80 its tiles hold the
+  80 columns exactly, a 64-column and a 16-column slab), as the TPU's
+  ``_attn_kernel``.
 * ``attention_f32``: fp32, aligned or not. Both products on the tensor
   cores in 3xTF32 (each operand split into two TF32 halves, three mma.sync
   m16n8k8 products, within the fp32 tolerance of 2e-5 where one TF32
   product is not), K and V streamed in KV tiles by cp.async, an online
   softmax in registers; its tile by D and N is ``launch_tf32_default`` in
   the source.
+
+TMA reads only views whose every base and stride is a multiple of 16 bytes.
+A bf16 call with an operand off that boundary is ``staged``: one launch of
+the copy kernel ``uva_stage_qkv`` (:func:`stage_qkv`, counted as
+``attention_stage``) puts q, k and v into one contiguous (B, N, 3, H, D)
+buffer, and the plan's TMA kernel runs on its views.
 """
 
 from __future__ import annotations
@@ -50,11 +55,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the KV rows the single-pass kernel holds in shared memory (the 96 px path's
 # N; above it the online kernel is the faster, attention_plan)
 SINGLE_PASS_MAX_N = 144
-KERNELS = ("attention_wgmma", "attention_wgmma_online", "attention_mma_sync", "attention_f32")
+KERNELS = ("attention_wgmma", "attention_wgmma_online", "attention_f32")
+# the staging copy's counter (:func:`stage_qkv`)
+STAGE = "attention_stage"
 
 # Incremented once for every launch of each CUDA kernel, and nowhere else:
-# by kernel, and by kernel and head dimension (the instance, ``plan.instance``)
-launch_count = {k: 0 for k in KERNELS}
+# by kernel (the attention kernels and the staging copy), and by attention
+# kernel and head dimension (the instance, ``plan.instance``)
+launch_count = {k: 0 for k in KERNELS + (STAGE,)}
 INSTANCES = tuple(f"{k}_d{d}" for k in KERNELS for d in HEAD_DIMS)
 instance_count = {i: 0 for i in INSTANCES}
 
@@ -65,14 +73,16 @@ ENCODE_ERROR = 10000  # csrc/hopper.cuh kEncodeError
 # kernel gives each pair a CTA of its own (two per SM of an H100 at D = 64),
 # else a CTA takes a head. None: always, since at D = 128 a whole head's
 # stage (120 KB) leaves room for no second one, and the split instance (two
-# 88 KB stages) was the faster at every batch swept but B = 16 (below). D =
-# 80 is held in D = 128's layout (csrc/attention.cu), so the same holds.
+# 88 KB stages) was the faster at every batch swept but B = 16 (below). The
+# single pass holds D = 80 in D = 128's layout (csrc/attention.cu), so the
+# same holds.
 SPLIT_MAX_TILES = {64: 264, 80: None, 128: None}
 # by head dimension: the online kernel's work items are 64-row q-tiles (CTAs
-# of one warpgroup, two an SM at D = 64, one at D = 80 and 128) up to this
+# of one warpgroup, two an SM at D = 64 and 80, one at D = 128) up to this
 # many 128-row ones (three waves of an H100's 132 SMs at D = 64; at D = 80
-# half the SMs, so the 64-row items fill one wave), else 128-row q-tiles
-# (two warpgroups taking turns)
+# the sweep puts the crossover between 64 and 80, with the padded tiles and
+# with the exact-width ones), else 128-row q-tiles (two warpgroups taking
+# turns)
 ONLINE_SPLIT_MAX_ITEMS = {64: 396, 80: 66, 128: 288}
 
 
@@ -83,10 +93,12 @@ class AttentionPlan:
     is the key of :data:`instance_count`); for the single-pass kernel
     ``split`` says a CTA takes one q-tile of a head instead of the whole
     head, for the online kernel that its work items are 64-row q-tiles
-    instead of 128."""
+    instead of 128; ``staged`` that the operands are first copied by
+    :func:`stage_qkv` into one buffer that TMA can read."""
     kernel: str
     head_dim: int
     split: bool = False
+    staged: bool = False
 
     @property
     def instance(self) -> str:
@@ -102,7 +114,8 @@ def attention_plan(B: int, N: int, H: int, D: int, dtype: torch.dtype,
     outside ``HEAD_DIMS`` raises ``ValueError``.
 
     * fp32: the 3xTF32 tensor-core kernel, aligned or not.
-    * bf16, an operand off a 16-byte boundary: the mma.sync kernel.
+    * bf16, an operand off a 16-byte boundary: the plan of the aligned call
+      of the same shape, ``staged``.
     * bf16, N <= SINGLE_PASS_MAX_N (144, the 96 px path's N): the
       single-pass wgmma kernel, split where B·H·⌈N/64⌉ <= SPLIT_MAX_TILES[D]
       (B = 1 at the serving shape: 36 q-tiles on 36 SMs instead of 12 heads
@@ -131,6 +144,13 @@ def attention_plan(B: int, N: int, H: int, D: int, dtype: torch.dtype,
     it 64-row online items were the faster up to 64 items of 128 rows (at
     (1, 512) 0.0096 ms against 0.0110) and 128-row items from 80 items (at
     (1, 640) 0.0131 against 0.0177; at (1, 1024) 0.0205 against 0.0287).
+    The online kernel's exact-width D = 80 tiles (two 64-row CTAs an SM)
+    kept that crossover in the same sweep: 64-row items at (1, 512) 0.0083
+    ms against 0.0088-0.0092, 128-row items at (1, 640) 0.0104 against
+    0.0120 and at (1, 1024) 0.0148-0.0149 against 0.0177-0.0181; at N =
+    144 and B = 128 its 64-row items (0.1075-0.1095 ms) now edge out the
+    single pass (0.1132-0.1159), which still takes N <= 144 (the faster at
+    B <= 16).
     """
     if B <= 0 or N <= 0 or H <= 0:
         raise ValueError(f"attention of shape ({B}, {N}, {H}) is empty")
@@ -140,13 +160,12 @@ def attention_plan(B: int, N: int, H: int, D: int, dtype: torch.dtype,
         return AttentionPlan("attention_f32", D)
     if dtype != torch.bfloat16:
         raise ValueError(f"the kernels take float32 or bfloat16, got {dtype}")
-    if not aligned:
-        return AttentionPlan("attention_mma_sync", D)
     if N <= SINGLE_PASS_MAX_N:
         limit = SPLIT_MAX_TILES[D]
-        return AttentionPlan("attention_wgmma", D, limit is None or B * H * -(-N // 64) <= limit)
+        return AttentionPlan("attention_wgmma", D, limit is None or B * H * -(-N // 64) <= limit,
+                             not aligned)
     return AttentionPlan("attention_wgmma_online", D,
-                         B * H * -(-N // 128) <= ONLINE_SPLIT_MAX_ITEMS[D])
+                         B * H * -(-N // 128) <= ONLINE_SPLIT_MAX_ITEMS[D], not aligned)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -170,6 +189,8 @@ def _lib():
     lib.uva_flash_attention_wgmma.restype = ctypes.c_int
     lib.uva_flash_attention_online.argtypes = common + [ctypes.c_int, ctypes.c_void_p]
     lib.uva_flash_attention_online.restype = ctypes.c_int
+    lib.uva_stage_qkv.argtypes = common + [ctypes.c_void_p]
+    lib.uva_stage_qkv.restype = ctypes.c_int
     return lib
 
 
@@ -200,11 +221,41 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     return aligned
 
 
+def stage_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The staging copy's plain version: q, k, v stacked into one contiguous
+    (B, N, 3, H, D) tensor."""
+    return torch.stack((q, k, v), dim=2)
+
+
+def stage_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k and v copied into one contiguous (B, N, 3, H, D) buffer, returned
+    as its three (B, N, H, D) views: every base and stride a multiple of
+    D·2 or H·D·2 bytes, which ``_check`` calls aligned and the TMA kernels
+    take. On CUDA tensors (bf16) one launch of ``uva_stage_qkv`` into a
+    buffer from the caching allocator (its base 512-byte aligned), or
+    raises; on CPU tensors :func:`stage_plain`."""
+    if q.device.type == "cpu":
+        return stage_plain(q, k, v).unbind(2)
+    _check(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the staging copy takes bfloat16, got {q.dtype}")
+    B, N, H, D = q.shape
+    qkv = torch.empty((B, N, 3, H, D), dtype=q.dtype, device=q.device)
+    rc = _lib().uva_stage_qkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), qkv.data_ptr(), B, N, H, D,
+                              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                              torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention staging copy launch failed: CUDA error {rc}")
+    launch_count[STAGE] += 1
+    return qkv.unbind(2)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(Q·Kᵀ·D^-½)·V over (B, N, H, D) tensors -> contiguous (B, N, H, D).
 
-    On a CUDA tensor this launches the kernel :func:`attention_plan` names
-    (or raises); on a CPU tensor it runs the plain version.
+    On a CUDA tensor this launches the kernel :func:`attention_plan` names,
+    after the staging copy where the plan is ``staged`` (or raises); on a
+    CPU tensor it runs the plain version.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
@@ -214,6 +265,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if out.numel() == 0:
         return out
     plan = attention_plan(B, N, H, D, q.dtype, aligned)
+    if plan.staged:
+        q, k, v = stage_qkv(q, k, v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -37,11 +37,12 @@ paths' shapes at mar_base width (B=128 and B=1):
   1024), whatever
   ``attention_plan`` would pick (the single-pass kernel at N <= 144, split
   per q-tile or whole heads; the online kernel in 128- or 64-row work
-  items; the mma.sync kernel), each held against ``attention_plain``
+  items), each held against ``attention_plain``
   (chip_smoke.py's ``attention_check``) and timed by CUDA-graph replay
   beside SDPA and the bound: the measurement behind ``attention_plan``'s
-  crossover and split thresholds, per head dimension. The call exits
-  non-zero if a variant disagrees with the plain version.
+  crossover and split thresholds, per head dimension (``--head-dims``
+  picks some of the tree's). The call exits non-zero if a variant
+  disagrees with the plain version.
 
 * ``fp32_attention``: ``flash_attention`` in fp32 at the three serving
   shapes at N = 144, (8, 1088, 12, 64) and (128, 1024, 12, 64), beside SDPA;
@@ -289,8 +290,7 @@ def attention_variants(attention, head_dims) -> list:
         base = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, H, D,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
         variants = {"online": (lib.uva_flash_attention_online, (0,)),
-                    "online_split": (lib.uva_flash_attention_online, (1,)),
-                    "mma_sync": (lib.uva_flash_attention, (1, 1))}
+                    "online_split": (lib.uva_flash_attention_online, (1,))}
         if N <= attention.SINGLE_PASS_MAX_N:
             variants.update(single_pass_split=(lib.uva_flash_attention_wgmma, (1,)))
             if D == 64:  # at D = 80 and 128 only the split instance is built
@@ -444,6 +444,8 @@ def main() -> int:
     ap.add_argument("--tree", required=True, help="directory that holds unified_video_action_tpu_torch/")
     ap.add_argument("--out", help="also write the JSON line here")
     ap.add_argument("--parts", default=",".join(DEFAULT_PARTS), help=f"comma-separated, of {PARTS}")
+    ap.add_argument("--head-dims", help="comma-separated head dimensions for attention_variants and "
+                                        "tf32_tiles (default: every one the tree builds)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernels_ab: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -457,6 +459,11 @@ def main() -> int:
         if not module.__file__.startswith(tree + os.sep):
             raise RuntimeError(f"imported {module.__file__}, not the package under {tree}")
     head_dims = getattr(attention, "HEAD_DIMS", (64,))  # a tree before D = 128 builds 64 only
+    if args.head_dims:
+        wanted = tuple(int(d) for d in args.head_dims.split(","))
+        if not set(wanted) <= set(head_dims):
+            ap.error(f"the tree builds head dimensions {head_dims}, not {wanted}")
+        head_dims = wanted
     meta_policy, normalizer = smoke.flagship_config()
     cfg = meta_policy.mar_cfg
     measure = {"attention": lambda: attention_rows(attention, cfg),
