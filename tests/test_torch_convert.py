@@ -21,11 +21,7 @@ from torch import nn
 from unified_video_action_tpu.policy.policy import UnifiedVideoActionPolicy as JaxPolicy
 from unified_video_action_tpu_torch import convert
 from unified_video_action_tpu_torch.models.transformer import QuantLinear
-from unified_video_action_tpu_torch.policy.policy import (
-    MAR_SKIP,
-    VAE_SKIP,
-    UnifiedVideoActionPolicy,
-)
+from unified_video_action_tpu_torch.policy.policy import VAE_SKIP, UnifiedVideoActionPolicy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(REPO, "pretrained_models", "uva_pusht_small", "latest")
@@ -125,6 +121,18 @@ def test_seeded_tree_is_the_inverse_layout():
         np.testing.assert_array_equal(v, convert.flatten_tree(again)[path])
 
 
+def test_to_flax_tree_is_the_inverse_of_load_into():
+    m = convert.load_into(_Tiny(), _tiny_tree(np.random.default_rng(4)))
+    back = convert.to_flax_tree(m)
+    again = convert.load_into(_Tiny(), back)
+    for (k, a), b in zip(m.state_dict().items(), again.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
+    assert {p: v.shape for p, v in convert.flatten_tree(back).items()} == \
+        convert.flax_layout_shapes(m)
+    with pytest.raises(ValueError, match="QuantLinear"):
+        convert.to_flax_tree(_TinyQuant())
+
+
 @pytest.fixture(scope="module")
 def flagship_shapes():
     with open(os.path.join(FLAGSHIP, "meta.json")) as f:
@@ -155,14 +163,14 @@ def test_flagship_maps_onto_the_port(flagship_shapes):
     policy = UnifiedVideoActionPolicy.from_run_config(
         os.path.join(FLAGSHIP, "meta.json"), device="meta"
     )
-    mar_plan = convert.plan(flagship_shapes["mar"], convert.module_shapes(policy.mar), MAR_SKIP)
+    mar_plan = convert.plan(flagship_shapes["mar"], convert.module_shapes(policy.mar))
     vae_plan = convert.plan(flagship_shapes["vae"], convert.module_shapes(policy.vae), VAE_SKIP)
     n_mar = sum(int(np.prod(flagship_shapes["mar"][p])) for p, _ in mar_plan.values())
     assert len(mar_plan) == len(policy.mar.state_dict())
     assert len(vae_plan) == len(policy.vae.state_dict())
-    # what the bridge leaves to later slices: the video head and the decoder
-    skipped = [p for p in flagship_shapes["mar"] if p[0] == "diffloss"]
-    assert len(mar_plan) + len(skipped) == 444
+    # every MAR leaf lands, the video head's too; the VAE's decoder waits
+    assert len(mar_plan) == 444
+    assert convert.flax_layout_shapes(policy.mar) == flagship_shapes["mar"]
     assert n_mar > 200_000_000
 
 
@@ -211,9 +219,10 @@ def test_flagship_maps_onto_the_int8_port(flagship_shapes):
     policy = UnifiedVideoActionPolicy.from_run_config(
         os.path.join(FLAGSHIP, "meta.json"), device="meta", serving_quant="int8"
     )
-    mar_plan = convert.plan(flagship_shapes["mar"], convert.module_shapes(policy.mar), MAR_SKIP)
+    mar_plan = convert.plan(flagship_shapes["mar"], convert.module_shapes(policy.mar))
     assert len(mar_plan) == len(policy.mar.state_dict())
     n_quant = sum(1 for _, change in mar_plan.values() if change == "quant")
-    assert n_quant == 24 * 4 + 6 * 3 + 3
+    # the stacks, and both denoisers (the video head's and the action head's)
+    assert n_quant == 24 * 4 + 2 * (6 * 3 + 3)
     # one fp32 kernel leaf sets both the int8 weight and its scales
     assert len({path for path, _ in mar_plan.values()}) == len(mar_plan) - n_quant

@@ -55,11 +55,7 @@ from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
 from unified_video_action_tpu_torch.models.transformer import QuantLinear
 from unified_video_action_tpu_torch.ops import attention as attention_ops
 from unified_video_action_tpu_torch.ops import int8_mm as int8_ops
-from unified_video_action_tpu_torch.policy.policy import (
-    MAR_SKIP,
-    VAE_SKIP,
-    UnifiedVideoActionPolicy,
-)
+from unified_video_action_tpu_torch.policy.policy import VAE_SKIP, UnifiedVideoActionPolicy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NORMALIZER = os.path.join(REPO, "pretrained_models", "uva_pusht_small", "latest", "normalizer.npz")
@@ -123,26 +119,25 @@ def test_mar_huge_holds_the_jax_tree_leaf_by_leaf(name):
     policy = UnifiedVideoActionPolicy.from_cfg(getattr(config, name), device="meta")
     # the bridge maps every leaf outside the skipped subtrees onto a port
     # parameter of its shape, and sets every port parameter
-    mar_plan = convert.plan(want["mar"], convert.module_shapes(policy.mar), MAR_SKIP)
+    mar_plan = convert.plan(want["mar"], convert.module_shapes(policy.mar))
     vae_plan = convert.plan(want["vae"], convert.module_shapes(policy.vae), VAE_SKIP)
     assert len(mar_plan) == len(policy.mar.state_dict())
     assert len(vae_plan) == len(policy.vae.state_dict())
-    # the port's flax layout is JAX's tree, leaf names and shapes, outside the video head
-    held = {p: s for p, s in want["mar"].items() if p[0] != "diffloss"}
-    assert convert.flax_layout_shapes(policy.mar) == held
-    n_jax = sum(int(np.prod(s)) for s in held.values())
+    # the port's flax layout is JAX's tree, leaf names and shapes, the video head's too
+    assert convert.flax_layout_shapes(policy.mar) == want["mar"]
+    n_jax = sum(int(np.prod(s)) for s in want["mar"].values())
     assert n_jax == sum(p.numel() for p in policy.mar.parameters())
-    assert 870_000_000 < n_jax < 880_000_000  # MAR and action head, the video head left out
+    assert 910_000_000 < n_jax < 915_000_000  # MAR, action head and video head (36 M)
 
 
 def test_mar_huge_int8_tier_maps_every_dense_kernel():
     want = _jax_shapes("PUSHT_HUGE96")["mar"]
     policy = UnifiedVideoActionPolicy.from_cfg(config.PUSHT_HUGE96, device="meta",
                                                serving_quant="int8", obs_codec="yuv420")
-    mar_plan = convert.plan(want, convert.module_shapes(policy.mar), MAR_SKIP)
+    mar_plan = convert.plan(want, convert.module_shapes(policy.mar))
     assert len(mar_plan) == len(policy.mar.state_dict())
     n_quant = sum(1 for _, change in mar_plan.values() if change == "quant")
-    assert n_quant == 40 * 4 + 6 * 3 + 3
+    assert n_quant == 40 * 4 + 2 * (6 * 3 + 3)
     quant = [m for m in policy.mar.modules() if isinstance(m, QuantLinear)]
     # mar_huge's fc2 reads 5120 columns: the vector quantize kernel's widest instance
     widths = {m.weight_q.shape[1] for m in quant}

@@ -1,7 +1,8 @@
 """The port stands alone: importing unified_video_action_tpu_torch and every
-module in it loads no JAX, no flax, no optax, no orbax and nothing of the
-JAX package, and no OpenCV or dill (which the card's machine lacks);
-chip_smoke.py and the card's tests import none of them either, and
+module in it, and train_torch.py, loads no JAX, no flax, no optax, no orbax
+and nothing of the JAX package, and no OpenCV or dill (which the card's
+machine lacks); chip_smoke.py, train_torch.py and the card's tests import
+none of them either, and
 chip_smoke.py refuses to run without a CUDA device or without the package
 beside it. eval_sim_torch.py imports nothing of the JAX package (orbax, to
 read an orbax checkpoint, only inside the function that reads it).
@@ -28,6 +29,7 @@ import unified_video_action_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+import train_torch
 roots = sorted({m.split(".")[0] for m in sys.modules})
 print(json.dumps({"modules": names, "roots": roots, "torch_roots": torch_roots}))
 """
@@ -51,7 +53,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "utils.image", "utils.obs_codec", "utils.frames", "utils.device",
                      "data.normalizer", "envs.physics2d", "envs.raster", "envs.pusht",
                      "envs.wrappers", "runners.base", "runners.pusht_runner", "utils.ckpt_id",
-                     "utils.language", "config"):
+                     "utils.language", "config", "models.initializers", "data.replay_buffer",
+                     "data.sampler", "data.pusht_dataset", "data.device_dataset",
+                     "training.optim", "training.ema", "training.train_state",
+                     "training.workspace"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
@@ -74,7 +79,7 @@ def _imported_roots(path):
 
 def test_chip_smoke_the_port_and_its_card_tests_import_no_jax():
     # all of them run on the machine with the card, which has no JAX
-    sources = [os.path.join(REPO, "chip_smoke.py"),
+    sources = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "train_torch.py"),
                os.path.join(REPO, "tests", "test_torch_attention_cuda.py"),
                os.path.join(REPO, "tests", "test_torch_int8_cuda.py")]
     for root, _, files in os.walk(os.path.join(REPO, "unified_video_action_tpu_torch")):

@@ -99,6 +99,7 @@ SMALL = dict(
     img_size=32, vae_stride=8, vae_embed_dim=8,
     encoder_embed_dim=256, encoder_depth=1, encoder_num_heads=2,
     decoder_embed_dim=256, decoder_depth=1, decoder_num_heads=2,
+    diffloss_d=1, diffloss_w=16,
     diffloss_act_d=2, diffloss_act_w=32, act_diff_testing_steps="ddim10",
     action_dim=9, language_emb_model="clip",
 )
@@ -106,7 +107,7 @@ SMALL = dict(
 
 @pytest.fixture(scope="module")
 def text_mars():
-    jcfg = jm_.MarConfig(**SMALL, diffloss_d=1, diffloss_w=16, attn_dropout=0.0, proj_dropout=0.0,
+    jcfg = jm_.MarConfig(**SMALL, attn_dropout=0.0, proj_dropout=0.0,
                          task_name="kitchen")
     jm = jm_.Mar(jcfg)
     lat = jnp.zeros((1, 4, 8, 4, 4))
@@ -114,7 +115,7 @@ def text_mars():
                          jnp.zeros((1, 512)), method=jm_.Mar.init_forward)
     params = random_params(shapes, seed=3)
     pm = pm_.Mar(pm_.MarConfig(**SMALL))
-    convert.load_into(pm, to_numpy(params), skip=(("diffloss",),))
+    convert.load_into(pm, to_numpy(params))
     return jm, params, pm
 
 
@@ -131,8 +132,7 @@ def test_the_bridge_maps_the_text_leaves_by_name(text_mars):
     seeded = convert.flatten_tree(convert.seeded_tree(pm, 0))
     assert seeded[("text_proj_cond", "kernel")].shape == (512, 256)
     assert seeded[("decoder_text_pos_embed",)].shape == (1, 64, 256)
-    held = {p for p in flat if p[0] != "diffloss"}
-    assert len(held) == len(pm.state_dict())
+    assert convert.flax_layout_shapes(pm) == {p: v.shape for p, v in flat.items()}
 
 
 @pytest.mark.parametrize("with_goal", [True, False])

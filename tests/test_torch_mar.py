@@ -35,21 +35,21 @@ SMALL = dict(
     img_size=32, vae_stride=8, vae_embed_dim=8,
     encoder_embed_dim=64, encoder_depth=2, encoder_num_heads=4,
     decoder_embed_dim=64, decoder_depth=2, decoder_num_heads=4,
+    diffloss_d=1, diffloss_w=16,
     diffloss_act_d=2, diffloss_act_w=32, act_diff_testing_steps="ddim10",
 )
-MAR_SKIP = (("diffloss",),)
 
 
 @pytest.fixture(scope="module")
 def mars():
-    jcfg = jm_.MarConfig(**SMALL, diffloss_d=1, diffloss_w=16, attn_dropout=0.0, proj_dropout=0.0)
+    jcfg = jm_.MarConfig(**SMALL, attn_dropout=0.0, proj_dropout=0.0)
     jm = jm_.Mar(jcfg)
     lat = jnp.zeros((1, 4, 8, 4, 4))
     shapes = init_shapes(jm, lat, lat, jax.random.PRNGKey(0), jnp.zeros((1, 16, 2)),
                          method=jm_.Mar.init_forward)
     params = random_params(shapes, seed=0)
     pm = pm_.Mar(pm_.MarConfig(**SMALL))
-    convert.load_into(pm, to_numpy(params), skip=MAR_SKIP)
+    convert.load_into(pm, to_numpy(params))
     return jm, params, pm
 
 
@@ -112,8 +112,8 @@ def test_sample_policy_matches_jax(mars):
 def test_port_holds_every_policy_leaf_of_the_jax_tree(mars):
     _, params, pm = mars
     flat = convert.flatten_tree(to_numpy(params))
-    held = {p for p in flat if p[0] != "diffloss"}
-    assert len(held) == len(pm.state_dict())
+    # the video head (diffloss) too, since the training slice
+    assert convert.flax_layout_shapes(pm) == {p: v.shape for p, v in flat.items()}
 
 
 # W8A8 (MarConfig.quant): both stacks and the action denoiser int8, the
@@ -128,7 +128,7 @@ def quant_mars(mars):
     jm, params, _ = mars
     jq = jm_.Mar(dataclasses.replace(jm.cfg, quant=True))
     pq = pm_.Mar(pm_.MarConfig(**SMALL, quant=True))
-    convert.load_into(pq, to_numpy(params), skip=MAR_SKIP)
+    convert.load_into(pq, to_numpy(params))
     return jm, jq, params, pq
 
 
@@ -174,9 +174,9 @@ def test_quant_reaches_the_layers_jax_quantizes(quant_mars):
     blocks = [f"{s}.block_{i}" for s, d in (("encoder_blocks", c.encoder_depth),
                                             ("decoder_blocks", c.decoder_depth)) for i in range(d)]
     want = {f"{b}.{l}" for b in blocks for l in ("attn.qkv", "attn.proj", "mlp_fc1", "mlp_fc2")}
-    net = "diffactloss.net"
-    want |= {f"{net}.input_proj", f"{net}.cond_embed", f"{net}.final.ada_mod"}
-    want |= {f"{net}.block_{i}.{l}" for i in range(c.diffloss_act_d) for l in ("ada_mod", "fc1", "fc2")}
+    for net, depth in (("diffactloss.net", c.diffloss_act_d), ("diffloss.net", c.diffloss_d)):
+        want |= {f"{net}.input_proj", f"{net}.cond_embed", f"{net}.final.ada_mod"}
+        want |= {f"{net}.block_{i}.{l}" for i in range(depth) for l in ("ada_mod", "fc1", "fc2")}
     assert quant == want
     assert all(isinstance(getattr(pq, n), nn.Linear) for n in
                ("z_proj_cond", "z_proj", "decoder_embed", "proj_cond_x_layer"))

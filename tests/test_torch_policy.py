@@ -254,7 +254,8 @@ def test_flagship_deployed_tier_builds():
     policy = UnifiedVideoActionPolicy.from_run_config(
         os.path.join(LATEST, "meta.json"), device="meta", **DEPLOYED)
     quant = [m for m in policy.mar.modules() if isinstance(m, QuantLinear)]
-    assert len(quant) == 24 * 4 + 6 * 3 + 3
+    # the stacks and both denoisers (the video head's is held, not served)
+    assert len(quant) == 24 * 4 + 2 * (6 * 3 + 3)
     assert all(m.w_scale.dtype == m.bias.dtype == torch.float32 for m in quant)
     assert policy.noise_shapes(1, 2)["vae"] == (2, 16, 6, 6)
 

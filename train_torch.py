@@ -1,0 +1,43 @@
+#!/usr/bin/env python3
+"""Train the PyTorch/CUDA port's policy from a run config.
+
+    python3 train_torch.py --run-config pretrained_models/uva_pusht_small/latest/meta.json \
+        task.dataset.synthetic=6 training.max_train_steps=20
+
+``--run-config`` is an exported checkpoint's ``meta.json`` (its ``cfg`` is
+the run config) or a JSON file holding the run config itself; the dotted
+overrides after it set keys of that config (``config.apply_overrides``).
+The run initializes the MAR from ``training.seed``, reads the VAE from
+``autoencoder_path``, trains on the card (``--device cpu`` for the CPU) and
+writes ``logs.jsonl`` and ``normalizer.npz`` under ``output_dir``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from unified_video_action_tpu_torch.config import apply_overrides
+from unified_video_action_tpu_torch.training.workspace import Trainer
+
+
+def load_run_config(path: str) -> dict:
+    with open(path) as f:
+        cfg = json.load(f)
+    return cfg["cfg"] if "cfg" in cfg else cfg
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--run-config", required=True,
+                    help="a meta.json with the run config under 'cfg', or the run config as JSON")
+    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("overrides", nargs="*", help="dotted overrides, e.g. training.max_train_steps=20")
+    args = ap.parse_args(argv)
+    cfg = load_run_config(args.run_config)
+    apply_overrides(cfg, args.overrides)
+    return Trainer(cfg, args.device).run()
+
+
+if __name__ == "__main__":
+    main()

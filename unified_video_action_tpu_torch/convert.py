@@ -17,6 +17,9 @@ The port's modules carry the flax module names, so a flax leaf at path
 
 These are the inverses of ``linear_kernel`` and ``conv_kernel`` in the JAX
 package's ``models/torch_import.py``, kept here as the port's own copy.
+:func:`to_flax_tree` is the reverse map: a float module's parameters (or a
+state of the same keys, such as the trainer's EMA) back to the flax tree,
+as numpy.
 
 The bridge is strict: a leaf it cannot place (no such parameter, or another
 shape) raises, and so does a port parameter that no leaf sets. Subtrees of a
@@ -160,28 +163,66 @@ def load_into(module: nn.Module, tree: Mapping, skip: Iterable[Path] = ()) -> nn
     return module
 
 
-def flax_layout_shapes(module: nn.Module) -> Dict[Path, Tuple[int, ...]]:
-    """The flax tree layout (path -> shape) that ``module`` loads from: the
-    inverse of :func:`port_key`."""
-    out: Dict[Path, Tuple[int, ...]] = {}
+def flax_paths(module: nn.Module) -> Dict[str, Tuple[Path, str]]:
+    """{state_dict key: (flax path, layout change)} of every entry of
+    ``module`` that a flax leaf sets (a QuantLinear's ``w_scale`` is derived
+    from its kernel and left out): the inverse of :func:`port_key`."""
+    out: Dict[str, Tuple[Path, str]] = {}
     norm_types = (nn.LayerNorm, nn.GroupNorm)
     owners = dict(module.named_modules())
-    for key, shape in module_shapes(module).items():
+    for key in module.state_dict():
         *mods, leaf = key.split(".")
         owner = owners[".".join(mods)]
         if leaf == "weight" and isinstance(owner, norm_types):
-            out[tuple(mods) + ("scale",)] = shape
+            out[key] = (tuple(mods) + ("scale",), "none")
         elif leaf == "weight" and isinstance(owner, nn.Linear):
-            out[tuple(mods) + ("kernel",)] = (shape[1], shape[0])
+            out[key] = (tuple(mods) + ("kernel",), "linear")
         elif leaf == "weight_q":
-            out[tuple(mods) + ("kernel",)] = (shape[1], shape[0])
+            out[key] = (tuple(mods) + ("kernel",), "quant")
         elif leaf == "w_scale":
-            continue  # derived from the kernel
+            continue
         elif leaf == "weight" and isinstance(owner, nn.Conv2d):
-            out[tuple(mods) + ("kernel",)] = (shape[2], shape[3], shape[1], shape[0])
+            out[key] = (tuple(mods) + ("kernel",), "conv")
         else:
-            out[tuple(mods) + (leaf,)] = shape
+            out[key] = (tuple(mods) + (leaf,), "none")
     return out
+
+
+def _flax_shape(shape: Tuple[int, ...], change: str) -> Tuple[int, ...]:
+    if change in ("linear", "quant"):
+        return (shape[1], shape[0])
+    if change == "conv":
+        return (shape[2], shape[3], shape[1], shape[0])
+    return tuple(shape)
+
+
+def flax_layout_shapes(module: nn.Module) -> Dict[Path, Tuple[int, ...]]:
+    """The flax tree layout (path -> shape) that ``module`` loads from."""
+    shapes = module_shapes(module)
+    return {path: _flax_shape(shapes[key], change)
+            for key, (path, change) in flax_paths(module).items()}
+
+
+def to_flax_tree(module: nn.Module, state: Mapping[str, torch.Tensor] = None) -> Dict[str, Dict]:
+    """``module``'s parameters, or ``state`` (tensors under ``module``'s
+    state_dict keys), as the flax tree of fp32 numpy arrays that
+    :func:`load_into` reads. A W8A8 ``QuantLinear`` holds no float kernel to
+    return and raises."""
+    state = module.state_dict() if state is None else state
+    tree: Dict[str, Dict] = {}
+    for key, (path, change) in flax_paths(module).items():
+        if change == "quant":
+            raise ValueError(f"{key}: a QuantLinear holds no float kernel")
+        x = state[key].detach().float().cpu().numpy()
+        if change == "linear":
+            x = x.T
+        elif change == "conv":
+            x = np.transpose(x, (2, 3, 1, 0))
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(x)
+    return tree
 
 
 def seeded_tree(module: nn.Module, seed: int) -> Dict[str, Dict]:

@@ -13,6 +13,9 @@ input's dtype where flax's ``Dense(dtype=...)`` casts to the compute dtype,
 so in the quant denoiser ``input_proj`` turns the fp32 sampler state into an
 fp32 residual stream, as in JAX; the LayerNorms then normalize it in fp32
 and hand the compute dtype on (flax's ``LayerNorm(dtype=...)``).
+
+The dense layers carry the flax initializers that JAX names (``xavier_uniform``,
+``normal(0.02)``, ``zeros``) in ``kernel_init``.
 """
 
 from __future__ import annotations
@@ -56,8 +59,8 @@ class TimestepEmbed(nn.Module):
     def __init__(self, hidden: int, freq_dim: int = 256):
         super().__init__()
         self.freq_dim = freq_dim
-        self.fc1 = nn.Linear(freq_dim, hidden)
-        self.fc2 = nn.Linear(hidden, hidden)
+        self.fc1 = dense(freq_dim, hidden, False, "normal_0.02")
+        self.fc2 = dense(hidden, hidden, False, "normal_0.02")
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         emb = timestep_embedding(t, self.freq_dim).to(self.fc1.weight.dtype)
@@ -67,10 +70,10 @@ class TimestepEmbed(nn.Module):
 class AdaLNResBlock(nn.Module):
     def __init__(self, channels: int, quant: bool = False):
         super().__init__()
-        self.ada_mod = dense(channels, 3 * channels, quant)
+        self.ada_mod = dense(channels, 3 * channels, quant, "zeros")
         self.ln = nn.LayerNorm(channels, eps=1e-6)
-        self.fc1 = dense(channels, channels, quant)
-        self.fc2 = dense(channels, channels, quant)
+        self.fc1 = dense(channels, channels, quant, "xavier_uniform")
+        self.fc2 = dense(channels, channels, quant, "xavier_uniform")
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         shift, scale, gate = self.ada_mod(F.silu(y)).chunk(3, dim=-1)
@@ -82,9 +85,9 @@ class AdaLNResBlock(nn.Module):
 class AdaLNFinal(nn.Module):
     def __init__(self, channels: int, out_channels: int, quant: bool = False):
         super().__init__()
-        self.ada_mod = dense(channels, 2 * channels, quant)
+        self.ada_mod = dense(channels, 2 * channels, quant, "zeros")
         self.ln = nn.LayerNorm(channels, eps=1e-6, elementwise_affine=False)
-        self.proj = nn.Linear(channels, out_channels)
+        self.proj = dense(channels, out_channels, False, "zeros")
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         shift, scale = self.ada_mod(F.silu(y)).chunk(2, dim=-1)
@@ -96,9 +99,9 @@ class MlpDenoiser(nn.Module):
                  z_channels: int, depth: int, quant: bool = False):
         super().__init__()
         self.depth = depth
-        self.input_proj = dense(in_channels, model_channels, quant)
+        self.input_proj = dense(in_channels, model_channels, quant, "xavier_uniform")
         self.time_embed = TimestepEmbed(model_channels)
-        self.cond_embed = dense(z_channels, model_channels, quant)
+        self.cond_embed = dense(z_channels, model_channels, quant, "xavier_uniform")
         for i in range(depth):
             self.add_module(f"block_{i}", AdaLNResBlock(model_channels, quant))
         self.final = AdaLNFinal(model_channels, out_channels, quant)

@@ -1,26 +1,31 @@
-"""IDDPM-family gaussian diffusion for sampling (port of
-``models/diffusion/gaussian.py``: schedules, ``space_timesteps``,
-``_map_t``, ``p_mean_variance`` with LEARNED_RANGE, ``p_sample_loop`` at
-:308-340 and ``ddim_sample_loop`` at :342-383). ``training_losses`` waits for
-the training slice.
+"""IDDPM-family gaussian diffusion (port of ``models/diffusion/gaussian.py``:
+schedules, ``space_timesteps``, ``_map_t``, ``p_mean_variance`` with
+LEARNED_RANGE, ``p_sample_loop`` at :308-340, ``ddim_sample_loop`` at
+:342-383, and for training ``q_sample`` (:246), ``q_posterior_mean_variance``
+(:253), the log-likelihood helpers (:121-162), ``vb_terms_bpd`` (:387) and
+``training_losses`` (:406-433)).
 
 The schedule is computed once in float64 numpy, as in the JAX package, and
 each coefficient enters the arithmetic as its float32 value. The loops are
 plain Python loops over the respaced steps; all rows of a batch share the
-step, so the coefficients are scalars. Randomness is injected: a loop takes
-the per-step standard-normal noise as one (steps, N, C) tensor, whose row i
-is used at the i-th step taken (internal step ``steps - 1 - i``).
+step, so the coefficients are scalars. Training draws one step per row: there
+``t`` is an int64 tensor and the coefficients are gathered per row. Randomness
+is injected: a loop takes the per-step standard-normal noise as one (steps,
+N, C) tensor, whose row i is used at the i-th step taken (internal step
+``steps - 1 - i``); ``training_losses`` takes its noise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Union
 
 import numpy as np
 import torch
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x_t, t_orig) -> (..., 2C)
+# an internal step shared by every row (sampling), or one per row (training)
+Step = Union[int, torch.Tensor]
 
 
 def linear_beta_schedule(num_timesteps: int) -> np.ndarray:
@@ -79,6 +84,35 @@ def space_timesteps(num_timesteps: int, section_counts) -> set:
     return set(all_steps)
 
 
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two diagonal gaussians, elementwise (in nats)."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x: torch.Tensor, means: torch.Tensor,
+                                        log_scales: torch.Tensor) -> torch.Tensor:
+    """Log-likelihood of a gaussian discretized to 1/255-wide buckets on [-1, 1]."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_delta))
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all axes but the first."""
+    return x.reshape(x.shape[0], -1).mean(dim=-1)
+
+
 class GaussianDiffusion:
     """Schedule of one (possibly respaced) diffusion, with LEARNED_RANGE
     variance and EPSILON mean prediction. ``timestep_map`` maps the internal
@@ -96,6 +130,8 @@ class GaussianDiffusion:
         post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
         self.betas = betas
         self.alphas_cumprod = acp
+        self.sqrt_alphas_cumprod = np.sqrt(acp)
+        self.sqrt_one_minus_alphas_cumprod = np.sqrt(1.0 - acp)
         self.alphas_cumprod_prev = acp_prev
         self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / acp)
         self.sqrt_recipm1_alphas_cumprod = np.sqrt(1.0 / acp - 1.0)
@@ -109,33 +145,51 @@ class GaussianDiffusion:
         return len(self.betas)
 
     @staticmethod
-    def _f32(arr: np.ndarray, t: int) -> float:
-        """Coefficient ``arr[t]`` as its float32 value."""
-        return float(np.float32(arr[t]))
+    def _f32(arr: np.ndarray, t: Step, x: torch.Tensor = None):
+        """Coefficient ``arr[t]`` as its float32 value: a Python float for an
+        int step, else gathered per row of ``t`` and shaped to broadcast over
+        ``x`` (JAX's ``_gather``)."""
+        if isinstance(t, int):
+            return float(np.float32(arr[t]))
+        out = torch.as_tensor(arr, dtype=torch.float32, device=t.device)[t]
+        return out.reshape(out.shape + (1,) * (x.dim() - out.dim()))
 
-    def _map_t(self, t: int, n: int, device: torch.device) -> torch.Tensor:
-        """(n,) original timesteps for internal step ``t``."""
-        return torch.full((n,), int(self.timestep_map[t]), dtype=torch.int64, device=device)
+    def _map_t(self, t: Step, n: int, device: torch.device) -> torch.Tensor:
+        """(n,) original timesteps for internal step ``t`` (or for each row's)."""
+        if isinstance(t, int):
+            return torch.full((n,), int(self.timestep_map[t]), dtype=torch.int64, device=device)
+        return torch.as_tensor(self.timestep_map, device=t.device)[t]
 
-    def p_mean_variance(self, model_output: torch.Tensor, x_t: torch.Tensor, t: int,
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        return (self._f32(self.sqrt_alphas_cumprod, t, x_start) * x_start
+                + self._f32(self.sqrt_one_minus_alphas_cumprod, t, x_start) * noise)
+
+    def q_posterior_mean_variance(self, x_start: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor):
+        """Mean and log variance of q(x_{t-1} | x_t, x_0)."""
+        mean = (self._f32(self.posterior_mean_coef1, t, x_t) * x_start
+                + self._f32(self.posterior_mean_coef2, t, x_t) * x_t)
+        return mean, self._f32(self.posterior_log_variance_clipped, t, x_t)
+
+    def p_mean_variance(self, model_output: torch.Tensor, x_t: torch.Tensor, t: Step,
                         clip_denoised: bool = True) -> Dict[str, torch.Tensor]:
-        """LEARNED_RANGE + EPSILON posterior for internal step ``t`` (the same
-        for every row). ``model_output`` is (eps ‖ v) on the last axis."""
+        """LEARNED_RANGE + EPSILON posterior for internal step ``t`` (an int
+        for every row, or a tensor of one per row). ``model_output`` is
+        (eps ‖ v) on the last axis."""
         c = x_t.shape[-1]
         eps, v = model_output[..., :c], model_output[..., c:]
-        min_log = self._f32(self.posterior_log_variance_clipped, t)
-        max_log = self._f32(self.log_betas, t)
+        min_log = self._f32(self.posterior_log_variance_clipped, t, x_t)
+        max_log = self._f32(self.log_betas, t, x_t)
         frac = (v + 1.0) / 2.0
         model_log_variance = frac * max_log + (1.0 - frac) * min_log
         pred_xstart = (
-            self._f32(self.sqrt_recip_alphas_cumprod, t) * x_t
-            - self._f32(self.sqrt_recipm1_alphas_cumprod, t) * eps
+            self._f32(self.sqrt_recip_alphas_cumprod, t, x_t) * x_t
+            - self._f32(self.sqrt_recipm1_alphas_cumprod, t, x_t) * eps
         )
         if clip_denoised:
             pred_xstart = pred_xstart.clamp(-1.0, 1.0)
         mean = (
-            self._f32(self.posterior_mean_coef1, t) * pred_xstart
-            + self._f32(self.posterior_mean_coef2, t) * x_t
+            self._f32(self.posterior_mean_coef1, t, x_t) * pred_xstart
+            + self._f32(self.posterior_mean_coef2, t, x_t) * x_t
         )
         return {
             "mean": mean,
@@ -189,6 +243,35 @@ class GaussianDiffusion:
             if t != 0:
                 x = x + sigma * step_noise[i]
         return x
+
+
+    def vb_terms_bpd(self, model_output: torch.Tensor, x_start: torch.Tensor, x_t: torch.Tensor,
+                     t: torch.Tensor, clip_denoised: bool = False) -> torch.Tensor:
+        """Variational-bound term per row in bits per dim: the KL of the
+        posteriors, or the decoder's NLL where t == 0."""
+        true_mean, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_output, x_t, t, clip_denoised=clip_denoised)
+        kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+        kl = mean_flat(kl) / math.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+        return torch.where(t == 0, decoder_nll, kl)
+
+    def training_losses(self, denoise_fn: DenoiseFn, x_start: torch.Tensor, t: torch.Tensor,
+                        noise: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """MSE(eps) + learned-range VB loss per row, shape (N,). ``t``: (N,)
+        int64 internal steps of this schedule; ``noise``: standard normal of
+        ``x_start``'s shape. The VB term sees eps detached, so the variance
+        head cannot move the mean prediction."""
+        x_t = self.q_sample(x_start, t, noise)
+        model_output = denoise_fn(x_t, self._map_t(t, t.shape[0], t.device))
+        c = x_start.shape[-1]
+        eps, v = model_output[..., :c], model_output[..., c:]
+        frozen_out = torch.cat([eps.detach(), v], dim=-1)
+        vb = self.vb_terms_bpd(frozen_out, x_start, x_t, t, clip_denoised=False)
+        mse = mean_flat((noise - eps) ** 2)
+        return {"loss": mse + vb, "mse": mse, "vb": vb}
 
 
 def create_diffusion(timestep_respacing, noise_schedule: str = "cosine",

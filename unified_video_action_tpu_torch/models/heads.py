@@ -1,14 +1,17 @@
-"""Action diffusion head (port of ``models/heads.py``: ``_adaptive_pool_matrix``
-and ``ConvFcPool`` at :96-148, ``ActionDiffusionHead.sample`` at :272-298).
+"""Diffusion heads (port of ``models/heads.py``: ``VideoDiffusionHead``'s
+training loss at :31-70, ``_adaptive_pool_matrix`` and ``ConvFcPool`` at
+:96-148, ``ActionDiffusionHead`` at :255-298).
 
 ``ConvFcPool`` pools the decoder's (B, T·S, D) tokens into 16 action-slot
 latents: a per-frame 3x3 conv, an adaptive average pool to 4x4 with torch's
 (overlapping) window semantics, an MLP, a linear frame-to-slot
 interpolation and a refining MLP. The head then samples one action per slot
 with the per-token ``MlpDenoiser`` under the respaced diffusion, from
-injected noise. Training (``__call__``) waits for the training slice.
-Under ``quant`` the denoiser's dense layers are W8A8; the pool stays float,
-as in JAX (``heads.py:137-147``, ``:224-246``).
+injected noise. Each head's ``loss`` is JAX's ``__call__``: the per-token
+training losses of its 1000-step cosine diffusion at given steps ``t`` and
+noise, the video head's masked to the predicted tokens. Video sampling
+waits for a later slice. Under ``quant`` the denoisers' dense layers are
+W8A8; the pool stays float, as in JAX (``heads.py:137-147``, ``:224-246``).
 """
 
 from __future__ import annotations
@@ -65,11 +68,41 @@ class ConvFcPool(nn.Module):
         return self.refine2(F.relu(self.refine1(z)))
 
 
-class ActionDiffusionHead(nn.Module):
-    """DiffActLoss equivalent with the ``conv_fc`` pool, for sampling."""
+class VideoDiffusionHead(nn.Module):
+    """DiffLoss equivalent: the per-token denoiser of the frame latents and its
+    training diffusion."""
 
     def __init__(self, target_channels: int, z_channels: int, width: int, depth: int,
-                 n_frames: int = 4, num_actions: int = 16,
+                 quant: bool = False):
+        super().__init__()
+        self.net = MlpDenoiser(
+            in_channels=target_channels,
+            model_channels=width,
+            out_channels=target_channels * 2,
+            z_channels=z_channels,
+            depth=depth,
+            quant=quant,
+        )
+        self.train_diffusion = create_diffusion("", noise_schedule="cosine")
+
+    def loss(self, target: torch.Tensor, z: torch.Tensor, mask: torch.Tensor,
+             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Masked-mean diffusion loss. target (B, L, C), z (B, L, D), mask
+        (B, L) with 1 on the tokens to predict; t (B·L,) int64 steps in [0,
+        1000) and noise (B·L, C)."""
+        B, L, C = target.shape
+        z = z.reshape(B * L, -1)
+        mask = mask.reshape(B * L)
+        out = self.train_diffusion.training_losses(
+            lambda x_t, tt: self.net(x_t, tt, z), target.reshape(B * L, C), t, noise)
+        return (out["loss"] * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+class ActionDiffusionHead(nn.Module):
+    """DiffActLoss equivalent with the ``conv_fc`` pool."""
+
+    def __init__(self, target_channels: int, z_channels: int, width: int, depth: int,
+                 n_frames: int = 4, num_actions: int = 16, act_diff_training_steps: int = 1000,
                  act_diff_testing_steps: str = "100", act_model_type: str = "conv_fc",
                  quant: bool = False):
         super().__init__()
@@ -85,11 +118,27 @@ class ActionDiffusionHead(nn.Module):
             depth=depth,
             quant=quant,
         )
+        self.train_diffusion = create_diffusion("", noise_schedule="cosine",
+                                                diffusion_steps=act_diff_training_steps)
         self.gen_diffusion = create_diffusion(act_diff_testing_steps, noise_schedule="cosine")
 
     @property
     def num_steps(self) -> int:
         return self.gen_diffusion.num_timesteps
+
+    def loss(self, target: torch.Tensor, z: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+        """Mean diffusion loss of the action chunk. target (B, num_actions, A),
+        z (B, T·S, D) decoder tokens; t (B·num_actions,) int64 steps and noise
+        (B·num_actions, A)."""
+        B, L, A = target.shape
+        pooled = self.pool(z)
+        if pooled.shape[1] != L:
+            raise ValueError(f"action chunk length {L} != the head's {pooled.shape[1]} slots")
+        pooled = pooled.reshape(B * L, -1)
+        out = self.train_diffusion.training_losses(
+            lambda x_t, tt: self.net(x_t, tt, pooled), target.reshape(B * L, A), t, noise)
+        return out["loss"].mean()
 
     def sample(self, z: torch.Tensor, noise: torch.Tensor, step_noise: torch.Tensor,
                temperature: float = 1.0) -> torch.Tensor:

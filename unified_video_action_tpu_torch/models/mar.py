@@ -1,33 +1,54 @@
-"""MAR unified video-action transformer, policy serving path (port of
-``models/mar.py``: ``MarConfig``, ``MODEL_SIZES`` and ``patchify``, then
-``forward_encoder`` and ``forward_decoder`` for ``policy_model`` at
-:339-500 and ``sample_policy`` at :632-684).
+"""MAR unified video-action transformer (port of ``models/mar.py``:
+``MarConfig``, ``MODEL_SIZES``, ``patchify``, ``sample_mask_rate`` and
+``random_spatial_mask`` (:165-182), ``forward_encoder`` and
+``forward_decoder`` in all five task modes (:339-500), the training
+``__call__`` (:506-595, here ``forward``) and ``sample_policy`` (:632-684)).
 
-One encoder+decoder pass over the conditioning frames' latent tokens, then
-the action head's diffusion sampler. Parameters carry the flax names so
-``convert.py`` maps the JAX tree by name. With ``language_emb_model="clip"``
-(the kitchen model) a 64-token text buffer goes before the frame tokens
-(``mar.py:449-475``, ``:489-495``): the projected goal latent repeated, or
-the learned ``fake_latent`` when no goal is given, plus its own position
-embeddings; the decoder drops it again. The video head (``diffloss``), the
-other task modes, proprioception, wrist images and history actions wait for
-later slices; the config refuses what is not ported.
-``MarConfig.quant`` makes the stacks' and the action denoiser's dense layers
-W8A8 (``mar.py:104``); ``decoder_embed`` and the ``z_proj*`` layers stay
-float, as in JAX.
+Serving is one encoder+decoder pass over the conditioning frames' latent
+tokens in ``policy_model`` mode, then the action head's diffusion sampler.
+Training runs one task mode of ``TASK_MODES`` per call: the target stream is
+the target frames' tokens (masked to ``fake_latent_x`` where the spatial
+mask is 1), the conditioning frames' tokens, or the fake latent, by mode;
+the action stream is the projected actions in ``dynamic_model`` and the fake
+action latent otherwise; the video head's loss covers the masked tokens of
+the video modes and the action head's loss the action modes. The draws (the
+spatial mask, each head's steps and noise) are passed in. Parameters carry
+the flax names so ``convert.py`` maps the JAX tree by name. With
+``language_emb_model="clip"`` (the kitchen model) a 64-token text buffer goes
+before the frame tokens (``mar.py:449-475``, ``:489-495``): the projected
+goal latent repeated, or the learned ``fake_latent`` when no goal is given,
+plus its own position embeddings; the decoder drops it again. Training with
+a goal (the label drop of classifier-free guidance), video sampling,
+proprioception, wrist images and history actions wait for later slices.
+``MarConfig.quant`` makes the stacks' and both denoisers' dense layers W8A8
+(``mar.py:104``); ``decoder_embed`` and the ``z_proj*`` layers stay float,
+as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from unified_video_action_tpu_torch.models.heads import ActionDiffusionHead
-from unified_video_action_tpu_torch.models.transformer import TransformerStack
+from unified_video_action_tpu_torch.models.heads import ActionDiffusionHead, VideoDiffusionHead
+from unified_video_action_tpu_torch.models.transformer import TransformerStack, dense
 from unified_video_action_tpu_torch.utils.language import CLIP_DIM
+
+TASK_MODES = (
+    "video_model",
+    "dynamic_model",
+    "policy_model",
+    "inverse_model",
+    "full_dynamic_model",
+)
+VIDEO_MODES = ("video_model", "dynamic_model", "full_dynamic_model")
+ACTION_MODES = ("policy_model", "inverse_model", "full_dynamic_model")
+# a forward's dropout: None, a generator that draws each block's masks, or
+# {"encoder_blocks": [...], "decoder_blocks": [...]} of every block's masks
+MarDropout = Union[None, torch.Generator, Mapping[str, list]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +67,17 @@ class MarConfig:
     decoder_depth: int = 12
     decoder_num_heads: int = 12
     mlp_ratio: float = 4.0
+    attn_dropout: float = 0.1
+    proj_dropout: float = 0.1
+    # training: the mask ratio's lower end
+    mask_ratio_min: float = 0.7
+    # video head
+    diffloss_d: int = 6
+    diffloss_w: int = 1024
+    predict_video: bool = True
     # action head
+    predict_action: bool = True
+    act_diff_training_steps: int = 1000
     diffloss_act_d: int = 6
     diffloss_act_w: int = 1024
     act_diff_testing_steps: str = "100"
@@ -56,8 +87,10 @@ class MarConfig:
     # language conditioning: "clip" prepends a text buffer of this many tokens
     language_emb_model: Optional[str] = None
     buffer_size_text: int = 64
-    # int8 W8A8 dense layers in both stacks and the action denoiser (serving)
+    # int8 W8A8 dense layers in both stacks and both denoisers (serving)
     quant: bool = False
+    # torch.utils.checkpoint per ViT block in training (flax's nn.remat)
+    grad_checkpointing: bool = False
 
     @property
     def seq_hw(self) -> int:
@@ -111,22 +144,42 @@ def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(B, h * w, C * p * p)
 
 
+def sample_mask_rate(mask_ratio_min: float, generator: torch.Generator,
+                     device: torch.device) -> torch.Tensor:
+    """The mask rate, a scalar: a gaussian centred at 1.0 with std 0.25,
+    truncated to [mask_ratio_min, 1.0] (mar_con_unified.py:85-88), drawn by
+    the inverse CDF."""
+    lower = torch.tensor((mask_ratio_min - 1.0) / 0.25, device=device)
+    a, b = torch.special.ndtr(lower), 0.5  # the CDF at the two ends
+    u = torch.rand((), generator=generator, device=device)
+    return torch.special.ndtri(a + u * (b - a)) * 0.25 + 1.0
+
+
+def random_spatial_mask(rate: torch.Tensor, batch: int, seq_len: int, generator: torch.Generator,
+                        device: torch.device) -> torch.Tensor:
+    """(batch, seq_len) float mask with ceil(seq_len·rate) ones per row at
+    random positions: the rank of a uniform draw below that count."""
+    u = torch.rand((batch, seq_len), generator=generator, device=device)
+    rank = u.argsort(dim=-1).argsort(dim=-1)
+    return (rank < torch.ceil(seq_len * rate)).float()
+
+
 class Mar(nn.Module):
     def __init__(self, cfg: MarConfig):
         super().__init__()
         self.cfg = c = cfg
         D, Dd = c.encoder_embed_dim, c.decoder_embed_dim
-        self.z_proj_cond = nn.Linear(c.token_embed_dim, D)
-        self.z_proj = nn.Linear(c.token_embed_dim, D)
-        self.action_proj_cond = nn.Linear(c.action_dim, D)
+        self.z_proj_cond = dense(c.token_embed_dim, D, False, "xavier_uniform")
+        self.z_proj = dense(c.token_embed_dim, D, False, "xavier_uniform")
+        self.action_proj_cond = dense(c.action_dim, D, False, "xavier_uniform")
         # channel concat of (target stream, cond stream, action stream)
-        self.proj_cond_x_layer = nn.Linear(3 * D, D)
+        self.proj_cond_x_layer = dense(3 * D, D, False, "xavier_uniform")
         self.z_proj_ln = nn.LayerNorm(D, eps=1e-6)
         self.fake_latent_x = nn.Parameter(torch.zeros(1, D))
         self.fake_action_latent = nn.Parameter(torch.zeros(1, D))
         if c.has_text:
             self.fake_latent = nn.Parameter(torch.zeros(1, D))
-            self.text_proj_cond = nn.Linear(CLIP_DIM, D)
+            self.text_proj_cond = dense(CLIP_DIM, D, False, "xavier_uniform")
             self.text_pos_embed = nn.Parameter(torch.zeros(1, c.buffer_size_text, D))
             self.decoder_text_pos_embed = nn.Parameter(torch.zeros(1, c.buffer_size_text, Dd))
         self.temporal_pos_embed = nn.Parameter(torch.zeros(1, c.n_frames, D))
@@ -135,50 +188,84 @@ class Mar(nn.Module):
         self.decoder_spatial_pos_embed = nn.Parameter(torch.zeros(1, c.seq_len, Dd))
         self.diffusion_temporal_embed = nn.Parameter(torch.zeros(1, c.n_frames, Dd))
         self.diffusion_spatial_embed = nn.Parameter(torch.zeros(1, c.seq_len, Dd))
-        self.encoder_blocks = TransformerStack(
-            c.encoder_depth, D, c.encoder_num_heads, c.mlp_ratio, c.quant
-        )
+        stack = dict(mlp_ratio=c.mlp_ratio, quant=c.quant, attn_dropout=c.attn_dropout,
+                     proj_dropout=c.proj_dropout, remat=c.grad_checkpointing)
+        self.encoder_blocks = TransformerStack(c.encoder_depth, D, c.encoder_num_heads, **stack)
         self.encoder_norm = nn.LayerNorm(D, eps=1e-6)
-        self.decoder_embed = nn.Linear(D, Dd)
-        self.decoder_blocks = TransformerStack(
-            c.decoder_depth, Dd, c.decoder_num_heads, c.mlp_ratio, c.quant
-        )
+        self.decoder_embed = dense(D, Dd, False, "xavier_uniform")
+        self.decoder_blocks = TransformerStack(c.decoder_depth, Dd, c.decoder_num_heads, **stack)
         self.decoder_norm = nn.LayerNorm(Dd, eps=1e-6)
-        self.diffactloss = ActionDiffusionHead(
-            target_channels=c.action_dim,
-            z_channels=Dd,
-            width=c.diffloss_act_w,
-            depth=c.diffloss_act_d,
-            n_frames=c.n_frames,
-            num_actions=c.num_action_tokens,
-            act_diff_testing_steps=c.act_diff_testing_steps,
-            act_model_type=c.act_model_type,
-            quant=c.quant,
-        )
+        if c.predict_video:
+            self.diffloss = VideoDiffusionHead(
+                target_channels=c.token_embed_dim,
+                z_channels=Dd,
+                width=c.diffloss_w,
+                depth=c.diffloss_d,
+                quant=c.quant,
+            )
+        if c.predict_action:
+            self.diffactloss = ActionDiffusionHead(
+                target_channels=c.action_dim,
+                z_channels=Dd,
+                width=c.diffloss_act_w,
+                depth=c.diffloss_act_d,
+                n_frames=c.n_frames,
+                num_actions=c.num_action_tokens,
+                act_diff_training_steps=c.act_diff_training_steps,
+                act_diff_testing_steps=c.act_diff_testing_steps,
+                act_model_type=c.act_model_type,
+                quant=c.quant,
+            )
 
     @staticmethod
     def _factorized(temporal: torch.Tensor, spatial: torch.Tensor) -> torch.Tensor:
         """(1, T, D) + (1, S, D) -> (1, T·S, D) position embedding."""
         return (temporal[:, :, None, :] + spatial[:, None, :, :]).flatten(1, 2)
 
+    @staticmethod
+    def _stack_drop(drop: MarDropout, stack: str):
+        return drop if drop is None or isinstance(drop, torch.Generator) else drop[stack]
+
     def forward_encoder(self, cond_tokens: torch.Tensor,
-                        text_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``policy_model`` encoder: (B, T, S, C_tok) conditioning tokens ->
-        (B, T·S, D), or with language (B, 64 + T·S, D). The target stream is
-        the learned fake latent, and the action stream the fake action
-        latent repeated over the tokens. ``text_latents``: the projected
+                        text_latents: Optional[torch.Tensor] = None,
+                        task_mode: str = "policy_model",
+                        x_tokens: Optional[torch.Tensor] = None,
+                        mask: Optional[torch.Tensor] = None,
+                        actions: Optional[torch.Tensor] = None,
+                        drop: MarDropout = None) -> torch.Tensor:
+        """(B, T, S, C_tok) conditioning tokens -> (B, T·S, D), or with
+        language (B, 64 + T·S, D). By ``task_mode``: ``policy_model`` takes
+        the learned fake latent as the target stream; ``inverse_model`` the
+        target tokens ``x_tokens`` and the fake latent as the conditioning
+        stream; the video modes the target tokens with the fake latent where
+        ``mask`` (B, T, S) is 1. The action stream is the projected
+        ``actions`` (B, 16, A) in ``dynamic_model``, else the fake action
+        latent, repeated over the tokens. ``text_latents``: the projected
         goal (B, D) (:meth:`policy_latents` projects it), or None for the
-        learned null latent ``fake_latent``."""
+        learned null latent ``fake_latent``. ``drop``: the blocks' dropout
+        (training mode only)."""
         c = self.cfg
         B, T, S, _ = cond_tokens.shape
         L = T * S
         dtype = self.z_proj_cond.weight.dtype
-        cond = self.z_proj_cond(cond_tokens.to(dtype)).reshape(B, L, -1)
-        x = self.fake_latent_x[None].expand(B, L, -1)
+        if task_mode == "inverse_model":
+            x = self.z_proj(x_tokens.to(dtype)).reshape(B, L, -1)
+            cond = self.fake_latent_x[None].expand(B, L, -1).to(x.dtype)
+        else:
+            cond = self.z_proj_cond(cond_tokens.to(dtype)).reshape(B, L, -1)
+            if task_mode == "policy_model":
+                x = self.fake_latent_x[None].expand(B, L, -1)
+            else:
+                x = self.z_proj(x_tokens.to(dtype)).reshape(B, L, -1)
+                masked = mask.reshape(B, L, 1) == 1.0
+                x = torch.where(masked, self.fake_latent_x[None].to(x.dtype), x)
         if L % c.num_action_tokens:
             raise ValueError(f"{L} tokens do not split into {c.num_action_tokens} action slots")
-        act = self.fake_action_latent[None].expand(B, c.num_action_tokens, -1)
-        act = act.repeat_interleave(L // c.num_action_tokens, dim=1)
+        if task_mode == "dynamic_model":
+            act = self.action_proj_cond(actions.to(dtype))
+        else:
+            act = self.fake_action_latent[None].expand(B, c.num_action_tokens, -1)
+        act = act.repeat_interleave(L // act.shape[1], dim=1)
         h = self.proj_cond_x_layer(torch.cat([x, cond, act], dim=-1))
         h = h + self._factorized(self.temporal_pos_embed, self.spatial_pos_embed)
         if c.has_text:
@@ -188,10 +275,10 @@ class Mar(nn.Module):
                 txt = text_latents[:, None, :].expand(B, c.buffer_size_text, -1)
             txt = txt + self.text_pos_embed.to(txt.dtype)
             h = torch.cat([txt.to(h.dtype), h], dim=1)
-        h = self.encoder_blocks(self.z_proj_ln(h))
+        h = self.encoder_blocks(self.z_proj_ln(h), self._stack_drop(drop, "encoder_blocks"))
         return self.encoder_norm(h)
 
-    def forward_decoder(self, h: torch.Tensor) -> torch.Tensor:
+    def forward_decoder(self, h: torch.Tensor, drop: MarDropout = None) -> torch.Tensor:
         """(B, [64 +] T·S, D) encoder output -> (B, T·S, Dd): the text
         buffer, where there is one, is dropped after the decoder's norm."""
         c = self.cfg
@@ -200,10 +287,80 @@ class Mar(nn.Module):
         if c.has_text:
             pos = torch.cat([self.decoder_text_pos_embed, pos], dim=1)
         z = z + pos
-        z = self.decoder_norm(self.decoder_blocks(z))
+        z = self.decoder_norm(self.decoder_blocks(z, self._stack_drop(drop, "decoder_blocks")))
         if c.has_text:
             z = z[:, c.buffer_size_text:]
         return z + self._factorized(self.diffusion_temporal_embed, self.diffusion_spatial_embed)
+
+    def _tokens(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, T, C, h, w) latents -> (B, T, S, C_tok) tokens."""
+        c = self.cfg
+        B, T = frames.shape[:2]
+        tokens = patchify(frames.reshape(B * T, *frames.shape[2:]), c.patch_size)
+        return tokens.reshape(B, T, c.seq_len, c.token_embed_dim)
+
+    def train_draw_shapes(self, batch: int) -> Dict[str, tuple]:
+        """Shapes of a training forward's draws: the spatial mask (B, S) and
+        each head's steps and standard-normal noise."""
+        c = self.cfg
+        n_video, n_act = batch * c.total_tokens, batch * c.num_action_tokens
+        return {"mask": (batch, c.seq_len),
+                "video_t": (n_video,), "video_noise": (n_video, c.token_embed_dim),
+                "action_t": (n_act,), "action_noise": (n_act, c.action_dim)}
+
+    def sample_train_draws(self, batch: int, generator: torch.Generator,
+                           device: torch.device) -> Dict[str, torch.Tensor]:
+        """The draws of one training forward from ``generator``: the mask rate
+        and spatial mask (``mar.py:552-555``), and each head's steps in
+        [0, training steps) and noise."""
+        c = self.cfg
+        shapes = self.train_draw_shapes(batch)
+        rate = sample_mask_rate(c.mask_ratio_min, generator, device)
+        mask = random_spatial_mask(rate, batch, c.seq_len, generator, device)
+        # the video head's training diffusion has 1000 steps (heads.py:53)
+        steps = {"video_t": 1000, "action_t": c.act_diff_training_steps}
+        out = {"mask": mask}
+        for head in ("video", "action"):
+            out[f"{head}_t"] = torch.randint(0, steps[f"{head}_t"], shapes[f"{head}_t"],
+                                             generator=generator, device=device)
+            out[f"{head}_noise"] = torch.randn(shapes[f"{head}_noise"], generator=generator,
+                                               device=device)
+        return out
+
+    def draw_dropout(self, batch: int, generator: torch.Generator,
+                     device: torch.device) -> Dict[str, list]:
+        """Every block's keep masks for one training forward at ``batch``, in
+        the form ``forward``'s ``drop`` takes (to hand the same masks to two
+        runs)."""
+        n = self.cfg.attention_tokens
+        return {name: [blk.draw_masks(batch, n, generator, device)
+                       for blk in getattr(self, name).blocks()]
+                for name in ("encoder_blocks", "decoder_blocks")}
+
+    def forward(self, x_frames: torch.Tensor, cond_frames: torch.Tensor, task_mode: str,
+                actions: torch.Tensor, draws: Mapping[str, torch.Tensor],
+                drop: MarDropout = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Training forward of one task mode (``mar.py:506-595``): (B, T, C,
+        h, w) target and conditioning latents, the (B, 16, A) normalized
+        action chunk and the draws of :meth:`sample_train_draws` -> (loss,
+        video loss, action loss), fp32 scalars."""
+        c = self.cfg
+        if task_mode not in TASK_MODES:
+            raise ValueError(f"task_mode must be one of {TASK_MODES}, got {task_mode!r}")
+        B, T = x_frames.shape[:2]
+        x_tokens, cond_tokens = self._tokens(x_frames), self._tokens(cond_frames)
+        gt_latents = x_tokens.detach().reshape(B, c.total_tokens, c.token_embed_dim)
+        mask = draws["mask"][:, None, :].expand(B, T, c.seq_len)
+        h = self.forward_encoder(cond_tokens, None, task_mode, x_tokens, mask, actions, drop)
+        z = self.forward_decoder(h, drop)
+        zero = torch.zeros((), dtype=torch.float32, device=z.device)
+        video_loss, act_loss = zero, zero
+        if c.predict_video and task_mode in VIDEO_MODES:
+            video_loss = self.diffloss.loss(gt_latents, z, mask.reshape(B, c.total_tokens),
+                                            draws["video_t"], draws["video_noise"])
+        if c.predict_action and task_mode in ACTION_MODES:
+            act_loss = self.diffactloss.loss(actions, z, draws["action_t"], draws["action_noise"])
+        return video_loss + act_loss, video_loss, act_loss
 
     def policy_latents(self, cond_frames: torch.Tensor,
                        text_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -212,9 +369,7 @@ class Mar(nn.Module):
         ``text_latents``: the raw (B, 512) goal latents, projected here by
         ``text_proj_cond`` (``mar.py:670-671``); ignored without language."""
         c = self.cfg
-        B, T = cond_frames.shape[:2]
-        cond_tokens = patchify(cond_frames.reshape(B * T, *cond_frames.shape[2:]), c.patch_size)
-        cond_tokens = cond_tokens.reshape(B, T, c.seq_len, c.token_embed_dim)
+        cond_tokens = self._tokens(cond_frames)
         if text_latents is not None and c.has_text:
             text_latents = self.text_proj_cond(text_latents.to(self.text_proj_cond.weight.dtype))
         else:

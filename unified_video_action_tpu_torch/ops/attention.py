@@ -43,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -168,13 +169,31 @@ def attention_plan(B: int, N: int, H: int, D: int, dtype: torch.dtype,
                          B * H * -(-N // 128) <= ONLINE_SPLIT_MAX_ITEMS[D], not aligned)
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The plain version: fp32 einsum, softmax, einsum (the JAX package's
-    einsum path, ``models/transformer.py:146-152``), cast back to q's dtype."""
+def dropout(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """JAX's ``tied_dropout`` given its mask (``models/transformer.py:25-47``):
+    ``where(keep, x / (1 - rate), 0)``; the identity where ``keep`` is None."""
+    if keep is None:
+        return x
+    # 1 - rate in x's dtype, as JAX rounds a Python scalar to the array's dtype
+    scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    keep: Optional[torch.Tensor] = None, rate: float = 0.0,
+                    fp32_products: bool = True) -> torch.Tensor:
+    """The plain version: einsum, softmax in fp32, einsum (the JAX package's
+    einsum path, ``models/transformer.py:128-134``), cast back to q's dtype.
+    With ``fp32_products`` (the version the kernels are held to, and
+    serving's plain route) both products are taken in fp32; without, in q's
+    dtype, as JAX's XLA path takes them in its compute dtype (training),
+    the probabilities cast to that dtype before the second product.
+    ``keep`` is the attention-weight dropout's mask at ``rate``."""
     D = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    dtype = torch.float32 if fp32_products else q.dtype
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(dtype), k.to(dtype)) * (D ** -0.5)
+    p = dropout(torch.softmax(s.float(), dim=-1).to(dtype), keep, rate)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(dtype)).to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -255,8 +274,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
     On a CUDA tensor this launches the kernel :func:`attention_plan` names,
     after the staging copy where the plan is ``staged`` (or raises); on a
-    CPU tensor it runs the plain version.
+    CPU tensor it runs the plain version. The kernels have no backward: an
+    input that requires grad raises, on either device (training attends
+    through the blocks' plain path, ``models/transformer.py``).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise ValueError("flash_attention has no backward: inputs that require grad go through "
+                         "the plain training path (MultiHeadAttention in train mode)")
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     aligned = _check(q, k, v)

@@ -1,7 +1,9 @@
-"""UnifiedVideoActionPolicy for serving (port of ``policy/policy.py:353-630``:
-``_prep_frames``, ``_encode_frames`` (with ``vae_encode_chunk``),
+"""UnifiedVideoActionPolicy (port of ``policy/policy.py``: for serving, at
+:353-630, ``_prep_frames``, ``_encode_frames`` (with ``vae_encode_chunk``),
 ``sample_policy``, the unnormalize step, ``predict_action`` and the
-latent-cached ``predict_action_cached``, each with its ``*_async`` half).
+latent-cached ``predict_action_cached``, each with its ``*_async`` half; for
+training, the task-mode parsing (:188-209), ``init_params`` (:220),
+``compute_loss`` (:681-769) and ``choose_task_mode`` (:844)).
 
 ``predict_action`` takes the observation dict, as JAX's does: it selects
 the conditioning frames of the window on the host (packed to YUV420 under
@@ -26,34 +28,49 @@ Tasks: PushT and the language-conditioned kitchen suite
 (``language_emb_model="clip"``: every entry point takes ``language_goal``, a
 string, a list of strings or precomputed (B or 1, 512) latents, encoded by
 ``text_encoder``, which is ``utils.language.HashTextEncoder`` until the CLIP
-tower is ported). Other tasks, proprioception and training wait for later
-slices and are refused.
+tower is ported). Other tasks and proprioception wait for later slices and
+are refused.
+
+``train=True`` builds the policy for training: the MAR stays fp32, in train
+mode and trainable, and ``compute_loss`` runs it in the compute dtype by
+casting its parameters for the call (flax's ``dtype=bfloat16`` with fp32
+parameters; the gradients reach the fp32 parameters); the VAE is frozen in
+the compute dtype, as for serving. Training takes PushT without language:
+the label drop of classifier-free guidance waits for a later slice.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+import os
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from unified_video_action_tpu_torch import convert
 from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer, NormalizerField
-from unified_video_action_tpu_torch.models.mar import MODEL_SIZES, Mar, MarConfig
+from unified_video_action_tpu_torch.models.initializers import init_module
+from unified_video_action_tpu_torch.models.mar import (
+    MODEL_SIZES,
+    TASK_MODES,
+    Mar,
+    MarConfig,
+    MarDropout,
+)
 from unified_video_action_tpu_torch.models.transformer import set_attn_impl, set_int8_impl
 from unified_video_action_tpu_torch.models.vae import LATENT_SCALE, KLVae, sample_posterior
 from unified_video_action_tpu_torch.utils import image as image_util
 from unified_video_action_tpu_torch.utils import obs_codec as obs_codec_util
-from unified_video_action_tpu_torch.utils.frames import select_frame_indices
+from unified_video_action_tpu_torch.utils.frames import select_frame_indices, split_trajectory
 from unified_video_action_tpu_torch.utils.device import resolve_device
 from unified_video_action_tpu_torch.utils.language import get_text_encoder
 
-# Keys of the JAX policy's config that only training reads.
-_TRAINING_KEYS = {
-    "selected_training_mode", "task_modes", "optimizer", "action_mask_ratio",
-    "shift_action",
-}
+# Keys of the JAX policy's config that the port reads nowhere: the optimizer
+# section (the trainer reads it from the config), and the history actions'
+# mask ratio (history actions are not ported)
+_TRAINING_KEYS = {"optimizer", "action_mask_ratio"}
 # Serving options of the JAX policy that the port ignores: it always runs
 # attention through its CUDA kernel (``set_attn_impl`` switches a model to the
 # plain version), whatever the JAX program chose ("xla", "pallas", "ring").
@@ -66,9 +83,8 @@ _UNPORTED_KEYS = {
 }
 # the tasks whose serving path is ported (a task matches if its name holds one)
 _PORTED_TASKS = ("pusht", "kitchen")
-# Subtrees of the JAX parameter trees that no ported module holds yet.
-MAR_SKIP = (("diffloss",),)          # video head: not on the policy path
-VAE_SKIP = (("decoder",), ("post_quant_conv",))  # decode half of the VAE
+# Subtrees of the JAX VAE tree that no ported module holds yet: the decode half
+VAE_SKIP = (("decoder",), ("post_quant_conv",))
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
@@ -94,6 +110,10 @@ class UnifiedVideoActionPolicy:
         obs_codec: Optional[str] = None,
         vae_encode_chunk: Optional[int] = None,
         language_emb_model: Optional[str] = None,
+        selected_training_mode: Optional[str] = None,
+        task_modes: Sequence[str] = (),
+        shift_action: bool = True,
+        train: bool = False,
         device: Union[str, torch.device] = "cuda",
         **kwargs: Any,
     ):
@@ -114,7 +134,8 @@ class UnifiedVideoActionPolicy:
         if obs_codec not in (None, "", "none", "raw", "yuv420"):
             raise ValueError(f"obs_codec must be None or 'yuv420', got {obs_codec!r}")
         amp = autoregressive_model_params
-        if not _get(action_model_params, "predict_action", False):
+        predict_action = bool(_get(action_model_params, "predict_action", False))
+        if not (predict_action or train):
             raise ValueError("serving needs the action head (action_model_params.predict_action)")
 
         self.device = resolve_device(device)
@@ -122,6 +143,8 @@ class UnifiedVideoActionPolicy:
         self.task_name = task_name
         self.n_action_steps = n_action_steps
         self.normalizer_type = normalizer_type
+        self.shift_action = shift_action
+        self.training = train
         self.action_dim = int(_get(_get(shape_meta, "action"), "shape", [2])[0])
         self.temperature = float(_get(amp, "temperature", 1.0))
         self.serving_quant = serving_quant if serving_quant == "int8" else None
@@ -146,6 +169,14 @@ class UnifiedVideoActionPolicy:
             vae_stride=int(_get(amp, "vae_stride", 16)),
             patch_size=int(_get(amp, "patch_size", 1)),
             vae_embed_dim=int(_get(amp, "vae_embed_dim", 16)),
+            attn_dropout=float(_get(amp, "attn_dropout", 0.1)),
+            proj_dropout=float(_get(amp, "proj_dropout", 0.1)),
+            mask_ratio_min=float(_get(amp, "mask_ratio_min", 0.7)),
+            diffloss_d=int(_get(amp, "diffloss_d", 6)),
+            diffloss_w=int(_get(amp, "diffloss_w", 1024)),
+            predict_video=bool(_get(amp, "predict_video", True)),
+            predict_action=predict_action,
+            act_diff_training_steps=int(_get(amp, "act_diff_training_steps", 1000)),
             diffloss_act_d=int(_get(amp, "diffloss_act_d", 6)),
             diffloss_act_w=int(_get(amp, "diffloss_act_w", 1024)),
             act_diff_testing_steps=str(_get(amp, "act_diff_testing_steps", "100")),
@@ -153,8 +184,11 @@ class UnifiedVideoActionPolicy:
             action_dim=self.action_dim,
             language_emb_model=language_emb_model,
             quant=self.serving_quant == "int8",
+            grad_checkpointing=bool(_get(amp, "grad_checkpointing", False)),
             **size_kwargs,
         )
+        self.pretrained_model_path = _get(amp, "pretrained_model_path")
+        self.task_modes = self._parse_task_modes(selected_training_mode, task_modes)
         ddconfig = _get(vae_model_params, "ddconfig", {})
         self.vae_path = _get(vae_model_params, "autoencoder_path")
         with torch.device(self.device):
@@ -165,10 +199,38 @@ class UnifiedVideoActionPolicy:
                 resolution=self.mar_cfg.img_size,
                 ch=int(_get(ddconfig, "ch", 128)),
             )
-        self.mar.to(self.dtype).eval().requires_grad_(False)
+        if train:
+            if self.serving_quant or self.obs_codec:
+                raise ValueError("serving_quant and obs_codec are serving options; train without them")
+            self.mar.train()
+        else:
+            self.mar.to(self.dtype).eval().requires_grad_(False)
         self.vae.to(self.dtype).eval().requires_grad_(False)
         self.normalizer = LinearNormalizer({"action": NormalizerField.identity(self.action_dim)})
 
+    def _parse_task_modes(self, selected: Optional[str], task_modes: Sequence[str]) -> Tuple[str, ...]:
+        """The modes training draws from (``policy.py:188-209``): every mode,
+        ``task_modes``, one selected mode, or the stage-2 pair that
+        ``policy_model_full_dynamics_model`` names; without the action head,
+        the action-only modes drop out."""
+        if selected is None:
+            modes = tuple(task_modes) if task_modes else TASK_MODES
+        elif selected == "policy_model_full_dynamics_model":
+            modes = ("policy_model", "full_dynamic_model")
+        else:
+            modes = (selected,)
+        for m in modes:
+            if m not in TASK_MODES:
+                raise ValueError(f"unknown task mode {m!r}; the modes are {TASK_MODES}")
+        if not self.mar_cfg.predict_action:
+            modes = tuple(m for m in modes if m not in ("policy_model", "inverse_model")) \
+                or ("video_model",)
+        return modes
+
+    def choose_task_mode(self, rng: np.random.Generator) -> str:
+        """One batch's task mode, drawn on the host (the reference's
+        ``random.choice``)."""
+        return self.task_modes[rng.integers(len(self.task_modes))]
     @classmethod
     def from_run_config(cls, meta_path: str, **overrides: Any) -> "UnifiedVideoActionPolicy":
         """Build from an exported checkpoint's ``meta.json`` (plain JSON; its
@@ -195,8 +257,25 @@ class UnifiedVideoActionPolicy:
         layout, numpy leaves) through the weight bridge. Under
         ``serving_quant="int8"`` the bridge quantizes the dense kernels from
         their fp32 values, whatever the compute dtype."""
-        convert.load_into(self.mar, mar_tree, skip=MAR_SKIP)
+        convert.load_into(self.mar, mar_tree)
         convert.load_into(self.vae, vae_tree, skip=VAE_SKIP)
+
+    def init_params(self, seed: int) -> None:
+        """JAX's ``init_params``: the MAR's parameters drawn from flax's
+        initializers (``models/initializers.py``) by a generator on the
+        policy's device seeded with ``seed``, and the VAE read from
+        ``vae_model_params.autoencoder_path`` (an npz of the flax tree;
+        without a path the VAE keeps its weights, and ``load_params`` sets
+        them). A ``pretrained_model_path`` that exists is refused: the
+        stage-2 bootstrap from an orbax or torch checkpoint is not ported."""
+        if self.pretrained_model_path and os.path.exists(self.pretrained_model_path):
+            raise NotImplementedError(
+                f"loading pretrained_model_path {self.pretrained_model_path!r} is not ported")
+        init_module(self.mar, torch.Generator(device=self.device).manual_seed(seed))
+        if self.vae_path:
+            if not os.path.exists(self.vae_path):
+                raise FileNotFoundError(f"autoencoder_path {self.vae_path!r} does not exist")
+            convert.load_into(self.vae, convert.load_flat_npz(self.vae_path), skip=VAE_SKIP)
 
     def set_normalizer(self, normalizer: LinearNormalizer) -> None:
         self.normalizer = normalizer
@@ -267,6 +346,87 @@ class UnifiedVideoActionPolicy:
             mean, logvar = self.vae.encode(flat)
         z = sample_posterior(mean, logvar, noise) * LATENT_SCALE
         return z.reshape(B, T, *z.shape[1:])
+
+    # -- training -----------------------------------------------------------
+
+    def train_noise_shapes(self, batch: int, n_sel: int = 8) -> Dict[str, tuple]:
+        """Shapes of one training loss's draws over ``n_sel`` selected frames:
+        the VAE posterior noise of the conditioning and target halves, and
+        the MAR's (``Mar.train_draw_shapes``)."""
+        c = self.mar_cfg
+        vae = (batch * (n_sel // 2), c.vae_embed_dim, c.seq_hw, c.seq_hw)
+        return {"vae_cond": vae, "vae_target": vae, **self.mar.train_draw_shapes(batch)}
+
+    def sample_train_noise(self, batch: int, generator: torch.Generator,
+                           n_sel: int = 8) -> Dict[str, torch.Tensor]:
+        shapes = self.train_noise_shapes(batch, n_sel)
+        out = {k: torch.randn(shapes[k], generator=generator, device=self.device)
+               for k in ("vae_cond", "vae_target")}
+        out.update(self.mar.sample_train_draws(batch, generator, self.device))
+        return out
+
+    def compute_loss(self, batch: Mapping[str, Any], task_mode: str,
+                     frame_indices: Optional[np.ndarray] = None, pregathered: bool = False,
+                     noise: Optional[Mapping[str, torch.Tensor]] = None,
+                     generator: Optional[torch.Generator] = None,
+                     drop: MarDropout = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One task mode's training loss (``policy.py:681-769``) -> (loss,
+        video loss, action loss), fp32 scalars with the MAR's graph.
+
+        ``batch``: ``{"obs": {"image": (B, T, 3, H, W) uint8 or float in
+        [0, 1], optional "aug_top"/"aug_left"/"aug_sigma" (B,)}, "action":
+        (B, T_a, A)}`` on the policy's device. ``frame_indices``: the frames
+        that train (default the training selection of T); with
+        ``pregathered`` the image holds only those frames already. The first
+        half of them conditions, the second is the target; the VAE encodes
+        both under ``no_grad``. ``noise`` injects the draws of
+        :meth:`sample_train_noise`, ``drop`` the blocks' keep masks
+        (``{"encoder_blocks": [...], "decoder_blocks": [...]}``); what is
+        not given is drawn from ``generator``."""
+        if not self.training:
+            raise RuntimeError("compute_loss needs a policy built with train=True")
+        if self.language_emb_model is not None:
+            raise NotImplementedError("training with language (the CFG label drop) is not ported")
+        if task_mode not in TASK_MODES:
+            raise ValueError(f"task_mode must be one of {TASK_MODES}, got {task_mode!r}")
+        c = self.mar_cfg
+        obs = image_util.remap_image_keys(self.task_name, dict(batch["obs"]))
+        image = image_util.to_unit_float(obs["image"])
+        B, T = image.shape[:2]
+        actions = batch["action"]
+        if self.normalizer_type == "all":
+            actions = self.normalizer["action"].normalize(actions)
+        if frame_indices is None:
+            frame_indices = np.arange(T) if pregathered else select_frame_indices(T, eval=False)
+        sel = image if pregathered else image[:, torch.as_tensor(frame_indices, device=image.device)]
+        if "aug_top" in obs:
+            sel = image_util.augment_video(sel, obs["aug_top"], obs["aug_left"], obs["aug_sigma"])
+        frames = image_util.to_model_range(image_util.resize_video(sel, c.img_size))
+        half = len(frame_indices) // 2
+        if drop is None and (c.attn_dropout or c.proj_dropout):
+            drop = generator
+            if generator is None:
+                raise ValueError("compute_loss draws the dropout masks that drop does not give "
+                                 "from generator: pass one")
+        if noise is None:
+            if generator is None:
+                raise ValueError("compute_loss draws the noise that noise does not give from "
+                                 "generator: pass one")
+            noise = self.sample_train_noise(B, generator, 2 * half)
+        else:
+            want = self.train_noise_shapes(B, 2 * half)
+            for k, s in want.items():
+                if tuple(noise[k].shape) != s:
+                    raise ValueError(f"noise[{k!r}] must be {s}, got {tuple(noise[k].shape)}")
+        with torch.no_grad():
+            cond = self._encode_frames(frames[:, :half], noise["vae_cond"])
+            target = self._encode_frames(frames[:, half:], noise["vae_target"])
+        _, future = split_trajectory(actions, actions.shape[1], self.shift_action)
+        args = (target, cond, task_mode, future, noise, drop)
+        if self.dtype == torch.float32:
+            return self.mar(*args)
+        cast = {n: p.to(self.dtype) for n, p in self.mar.named_parameters()}
+        return functional_call(self.mar, cast, args)
 
     def _encode_language_goal(self, language_goal: Any, batch: int) -> Optional[torch.Tensor]:
         """JAX's ``_encode_language_goal`` (``policy.py:632-650``): None without
