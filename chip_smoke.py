@@ -130,7 +130,29 @@ attention_plan picks.
            finite, inside the normalizer's range, through the attention
            kernel as the serve phase launches it. ms per step (median by
            CUDA events), samples/s, peak memory and the device idle share
-           over 5 profiled steps.
+           over 5 profiled steps. No evaluation, checkpoint or resume: those
+           are train_run's.
+9. train_run  a whole training run of the flagship's two-stage recipe
+           (scripts/round4b_train.sh) through train_torch.py's Trainer at the
+           same width, on the committed corpus (corpora/pusht_demos_r5b.npz:
+           300 episodes, 74,256 steps, read by numpy; 66,289 training
+           windows, the frames on the card), each epoch cut to RUN_STEPS
+           steps: stage 1 (video_model, no action head) with a checkpoint;
+           stage 2 from it through pretrained_model_path, the leaves kept at
+           their initial values counted against the leaves stage 2 has and
+           stage 1 lacks; two epochs with validation (RUN_VAL_STEPS batches)
+           and a rollout of the EMA policy (RUN_TEST_SEEDS test seeds of
+           RUN_MAX_STEPS steps) every epoch, latest and top-2 checkpoints,
+           every logged metric finite, the tracker's steps those of
+           logs.jsonl; every validation and rollout call launching the
+           attention kernel its plan names once per ViT block and nothing
+           else, the training steps no uva_* kernel; a resumed Trainer whose
+           parameters, EMA, AdamW moments, scheduler, step and epoch are
+           bit-equal to the first's in memory, then one more epoch; its slim
+           export served through eval_sim_torch.py's loading path at B=1 and
+           B=32, bit-equal to the EMA in memory under the same noise. Seconds
+           and bytes of a checkpoint's save and load and of the export, ms
+           per step on the corpus, the rollouts' wall time.
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
 object with every kernel's numbers, and the result:
@@ -2045,7 +2067,12 @@ def train_config(*overrides: str) -> dict:
                           f"training.max_train_steps={TRAIN_STEPS_PER_EPOCH}",
                           "model.policy.autoregressive_model_params.pretrained_model_path=null",
                           f"model.policy.vae_model_params.autoencoder_path={VAE_NPZ}",
-                          f"output_dir={TRAIN_OUT}", *overrides])
+                          f"output_dir={TRAIN_OUT}",
+                          # the step phase: no evaluation, checkpoint or resume (train_run's)
+                          "training.val_every=0", "training.rollout_every=0",
+                          "training.checkpoint_every=0", "training.sample_every=0",
+                          "training.resume=false", "training.early_stop_patience=null",
+                          *overrides])
     return cfg
 
 
@@ -2279,6 +2306,320 @@ def phase_train(attention_ops, int8_ops) -> dict:
     return {"parity": parity, "perf": perf, "handoff": handoff, "overfit": overfit, "run_s": run_s}
 
 
+# the train_run phase: the flagship's two-stage recipe (scripts/round4b_train.sh)
+# on the committed corpus, cut to a few steps an epoch
+CORPUS = os.path.join(REPO, "corpora", "pusht_demos_r5b.npz")
+CORPUS_EPISODES, CORPUS_STEPS = 300, 74256
+RUN_OUT = os.path.join(REPO, "build", "train_run")
+RUN_STEPS = 8  # capped steps an epoch
+RUN_VAL_STEPS = 2
+RUN_TEST_SEEDS, RUN_MAX_STEPS = 4, 24  # the rollout: test seeds from 100000, env steps
+RUN_TIMED_STEPS, RUN_WARMUP_STEPS = 8, 2
+
+
+def train_run_config(stage: int, *overrides: str) -> dict:
+    """Stage 1 (video_model, no action head) or stage 2 (the flagship's
+    policy_model_full_dynamics_model from stage 1's latest) of the recipe, on
+    the corpus, with the smoke's cuts."""
+    from unified_video_action_tpu_torch.config import apply_overrides
+
+    with open(os.path.join(LATEST, "meta.json")) as f:
+        cfg = json.load(f)["cfg"]
+    amp = "model.policy.autoregressive_model_params"
+    stage_keys = {
+        1: ["model.policy.selected_training_mode=video_model",
+            "model.policy.action_model_params.predict_action=false", f"{amp}.pretrained_model_path=null",
+            "training.rollout_every=1000", "training.sample_every=1", "training.num_epochs=1"],
+        2: ["model.policy.selected_training_mode=policy_model_full_dynamics_model",
+            "model.policy.action_model_params.predict_action=true",
+            f"{amp}.pretrained_model_path={RUN_OUT}/stage1/checkpoints/latest",
+            "training.rollout_every=1", "training.val_every=1", "training.num_epochs=2",
+            f"training.max_val_steps={RUN_VAL_STEPS}", "checkpoint.topk.k=2",
+            "task.env_runner.n_train=0", f"task.env_runner.n_test={RUN_TEST_SEEDS}",
+            f"task.env_runner.max_steps={RUN_MAX_STEPS}"],
+    }[stage]
+    apply_overrides(cfg, [f"task.dataset.dataset_path={CORPUS}", f"training.seed={SEED}",
+                          f"training.max_train_steps={RUN_STEPS}", "training.checkpoint_every=1",
+                          f"model.policy.vae_model_params.autoencoder_path={VAE_NPZ}",
+                          f"output_dir={RUN_OUT}/stage{stage}", *stage_keys, *overrides])
+    return cfg
+
+
+def counted(trainer, attention_ops, int8_ops, record: dict) -> None:
+    """Wrap the trainer's train_epoch, validate and rollout so that each
+    call's kernel launches land in record[name] (a list of (launches, info)),
+    the counters set to 0 just before it and read just after."""
+    counters = (attention_ops.launch_count, attention_ops.instance_count, int8_ops.launch_count)
+
+    def wrap(name, fn, info):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            for counter in counters:
+                for k in counter:
+                    counter[k] = 0
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.setdefault(name, []).append(
+                ({k: v for counter in counters for k, v in counter.items()}, info(out)))
+            return out
+        return run
+
+    val_batches = lambda: [min(trainer.batch_size, len(trainer.val_data) - s)
+                           for s in range(0, len(trainer.val_data), trainer.batch_size)][
+                               :trainer.max_val_steps]
+    trainer.train_epoch = wrap("train", trainer.train_epoch, lambda steps: {"steps": len(steps)})
+    trainer.validate = wrap("validate", trainer.validate,
+                            lambda l2: {"batches": [] if l2 is None else val_batches()})
+    trainer.rollout = wrap("rollout", trainer.rollout, lambda log: {
+        "calls": int(trainer.env_runner.timing["dispatches"]),
+        "batch": RUN_TEST_SEEDS, "wall_s": trainer.env_runner.timing["wall_s"]})
+
+
+def want_serving_launches(attention_ops, cfg, batches) -> dict:
+    """The attention launches of one predict call at each batch size of
+    ``batches``, summed (by kernel and by instance)."""
+    want = {}
+    for B in batches:
+        for per_call in (attention_launches_per_request(attention_ops, cfg, B, torch.bfloat16),
+                         attention_instances_per_request(attention_ops, cfg, B, torch.bfloat16)):
+            for k, n in per_call.items():
+                want[k] = want.get(k, 0) + n
+    return want
+
+
+def check_counted(record: dict, attention_ops, cfg) -> dict:
+    """The training steps launched no uva_* kernel; every validation and
+    rollout call launched the attention kernel its plan names once per ViT
+    block and nothing else. Returns the launches of validation and rollouts
+    summed, by kernel."""
+    totals = {"validate": {}, "rollout": {}}
+    for name, calls in record.items():
+        for launches, info in calls:
+            if name == "train":
+                want = {k: 0 for k in launches}
+            elif name == "validate":
+                want = want_serving_launches(attention_ops, cfg, info["batches"])
+            else:
+                want = want_serving_launches(attention_ops, cfg, [info["batch"]] * info["calls"])
+            want = {k: want.get(k, 0) for k in launches}
+            if launches != want:
+                raise AssertionError(f"train_run {name} ({info}): launches {launches}, want {want}")
+            if name != "train":
+                for k, n in launches.items():
+                    totals[name][k] = totals[name].get(k, 0) + n
+    return totals
+
+
+def same_state(a, b) -> list:
+    """What differs between two TrainStates bit for bit (parameters, EMA,
+    AdamW moments and step counts, the scheduler's step, the step)."""
+    diffs = []
+    pa, pb = dict(a.mar.named_parameters()), dict(b.mar.named_parameters())
+    for n in pa:
+        if not torch.equal(pa[n], pb[n]):
+            diffs.append(f"param {n}")
+        if not torch.equal(a.ema[n], b.ema[n]):
+            diffs.append(f"ema {n}")
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    if sa.keys() != sb.keys():
+        diffs.append("optimizer state keys")
+    for i in sa:
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            if not torch.equal(sa[i][k], sb[i][k]):
+                diffs.append(f"optimizer {i} {k}")
+    if a.scheduler.last_epoch != b.scheduler.last_epoch:
+        diffs.append(f"scheduler {a.scheduler.last_epoch} vs {b.scheduler.last_epoch}")
+    if a.step != b.step:
+        diffs.append(f"step {a.step} vs {b.step}")
+    return diffs
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_train_run(attention_ops, int8_ops) -> dict:
+    """The flagship's recipe on the committed corpus (train_torch.py's
+    Trainer at full width): stage 1 (video_model) for RUN_STEPS steps with a
+    checkpoint; stage 2 bootstrapped from it through pretrained_model_path
+    for two capped epochs with validation, rollouts of the EMA policy through
+    the attention kernel, top-k and latest checkpoints; a resumed trainer
+    bit-equal to the first in memory, then one more epoch; its slim export
+    served through eval_sim_torch.py's loading path bit-equal to the EMA in
+    memory. Then the times and sizes of a checkpoint's save and load and of
+    the export, and ms per step on the corpus."""
+    import shutil
+
+    sys.path.insert(0, REPO)
+    import eval_sim_torch
+    from unified_video_action_tpu_torch.data.replay_buffer import ReplayBuffer
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+    from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
+    from unified_video_action_tpu_torch.training import checkpoint as ckpt_lib
+    from unified_video_action_tpu_torch.training.train_state import train_step
+    from unified_video_action_tpu_torch.training.workspace import Trainer, build_dataset
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RUN_OUT, ignore_errors=True)
+    try:
+        # 1. the corpus
+        t0 = time.perf_counter()
+        rb = ReplayBuffer.load(CORPUS)
+        load_s = time.perf_counter() - t0
+        if (rb.n_episodes, rb.n_steps) != (CORPUS_EPISODES, CORPUS_STEPS):
+            raise AssertionError(f"the corpus holds {rb.n_episodes} episodes of {rb.n_steps} steps, "
+                                 f"want {CORPUS_EPISODES} and {CORPUS_STEPS}")
+        del rb
+        t0 = time.perf_counter()
+        dataset = build_dataset(train_run_config(1))
+        stage1 = Trainer(train_run_config(1), "cuda", dataset=dataset)
+        log(f"train_run corpus: {CORPUS_EPISODES} episodes, {CORPUS_STEPS} steps, read by numpy in "
+            f"{load_s:.1f}s; {len(stage1.data)} training windows, {len(stage1.val_data)} validation "
+            f"windows of episodes {np.flatnonzero(dataset.val_mask).tolist()}; store "
+            f"{stage1.data.nbytes} bytes on the card; stage 1 built in {time.perf_counter() - t0:.1f}s")
+
+        # 2. stage 1
+        record: dict = {}
+        counted(stage1, attention_ops, int8_ops, record)
+        stage1.run()
+        latest1 = os.path.join(RUN_OUT, "stage1", "checkpoints", "latest")
+        missing = [n for n in ("meta.json", "normalizer.npz", ckpt_lib.PAYLOAD)
+                   if not os.path.isfile(os.path.join(latest1, n))]
+        if missing or stage1.state.step != RUN_STEPS:
+            raise AssertionError(f"stage 1: {stage1.state.step} steps, latest lacks {missing}")
+        stage1_leaves = set(torch.load(os.path.join(latest1, ckpt_lib.PAYLOAD), map_location="cpu",
+                                       weights_only=True, mmap=True)["ema"])
+        del stage1
+        torch.cuda.empty_cache()
+
+        # 3. stage 2 from stage 1's latest
+        t0 = time.perf_counter()
+        cfg2 = train_run_config(2)
+        stage2 = Trainer(cfg2, "cuda", dataset=dataset)
+        from unified_video_action_tpu_torch import convert
+        stage2_leaves = {"/".join(p) for p in convert.flax_layout_shapes(stage2.state.mar)}
+        kept = stage2.policy._last_mar_import_kept_at_init
+        new = stage2_leaves - stage1_leaves
+        if kept != len(new) or stage2.policy._last_mar_import_skipped != 0 or not new:
+            raise AssertionError(f"bootstrap: {kept} leaves kept at init and "
+                                 f"{stage2.policy._last_mar_import_skipped} skipped; stage 2 has "
+                                 f"{len(new)} leaves that stage 1 lacks")
+        log(f"train_run bootstrap: {kept} leaves kept at init = the {len(new)} leaves stage 2 has and "
+            f"stage 1 lacks (under {sorted({k.split('/')[0] for k in new})}); built in "
+            f"{time.perf_counter() - t0:.1f}s")
+        counted(stage2, attention_ops, int8_ops, record)
+        stage2.run()
+        with open(os.path.join(cfg2["output_dir"], "logs.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        with open(os.path.join(cfg2["output_dir"], "tracker", "metrics.jsonl")) as f:
+            tracked = [json.loads(line) for line in f]
+        numbers = [v for line in lines for v in line.values() if isinstance(v, (int, float))]
+        if (len(lines) != 2 or not all(np.isfinite(numbers))
+                or any("val_action_l2_distances" not in l or "test_mean_score" not in l for l in lines)
+                or [l["_step"] for l in lines] != [l["_step"] for l in tracked]):
+            raise AssertionError(f"stage 2 logs {lines}; tracker {tracked}")
+        ckpts = sorted(os.listdir(os.path.join(cfg2["output_dir"], "checkpoints")))
+        if "latest" not in ckpts or len([c for c in ckpts if c.startswith("epoch=")]) != 2:
+            raise AssertionError(f"stage 2 checkpoints: {ckpts}")
+        log(f"train_run stage 2: logs.jsonl {json.dumps(lines)}; checkpoints {ckpts}")
+
+        # 4. resume
+        stage3 = Trainer(dict(cfg2, training=dict(cfg2["training"], resume=True)), "cuda",
+                         dataset=dataset)
+        t0 = time.perf_counter()
+        restored = stage3.restore()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if not restored:
+            raise AssertionError("the resumed trainer found no checkpoint")
+        diffs = same_state(stage3.state, stage2.state)
+        if diffs or stage3.epoch != stage2.epoch - 1:
+            raise AssertionError(f"resume: epoch {stage3.epoch} (want {stage2.epoch - 1}); "
+                                 f"differs: {diffs[:10]}")
+        log(f"train_run resume: parameters, EMA, AdamW moments, scheduler step {stage3.state.scheduler.last_epoch}"
+            f" and step {stage3.state.step} bit-equal to the first trainer; epoch {stage3.epoch}")
+        del stage2
+        torch.cuda.empty_cache()
+        counted(stage3, attention_ops, int8_ops, record)
+        export_s = []
+        export_fn = stage3.export
+
+        def timed_export(*args):
+            t0 = time.perf_counter()
+            out = export_fn(*args)
+            export_s.append(time.perf_counter() - t0)
+            return out
+
+        stage3.export = timed_export
+        stage3.run()
+        launches = check_counted(record, attention_ops, stage3.policy.mar_cfg)
+        log(f"train_run launches: training steps {[c[0] for c in record['train']]} (0 uva_* "
+            f"launches); validation {launches['validate']}; rollouts {launches['rollout']} over "
+            f"{sum(i['calls'] for _, i in record['rollout'])} policy calls")
+
+        # 5. the export served as eval_sim_torch.py serves it
+        export = os.path.join(cfg2["output_dir"], "export")
+        with open(os.path.join(export, "meta.json")) as f:
+            meta = json.load(f)
+        served = UnifiedVideoActionPolicy.from_cfg(meta["cfg"], device="cuda")
+        served.load_params(*eval_sim_torch.load_weights(export))
+        served.set_normalizer(LinearNormalizer.load(os.path.join(export, "normalizer.npz")))
+        memory = stage3.serving_policy()
+        handoff = {}
+        for B in (1, stage3.batch_size):
+            frames = stage3.data.img[torch.arange(4 * B, device="cuda")].permute(0, 3, 1, 2)
+            frames = frames.reshape(B, 4, *frames.shape[1:])
+            noise = memory.sample_noise(B, torch.Generator(device="cuda").manual_seed(B))
+            got = served.predict_action_frames(frames, noise=noise)
+            want = memory.predict_action_frames(frames, noise=noise)
+            check_actions(served, got, B)
+            if not torch.equal(got, want):
+                raise AssertionError(f"the export served at B={B} differs from the EMA in memory by "
+                                     f"{(got - want).abs().max().item()}")
+            handoff[f"B={B}"] = [float(got.min()), float(got.max())]
+        log(f"train_run export ({meta['export_dtype']}) served through eval_sim_torch.load_weights: "
+            f"actions bit-equal to the EMA in memory, range {json.dumps(handoff)}")
+
+        # 6. measurements: a blocking save; the resumed trainer's load and
+        # its run's export, timed above
+        timed = os.path.join(RUN_OUT, "timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage3.save(timed, stage3.epoch - 1)
+        save_s = time.perf_counter() - t0
+        state = stage3.state
+        steps = []
+        while len(steps) < RUN_TIMED_STEPS + RUN_WARMUP_STEPS:
+            for mode, frames, batch in stage3.batches():
+                steps.append((mode, frames, batch))
+                if len(steps) == RUN_TIMED_STEPS + RUN_WARMUP_STEPS:
+                    break
+            stage3.epoch += 1
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+        events[0].record()
+        for i, (mode, frames, batch) in enumerate(steps):
+            train_step(state, batch, mode, frames, generator=stage3.generator, pregathered=True)
+            events[i + 1].record()
+        events[-1].synchronize()
+        ms = statistics.median(events[i].elapsed_time(events[i + 1])
+                               for i in range(RUN_WARMUP_STEPS, len(steps)))
+        perf = {
+            "checkpoint_save_s": save_s, "checkpoint_load_s": load_s, "export_s": export_s[0],
+            "checkpoint_bytes": dir_bytes(timed), "export_bytes": dir_bytes(export),
+            "export_dtype": meta["export_dtype"], "store_bytes": stage3.data.nbytes,
+            "training_windows": len(stage3.data), "validation_windows": len(stage3.val_data),
+            "ms_per_step": ms, "batch": stage3.batch_size,
+            "rollout_wall_s": [i["wall_s"] for _, i in record["rollout"]],
+            "rollout_calls": [i["calls"] for _, i in record["rollout"]],
+            "phase_s": time.perf_counter() - t_phase, "card": card_line(),
+        }
+        log(f"train_run perf: {json.dumps(perf)}")
+        return {"perf": perf, "launches": launches}
+    finally:
+        ckpt_lib.wait_for_checkpoints()
+        shutil.rmtree(RUN_OUT, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2339,6 +2680,8 @@ def main() -> int:
         rollouts = phase_rollout(attention_ops, int8_ops, trees, normalizer)
     with Phase("train"):
         train = phase_train(attention_ops, int8_ops)
+    with Phase("train_run"):
+        train_run = phase_train_run(attention_ops, int8_ops)
 
     # the int8_gemm device time of one deployed request: profiled (cached
     # request) and modelled from the kernel phase (every layer's calls times
@@ -2353,9 +2696,11 @@ def main() -> int:
     attention_by_path = {"predict_action_100_steps": launches, "predict_action_256px": launches_256,
                          "predict_action_cached_deployed": deployed, **rollout_paths,
                          "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen,
-                         "serve_huge96": launches_huge96, "serve_huge256": launches_huge256}
+                         "serve_huge96": launches_huge96, "serve_huge256": launches_huge256,
+                         "train_run_validation": train_run["launches"]["validate"],
+                         "train_run_rollouts": train_run["launches"]["rollout"]}
     attention_keys = tuple(attention_ops.launch_count) + attention_ops.INSTANCES
-    attention_by_path = {path: {k: n[k] for k in attention_keys}
+    attention_by_path = {path: {k: n.get(k, 0) for k in attention_keys}
                          for path, n in attention_by_path.items()}
     attention_launches = {k: sum(p[k] for p in attention_by_path.values()) for k in attention_keys}
     int8_by_path = {"predict_action_cached_deployed": deployed, "rollout_deployed": rollouts["a"],
@@ -2496,6 +2841,7 @@ def main() -> int:
         },
     ]}
     log(f"train: {json.dumps({k: train[k] for k in ('perf', 'overfit', 'run_s')})}")
+    log(f"train_run: {json.dumps(train_run['perf'])}")
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

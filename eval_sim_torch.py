@@ -8,12 +8,17 @@ of ``eval_sim.py``).
         model.policy.autoregressive_model_params.act_diff_testing_steps=ddim10 \
         [--device cpu]
 
-The checkpoint is an exported directory: ``meta.json`` (whose ``cfg`` is the
-run config; the dotted overrides apply on top of it), ``normalizer.npz`` and
-the weights, read from one of two sources:
+The checkpoint is a directory: ``meta.json`` (whose ``cfg`` is the run
+config; the dotted overrides apply on top of it), ``normalizer.npz`` and the
+weights, read from the first of these that applies:
 
-- ``--weights FILE.npz``: a flat ``.npz`` whose keys are ``mar/<flax path>``
-  and ``vae/<flax path>`` (``convert.load_flat_npz``);
+- ``--weights FILE.npz``: a flat fp32 ``.npz`` whose keys are
+  ``mar/<flax path>`` and ``vae/<flax path>`` (``convert.load_flat_npz``);
+- a checkpoint directory of the port (``training/checkpoint.py``): its slim
+  export (``weights.npz`` in the ``export_dtype`` its ``meta.json`` names,
+  as ``train_torch.py`` writes to ``<output_dir>/export``) or a full
+  checkpoint (``state.pt``), its EMA weights and VAE, read with torch and
+  numpy alone;
 - otherwise the orbax directory ``<checkpoint>/state`` (its ``ema_params``
   and ``vae_params``), restored with ``orbax.checkpoint`` alone.
 
@@ -55,11 +60,15 @@ def restore_orbax(state_dir: str):
 
 
 def load_weights(checkpoint: str, weights_npz=None):
-    if weights_npz:
-        from unified_video_action_tpu_torch import convert
+    """``(mar_tree, vae_tree)`` of the checkpoint, as numpy flax trees."""
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.training import checkpoint as ckpt_lib
 
+    if weights_npz:
         tree = convert.load_flat_npz(weights_npz)
         return tree["mar"], tree["vae"]
+    if ckpt_lib.is_port_checkpoint(checkpoint):
+        return ckpt_lib.read_weights(checkpoint)
     return restore_orbax(os.path.join(checkpoint, "state"))
 
 

@@ -121,3 +121,83 @@ def test_bf16_sampled_actions(stacks):
         got = port.mar.sample_policy(torch.tensor(lat), torch.tensor(init), torch.tensor(per_step),
                                      temperature=0.95)
     _hold("sampled actions", got, run(j16), run(j32))
+
+
+def _jax_stages(policy, params, target, cond, future, key):
+    """Every MAR module's output in JAX's inverse_model training forward, by
+    module path: flax's capture_intermediates, under jit."""
+    @jax.jit
+    def run(params, target, cond, future):
+        _, state = policy.mar.apply(
+            {"params": params}, target, cond, "inverse_model", key, actions=future, train=True,
+            rngs={"dropout": jax.random.fold_in(key, 7)}, capture_intermediates=True,
+            mutable=["intermediates"])
+        return state["intermediates"]
+
+    flat = {}
+
+    def walk(d, path):
+        for k, v in d.items():
+            if k == "__call__":
+                flat[".".join(path)] = [_f32(x) for x in v]
+            elif isinstance(v, dict):
+                walk(v, path + (k,))
+
+    walk(run(params, *(jnp.asarray(t.numpy()) for t in (target, cond, future))), ())
+    return flat
+
+
+def test_bf16_inverse_model_stages():
+    """ROADMAP C7: in inverse_model the port's bf16 gradient sat 2.45x JAX's
+    own bf16-vs-fp32 distance from JAX's bf16 (tests/test_torch_train_losses.py,
+    seed 0). Stage by stage on the same fp32 latents, every MAR module's
+    output in the forward stays within BF16_RATIO of JAX's own bf16 error
+    (measured 0.71-1.26): the forward does not part. The backward parts first
+    at the action pool's fc1 ReLU (tests/torch_bf16_grad_stages.py): one of
+    its 512 pre-activations lies near 0 and rounds to the other sign in bf16,
+    and inverse_model sends all its gradient through that pool; over other
+    seeds the gap is 0.79-1.61x (ROADMAP C7)."""
+    from torch.func import functional_call
+
+    from tests.test_torch_train_losses import (
+        build_pair,
+        jax_train_draws,
+        make_batch,
+        to_torch,
+        train_kw,
+    )
+
+    batch = make_batch(2)
+    j32, params, p32 = build_pair(train_kw(), seed=1, batch=batch)
+    j16, _, p16 = build_pair(train_kw("bfloat16"), seed=1, batch=batch)
+    key = jax.random.PRNGKey(40 + jm_.TASK_MODES.index("inverse_model"))
+    noise = jax_train_draws(key, p32, 2)
+    captured = {}
+    hook = p32.mar.register_forward_pre_hook(lambda m, args: captured.setdefault("args", args))
+    p32.compute_loss(to_torch(batch), "inverse_model", noise=noise)
+    hook.remove()
+    target, cond, mode, future, draws, drop = captured["args"]
+    k_fwd = jax.random.split(key, 3)[2]
+    want32 = _jax_stages(j32, params["mar"], target, cond, future, k_fwd)
+    want16 = _jax_stages(j16, params["mar"], target, cond, future, k_fwd)
+    got, order = {}, []
+
+    def record(name):
+        def f(module, inputs, output):
+            if isinstance(output, torch.Tensor):
+                got.setdefault(name, []).append(output.detach())
+                order.append((name, len(got[name]) - 1))
+        return f
+
+    hooks = [m.register_forward_hook(record(n)) for n, m in p16.mar.named_modules() if n]
+    cast = {n: p.to(torch.bfloat16) for n, p in p16.mar.named_parameters()}
+    with torch.no_grad():
+        functional_call(p16.mar, cast, (target, cond, mode, future, draws, drop))
+    for h in hooks:
+        h.remove()
+    held = 0
+    for name, i in order:
+        if name in want32 and i < len(want32[name]) and want32[name][i].shape == tuple(got[name][i].shape):
+            _hold(f"{name}[{i}]", got[name][i], want16[name][i], want32[name][i])
+            held += 1
+    assert held >= 60  # every block, norm, head layer and the pool's dense layers

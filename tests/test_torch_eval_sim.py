@@ -99,3 +99,37 @@ def test_apply_overrides_equals_the_jax_package_s():
     jax_apply_overrides(want, overrides)
     apply_overrides(cfg, overrides)
     assert cfg == want.to_dict()
+
+
+def test_eval_sim_torch_serves_a_port_export_with_c_alone(tiny_checkpoint, tmp_path):
+    """A slim export of the port (training/checkpoint.py) is served with -c
+    alone: the same per-seed results as the same weights through --weights,
+    and no orbax on that path."""
+    import subprocess
+    import sys
+
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
+    from unified_video_action_tpu_torch.training.checkpoint import export_slim
+
+    ckpt, weights = tiny_checkpoint
+    cfg = json.loads(open(os.path.join(ckpt, "meta.json")).read())["cfg"]
+    tree = convert.load_flat_npz(weights)
+    export = str(tmp_path / "export")
+    export_slim(export, tree["mar"], tree["vae"], cfg,
+                LinearNormalizer.load(os.path.join(ckpt, "normalizer.npz")), dtype="float32")
+    overrides = ["--device", "cpu", "task.env_runner.n_test=2", "task.env_runner.n_train=0",
+                 "task.env_runner.max_steps=16",
+                 "model.policy.autoregressive_model_params.act_diff_testing_steps=ddim10"]
+    eval_sim_torch.main(["-c", export, "-o", str(tmp_path / "a"), *overrides])
+    eval_sim_torch.main(["-c", ckpt, "-o", str(tmp_path / "b"), "--weights", weights, *overrides])
+    got = json.loads((tmp_path / "a" / "eval_log_export.json").read_text())
+    want = json.loads((tmp_path / "b" / "eval_log_tiny.json").read_text())
+    rewards = [k for k in want if "sim_max_reward" in k]
+    assert len(rewards) == 2 and {k: got[k] for k in rewards} == {k: want[k] for k in rewards}
+    assert got["ckpt_digest"] == ckpt_digest(export)
+    probe = ("import sys, eval_sim_torch; eval_sim_torch.load_weights(sys.argv[1]); "
+             "print(sorted({m.split('.')[0] for m in sys.modules} & {'orbax', 'jax', 'h5py'}))")
+    out = subprocess.run([sys.executable, "-c", probe, export], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr

@@ -2,14 +2,20 @@
 """Train the PyTorch/CUDA port's policy from a run config.
 
     python3 train_torch.py --run-config pretrained_models/uva_pusht_small/latest/meta.json \
-        task.dataset.synthetic=6 training.max_train_steps=20
+        task.dataset.dataset_path=corpora/pusht_demos_r5b.npz training.max_train_steps=20
 
 ``--run-config`` is an exported checkpoint's ``meta.json`` (its ``cfg`` is
 the run config) or a JSON file holding the run config itself; the dotted
 overrides after it set keys of that config (``config.apply_overrides``).
-The run initializes the MAR from ``training.seed``, reads the VAE from
-``autoencoder_path``, trains on the card (``--device cpu`` for the CPU) and
-writes ``logs.jsonl`` and ``normalizer.npz`` under ``output_dir``.
+The run initializes the MAR from ``training.seed`` (and merges the port
+checkpoint at ``pretrained_model_path`` into it, the stage-1 -> stage-2
+bootstrap), reads the VAE from ``autoencoder_path``, trains on the card
+(``--device cpu`` for the CPU) with validation and rollouts at the config's
+cadences, and writes under ``output_dir``: ``logs.jsonl``, ``normalizer.npz``,
+``tracker/``, ``checkpoints/latest`` and the top-k checkpoints, and
+``export/``, the slim export of the final EMA that ``eval_sim_torch.py -c``
+serves (``training/workspace.py``). With ``training.resume=true`` it starts
+from ``checkpoints/latest``; SIGTERM or SIGINT saves it and stops.
 """
 
 from __future__ import annotations

@@ -19,7 +19,10 @@ These are the inverses of ``linear_kernel`` and ``conv_kernel`` in the JAX
 package's ``models/torch_import.py``, kept here as the port's own copy.
 :func:`to_flax_tree` is the reverse map: a float module's parameters (or a
 state of the same keys, such as the trainer's EMA) back to the flax tree,
-as numpy.
+as numpy; :func:`merge_params` overlays one flax tree on another where the
+shapes match (the stage-1 -> stage-2 bootstrap), and :func:`save_flat_npz`
+and :func:`load_flat_npz` write and read flat ``"a/b/c"``-keyed archives,
+in fp32 or as bf16 bit patterns.
 
 The bridge is strict: a leaf it cannot place (no such parameter, or another
 shape) raises, and so does a port parameter that no leaf sets. Subtrees of a
@@ -52,18 +55,81 @@ def flatten_tree(tree: Mapping, prefix: Path = ()) -> Dict[Path, object]:
     return out
 
 
-def load_flat_npz(path: str) -> Dict[str, Dict]:
-    """A flat ``"a/b/c"``-keyed ``.npz`` (as ``scripts/train_vae.py`` writes
-    the VAE, read by ``policy.py:267-283``) -> nested dict of arrays."""
+def unflatten_tree(flat: Mapping[str, object]) -> Dict[str, Dict]:
+    """{``"a/b/c"``: leaf} -> nested dict."""
     tree: Dict[str, Dict] = {}
-    with np.load(path) as z:
-        for key in z.files:
-            node = tree
-            parts = key.split("/")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = z[key]
+    for key, value in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
     return tree
+
+
+def to_bf16_bits(x: np.ndarray) -> np.ndarray:
+    """fp32 -> the uint16 bit patterns of its bf16 rounding (to nearest
+    even, as ``torch.Tensor.to(torch.bfloat16)``); numpy has no bf16."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def from_bf16_bits(bits: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bit patterns -> the fp32 values they hold (exact)."""
+    return (np.asarray(bits, dtype=np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def save_flat_npz(path: str, trees: Mapping[str, Mapping], dtype: str = "float32") -> None:
+    """Write ``{prefix: flax tree}`` as one uncompressed ``.npz`` keyed
+    ``"<prefix>/a/b/c"``: fp32 arrays, or under ``dtype="bfloat16"`` their
+    bf16 roundings as uint16 bit patterns (:func:`load_flat_npz` needs the
+    same ``dtype`` to read them back)."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
+    cast = to_bf16_bits if dtype == "bfloat16" else (lambda x: np.asarray(x, np.float32))
+    flat = {"/".join((prefix,) + path): cast(v) for prefix, tree in trees.items()
+            for path, v in flatten_tree(tree).items()}
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+
+
+def load_flat_npz(path: str, dtype: str = "float32") -> Dict[str, Dict]:
+    """A flat ``"a/b/c"``-keyed ``.npz`` (as ``scripts/train_vae.py`` writes
+    the VAE, read by ``policy.py:267-283``, or :func:`save_flat_npz` an
+    export) -> nested dict of arrays. Under ``dtype="bfloat16"`` the arrays
+    are uint16 bf16 bit patterns and come back as the fp32 values they
+    hold."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
+    with np.load(path) as z:
+        flat = {k: from_bf16_bits(z[k]) if dtype == "bfloat16" else z[k] for k in z.files}
+    return unflatten_tree(flat)
+
+
+def merge_params(init_tree: Mapping, imported: Mapping) -> Tuple[Dict, list]:
+    """Overlay ``imported``'s leaves onto ``init_tree`` where the key exists
+    and the shapes match (the JAX package's ``merge_params``,
+    ``models/torch_import.py:296-321``). Returns ``(merged, skipped)``:
+    ``skipped`` names each imported leaf left out, ``"<path> (unexpected)"``
+    or ``"<path> (shape <imported> vs <init>)"``. A leaf of ``init_tree``
+    that ``imported`` lacks keeps its value and is not listed."""
+    skipped = []
+
+    def rec(dst, src, path):
+        out = dict(dst)
+        for k, v in src.items():
+            if k not in dst:
+                skipped.append("/".join(path + (k,)) + " (unexpected)")
+                continue
+            if isinstance(v, Mapping):
+                out[k] = rec(dst[k], v, path + (k,))
+            elif tuple(np.shape(dst[k])) != tuple(np.shape(v)):
+                skipped.append("/".join(path + (k,)) + f" (shape {np.shape(v)} vs {np.shape(dst[k])})")
+            else:
+                out[k] = v
+        return out
+
+    return rec(init_tree, imported, ()), skipped
 
 
 def port_key(path: Path, ndim: int) -> Tuple[str, str]:
@@ -200,6 +266,15 @@ def flax_layout_shapes(module: nn.Module) -> Dict[Path, Tuple[int, ...]]:
     """The flax tree layout (path -> shape) that ``module`` loads from."""
     shapes = module_shapes(module)
     return {path: _flax_shape(shapes[key], change)
+            for key, (path, change) in flax_paths(module).items()}
+
+
+def from_flax_tree(module: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax-layout ``tree`` as fp32 CPU tensors under ``module``'s
+    parameter names, in the port's layout (the inverse of
+    :func:`to_flax_tree`, exact); every name must have its leaf."""
+    flat = flatten_tree(tree)
+    return {key: torch.from_numpy(_to_port_layout(np.asarray(flat[path], np.float32), change))
             for key, (path, change) in flax_paths(module).items()}
 
 

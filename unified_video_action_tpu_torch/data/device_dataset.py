@@ -7,7 +7,9 @@ table live on the device. A train step ships only the batch's sample
 indices, the frame selection and, with augmentation, three scalars per
 sample (``training/workspace.py:306-339``); the gather runs on the device.
 ``table[idx]`` replicates ``SequenceSampler``'s edge-replication padding, so
-the gather equals ``sampler.sample_sequence(idx)``.
+the gather equals ``sampler.sample_sequence(idx)``. A second split of the
+same replay buffer (the validation windows) shares the store and keeps its
+own window table (:meth:`DeviceReplayDataset.split`).
 """
 
 from __future__ import annotations
@@ -35,19 +37,27 @@ def window_index_table(sampler) -> np.ndarray:
 class DeviceReplayDataset:
     """A PushT-style dataset's replay buffer and windows on ``device``."""
 
-    def __init__(self, dataset, device: Union[str, torch.device]):
-        rb = dataset.replay_buffer
-        img = np.asarray(rb["img"])  # (N, H, W, C) uint8
-        state = np.asarray(rb["state"], dtype=np.float32)
-        action = np.asarray(rb["action"], dtype=np.float32)
-        table = window_index_table(dataset.sampler)
-        self.nbytes = img.nbytes + state.nbytes + action.nbytes + table.nbytes
+    def __init__(self, dataset, device: Union[str, torch.device], store=None):
         self.device = torch.device(device)
+        if store is None:
+            rb = dataset.replay_buffer
+            store = tuple(torch.from_numpy(np.asarray(a)).to(self.device) for a in (
+                rb["img"],  # (N, H, W, C) uint8
+                np.asarray(rb["state"], dtype=np.float32),
+                np.asarray(rb["action"], dtype=np.float32)))
+        self.img, self.state, self.action = store
+        self.table = torch.from_numpy(window_index_table(dataset.sampler)).to(self.device)
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for t in (self.img, self.state, self.action, self.table))
         self.horizon = int(dataset.horizon)
         self.agent_pos_dim = int(getattr(dataset, "agent_pos_dim", 2))
         self.data_aug = bool(getattr(dataset, "data_aug", False))
-        self.img, self.state, self.action, self.table = (
-            torch.from_numpy(a).to(self.device) for a in (img, state, action, table))
+
+    def split(self, dataset) -> "DeviceReplayDataset":
+        """``dataset``'s windows (another split of the same replay buffer,
+        e.g. ``get_validation_dataset()``) over this store, which is not
+        copied."""
+        return DeviceReplayDataset(dataset, self.device, (self.img, self.state, self.action))
 
     def __len__(self) -> int:
         return self.table.shape[0]

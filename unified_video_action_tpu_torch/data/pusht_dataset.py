@@ -1,10 +1,10 @@
 """PushT image dataset (the port's own copy of ``data/pusht_dataset.py``):
 horizon-long windows of (img, state, action) from a replay buffer, the
 limits-fit normalizer of action and agent_pos, a seeded train/val episode
-split, and the synthetic source.
+split with its validation dataset, and the synthetic source.
 
-Two sources: ``dataset_path``, an HDF5 replay buffer (read through
-``h5py``), or ``synthetic: N``, N episodes of a scripted pusher rolled out
+Two sources: ``dataset_path``, a replay buffer (``ReplayBuffer.load``: a
+``.npz`` read with numpy, or HDF5 through ``h5py``), or ``synthetic: N``, N episodes of a scripted pusher rolled out
 in the port's own PushT env (:func:`make_synthetic_pusht`, the JAX
 package's, frame for frame). With ``data_aug`` the augmentation runs on the
 device inside the train step (``utils/image.augment_video``); the host cv2
@@ -60,8 +60,22 @@ class PushTImageDataset:
                                        pad_before=pad_before, pad_after=pad_after,
                                        episode_mask=self.train_mask)
         self.horizon = horizon
+        self.pad_before = pad_before
+        self.pad_after = pad_after
         self.data_aug = data_aug
         self.seed = seed
+
+    def get_validation_dataset(self) -> "PushTImageDataset":
+        """The windows of the ``val_mask`` episodes, without augmentation
+        (JAX's ``get_validation_dataset``), over the same replay buffer."""
+        val = object.__new__(PushTImageDataset)
+        val.__dict__.update(self.__dict__)
+        val.sampler = SequenceSampler(self.replay_buffer, sequence_length=self.horizon,
+                                      pad_before=self.pad_before, pad_after=self.pad_after,
+                                      episode_mask=self.val_mask)
+        val.train_mask = self.val_mask
+        val.data_aug = False
+        return val
 
     def get_normalizer(self) -> LinearNormalizer:
         n = LinearNormalizer()

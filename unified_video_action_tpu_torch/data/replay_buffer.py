@@ -1,8 +1,11 @@
 """Episode replay buffer (the port's own copy of ``data/replay_buffer.py``,
 held in memory): a time-major dict of ``data`` arrays plus the
-``episode_ends``. It loads the JAX package's HDF5 format through ``h5py``,
-imported where a file is read, which raises where ``h5py`` is absent; the
-zarr stores and writing files wait for a later slice.
+``episode_ends``. It loads two formats: a ``.npz`` holding the ``data``
+arrays and ``episode_ends`` (``tools/export_corpus.py`` writes one from a
+committed HDF5 corpus), read with numpy alone, and the JAX package's HDF5
+format through ``h5py``, imported where such a file is read, which raises
+where ``h5py`` is absent. The zarr stores and writing HDF5 wait for a later
+slice.
 """
 
 from __future__ import annotations
@@ -50,7 +53,14 @@ class ReplayBuffer:
 
     @classmethod
     def load(cls, path: str, keys: Optional[Iterable[str]] = None) -> "ReplayBuffer":
-        """An HDF5 replay buffer (``data/<key>`` arrays, ``meta/episode_ends``)."""
+        """A ``.npz`` replay buffer (the ``data`` arrays and
+        ``episode_ends``) or an HDF5 one (``data/<key>`` arrays,
+        ``meta/episode_ends``)."""
+        if path.endswith(".npz"):
+            with np.load(path) as z:
+                names = list(keys) if keys is not None else [k for k in z.files
+                                                             if k != "episode_ends"]
+                return cls({k: z[k] for k in names}, z["episode_ends"])
         try:
             import h5py
         except ImportError as e:

@@ -207,6 +207,8 @@ class UnifiedVideoActionPolicy:
             self.mar.to(self.dtype).eval().requires_grad_(False)
         self.vae.to(self.dtype).eval().requires_grad_(False)
         self.normalizer = LinearNormalizer({"action": NormalizerField.identity(self.action_dim)})
+        # the VAE's fp32 flax tree as read (init_params, load_params)
+        self.vae_tree: Optional[Dict[str, Dict]] = None
 
     def _parse_task_modes(self, selected: Optional[str], task_modes: Sequence[str]) -> Tuple[str, ...]:
         """The modes training draws from (``policy.py:188-209``): every mode,
@@ -256,26 +258,71 @@ class UnifiedVideoActionPolicy:
         """Load the JAX policy's ``{"mar": ..., "vae": ...}`` trees (flax
         layout, numpy leaves) through the weight bridge. Under
         ``serving_quant="int8"`` the bridge quantizes the dense kernels from
-        their fp32 values, whatever the compute dtype."""
+        their fp32 values, whatever the compute dtype. ``vae_tree`` is kept
+        as :attr:`vae_tree` (the decode half too, which no module holds)."""
         convert.load_into(self.mar, mar_tree)
         convert.load_into(self.vae, vae_tree, skip=VAE_SKIP)
+        self.vae_tree = vae_tree
 
     def init_params(self, seed: int) -> None:
         """JAX's ``init_params``: the MAR's parameters drawn from flax's
         initializers (``models/initializers.py``) by a generator on the
-        policy's device seeded with ``seed``, and the VAE read from
-        ``vae_model_params.autoencoder_path`` (an npz of the flax tree;
-        without a path the VAE keeps its weights, and ``load_params`` sets
-        them). A ``pretrained_model_path`` that exists is refused: the
-        stage-2 bootstrap from an orbax or torch checkpoint is not ported."""
-        if self.pretrained_model_path and os.path.exists(self.pretrained_model_path):
-            raise NotImplementedError(
-                f"loading pretrained_model_path {self.pretrained_model_path!r} is not ported")
+        policy's device seeded with ``seed``, the VAE read from
+        ``vae_model_params.autoencoder_path`` (an npz of the flax tree, kept
+        in fp32 as :attr:`vae_tree`; without a path the VAE keeps its
+        weights, and ``load_params`` sets them), then the stage bootstrap
+        from ``pretrained_model_path`` where that path exists
+        (:meth:`load_pretrained`)."""
         init_module(self.mar, torch.Generator(device=self.device).manual_seed(seed))
         if self.vae_path:
             if not os.path.exists(self.vae_path):
                 raise FileNotFoundError(f"autoencoder_path {self.vae_path!r} does not exist")
-            convert.load_into(self.vae, convert.load_flat_npz(self.vae_path), skip=VAE_SKIP)
+            self.vae_tree = convert.load_flat_npz(self.vae_path)
+            convert.load_into(self.vae, self.vae_tree, skip=VAE_SKIP)
+        if self.pretrained_model_path and os.path.exists(self.pretrained_model_path):
+            self.load_pretrained(self.pretrained_model_path)
+
+    def load_pretrained(self, path: str) -> None:
+        """The stage bootstrap (JAX's ``_load_mar_ckpt``, ``policy.py:
+        257-343``): the MAR weights of the port's checkpoint directory
+        ``path`` (``training/checkpoint.py``: a full checkpoint or a slim
+        export, the EMA weights where it holds them) merged onto the current
+        ones where the flax path exists and the shape matches
+        (``convert.merge_params``). Sets ``_last_mar_import_skipped`` (the
+        checkpoint's leaves left out, as JAX counts them) and
+        ``_last_mar_import_kept_at_init`` (this MAR's leaves that the
+        checkpoint did not set: absent from it or of another shape), and
+        prints both. An orbax directory or a reference torch checkpoint file
+        is refused."""
+        from unified_video_action_tpu_torch.training import checkpoint as ckpt_lib
+
+        if not os.path.isdir(path):
+            raise NotImplementedError(
+                f"pretrained_model_path {path!r} is a file: importing a reference torch "
+                f".ckpt is not ported (ROADMAP A11); give a checkpoint directory of the port")
+        if not ckpt_lib.is_port_checkpoint(path):
+            if os.path.isdir(os.path.join(path, "state")):
+                raise NotImplementedError(
+                    f"pretrained_model_path {path!r} is an orbax checkpoint: reading orbax needs "
+                    f"JAX, which the port does not import; give a checkpoint directory of the port")
+            raise FileNotFoundError(f"pretrained_model_path {path!r} holds no checkpoint")
+        src, _ = ckpt_lib.read_weights(path)
+        init = convert.to_flax_tree(self.mar)
+        merged, skipped = convert.merge_params(init, src)
+        flat_init, flat_src = convert.flatten_tree(init), convert.flatten_tree(src)
+        kept = [p for p, v in flat_init.items()
+                if p not in flat_src or np.shape(flat_src[p]) != np.shape(v)]
+        convert.load_into(self.mar, merged)
+        self._last_mar_import_skipped = len(skipped)
+        self._last_mar_import_kept_at_init = len(kept)
+        print(f"[mar import] stage bootstrap from {path}: {len(kept)} leaves kept at init "
+              f"(absent from the checkpoint or of another shape); {len(skipped)} checkpoint "
+              f"leaves skipped{': ' + str(skipped[:5]) if skipped else ''}", flush=True)
+
+    def vae_params(self) -> Dict[str, Dict]:
+        """The VAE's flax tree in fp32: :attr:`vae_tree` where one was read,
+        else the encoder's current weights."""
+        return self.vae_tree if self.vae_tree is not None else convert.to_flax_tree(self.vae)
 
     def set_normalizer(self, normalizer: LinearNormalizer) -> None:
         self.normalizer = normalizer
