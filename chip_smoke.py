@@ -113,6 +113,28 @@ attention_plan picks.
            final agent position), and no OpenCV or dill loaded. Host ms per
            env control step, ms per full and cached call, the rollouts' wall
            time and rollout (a)'s device idle share.
+7b. video  video generation at full width (Mar.sample_video: MaskGIT rounds
+           of one encoder and decoder pass each, then the video head's
+           100-step sampler on the tokens a round reveals; the VAE decode;
+           eval/offline.test_video_fvd). The flagship (mar_base, 96 px, the
+           numpy-seeded MAR and the committed pusht_vae96.npz with its
+           decoder): test_video_fvd over 4 batches of 32 validation windows
+           of the corpus at num_iter 1, video_fvd_vae and video_fvd_pixel,
+           ms per batch by stage (encode, MAR, action sampler, video
+           sampler, decode) and the device's busy share; sample_video at
+           num_iter 4 and B=8 (the rank slices). Each counted: the single-
+           pass D = 64 instance 24 times a round, no other attention
+           kernel. The kernel route against the plain route under the same
+           draws (every attention call within the serve limits, the latents
+           within VIDEO_FLOOR_RATIO of the bf16 floor; the planted controls
+           rejected); the card in fp32 against the CPU in fp32 at B=2,
+           num_iter 2; the trained decoder's PSNR on 64 corpus frames, the
+           card within 0.05 dB of the CPU. config.PUSHT_256 (the online D =
+           64 kernel, 24 a round) and config.KITCHEN_SMALL128 with a goal
+           and cfg 1.5 (8 rows at B=4, the online D = 128 kernel, 12 a
+           round; the CFG no-op control: a projected goal equal to
+           fake_latent gives bit-identical latents at cfg 3 and 7), each with
+           the same route check.
 8. train   the flagship's training step (train_torch.py's Trainer on the
            stage-2 recipe of latest/meta.json: mar_base at full width, 96 px,
            144 tokens, B=32, bf16 with fp32 parameters, policy_model and
@@ -137,7 +159,9 @@ attention_plan picks.
            same width, on the committed corpus (corpora/pusht_demos_r5b.npz:
            300 episodes, 74,256 steps, read by numpy; 66,289 training
            windows, the frames on the card), each epoch cut to RUN_STEPS
-           steps: stage 1 (video_model, no action head) with a checkpoint;
+           steps: stage 1 (video_model, no action head) with a checkpoint
+           and the video FVD of sample_every (logged, never skipped, the
+           top-k named by video_fvd_vae as train_torch.py switches it);
            stage 2 from it through pretrained_model_path, the leaves kept at
            their initial values counted against the leaves stage 2 has and
            stage 1 lacks; two epochs with validation (RUN_VAL_STEPS batches)
@@ -162,6 +186,8 @@ It needs one card and reads only files of this repository.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -750,6 +776,38 @@ def serving_weights(meta_policy):
     return convert.seeded_tree(meta_policy.mar, SEED), convert.load_flat_npz(VAE_NPZ)
 
 
+@contextlib.contextmanager
+def checked_attention(attention_ops, policy, impl):
+    """Within the block, every attention call of ``policy``'s MAR runs
+    through ``impl`` and is held against the plain version on that call's
+    own inputs; yields the worst errors over the calls (``attention_check``'s)
+    and whether every call was finite and within SERVE_CALL_REL_RMS and
+    ATTN_BF16_MAX_OVER_RMS."""
+    from unified_video_action_tpu_torch.models import transformer
+
+    calls = {"calls": 0, "calls_ok": True, "calls_rel_rms_err": 0.0,
+             "calls_max_err_over_rms": 0.0, "calls_max_abs_err": 0.0}
+
+    def checked(q, k, v):
+        out = impl(q, k, v)
+        errs, _ = attention_check(out, attention_ops.attention_plain(q, k, v))
+        ok = (bool(torch.isfinite(out).all()) and errs["rel_rms_err"] <= SERVE_CALL_REL_RMS
+              and errs["max_err_over_rms"] <= ATTN_BF16_MAX_OVER_RMS)
+        calls["calls"] += 1
+        calls["calls_ok"] = calls["calls_ok"] and ok
+        for key in ("rel_rms_err", "max_err_over_rms", "max_abs_err"):
+            calls[f"calls_{key}"] = max(calls[f"calls_{key}"], errs[key])
+        return out
+
+    transformer.ATTN_IMPLS["checked"] = checked
+    policy.set_attn_impl("checked")
+    try:
+        yield calls
+    finally:
+        policy.set_attn_impl("kernel")
+        transformer.ATTN_IMPLS.pop("checked", None)
+
+
 def route_readings(attention_ops, policy, policy32, frames: dict, noise: dict,
                    text: dict = None) -> dict:
     """The kernel route of the bf16 ``policy`` and each planted fault of
@@ -762,8 +820,6 @@ def route_readings(attention_ops, policy, policy32, frames: dict, noise: dict,
     plain version on that call's own inputs (the worst errors of
     ``attention_check``, and whether every call was finite and within
     SERVE_CALL_REL_RMS and ATTN_BF16_MAX_OVER_RMS)."""
-    from unified_video_action_tpu_torch.models import transformer
-
     text = text or {B: None for B in frames}
     refs = {}
     with torch.no_grad():
@@ -782,30 +838,10 @@ def route_readings(attention_ops, policy, policy32, frames: dict, noise: dict,
     def against_plain(impl, B: int) -> dict:
         """The route through ``impl``, against the plain route, at batch B."""
         r = refs[B]
-        # the worst errors over the request's attention calls
-        calls = {"calls": 0, "calls_ok": True, "calls_rel_rms_err": 0.0,
-                 "calls_max_err_over_rms": 0.0, "calls_max_abs_err": 0.0}
-
-        def checked(q, k, v):
-            out = impl(q, k, v)
-            errs, _ = attention_check(out, attention_ops.attention_plain(q, k, v))
-            ok = (bool(torch.isfinite(out).all()) and errs["rel_rms_err"] <= SERVE_CALL_REL_RMS
-                  and errs["max_err_over_rms"] <= ATTN_BF16_MAX_OVER_RMS)
-            calls["calls"] += 1
-            calls["calls_ok"] = calls["calls_ok"] and ok
-            for key in ("rel_rms_err", "max_err_over_rms", "max_abs_err"):
-                calls[f"calls_{key}"] = max(calls[f"calls_{key}"], errs[key])
-            return out
-
-        transformer.ATTN_IMPLS["checked"] = checked
-        policy.set_attn_impl("checked")
-        try:
+        with checked_attention(attention_ops, policy, impl) as calls:
             with torch.no_grad():
                 z = policy.mar.policy_latents(r["cond"], text[B]).float()
             actions = policy.predict_action_frames(frames[B], noise=noise[B], text_latents=text[B])
-        finally:
-            policy.set_attn_impl("kernel")
-            transformer.ATTN_IMPLS.pop("checked", None)
         da = (normalized(policy, actions) - r["actions"]).abs().flatten()
         return {
             "z_err_kernel": (z - r["z_ref"]).abs().mean().item(),
@@ -923,7 +959,7 @@ def phase_serve(attention_ops, trees, normalizer):
     n_vae = sum(p.numel() for p in policy.vae.parameters())
     log(f"weights: MAR+denoiser {n_mar / 1e6:.1f}M numpy-seeded (seed {SEED}) in flax layout "
         f"through convert.py (the orbax flagship needs JAX to be read); "
-        f"VAE encoder {n_vae / 1e6:.1f}M from pretrained_models/vae/pusht_vae96.npz; normalizer from latest/normalizer.npz")
+        f"VAE (encoder and decoder) {n_vae / 1e6:.1f}M from pretrained_models/vae/pusht_vae96.npz; normalizer from latest/normalizer.npz")
 
     rng = np.random.default_rng(SEED)
     frames = {B: torch.from_numpy(rng.integers(0, 256, (B, 4, 3, 96, 96), dtype=np.uint8))
@@ -1076,7 +1112,7 @@ def phase_serve_256px(attention_ops, normalizer, name: str, run_cfg: dict) -> di
         f"{c.encoder_num_heads} heads of D={D}, {c.img_size}px, {c.total_tokens} tokens, VAE ch "
         f"{policy.vae.encoder.conv_in.out_channels}, {policy.mar.diffactloss.num_steps} sampler "
         f"steps, {policy.dtype}, vae_encode_chunk {policy.vae_encode_chunk}; MAR+denoiser "
-        f"{sum(p.numel() for p in policy.mar.parameters()) / 1e6:.1f}M and VAE encoder "
+        f"{sum(p.numel() for p in policy.mar.parameters()) / 1e6:.1f}M and VAE (encoder and decoder) "
         f"{sum(p.numel() for p in policy.vae.parameters()) / 1e6:.1f}M numpy-seeded (seeds "
         f"{SEED}, {SEED + 1})")
 
@@ -1206,7 +1242,7 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
         f"{policy.dtype}, action dim {policy.action_dim}; text encoder "
         f"{type(policy.text_encoder).__name__ if policy.text_encoder else None} (max_length "
         f"{policy.max_length}); MAR+denoiser {sum(p.numel() for p in policy.mar.parameters()) / 1e6:.1f}M "
-        f"numpy-seeded (seed {SEED}), VAE encoder {sum(p.numel() for p in policy.vae.parameters()) / 1e6:.1f}M "
+        f"numpy-seeded (seed {SEED}), VAE (encoder and decoder) {sum(p.numel() for p in policy.vae.parameters()) / 1e6:.1f}M "
         f"from {policy.vae_path}")
     if D not in attention_ops.HEAD_DIMS:
         raise AssertionError(f"{name}: head dimension {D} has no kernel instance")
@@ -2040,6 +2076,391 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
     return {k: r["launches"] for k, r in results.items()}
 
 
+# ------------------------------------------------------ video generation
+
+# the video phase: Mar.sample_video (MaskGIT rounds, each one encoder and
+# decoder pass, then the video head's sampler on the tokens the round
+# reveals), the VAE decode and eval/offline.test_video_fvd
+VIDEO_FVD_BATCHES, VIDEO_FVD_BATCH = 4, 32  # validation windows of the corpus
+VIDEO_ITER_BATCH, VIDEO_ITERS = 8, 4  # the rank slices: sample_video at num_iter 4
+VIDEO_ROUTE_BATCH = 4  # the 256 px and kitchen paths' batch (8 rows under CFG)
+VIDEO_CFG = 1.5
+VIDEO_FP32_BATCH, VIDEO_FP32_ITERS = 2, 2  # the card in fp32 against the CPU
+# the kernel route against the plain route, under the same draws: every
+# attention call within SERVE_CALL_REL_RMS and ATTN_BF16_MAX_OVER_RMS of the
+# plain version on its own inputs (the serve phases' limits; the planted
+# controls must fail them), and the final latents' mean |x - x_fp32| within
+# this factor of the plain route's, the bf16 floor of the path (the serve
+# phases hold the decoder output z to 1.1 of its floor; the video head
+# samples with clip_denoised=False from z, and under random weights its
+# first step multiplies eps by about 1e4, so a latent's distance from fp32
+# varies more from element to element than z's: 1.25)
+VIDEO_FLOOR_RATIO = 1.25
+# the card in fp32 (3xTF32 attention, no TF32 elsewhere) against the port on
+# the CPU in fp32: max |x_card - x_cpu| over max |x_cpu| of the latents
+# (summation order only, amplified by the sampler's first step)
+VIDEO_FP32_RTOL = 1e-3
+# the trained decoder's reconstruction PSNR, the card in fp32 against the CPU
+VIDEO_PSNR_FRAMES = 64
+VIDEO_PSNR_DB = 0.05
+
+
+def draws_to(draws, device):
+    """sample_video's draws (``Mar.sample_video_draws``) on ``device``."""
+    return {"order_rank": draws["order_rank"].to(device),
+            "rounds": [{k: v.to(device) for k, v in r.items()} for r in draws["rounds"]]}
+
+
+def counted_launches(attention_ops, fn):
+    """fn()'s attention launches by kernel and by instance, the counts set to
+    0 just before it and read just after; returns (fn's result, launches)."""
+    counters = (attention_ops.launch_count, attention_ops.instance_count)
+    torch.cuda.synchronize()
+    for counter in counters:
+        for k in counter:
+            counter[k] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for counter in counters for k, v in counter.items()}
+
+
+def video_route_check(attention_ops, name: str, policy, policy32, cond, draws, rejected,
+                      **kw) -> dict:
+    """``sample_video(cond, draws, **kw)`` of the bf16 ``policy`` through the
+    kernel route and each planted fault of ``control_faults``, against the
+    plain route and ``policy32`` (fp32, plain attention) under the same
+    draws: every attention call held to the serve phases' per-call limits,
+    the latents to VIDEO_FLOOR_RATIO of the plain route's distance from
+    fp32. The kernel route must pass, each control in ``rejected`` fail.
+    Returns the kernel route's readings."""
+    policy.set_attn_impl("plain")
+    policy32.set_attn_impl("plain")
+    try:
+        ref, _ = policy32.mar.sample_video(cond, draws, **kw)
+        plain, _ = policy.mar.sample_video(cond, draws, **kw)
+    finally:
+        policy.set_attn_impl("kernel")
+        policy32.set_attn_impl("kernel")
+    floor = (plain - ref).abs().mean().item()
+
+    def reading(impl) -> dict:
+        with checked_attention(attention_ops, policy, impl) as calls:
+            lat, _ = policy.mar.sample_video(cond, draws, **kw)
+        return {"latent_err": (lat - ref).abs().mean().item(), "latent_err_plain": floor,
+                "latent_vs_plain_rel_rms": ((lat - plain).norm() / plain.norm()).item(),
+                "latent_max": ref.abs().max().item(), "finite": bool(torch.isfinite(lat).all()),
+                **calls}
+
+    def failures(d: dict) -> list:
+        return ([] if d["calls_ok"] else ["calls"]) + \
+            ([] if d["finite"] and d["latent_err"] <= VIDEO_FLOOR_RATIO * floor else ["latents"])
+
+    routes = {"kernel": attention_ops.flash_attention, **control_faults(attention_ops)}
+    readings = {r: reading(impl) for r, impl in routes.items()}
+    diffs = readings.pop("kernel")
+    log(f"video {name}, kernel vs plain attention, bf16: {json.dumps(diffs)}; limits: every call "
+        f"rel_rms_err {SERVE_CALL_REL_RMS}, max_err_over_rms {ATTN_BF16_MAX_OVER_RMS}; latent_err "
+        f"<= {VIDEO_FLOOR_RATIO} latent_err_plain")
+    if failures(diffs):
+        raise AssertionError(f"video {name}: the kernel route disagrees with the plain route "
+                             f"({failures(diffs)}): {diffs}")
+    for d in readings.values():
+        d["failed_limits"] = failures(d)
+    log(f"video {name}, controls against the plain route: {json.dumps(readings)}")
+    passed = [r for r in rejected if not readings[r]["failed_limits"]]
+    if passed:
+        raise AssertionError(f"video {name}: faulty kernels pass the limits: {passed}")
+    return diffs
+
+
+def video_fvd_run(policy, batches, spans=None, num_batches=VIDEO_FVD_BATCHES) -> dict:
+    """eval/offline.test_video_fvd of ``policy`` on ``batches``; with
+    ``spans`` ({stage: []}), the stages of each call are recorded there as
+    CUDA event pairs: encode (the VAE encodes of both halves), mar (the
+    encoder and decoder passes), action_sampler, video_sampler, decode."""
+    from unified_video_action_tpu_torch.eval.offline import test_video_fvd
+
+    targets = [("encode", policy, "_encode_frames"), ("mar", policy.mar, "forward_encoder"),
+               ("mar", policy.mar, "forward_decoder"),
+               ("action_sampler", policy.mar.diffactloss, "sample"),
+               ("video_sampler", policy.mar.diffloss, "sample"), ("decode", policy.vae, "decode")]
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[stage].append((start, end))
+            return out
+        return run
+
+    if spans is not None:
+        for stage, obj, attr in targets:
+            setattr(obj, attr, timed(stage, getattr(obj, attr)))
+    try:
+        return test_video_fvd(policy, batches, num_batches=num_batches, num_iter=1)
+    finally:
+        for _, obj, attr in targets:
+            obj.__dict__.pop(attr, None)
+
+
+def psnr_db(recon: torch.Tensor, frames: torch.Tensor) -> float:
+    """Reconstruction PSNR over frames in [-1, 1] (peak-to-peak 2), the
+    reconstruction clipped."""
+    mse = (recon.float().clamp(-1, 1) - frames.float()).pow(2).mean().item()
+    return 10.0 * float(np.log10(4.0 / mse))
+
+
+def video_flagship(attention_ops, trees, normalizer, dataset) -> dict:
+    """The flagship (mar_base, 96 px, 144 tokens), numpy-seeded MAR and the
+    committed pusht_vae96.npz with its decoder: test_video_fvd over
+    VIDEO_FVD_BATCHES batches of VIDEO_FVD_BATCH validation windows of the
+    corpus (counted: 24 launches of the single-pass D = 64 instance a round,
+    no other attention kernel), its stages by CUDA events and the device's
+    busy share; sample_video at num_iter VIDEO_ITERS (counted); the kernel
+    route against the plain route; the card in fp32 against the CPU; the
+    trained decoder's PSNR on the card against the CPU."""
+    from unified_video_action_tpu_torch.data.device_dataset import DeviceReplayDataset
+    from unified_video_action_tpu_torch.eval.offline import decode_frames
+    from unified_video_action_tpu_torch.models.vae import LATENT_SCALE
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    meta = os.path.join(LATEST, "meta.json")
+
+    def make_policy(device="cuda", dtype="bfloat16"):
+        p = UnifiedVideoActionPolicy.from_run_config(meta, device=device, compute_dtype=dtype)
+        p.set_normalizer(normalizer)
+        p.load_params(*trees)
+        return p
+
+    policy = make_policy()
+    c = policy.mar_cfg
+    blocks = c.encoder_depth + c.decoder_depth
+    store = DeviceReplayDataset(dataset, "cuda")
+    val = store.split(dataset.get_validation_dataset())
+    batches = [val.gather(np.arange(i * VIDEO_FVD_BATCH, (i + 1) * VIDEO_FVD_BATCH))
+               for i in range(VIDEO_FVD_BATCHES)]
+    log(f"video flagship: mar {c.encoder_depth}+{c.decoder_depth} blocks, d={c.encoder_embed_dim}, "
+        f"{c.img_size}px, {c.total_tokens} tokens, video head {policy.mar.diffloss.num_steps} steps, "
+        f"action head {policy.mar.diffactloss.num_steps}, temperature {policy.temperature}, "
+        f"{policy.dtype}; VAE decoder {sum(p.numel() for p in policy.vae.decoder.parameters()) / 1e6:.1f}M "
+        f"from pretrained_models/vae/pusht_vae96.npz; {len(val)} validation windows, "
+        f"{VIDEO_FVD_BATCHES} batches of {VIDEO_FVD_BATCH}")
+
+    video_fvd_run(policy, batches, num_batches=1)  # warm-up: not counted
+    spans = {k: [] for k in ("encode", "mar", "action_sampler", "video_sampler", "decode")}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def fvd():
+        start.record()
+        out = video_fvd_run(policy, batches, spans)
+        end.record()
+        return out
+
+    metrics, launches = counted_launches(attention_ops, fvd)
+    want = want_serving_launches(attention_ops, c, [VIDEO_FVD_BATCH] * VIDEO_FVD_BATCHES)
+    want = {k: want.get(k, 0) for k in launches}
+    log(f"video flagship test_video_fvd: {json.dumps(metrics)}; attention launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}, want {blocks} a round of the "
+        f"instance attention_plan names")
+    if (launches != want or launches["attention_wgmma_d64"] != blocks * VIDEO_FVD_BATCHES
+            or set(metrics) != {"video_fvd_vae", "video_fvd_pixel"}
+            or not all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"video flagship FVD: {metrics}, launches {launches}, want {want}")
+    stages = {k: sum(s.elapsed_time(e) for s, e in v) / VIDEO_FVD_BATCHES for k, v in spans.items()}
+    stages["batch_ms"] = start.elapsed_time(end) / VIDEO_FVD_BATCHES
+    # the profiler over one batch, device activity only (host events would
+    # add thousands of operator records to process): the device's busy share
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p0, p1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        p0.record()
+        video_fvd_run(policy, batches, num_batches=1)
+        p1.record()
+        p1.synchronize()
+    busy = device_busy_ms(prof)
+    stages.update(profiled_batch_ms=p0.elapsed_time(p1), device_busy_ms=busy,
+                  device_idle_share=(max(0.0, 1.0 - busy / p0.elapsed_time(p1)) if busy > 0 else
+                                     "not measured (the profiler saw no device time)"),
+                  batch=VIDEO_FVD_BATCH, card=card_line())
+    log(f"video flagship, ms per FVD batch by stage (CUDA events): {json.dumps(stages)}")
+
+    # the rank slices on the card: num_iter VIDEO_ITERS at B = VIDEO_ITER_BATCH
+    gen = torch.Generator().manual_seed(SEED + 60)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 60).integers(
+        0, 256, (VIDEO_ITER_BATCH, 4, 3, 96, 96), dtype=np.uint8))
+    cond = policy._encode_frames(policy._prep_frames(frames.cuda()),
+                                 torch.randn(policy.noise_shapes(VIDEO_ITER_BATCH)["vae"],
+                                             generator=gen).cuda())
+    draws = draws_to(policy.mar.sample_video_draws(VIDEO_ITER_BATCH, gen, torch.device("cpu"),
+                                                   VIDEO_ITERS), "cuda")
+    kw = dict(num_iter=VIDEO_ITERS, temperature=policy.temperature)
+    (lat, act), iter_launches = counted_launches(
+        attention_ops, lambda: policy.mar.sample_video(cond, draws, **kw))
+    want = want_serving_launches(attention_ops, c, [VIDEO_ITER_BATCH] * VIDEO_ITERS)
+    want = {k: want.get(k, 0) for k in iter_launches}
+    log(f"video flagship sample_video B={VIDEO_ITER_BATCH} num_iter={VIDEO_ITERS}: launches "
+        f"{json.dumps({k: v for k, v in iter_launches.items() if v})}; latents "
+        f"{tuple(lat.shape)}, max |x| {lat.abs().max().item():.4g}")
+    if (iter_launches != want or iter_launches["attention_wgmma_d64"] != blocks * VIDEO_ITERS
+            or tuple(lat.shape) != (VIDEO_ITER_BATCH * 4, c.vae_embed_dim, c.seq_hw, c.seq_hw)
+            or not bool(torch.isfinite(lat).all())):
+        raise AssertionError(f"video flagship num_iter {VIDEO_ITERS}: launches {iter_launches}, "
+                             f"want {want}; latents {tuple(lat.shape)}")
+    check_actions(policy, policy.normalizer["action"].unnormalize(act), VIDEO_ITER_BATCH)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    policy32 = make_policy(dtype="float32")
+    route = video_route_check(attention_ops, "flagship", policy, policy32, cond, draws,
+                              REJECTED_CONTROLS, **kw)
+
+    # the card in fp32 (the fp32 kernel) against the port on the CPU in fp32
+    cpu32 = make_policy(device="cpu", dtype="float32")
+    B = VIDEO_FP32_BATCH
+    gen = torch.Generator().manual_seed(SEED + 61)
+    cond_cpu = cond[:B].float().cpu()
+    draws_cpu = policy.mar.sample_video_draws(B, gen, torch.device("cpu"), VIDEO_FP32_ITERS)
+    kw32 = dict(num_iter=VIDEO_FP32_ITERS, temperature=policy.temperature)
+    (card, card_act), f32_launches = counted_launches(
+        attention_ops, lambda: policy32.mar.sample_video(cond_cpu.cuda(), draws_to(draws_cpu, "cuda"),
+                                                         **kw32))
+    t0 = time.perf_counter()
+    cpu, cpu_act = cpu32.mar.sample_video(cond_cpu, draws_cpu, **kw32)
+    cpu_s = time.perf_counter() - t0
+    rel = ((card.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    da = (normalized(policy, card_act.cpu()) - normalized(policy, cpu_act)).abs().max().item()
+    log(f"video flagship card fp32 ({f32_launches['attention_f32_d64']} launches of "
+        f"attention_f32_d64) vs CPU fp32 ({cpu_s:.1f}s), B={B}, num_iter {VIDEO_FP32_ITERS}: latents "
+        f"max |d| / max |x| {rel:.3g} (limit {VIDEO_FP32_RTOL}), normalized actions max |d| {da:.3g} "
+        f"(limit {SERVE_FP32_ATOL})")
+    if (rel > VIDEO_FP32_RTOL or da > SERVE_FP32_ATOL
+            or f32_launches["attention_f32_d64"] != blocks * VIDEO_FP32_ITERS):
+        raise AssertionError(f"video flagship: the card's fp32 run disagrees with the CPU's "
+                             f"(latents {rel}, actions {da}) or launched {f32_launches}")
+
+    # the trained decoder: the posterior mean of corpus frames, decoded
+    x = store.img[:VIDEO_PSNR_FRAMES].permute(0, 3, 1, 2).float() / 127.5 - 1.0
+    with torch.no_grad():
+        recon = {"card_fp32": policy32.vae.decode(policy32.vae.encode(x)[0]),
+                 "card_bf16": policy.vae.decode(policy.vae.encode(x)[0]),
+                 "cpu_fp32": cpu32.vae.decode(cpu32.vae.encode(x.cpu())[0])}
+    psnr = {k: psnr_db(v.cpu(), x.cpu()) for k, v in recon.items()}
+    with torch.no_grad():
+        u8 = decode_frames(policy, policy.vae.encode(x)[0] * LATENT_SCALE)
+    ok = (abs(psnr["card_fp32"] - psnr["cpu_fp32"]) <= VIDEO_PSNR_DB
+          and all(bool(torch.isfinite(v).all()) for v in recon.values())
+          and u8.dtype == np.uint8 and u8.shape == (VIDEO_PSNR_FRAMES, 96, 96, 3))
+    log(f"video flagship trained decoder, {VIDEO_PSNR_FRAMES} corpus frames encoded to the posterior "
+        f"mean and decoded: PSNR {json.dumps(psnr)} dB (card fp32 vs CPU fp32 within "
+        f"{VIDEO_PSNR_DB} dB); decode_frames uint8 {u8.shape}")
+    if not ok:
+        raise AssertionError(f"video flagship decoder: PSNR {psnr}, uint8 {u8.dtype} {u8.shape}")
+    del policy32, cpu32, store, val
+    return {"fvd": metrics, "stages": stages, "launches_fvd": launches,
+            "launches_iter": iter_launches, "launches_fp32": f32_launches, "route": route,
+            "psnr": psnr, "fp32_latent_rel": rel}
+
+
+def video_cfg_noop(policy, cond, draws, text) -> None:
+    """With ``text_proj_cond`` mapping every goal onto ``fake_latent``, the
+    conditional and unconditional halves are the same rows: guidance scales
+    3 and 7 must give bit-identical latents and actions on the card."""
+    mar = policy.mar
+    saved = {k: v.clone() for k, v in mar.text_proj_cond.state_dict().items()}
+    try:
+        with torch.no_grad():
+            mar.text_proj_cond.weight.zero_()
+            mar.text_proj_cond.bias.copy_(mar.fake_latent[0].to(mar.text_proj_cond.bias.dtype))
+        outs = [mar.sample_video(cond, draws, num_iter=2, cfg=s, text_latents=text,
+                                 temperature=policy.temperature) for s in (3.0, 7.0)]
+    finally:
+        mar.text_proj_cond.load_state_dict(saved)
+    same = torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    log(f"video kitchen CFG no-op control (projected goal = fake_latent): cfg 3 and 7 bit-identical: "
+        f"{same}")
+    if not same:
+        raise AssertionError("video kitchen: cfg moves the latents although both halves are the "
+                             "same rows")
+
+
+def video_path(attention_ops, name: str, run_cfg: dict, vae_tree, rejected, goal=None,
+               cfg: float = 1.0, num_iter: int = 2) -> dict:
+    """sample_video of a served config at B = VIDEO_ROUTE_BATCH (numpy-seeded
+    MAR, ``vae_tree``), ``num_iter`` rounds, with ``goal`` and guidance
+    ``cfg`` where given: counted (the instance attention_plan names at 2B
+    rows under CFG, once per ViT block a round, no other attention kernel),
+    then the kernel route against the plain route."""
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    def make_policy(dtype):
+        p = UnifiedVideoActionPolicy.from_cfg(run_cfg, device="cuda", compute_dtype=dtype)
+        p.load_params(mar_tree, vae_tree)
+        return p
+
+    mar_tree = convert.seeded_tree(
+        UnifiedVideoActionPolicy.from_cfg(run_cfg, device="meta").mar, SEED)
+    policy = make_policy("bfloat16")
+    c = policy.mar_cfg
+    B, rows = VIDEO_ROUTE_BATCH, VIDEO_ROUTE_BATCH * (2 if cfg != 1.0 else 1)
+    D = c.encoder_embed_dim // c.encoder_num_heads
+    gen = torch.Generator().manual_seed(SEED + 70)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 70).integers(
+        0, 256, (B, 4, 3, 96, 96), dtype=np.uint8)).cuda()
+    cond = policy._encode_frames(policy._prep_frames(frames),
+                                 torch.randn(policy.noise_shapes(B)["vae"], generator=gen).cuda())
+    text = policy._encode_language_goal(goal, B)
+    draws = draws_to(policy.mar.sample_video_draws(B, gen, torch.device("cpu"), num_iter, cfg=cfg),
+                     "cuda")
+    kw = dict(num_iter=num_iter, cfg=cfg, text_latents=text, temperature=policy.temperature)
+    policy.mar.sample_video(cond, draws, **kw)  # warm-up: not counted
+    (lat, act), launches = counted_launches(attention_ops, lambda: policy.mar.sample_video(
+        cond, draws, **kw))
+    plan = attention_plan_of(attention_ops, c, rows, torch.bfloat16)
+    want = want_serving_launches(attention_ops, c, [rows] * num_iter)
+    want = {k: want.get(k, 0) for k in launches}
+    blocks = c.encoder_depth + c.decoder_depth
+    log(f"video {name}: mar {c.encoder_depth}+{c.decoder_depth} blocks, D={D}, {c.img_size}px, "
+        f"{c.attention_tokens} tokens attended, {rows} rows (B={B}, cfg {cfg}, goal {goal!r}), "
+        f"num_iter {num_iter}: plan {plan}, launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if (launches != want or launches[plan.instance] != blocks * num_iter
+            or not bool(torch.isfinite(lat).all())
+            or tuple(lat.shape) != (B * c.n_frames, c.vae_embed_dim, c.seq_hw, c.seq_hw)):
+        raise AssertionError(f"video {name}: launches {launches}, want {want}; latents "
+                             f"{tuple(lat.shape)}")
+    if goal is not None:
+        video_cfg_noop(policy, cond, draws, text)
+    policy32 = make_policy("float32")
+    route = video_route_check(attention_ops, name, policy, policy32, cond, draws, rejected, **kw)
+    return {"launches": launches, "route": route, "instance": plan.instance}
+
+
+def phase_video(attention_ops, trees, normalizer, dataset) -> dict:
+    """The video generation slice at full width: the flagship
+    (``video_flagship``), then config.PUSHT_256 (the seeded ch-128 VAE, the
+    online D = 64 kernel) and config.KITCHEN_SMALL128 with a goal and
+    classifier-free guidance at VIDEO_CFG (the online D = 128 kernel on 2B
+    rows, and the CFG no-op control) through ``video_path``."""
+    from unified_video_action_tpu_torch import config as port_config
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    flagship = video_flagship(attention_ops, trees, normalizer, dataset)
+    vae256 = convert.seeded_tree(UnifiedVideoActionPolicy.from_cfg(port_config.PUSHT_256,
+                                                                   device="meta").vae, SEED + 1)
+    px256 = video_path(attention_ops, "256px", port_config.PUSHT_256, vae256,
+                       REJECTED_CONTROLS_256)
+    kitchen_vae = convert.load_flat_npz(os.path.join(
+        REPO, port_config.KITCHEN_SMALL128["model"]["policy"]["vae_model_params"]["autoencoder_path"]))
+    kitchen = video_path(attention_ops, "kitchen128", port_config.KITCHEN_SMALL128, kitchen_vae,
+                         REJECTED_CONTROLS_KITCHEN, goal=KITCHEN_GOAL, cfg=VIDEO_CFG)
+    return {"flagship": flagship, "256px": px256, "kitchen128": kitchen}
+
+
 # the train phase: the flagship's stage-2 recipe (latest/meta.json) on a
 # synthetic store of TRAIN_EPISODES episodes of the port's PushT env
 TRAIN_EPISODES = 6
@@ -2364,12 +2785,14 @@ def counted(trainer, attention_ops, int8_ops, record: dict) -> None:
             return out
         return run
 
-    val_batches = lambda: [min(trainer.batch_size, len(trainer.val_data) - s)
-                           for s in range(0, len(trainer.val_data), trainer.batch_size)][
-                               :trainer.max_val_steps]
+    val_batches = lambda n: [min(trainer.batch_size, len(trainer.val_data) - s)
+                             for s in range(0, len(trainer.val_data), trainer.batch_size)][:n]
     trainer.train_epoch = wrap("train", trainer.train_epoch, lambda steps: {"steps": len(steps)})
-    trainer.validate = wrap("validate", trainer.validate,
-                            lambda l2: {"batches": [] if l2 is None else val_batches()})
+    trainer.validate = wrap("validate", trainer.validate, lambda l2: {
+        "batches": [] if l2 is None else val_batches(trainer.max_val_steps)})
+    # the sample_every hook: test_video_fvd over 4 validation batches, one round each
+    trainer.video_fvd = wrap("video_fvd", trainer.video_fvd,
+                             lambda metrics: {"batches": val_batches(4), "metrics": metrics})
     trainer.rollout = wrap("rollout", trainer.rollout, lambda log: {
         "calls": int(trainer.env_runner.timing["dispatches"]),
         "batch": RUN_TEST_SEEDS, "wall_s": trainer.env_runner.timing["wall_s"]})
@@ -2389,15 +2812,16 @@ def want_serving_launches(attention_ops, cfg, batches) -> dict:
 
 def check_counted(record: dict, attention_ops, cfg) -> dict:
     """The training steps launched no uva_* kernel; every validation and
-    rollout call launched the attention kernel its plan names once per ViT
-    block and nothing else. Returns the launches of validation and rollouts
-    summed, by kernel."""
-    totals = {"validate": {}, "rollout": {}}
+    rollout call, and every MaskGIT round of the video FVD, launched the
+    attention kernel its plan names once per ViT block and nothing else.
+    Returns the launches of validation, rollouts and the FVD summed, by
+    kernel."""
+    totals = {"validate": {}, "rollout": {}, "video_fvd": {}}
     for name, calls in record.items():
         for launches, info in calls:
             if name == "train":
                 want = {k: 0 for k in launches}
-            elif name == "validate":
+            elif name in ("validate", "video_fvd"):
                 want = want_serving_launches(attention_ops, cfg, info["batches"])
             else:
                 want = want_serving_launches(attention_ops, cfg, [info["batch"]] * info["calls"])
@@ -2434,16 +2858,34 @@ def same_state(a, b) -> list:
     return diffs
 
 
+class Tee(io.TextIOBase):
+    """Writes to every stream it is given."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for stream in self.streams:
+            stream.flush()
+
+
 def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
 
 
-def phase_train_run(attention_ops, int8_ops) -> dict:
+def phase_train_run(attention_ops, int8_ops, dataset) -> dict:
     """The flagship's recipe on the committed corpus (train_torch.py's
     Trainer at full width): stage 1 (video_model) for RUN_STEPS steps with a
     checkpoint; stage 2 bootstrapped from it through pretrained_model_path
     for two capped epochs with validation, rollouts of the EMA policy through
-    the attention kernel, top-k and latest checkpoints; a resumed trainer
+    the attention kernel, top-k and latest checkpoints; the video FVD of
+    ``sample_every`` in stage 1 (its top-k by video_fvd_vae, as
+    train_torch.py switches it) and in stage 2's first epoch; a resumed trainer
     bit-equal to the first in memory, then one more epoch; its slim export
     served through eval_sim_torch.py's loading path bit-equal to the EMA in
     memory. Then the times and sizes of a checkpoint's save and load and of
@@ -2457,7 +2899,8 @@ def phase_train_run(attention_ops, int8_ops) -> dict:
     from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
     from unified_video_action_tpu_torch.training import checkpoint as ckpt_lib
     from unified_video_action_tpu_torch.training.train_state import train_step
-    from unified_video_action_tpu_torch.training.workspace import Trainer, build_dataset
+    from unified_video_action_tpu_torch.training.workspace import Trainer
+    from train_torch import video_monitor
 
     t_phase = time.perf_counter()
     shutil.rmtree(RUN_OUT, ignore_errors=True)
@@ -2471,8 +2914,7 @@ def phase_train_run(attention_ops, int8_ops) -> dict:
                                  f"want {CORPUS_EPISODES} and {CORPUS_STEPS}")
         del rb
         t0 = time.perf_counter()
-        dataset = build_dataset(train_run_config(1))
-        stage1 = Trainer(train_run_config(1), "cuda", dataset=dataset)
+        stage1 = Trainer(video_monitor(train_run_config(1)), "cuda", dataset=dataset)
         log(f"train_run corpus: {CORPUS_EPISODES} episodes, {CORPUS_STEPS} steps, read by numpy in "
             f"{load_s:.1f}s; {len(stage1.data)} training windows, {len(stage1.val_data)} validation "
             f"windows of episodes {np.flatnonzero(dataset.val_mask).tolist()}; store "
@@ -2481,12 +2923,28 @@ def phase_train_run(attention_ops, int8_ops) -> dict:
         # 2. stage 1
         record: dict = {}
         counted(stage1, attention_ops, int8_ops, record)
-        stage1.run()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            stage1.run()
         latest1 = os.path.join(RUN_OUT, "stage1", "checkpoints", "latest")
         missing = [n for n in ("meta.json", "normalizer.npz", ckpt_lib.PAYLOAD)
                    if not os.path.isfile(os.path.join(latest1, n))]
         if missing or stage1.state.step != RUN_STEPS:
             raise AssertionError(f"stage 1: {stage1.state.step} steps, latest lacks {missing}")
+        # the sample_every hook fired: the video FVD logged, never skipped,
+        # and the top-k kept by it
+        with open(os.path.join(RUN_OUT, "stage1", "logs.jsonl")) as f:
+            lines1 = [json.loads(line) for line in f]
+        ckpts1 = sorted(os.listdir(os.path.join(RUN_OUT, "stage1", "checkpoints")))
+        fvd_keys = ("video_fvd_vae", "video_fvd_pixel")
+        if ("[fvd] skipped" in printed.getvalue()
+                or not all(k in l and np.isfinite(l[k]) for l in lines1 for k in fvd_keys)
+                or not any(c.startswith("epoch=0000-video_fvd_vae=") for c in ckpts1)
+                or stage1.topk.monitor_key != "video_fvd_vae" or stage1.topk.mode != "min"):
+            raise AssertionError(f"stage 1's video FVD: logs {lines1}; checkpoints {ckpts1}; "
+                                 f"top-k by {stage1.topk.monitor_key} ({stage1.topk.mode})")
+        log(f"train_run stage 1: video FVD {json.dumps({k: lines1[-1][k] for k in fvd_keys})}; "
+            f"checkpoints {ckpts1} (top-k by video_fvd_vae, min)")
         stage1_leaves = set(torch.load(os.path.join(latest1, ckpt_lib.PAYLOAD), map_location="cpu",
                                        weights_only=True, mmap=True)["ema"])
         del stage1
@@ -2555,7 +3013,11 @@ def phase_train_run(attention_ops, int8_ops) -> dict:
         launches = check_counted(record, attention_ops, stage3.policy.mar_cfg)
         log(f"train_run launches: training steps {[c[0] for c in record['train']]} (0 uva_* "
             f"launches); validation {launches['validate']}; rollouts {launches['rollout']} over "
-            f"{sum(i['calls'] for _, i in record['rollout'])} policy calls")
+            f"{sum(i['calls'] for _, i in record['rollout'])} policy calls; video FVD "
+            f"{launches['video_fvd']} over {len(record.get('video_fvd', []))} calls")
+        if len(record.get("video_fvd", [])) != 2:  # stage 1's epoch and stage 2's first
+            raise AssertionError(f"train_run: {len(record.get('video_fvd', []))} video FVD calls, "
+                                 f"want 2")
 
         # 5. the export served as eval_sim_torch.py serves it
         export = os.path.join(cfg2["output_dir"], "export")
@@ -2678,10 +3140,19 @@ def main() -> int:
             attention_ops, int8_ops, trees, normalizer)
     with Phase("rollout"):
         rollouts = phase_rollout(attention_ops, int8_ops, trees, normalizer)
+    from unified_video_action_tpu_torch.training.workspace import build_dataset
+
+    t0 = time.perf_counter()
+    corpus = build_dataset(train_run_config(1))  # the video and train_run phases' corpus
+    log(f"corpus {CORPUS} read in {time.perf_counter() - t0:.1f}s")
+    with Phase("video"):
+        video = phase_video(attention_ops, trees, normalizer, corpus)
+    fp32_paths["video_fp32_vs_cpu"] = {"attention_f32_d64":
+                                       video["flagship"]["launches_fp32"]["attention_f32_d64"]}
     with Phase("train"):
         train = phase_train(attention_ops, int8_ops)
     with Phase("train_run"):
-        train_run = phase_train_run(attention_ops, int8_ops)
+        train_run = phase_train_run(attention_ops, int8_ops, corpus)
 
     # the int8_gemm device time of one deployed request: profiled (cached
     # request) and modelled from the kernel phase (every layer's calls times
@@ -2698,7 +3169,12 @@ def main() -> int:
                          "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen,
                          "serve_huge96": launches_huge96, "serve_huge256": launches_huge256,
                          "train_run_validation": train_run["launches"]["validate"],
-                         "train_run_rollouts": train_run["launches"]["rollout"]}
+                         "train_run_rollouts": train_run["launches"]["rollout"],
+                         "video_fvd_flagship": video["flagship"]["launches_fvd"],
+                         "sample_video_num_iter4": video["flagship"]["launches_iter"],
+                         "sample_video_256px": video["256px"]["launches"],
+                         "sample_video_kitchen128_cfg": video["kitchen128"]["launches"],
+                         "train_run_video_fvd": train_run["launches"]["video_fvd"]}
     attention_keys = tuple(attention_ops.launch_count) + attention_ops.INSTANCES
     attention_by_path = {path: {k: n.get(k, 0) for k in attention_keys}
                          for path, n in attention_by_path.items()}
@@ -2842,6 +3318,7 @@ def main() -> int:
     ]}
     log(f"train: {json.dumps({k: train[k] for k in ('perf', 'overfit', 'run_s')})}")
     log(f"train_run: {json.dumps(train_run['perf'])}")
+    log(f"video: {json.dumps({'fvd': video['flagship']['fvd'], 'stages': video['flagship']['stages'], 'psnr': video['flagship']['psnr']})}")
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -86,6 +86,36 @@ def head_draws(key, n: int, channels: int, steps: int):
     return init, per_step
 
 
+def video_draws(key, shapes):
+    """The draws of JAX's ``Mar.sample_video`` (mar.py:756-832) from ``key``,
+    shaped as the port's ``Mar.video_draw_shapes`` gives them: the order
+    from ``k_order, key = split(key)``; per round ``key, ka = split(key)``
+    for the action head where the round samples it (``head_draws``), then
+    ``key, kv = split(key)`` for the video head, whose ``noise_key,
+    loop_key = split(kv)`` give the start and the per-step noise. Returns
+    torch tensors in the form ``sample_video`` takes."""
+    from unified_video_action_tpu.models.mar import sample_orders
+
+    k_order, key = jax.random.split(key)
+    B, S = shapes["order_rank"]
+    rounds = []
+    for r in shapes["rounds"]:
+        d = {}
+        if "action_init" in r:
+            key, ka = jax.random.split(key)
+            steps, n, channels = r["action_steps"]
+            d["action_init"], d["action_steps"] = head_draws(ka, n, channels, steps)
+        key, kv = jax.random.split(key)
+        noise_key, loop_key = jax.random.split(kv)
+        d["video_init"] = np.asarray(jax.random.normal(noise_key, r["video_init"]))
+        steps = r["video_steps"][0]
+        d["video_steps"] = np.stack([np.asarray(jax.random.normal(k, r["video_steps"][1:]))
+                                     for k in jax.random.split(loop_key, steps)])
+        rounds.append({k: torch.tensor(v) for k, v in d.items()})
+    order = torch.tensor(np.asarray(sample_orders(k_order, B, S)), dtype=torch.int64)
+    return {"order_rank": order, "rounds": rounds}
+
+
 def policy_draws(key, noise_shapes):
     """The draws of the JAX policy's predict fn (policy.py:443): the key
     splits into (k_vae, k_wrist, k_samp); k_vae feeds the VAE posterior and

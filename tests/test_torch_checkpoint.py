@@ -4,14 +4,16 @@
 CPU, at the tiny training size of ``tests/test_torch_train_losses.py``.
 
 - Save -> load restores every parameter, the EMA, AdamW's moments and step
-  counts, the scheduler, the step and the epoch bit for bit; one
+  counts, the scheduler, the step, the epoch and the frozen VAE (its
+  decoder and ``post_quant_conv`` too) bit for bit; one
   ``train_step`` after loading equals one from the saved state (same batch
   and noise) bit for bit. A non-blocking save keeps the state of its call.
 - ``load_checkpoint`` falls back to ``.old``, then ``.tmp``.
 - ``TopKCheckpointManager`` keeps the paths JAX's keeps on the same
   metrics, in both modes; ``JsonLogger`` writes JAX's lines.
 - The slim export served through ``eval_sim_torch.load_weights`` gives fp32
-  actions bit-equal to the EMA in memory; its ``mar/`` and ``vae/`` keys are
+  actions bit-equal to the EMA in memory and decodes bit-equal to the VAE
+  in memory; its ``mar/`` and ``vae/`` keys (``decoder/`` too) are
   JAX's ``init_params`` tree; bf16 exports hold torch's bf16 roundings.
 - ``merge_params`` gives JAX's merged tree and skipped list (shape
   mismatches and unexpected keys included). A stage-1 (video_model) ->
@@ -82,9 +84,14 @@ def test_save_load_is_bit_equal_and_a_step_after_it_too(tmp_path):
     ckpt.save_checkpoint(path, state, cfg={"a": 1}, normalizer=state.policy.normalizer, epoch=3)
     assert sorted(os.listdir(path)) == ["meta.json", "normalizer.npz", "state.pt"]
     fresh, _ = _state(seed=9, steps=0)
+    vae, vae_fresh = state.policy.vae.state_dict(), fresh.policy.vae.state_dict()
+    decode_half = [k for k in vae if k.startswith(("decoder.", "post_quant_conv."))]
+    assert len(decode_half) > 100 and not all(torch.equal(vae[k], vae_fresh[k]) for k in decode_half)
     _, meta, norm = ckpt.load_checkpoint(path, fresh)
     assert meta == {"epoch": 3, "step": 2, "cfg": {"a": 1}}
     assert _differences(fresh, state) == []
+    # the frozen VAE comes back whole, its decoder and post_quant_conv too
+    assert all(torch.equal(v, fresh.policy.vae.state_dict()[k]) for k, v in vae.items())
     assert norm.to_flat_dict().keys() == state.policy.normalizer.to_flat_dict().keys()
     np.testing.assert_array_equal(norm["action"].scale, state.policy.normalizer["action"].scale)
     assert fresh.optimizer.param_groups[0]["lr"] == state.optimizer.param_groups[0]["lr"]
@@ -185,6 +192,10 @@ def test_export_serves_the_ema_bit_equal_and_has_jax_s_keys(tmp_path, jax_shapes
     noise = memory.sample_noise(3, torch.Generator().manual_seed(2))
     want = memory.predict_action_frames(frames, noise=noise)
     assert torch.equal(served.predict_action_frames(frames, noise=noise), want)
+    # and decodes as the VAE in memory does: the export carries the decoder
+    z = torch.randn((2, 8, 4, 4), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        assert torch.equal(served.vae.decode(z), memory.vae.decode(z))
     # the full checkpoint serves the same EMA
     ckpt.save_checkpoint(str(tmp_path / "full"), state)
     full = _serving(policy, *eval_sim_torch.load_weights(str(tmp_path / "full")))

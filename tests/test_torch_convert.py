@@ -21,7 +21,7 @@ from torch import nn
 from unified_video_action_tpu.policy.policy import UnifiedVideoActionPolicy as JaxPolicy
 from unified_video_action_tpu_torch import convert
 from unified_video_action_tpu_torch.models.transformer import QuantLinear
-from unified_video_action_tpu_torch.policy.policy import VAE_SKIP, UnifiedVideoActionPolicy
+from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(REPO, "pretrained_models", "uva_pusht_small", "latest")
@@ -164,11 +164,11 @@ def test_flagship_maps_onto_the_port(flagship_shapes):
         os.path.join(FLAGSHIP, "meta.json"), device="meta"
     )
     mar_plan = convert.plan(flagship_shapes["mar"], convert.module_shapes(policy.mar))
-    vae_plan = convert.plan(flagship_shapes["vae"], convert.module_shapes(policy.vae), VAE_SKIP)
+    vae_plan = convert.plan(flagship_shapes["vae"], convert.module_shapes(policy.vae))
     n_mar = sum(int(np.prod(flagship_shapes["mar"][p])) for p, _ in mar_plan.values())
     assert len(mar_plan) == len(policy.mar.state_dict())
     assert len(vae_plan) == len(policy.vae.state_dict())
-    # every MAR leaf lands, the video head's too; the VAE's decoder waits
+    # every MAR leaf lands, the video head's too, and every VAE leaf, the decoder's too
     assert len(mar_plan) == 444
     assert convert.flax_layout_shapes(policy.mar) == flagship_shapes["mar"]
     assert n_mar > 200_000_000

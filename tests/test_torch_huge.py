@@ -55,7 +55,7 @@ from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
 from unified_video_action_tpu_torch.models.transformer import QuantLinear
 from unified_video_action_tpu_torch.ops import attention as attention_ops
 from unified_video_action_tpu_torch.ops import int8_mm as int8_ops
-from unified_video_action_tpu_torch.policy.policy import VAE_SKIP, UnifiedVideoActionPolicy
+from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NORMALIZER = os.path.join(REPO, "pretrained_models", "uva_pusht_small", "latest", "normalizer.npz")
@@ -117,10 +117,10 @@ def _jax_shapes(name):
 def test_mar_huge_holds_the_jax_tree_leaf_by_leaf(name):
     want = _jax_shapes(name)
     policy = UnifiedVideoActionPolicy.from_cfg(getattr(config, name), device="meta")
-    # the bridge maps every leaf outside the skipped subtrees onto a port
+    # the bridge maps every leaf, the VAE decoder's too, onto a port
     # parameter of its shape, and sets every port parameter
     mar_plan = convert.plan(want["mar"], convert.module_shapes(policy.mar))
-    vae_plan = convert.plan(want["vae"], convert.module_shapes(policy.vae), VAE_SKIP)
+    vae_plan = convert.plan(want["vae"], convert.module_shapes(policy.vae))
     assert len(mar_plan) == len(policy.mar.state_dict())
     assert len(vae_plan) == len(policy.vae.state_dict())
     # the port's flax layout is JAX's tree, leaf names and shapes, the video head's too

@@ -1,7 +1,8 @@
 """The port stands alone: importing unified_video_action_tpu_torch and every
-module in it, and train_torch.py, loads no JAX, no flax, no optax, no orbax
-and nothing of the JAX package, and no OpenCV, dill, h5py or zstandard (which
-the card's machine lacks; h5py and zstandard are imported only inside the
+module in it (the offline evaluation of ``eval/`` too), and train_torch.py,
+loads no JAX, no flax, no optax, no orbax and nothing of the JAX package, and
+no OpenCV, PIL, dill, h5py or zstandard (which the card's machine lacks; h5py
+and zstandard are imported only inside the
 functions that read a file with them); chip_smoke.py, train_torch.py and the card's tests import
 none of them either, and
 chip_smoke.py refuses to run without a CUDA device or without the package
@@ -20,7 +21,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "unified_video_action_tpu")
-NOT_ON_THE_CARD = ("cv2", "dill")
+NOT_ON_THE_CARD = ("cv2", "PIL", "dill")
 # not on the card either: imported only inside the functions that read a file
 # with them (ReplayBuffer.load of HDF5, tools/export_corpus.py)
 LAZY_ONLY = ("h5py", "zstandard")
@@ -60,14 +61,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "utils.language", "config", "models.initializers", "data.replay_buffer",
                      "data.sampler", "data.pusht_dataset", "data.device_dataset",
                      "training.optim", "training.ema", "training.train_state",
-                     "training.workspace", "training.checkpoint", "training.trackers"):
+                     "training.workspace", "training.checkpoint", "training.trackers",
+                     "eval.metrics", "eval.offline", "eval.i3d"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
     # torch itself imports dill where dill is installed; the port adds neither
     added = loaded - set(result["torch_roots"])
     assert not added & set(NOT_ON_THE_CARD + LAZY_ONLY), sorted(added & set(NOT_ON_THE_CARD + LAZY_ONLY))
-    assert "cv2" not in loaded
+    assert "cv2" not in loaded and "PIL" not in loaded
 
 
 def _imported_roots(path):

@@ -66,7 +66,9 @@ def test_pusht_256_builds_mar_base_at_1024_tokens():
     assert policy.noise_shapes(1) == {"vae": (4, 16, 16, 16), "init": (16, 2), "steps": (100, 16, 2)}
     # the MAR and action head (225.3 M) and the video head
     assert 260_800_000 < sum(p.numel() for p in policy.mar.parameters()) < 261_400_000
-    assert 28_000_000 < sum(p.numel() for p in policy.vae.parameters()) < 28_600_000
+    # the KL-16 VAE at ch 128: the encoder (28.3 M) and the decoder (38.2 M)
+    assert 28_000_000 < sum(p.numel() for p in policy.vae.encoder.parameters()) < 28_600_000
+    assert 66_000_000 < sum(p.numel() for p in policy.vae.parameters()) < 66_900_000
     # every ViT block at both serving batches goes to the online kernel
     for batch in (1, 128):
         plan = attention_ops.attention_plan(batch, c.total_tokens, c.encoder_num_heads,

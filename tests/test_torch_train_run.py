@@ -11,7 +11,8 @@ keys it acts on or names.
   (``training/workspace.py:435-440``, ``:503``, ``:523-525``, ``:579``), the
   tracker's ``metrics.jsonl`` the same steps; the early stop and the top-k
   checkpoints follow JAX's rules (its ``TopKCheckpointManager`` replayed on
-  the logged scores); the FVD is named as skipped; the export is written.
+  the logged scores); the video FVD is logged (``video_fvd_vae`` and
+  ``video_fvd_pixel``) and never skipped; the export is written.
 - Resume restarts at the saved epoch with the saved state and appends to
   ``logs.jsonl``.
 - SIGTERM to ``train_torch.py`` in a subprocess stops it with exit 0 and a
@@ -52,10 +53,11 @@ from unified_video_action_tpu_torch.training import workspace as pws
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 META = os.path.join(REPO, "pretrained_models", "uva_pusht_small", "latest", "meta.json")
 NORMALIZED_ATOL = 1e-4  # tests/test_torch_predict_obs.py's
-# the keys of JAX's step log for a run with validation and test-only rollouts
+# the keys of JAX's step log for a run with the video FVD, validation and
+# test-only rollouts (no I3D weights: the pixel FVD)
 JAX_STEP_LOG_KEYS = {"epoch", "global_step", "epoch_time", "train_loss", "diffusion_loss",
-                     "action_loss", "grad_norm", "val_action_l2_distances", "test/mean_score",
-                     "test_mean_score", "_step"}
+                     "action_loss", "grad_norm", "video_fvd_vae", "video_fvd_pixel",
+                     "val_action_l2_distances", "test/mean_score", "test_mean_score", "_step"}
 
 
 def test_val_action_l2_matches_jax():
@@ -82,8 +84,9 @@ def test_val_action_l2_matches_jax():
 
 def tiny_config(out, *overrides):
     """The flagship's run config at a tiny width (a narrow VAE of random
-    weights too) on 2 synthetic episodes, one
-    of them for validation, every cadence at 1, a rollout of one test seed."""
+    weights too, the video head sampling in 2 steps) on 2 synthetic
+    episodes, one of them for validation, every cadence at 1, a rollout of
+    one test seed."""
     with open(META) as f:
         cfg = json.load(f)["cfg"]
     amp = "model.policy.autoregressive_model_params."
@@ -92,7 +95,9 @@ def tiny_config(out, *overrides):
         f"{amp}encoder_num_heads=4", f"{amp}decoder_embed_dim=64", f"{amp}decoder_depth=1",
         f"{amp}decoder_num_heads=4", f"{amp}diffloss_d=1", f"{amp}diffloss_w=32",
         f"{amp}diffloss_act_d=1", f"{amp}diffloss_act_w=32", f"{amp}act_diff_testing_steps=ddim10",
-        f"{amp}pretrained_model_path=null",
+        # the video FVD's sampler at 2 steps: 100 steps of tiny operations
+        # take minutes where the suite's workers share the cores
+        f"{amp}num_sampling_steps=2", f"{amp}pretrained_model_path=null",
         # a narrow VAE of random weights: the run's checkpoints carry it
         "model.policy.vae_model_params.autoencoder_path=null", "model.policy.vae_model_params.ddconfig.ch=32",
         "task.dataset.synthetic=2", "task.dataset.val_ratio=0.5", "dataloader.batch_size=2",
@@ -122,7 +127,7 @@ def test_run_logs_topk_early_stop_and_export(tmp_path, capsys):
         assert "test/sim_max_reward_100000" in line and line["nonfinite_steps"] == 0
     assert [l["_step"] for l in lines] == [l["_step"] for l in _lines(tmp_path / "tracker" / "metrics.jsonl")]
     assert json.load(open(tmp_path / "tracker" / "summary.json"))["_step"] == lines[-1]["_step"]
-    assert "[fvd] skipped" in printed
+    assert "[fvd] skipped" not in printed
     # JAX's early stop (patience 1) and top-k (k = 1) over the logged scores
     scores = [l["test_mean_score"] for l in lines]
     best, stop_at = scores[0], None
@@ -150,7 +155,9 @@ def test_run_logs_topk_early_stop_and_export(tmp_path, capsys):
 
 
 def test_resume_restarts_at_the_saved_epoch(tmp_path):
-    cfg = tiny_config(tmp_path, "training.rollout_every=0", "training.val_every=0")
+    # the video FVD is test_run_logs_topk_early_stop_and_export's to check
+    cfg = tiny_config(tmp_path, "training.rollout_every=0", "training.val_every=0",
+                      "training.sample_every=0")
     first = pws.Trainer(cfg, "cpu")
     first.run()
     assert [l["epoch"] for l in _lines(tmp_path / "logs.jsonl")] == [0, 1]
@@ -168,7 +175,8 @@ def test_resume_restarts_at_the_saved_epoch(tmp_path):
 
 def test_sigterm_leaves_a_latest_that_resumes(tmp_path):
     cfg = tiny_config(tmp_path, "training.num_epochs=10000", "training.rollout_every=0",
-                      "training.val_every=0", "training.checkpoint_every=0")
+                      "training.val_every=0", "training.checkpoint_every=0",
+                      "training.sample_every=0")
     (tmp_path / "run.json").write_text(json.dumps(cfg))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.Popen([sys.executable, "train_torch.py", "--run-config",

@@ -242,8 +242,9 @@ def _tiny_run_config(tmp_path):
         f"model.policy.vae_model_params.autoencoder_path={REPO}/pretrained_models/vae/pusht_vae96.npz",
         "task.dataset.synthetic=2", "dataloader.batch_size=2", "training.num_epochs=1",
         "training.max_train_steps=3", "training.lr_warmup_steps=1", f"output_dir={tmp_path}",
-        # the flagship's rollout (12 envs of 300 steps) is train_run's to test
-        "training.rollout_every=0",
+        # the flagship's rollout (12 envs of 300 steps) is train_run's to test,
+        # the video FVD of its sample_every test_torch_offline_eval's
+        "training.rollout_every=0", "training.sample_every=0",
     ])
     return cfg
 

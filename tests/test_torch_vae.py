@@ -22,7 +22,6 @@ from unified_video_action_tpu_torch.models import vae as pv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(embed_dim=8, ch_mult=(1, 1, 2, 2), resolution=32, ch=32)
-SKIP = (("decoder",), ("post_quant_conv",))
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +31,7 @@ def vaes():
     shapes = init_shapes(jm, x0, jax.random.PRNGKey(0))
     params = random_params(shapes, seed=0)
     pm = pv.KLVae(**CFG)
-    convert.load_into(pm, to_numpy(params), skip=SKIP)
+    convert.load_into(pm, to_numpy(params))
     return jm, params, pm
 
 
@@ -77,7 +76,7 @@ def test_logvar_is_clipped_like_jax(vaes):
     # a quant_conv 100x larger drives logvar past both ends of [-30, 20]
     loud = jax.tree.map(lambda a: a, params)
     loud["quant_conv"] = dict(params["quant_conv"], kernel=100.0 * params["quant_conv"]["kernel"])
-    pm = convert.load_into(pv.KLVae(**CFG), to_numpy(loud), skip=SKIP)
+    pm = convert.load_into(pv.KLVae(**CFG), to_numpy(loud))
     x = _frames(B=2, seed=3)
     _, logvar = jm.apply({"params": loud}, jnp.asarray(x), method=jv.KLVae.encode)
     with torch.no_grad():
@@ -94,7 +93,7 @@ def test_encode_matches_jax_on_the_committed_vae():
         pytest.skip(f"{path} is not in this checkout")
     cfg = dict(embed_dim=16, ch_mult=(1, 1, 2, 2, 4), resolution=96, ch=64)
     tree = convert.load_flat_npz(path)
-    pm = convert.load_into(pv.KLVae(**cfg), tree, skip=SKIP)
+    pm = convert.load_into(pv.KLVae(**cfg), tree)
     x = np.random.default_rng(4).uniform(-1, 1, (2, 3, 96, 96)).astype(np.float32)
     mean, logvar = jv.KLVae(**cfg).apply({"params": tree}, jnp.asarray(x), method=jv.KLVae.encode)
     with torch.no_grad():

@@ -10,12 +10,14 @@ overrides after it set keys of that config (``config.apply_overrides``).
 The run initializes the MAR from ``training.seed`` (and merges the port
 checkpoint at ``pretrained_model_path`` into it, the stage-1 -> stage-2
 bootstrap), reads the VAE from ``autoencoder_path``, trains on the card
-(``--device cpu`` for the CPU) with validation and rollouts at the config's
-cadences, and writes under ``output_dir``: ``logs.jsonl``, ``normalizer.npz``,
+(``--device cpu`` for the CPU) with the video FVD, validation and rollouts
+at the config's cadences, and writes under ``output_dir``: ``logs.jsonl``, ``normalizer.npz``,
 ``tracker/``, ``checkpoints/latest`` and the top-k checkpoints, and
 ``export/``, the slim export of the final EMA that ``eval_sim_torch.py -c``
-serves (``training/workspace.py``). With ``training.resume=true`` it starts
-from ``checkpoints/latest``; SIGTERM or SIGINT saves it and stops.
+serves (``training/workspace.py``). A run without the action head keeps its
+top-k by ``video_fvd_vae`` (:func:`video_monitor`). With
+``training.resume=true`` it starts from ``checkpoints/latest``; SIGTERM or
+SIGINT saves it and stops.
 """
 
 from __future__ import annotations
@@ -33,6 +35,20 @@ def load_run_config(path: str) -> dict:
     return cfg["cfg"] if "cfg" in cfg else cfg
 
 
+def video_monitor(cfg: dict) -> dict:
+    """JAX's ``train.py:42-56``: a run without the action head (stage 1)
+    logs no rollout score, so where its top-k monitors ``test_mean_score``
+    the top-k keeps the lowest ``video_fvd_vae`` instead (the VAE-latent
+    Fréchet distance, which needs no I3D weights). Changes ``cfg`` in place
+    and returns it."""
+    ap = cfg.get("model", {}).get("policy", {}).get("action_model_params", {}) or {}
+    topk = cfg.get("checkpoint", {}).get("topk", {})
+    if not ap.get("predict_action", True) and topk.get("monitor_key") == "test_mean_score":
+        topk.update(monitor_key="video_fvd_vae", mode="min",
+                    format_str="epoch={epoch:04d}-video_fvd_vae={video_fvd_vae:.3f}")
+    return cfg
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--run-config", required=True,
@@ -42,7 +58,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = load_run_config(args.run_config)
     apply_overrides(cfg, args.overrides)
-    return Trainer(cfg, args.device).run()
+    return Trainer(video_monitor(cfg), args.device).run()
 
 
 if __name__ == "__main__":

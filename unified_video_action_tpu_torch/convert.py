@@ -25,10 +25,10 @@ and :func:`load_flat_npz` write and read flat ``"a/b/c"``-keyed archives,
 in fp32 or as bf16 bit patterns.
 
 The bridge is strict: a leaf it cannot place (no such parameter, or another
-shape) raises, and so does a port parameter that no leaf sets. Subtrees of a
-JAX model that the port does not build yet are named in ``skip`` by the
-caller. It writes nothing: no converted checkpoint is stored; trees are
-converted when they are loaded.
+shape) raises, and so does a port parameter that no leaf sets (the error
+counts them by subtree). Subtrees of a JAX model that the port does not
+build are named in ``skip`` by the caller. It writes nothing: no converted
+checkpoint is stored; trees are converted when they are loaded.
 """
 
 from __future__ import annotations
@@ -197,9 +197,14 @@ def plan(flax_shapes: Mapping[Path, Tuple[int, ...]],
         mapping.update((k, (path, c)) for k, c in targets)
     unset = sorted(set(port_shapes) - set(mapping))
     if unmapped or unset:
+        # the subtrees whose parameters no leaf sets, e.g. a VAE tree without
+        # its decoder: {"decoder": 164, "post_quant_conv": 2}
+        subtrees: Dict[str, int] = {}
+        for key in unset:
+            subtrees[key.split(".")[0]] = subtrees.get(key.split(".")[0], 0) + 1
         raise ValueError(
             f"{len(unmapped)} flax leaves unmapped: {unmapped[:8]}; "
-            f"{len(unset)} port parameters unset: {unset[:8]}"
+            f"{len(unset)} port parameters unset, by subtree {subtrees}: {unset[:8]}"
         )
     return mapping
 

@@ -1,4 +1,5 @@
-"""Per-token AdaLN MLP denoiser (port of ``models/denoiser.py:24-189``).
+"""Per-token AdaLN MLP denoiser (port of ``models/denoiser.py:24-189``) and
+the classifier-free-guidance wrapper ``cfg_denoise_fn`` (:191-207).
 
 The diffusion heads call it once per sampler step on every token: x (N, C),
 the original timestep t (N,) and the conditioning c (N, z). It returns fp32
@@ -114,3 +115,23 @@ class MlpDenoiser(nn.Module):
         for i in range(self.depth):
             h = getattr(self, f"block_{i}")(h, y)
         return self.final(h, y).float()
+
+
+def cfg_denoise_fn(apply_fn, cfg_scale: float, in_channels: int):
+    """Classifier-free guidance around ``apply_fn(x, t, c)`` (the reference's
+    ``forward_with_cfg``, diffusion_loss.py:285-293): the first half of the
+    rows is conditional, the second unconditional. Both halves are run on
+    the first half's x, and both get the guided epsilon
+    ``uncond + cfg_scale·(cond − uncond)``; the learned-variance channels
+    after ``in_channels`` pass through per half."""
+
+    def fn(x: torch.Tensor, t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0] // 2
+        half = x[:n]
+        out = apply_fn(torch.cat([half, half], dim=0), t, c)
+        eps, rest = out[:, :in_channels], out[:, in_channels:]
+        cond_eps, uncond_eps = eps[:n], eps[n:]
+        guided = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+        return torch.cat([torch.cat([guided, guided], dim=0), rest], dim=1)
+
+    return fn

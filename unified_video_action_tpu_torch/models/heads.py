@@ -1,6 +1,6 @@
 """Diffusion heads (port of ``models/heads.py``: ``VideoDiffusionHead``'s
-training loss at :31-70, ``_adaptive_pool_matrix`` and ``ConvFcPool`` at
-:96-148, ``ActionDiffusionHead`` at :255-298).
+training loss and sampler at :31-93, ``_adaptive_pool_matrix`` and
+``ConvFcPool`` at :96-148, ``ActionDiffusionHead`` at :255-298).
 
 ``ConvFcPool`` pools the decoder's (B, T·S, D) tokens into 16 action-slot
 latents: a per-frame 3x3 conv, an adaptive average pool to 4x4 with torch's
@@ -9,9 +9,12 @@ interpolation and a refining MLP. The head then samples one action per slot
 with the per-token ``MlpDenoiser`` under the respaced diffusion, from
 injected noise. Each head's ``loss`` is JAX's ``__call__``: the per-token
 training losses of its 1000-step cosine diffusion at given steps ``t`` and
-noise, the video head's masked to the predicted tokens. Video sampling
-waits for a later slice. Under ``quant`` the denoisers' dense layers are
-W8A8; the pool stays float, as in JAX (``heads.py:137-147``, ``:224-246``).
+noise, the video head's masked to the predicted tokens. The video head
+samples each token under its own respaced diffusion (``num_sampling_steps``)
+from injected noise, with ``clip_denoised=False``, and under classifier-free
+guidance (``cfg != 1``) through ``cfg_denoise_fn``. Under ``quant`` the
+denoisers' dense layers are W8A8; the pool stays float, as in JAX
+(``heads.py:137-147``, ``:224-246``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unified_video_action_tpu_torch.models.denoiser import MlpDenoiser
+from unified_video_action_tpu_torch.models.denoiser import MlpDenoiser, cfg_denoise_fn
 from unified_video_action_tpu_torch.models.diffusion import create_diffusion
 
 
@@ -69,12 +72,13 @@ class ConvFcPool(nn.Module):
 
 
 class VideoDiffusionHead(nn.Module):
-    """DiffLoss equivalent: the per-token denoiser of the frame latents and its
-    training diffusion."""
+    """DiffLoss equivalent: the per-token denoiser of the frame latents, its
+    training diffusion and its sampling diffusion."""
 
     def __init__(self, target_channels: int, z_channels: int, width: int, depth: int,
-                 quant: bool = False):
+                 num_sampling_steps: str = "100", quant: bool = False):
         super().__init__()
+        self.target_channels = target_channels
         self.net = MlpDenoiser(
             in_channels=target_channels,
             model_channels=width,
@@ -84,6 +88,33 @@ class VideoDiffusionHead(nn.Module):
             quant=quant,
         )
         self.train_diffusion = create_diffusion("", noise_schedule="cosine")
+        self.gen_diffusion = create_diffusion(num_sampling_steps, noise_schedule="cosine")
+
+    @property
+    def num_steps(self) -> int:
+        return self.gen_diffusion.num_timesteps
+
+    def draw_shapes(self, n: int, cfg: float = 1.0) -> dict:
+        """Shapes of :meth:`sample`'s draws for ``n`` rows: the start (for half
+        the rows under guidance, which duplicates it) and the per-step noise
+        (for all rows: JAX's loop draws ``x.shape`` a step)."""
+        C = self.target_channels
+        return {"init": (n // 2 if cfg != 1.0 else n, C), "steps": (self.num_steps, n, C)}
+
+    def sample(self, z: torch.Tensor, noise: torch.Tensor, step_noise: torch.Tensor,
+               temperature: float = 1.0, cfg: float = 1.0) -> torch.Tensor:
+        """z: (N, D) conditioning -> (N, C) sampled tokens, from the
+        standard-normal draws of :meth:`draw_shapes`. Under ``cfg != 1`` the
+        first N/2 rows of ``z`` are conditional and the rest unconditional;
+        both halves start from the same ``noise``."""
+        if cfg != 1.0:
+            noise = torch.cat([noise, noise], dim=0)
+            guided = cfg_denoise_fn(self.net, cfg, self.target_channels)
+            denoise = lambda x_t, tt: guided(x_t, tt, z)
+        else:
+            denoise = lambda x_t, tt: self.net(x_t, tt, z)
+        return self.gen_diffusion.p_sample_loop(denoise, noise.float(), step_noise.float(),
+                                                clip_denoised=False, temperature=temperature)
 
     def loss(self, target: torch.Tensor, z: torch.Tensor, mask: torch.Tensor,
              t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:

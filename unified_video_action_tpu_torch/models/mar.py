@@ -1,8 +1,10 @@
 """MAR unified video-action transformer (port of ``models/mar.py``:
-``MarConfig``, ``MODEL_SIZES``, ``patchify``, ``sample_mask_rate`` and
-``random_spatial_mask`` (:165-182), ``forward_encoder`` and
-``forward_decoder`` in all five task modes (:339-500), the training
-``__call__`` (:506-595, here ``forward``) and ``sample_policy`` (:632-684)).
+``MarConfig``, ``MODEL_SIZES``, ``patchify`` and ``unpatchify`` (:143-162),
+``sample_mask_rate`` and ``random_spatial_mask`` (:165-182),
+``sample_orders`` (:184-188), ``forward_encoder`` and ``forward_decoder`` in
+all five task modes (:339-500), the training ``__call__`` (:506-595, here
+``forward``), ``sample_policy`` (:632-684) and ``sample_video``
+(:686-852)).
 
 Serving is one encoder+decoder pass over the conditioning frames' latent
 tokens in ``policy_model`` mode, then the action head's diffusion sampler.
@@ -17,9 +19,18 @@ the flax names so ``convert.py`` maps the JAX tree by name. With
 ``language_emb_model="clip"`` (the kitchen model) a 64-token text buffer goes
 before the frame tokens (``mar.py:449-475``, ``:489-495``): the projected
 goal latent repeated, or the learned ``fake_latent`` when no goal is given,
-plus its own position embeddings; the decoder drops it again. Training with
-a goal (the label drop of classifier-free guidance), video sampling,
-proprioception, wrist images and history actions wait for later slices.
+plus its own position embeddings; the decoder drops it again.
+
+``sample_video`` generates the target frames' latents MaskGIT-style: each of
+``num_iter`` rounds runs the encoder and decoder over every token, then the
+video head samples the tokens of the positions the round reveals (a cosine
+schedule over a random order) and writes them into the target stream.
+Under classifier-free guidance the batch is doubled, the second half
+conditioned on ``fake_latent`` in place of the projected goal. Its draws
+(the order and each round's head noise) are injected or drawn from a
+generator, as the action sampler's are. Training with a goal (the label
+drop of classifier-free guidance), proprioception, wrist images and history
+actions wait for later slices.
 ``MarConfig.quant`` makes the stacks' and both denoisers' dense layers W8A8
 (``mar.py:104``); ``decoder_embed`` and the ``z_proj*`` layers stay float,
 as in JAX.
@@ -28,8 +39,10 @@ as in JAX.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple, Union
+import math
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -74,6 +87,7 @@ class MarConfig:
     # video head
     diffloss_d: int = 6
     diffloss_w: int = 1024
+    num_sampling_steps: str = "100"
     predict_video: bool = True
     # action head
     predict_action: bool = True
@@ -144,6 +158,37 @@ def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(B, h * w, C * p * p)
 
 
+def unpatchify(x: torch.Tensor, patch_size: int, vae_embed_dim: int, seq_hw: int) -> torch.Tensor:
+    """(B, L, C·p²) -> (B, C, h·p, w·p), the inverse of :func:`patchify`."""
+    B = x.shape[0]
+    p, c, hw = patch_size, vae_embed_dim, seq_hw
+    if p == 1:
+        return x.reshape(B, hw, hw, c).permute(0, 3, 1, 2)
+    x = x.reshape(B, hw, hw, c, p, p).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(B, c, hw * p, hw * p)
+
+
+def sample_orders(batch: int, seq_len: int, generator: torch.Generator,
+                  device: torch.device) -> torch.Tensor:
+    """(batch, seq_len) int64 random generation orders as ranks: rank[b, s]
+    is the place of token s in row b's order."""
+    u = torch.rand((batch, seq_len), generator=generator, device=device)
+    return u.argsort(dim=-1).argsort(dim=-1)
+
+
+def mask_schedule(seq_len: int, num_iter: int) -> List[int]:
+    """The tokens still masked after each MaskGIT round (``mar.py:781-788``):
+    floor(S·cos(π/2·(step+1)/num_iter)), at least 1 and at most one fewer than
+    the round before, and 0 after the last."""
+    lens, prev = [], seq_len
+    for step in range(num_iter):
+        ml = int(np.floor(seq_len * np.cos(math.pi / 2.0 * (step + 1) / num_iter)))
+        ml = max(1, min(prev - 1, ml)) if step < num_iter - 1 else 0
+        lens.append(ml)
+        prev = ml
+    return lens
+
+
 def sample_mask_rate(mask_ratio_min: float, generator: torch.Generator,
                      device: torch.device) -> torch.Tensor:
     """The mask rate, a scalar: a gaussian centred at 1.0 with std 0.25,
@@ -201,6 +246,7 @@ class Mar(nn.Module):
                 z_channels=Dd,
                 width=c.diffloss_w,
                 depth=c.diffloss_d,
+                num_sampling_steps=c.num_sampling_steps,
                 quant=c.quant,
             )
         if c.predict_action:
@@ -383,3 +429,127 @@ class Mar(nn.Module):
         decoder output, then the action sampler from injected noise."""
         z = self.policy_latents(cond_frames, text_latents)
         return self.diffactloss.sample(z, noise, step_noise, temperature=temperature)
+
+    # -- video generation ---------------------------------------------------
+
+    def _samples_action(self, task_mode: str) -> bool:
+        return self.cfg.predict_action and task_mode in ACTION_MODES
+
+    def video_draw_shapes(self, batch: int, num_iter: int = 1,
+                          task_mode: str = "full_dynamic_model",
+                          cfg: float = 1.0) -> Dict[str, object]:
+        """Shapes of :meth:`sample_video`'s draws: ``order_rank`` (B, S), and a
+        list of ``rounds``, each with the video head's ``video_init`` and
+        ``video_steps`` (``VideoDiffusionHead.draw_shapes`` over the round's
+        2B or B rows times T times the tokens it reveals) and, where the mode
+        samples the action head, its ``action_init`` and ``action_steps``."""
+        c = self.cfg
+        B2 = 2 * batch if cfg != 1.0 else batch
+        S, lens = c.seq_len, mask_schedule(c.seq_len, num_iter)
+        rounds = []
+        for step in range(num_iter):
+            n_pred = (S if step == 0 else lens[step - 1]) - lens[step]
+            shapes = {f"video_{k}": v for k, v in
+                      self.diffloss.draw_shapes(B2 * c.n_frames * n_pred, cfg).items()}
+            if self._samples_action(task_mode):
+                n = batch * c.num_action_tokens
+                shapes.update(action_init=(n, c.action_dim),
+                              action_steps=(self.diffactloss.num_steps, n, c.action_dim))
+            rounds.append(shapes)
+        return {"order_rank": (batch, S), "rounds": rounds}
+
+    def sample_video_draws(self, batch: int, generator: torch.Generator, device: torch.device,
+                           num_iter: int = 1, task_mode: str = "full_dynamic_model",
+                           cfg: float = 1.0) -> Dict[str, object]:
+        """The draws of :meth:`video_draw_shapes` from ``generator``: a random
+        order (:func:`sample_orders`) and standard-normal noise."""
+        shapes = self.video_draw_shapes(batch, num_iter, task_mode, cfg)
+        order = sample_orders(batch, self.cfg.seq_len, generator, device)
+        rounds = [{k: torch.randn(s, generator=generator, device=device) for k, s in r.items()}
+                  for r in shapes["rounds"]]
+        return {"order_rank": order, "rounds": rounds}
+
+    @torch.no_grad()
+    def sample_video(self, cond_frames: torch.Tensor, draws: Mapping[str, object],
+                     num_iter: int = 1, cfg: float = 1.0, cfg_schedule: str = "linear",
+                     temperature: float = 1.0, task_mode: str = "full_dynamic_model",
+                     actions: Optional[torch.Tensor] = None,
+                     text_latents: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """MaskGIT video generation (``mar.py:686-852``): (B, T, C, h, w)
+        conditioning latents -> ((B·T, C, h, w) fp32 latents of the target
+        frames, the (B, 16, A) action chunk of the last round or None).
+
+        ``draws`` as :meth:`sample_video_draws` makes them. Round ``step``
+        reveals the positions of ranks [next_len, cur_len) of
+        :func:`mask_schedule`: their decoder outputs over all T frames go to
+        the video head, whose samples replace those tokens; then the spatial
+        mask keeps the ranks below next_len. The action head samples from
+        the conditional rows at cfg 1 in the action modes. ``cfg != 1`` needs
+        the raw (B, 512) ``text_latents`` of a language model: the second
+        half of the doubled batch takes ``fake_latent``, and the video head
+        guides at ``1 + (cfg-1)·(S-next_len)/S`` under ``cfg_schedule``
+        ``"linear"``, else at ``cfg``. ``actions`` (B, 16, A) feed the action
+        stream in ``dynamic_model``."""
+        c = self.cfg
+        if task_mode not in TASK_MODES:
+            raise ValueError(f"task_mode must be one of {TASK_MODES}, got {task_mode!r}")
+        use_cfg = cfg != 1.0
+        if use_cfg and (not c.has_text or text_latents is None):
+            raise ValueError("cfg != 1.0 requires CLIP text conditioning (the only latent "
+                             f"trained with drop), got language_emb_model={c.language_emb_model!r}")
+        B, T = cond_frames.shape[:2]
+        S = c.seq_len
+        cond_tokens = self._tokens(cond_frames)
+        if text_latents is not None and c.has_text:
+            text_latents = self.text_proj_cond(text_latents.to(self.text_proj_cond.weight.dtype))
+        else:
+            text_latents = None
+        def dup(a):  # the conditional and unconditional halves of the rows
+            return torch.cat([a, a], dim=0) if use_cfg and a is not None else a
+
+        if use_cfg:
+            uncond = self.fake_latent.expand(B, -1).to(text_latents.dtype)
+            text_latents = torch.cat([text_latents, uncond], dim=0)
+        cond_tokens, actions = dup(cond_tokens), dup(actions)
+        want = self.video_draw_shapes(B, num_iter, task_mode, cfg)
+        order_rank = draws["order_rank"]
+        if tuple(order_rank.shape) != want["order_rank"] or len(draws["rounds"]) != num_iter:
+            raise ValueError(f"draws must hold order_rank {want['order_rank']} and {num_iter} "
+                             f"rounds, got {tuple(order_rank.shape)} and {len(draws['rounds'])}")
+        # order_perm[b, r]: the position of rank r, so a round's revealed
+        # positions are the slice order_perm[:, next_len:cur_len]
+        order_perm = order_rank.argsort(dim=-1)
+        tokens = torch.zeros((B, T, S, c.token_embed_dim), device=cond_frames.device)
+        spatial_mask = torch.ones((B, S), device=cond_frames.device)
+        act_out = None
+        lens = mask_schedule(S, num_iter)
+        for step, r in enumerate(draws["rounds"]):
+            for k, s in want["rounds"][step].items():
+                if tuple(r[k].shape) != s:
+                    raise ValueError(f"round {step}: {k} must be {s}, got {tuple(r[k].shape)}")
+            mask = spatial_mask[:, None, :].expand(B, T, S)
+            h = self.forward_encoder(cond_tokens, text_latents, task_mode, dup(tokens), dup(mask),
+                                     actions)
+            z = self.forward_decoder(h)
+            if self._samples_action(task_mode):
+                act_out = self.diffactloss.sample(z[:B], r["action_init"], r["action_steps"],
+                                                  temperature=temperature)
+            cur_len = S if step == 0 else lens[step - 1]
+            next_len = lens[step]
+            n_pred = cur_len - next_len
+            pred_pos = order_perm[:, next_len:cur_len]  # (B, n_pred)
+            cfg_iter = 1.0 + (cfg - 1.0) * (S - next_len) / S if cfg_schedule == "linear" else cfg
+            pp = dup(pred_pos)
+            z_g = z.reshape(pp.shape[0], T, S, -1).gather(
+                2, pp[:, None, :, None].expand(-1, T, -1, z.shape[-1]))  # (B2, T, n_pred, D)
+            sampled = self.diffloss.sample(
+                z_g.reshape(-1, z.shape[-1]), r["video_init"], r["video_steps"],
+                temperature=temperature, cfg=cfg_iter,
+            ).reshape(pp.shape[0], T, n_pred, c.token_embed_dim)[:B]
+            tokens = tokens.scatter(
+                2, pred_pos[:, None, :, None].expand(-1, T, -1, c.token_embed_dim), sampled)
+            spatial_mask = (order_rank < next_len).float()
+        frames = unpatchify(tokens.reshape(B * T, S, c.token_embed_dim), c.patch_size,
+                            c.vae_embed_dim, c.seq_hw)
+        return frames, act_out

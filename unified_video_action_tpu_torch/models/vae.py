@@ -1,16 +1,15 @@
-"""KL-16 VAE encoder (port of ``models/vae.py:32-123`` and ``:157-211``).
+"""KL-16 VAE (port of ``models/vae.py``): ``ResnetBlock``, ``AttnBlock``,
+``Downsample``, ``Upsample`` (:84-91), ``Encoder``, ``Decoder`` (:125-155),
+``KLVae.encode`` and ``KLVae.decode`` (:193-196), ``sample_posterior`` and
+``LATENT_SCALE``.
 
-The encode path only: ``ResnetBlock``, ``AttnBlock``, ``Downsample``,
-``Encoder``, ``KLVae.encode``, ``sample_posterior`` and ``LATENT_SCALE``.
-The decoder waits for a later slice; ``convert.py`` is told to leave the
-``decoder`` and ``post_quant_conv`` leaves of a JAX tree alone.
-
-The JAX package runs NHWC inside and NCHW at ``encode``; here convolutions
-run NCHW throughout and ``encode`` keeps the same (B, 3, H, W) signature.
+The JAX package runs NHWC inside and NCHW at ``encode`` and ``decode``; here
+convolutions run NCHW throughout and both keep the same NCHW signatures.
 The layers that flax writes as ``nn.Dense`` over channels (the 1x1 attention
-projections, the shortcut, ``quant_conv``) stay ``nn.Linear`` here so their
-parameters map one to one. ``AttnBlock`` is a plain matmul attention over
-H·W positions, as in the JAX package (it is not a Pallas kernel there).
+projections, the shortcut, ``quant_conv``, ``post_quant_conv``) stay
+``nn.Linear`` here so their parameters map one to one. ``AttnBlock`` is a
+plain matmul attention over H·W positions, as in the JAX package (it is not
+a Pallas kernel there).
 """
 
 from __future__ import annotations
@@ -21,8 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# The reference scales sampled latents by 0.2325 before the MAR
-# (utils/data_utils.py:396).
+# The reference scales sampled latents by 0.2325 before the MAR and divides
+# back before decoding (utils/data_utils.py:396, eval/eval.py:204).
 LATENT_SCALE = 0.2325
 
 
@@ -80,7 +79,32 @@ class Downsample(nn.Module):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
-class Encoder(nn.Module):
+class Upsample(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # nearest x2 (jax.image.resize "nearest" at an integer factor repeats each pixel)
+        return self.conv(x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3))
+
+
+class _ConvStack(nn.Module):
+    """conv_in, the named children in call order, then GroupNorm, swish and
+    conv_out: the shape of both the encoder and the decoder."""
+
+    def _add(self, name: str, module: nn.Module) -> None:
+        self.add_module(name, module)
+        self.order.append(name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for name in self.order:
+            h = getattr(self, name)(h)
+        return self.conv_out(_swish(self.norm_out(h)))
+
+
+class Encoder(_ConvStack):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 1, 2, 2, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
                  resolution: int = 256, z_channels: int = 16, double_z: bool = True):
@@ -103,33 +127,56 @@ class Encoder(nn.Module):
         self.norm_out = nn.GroupNorm(32, c_in, eps=1e-6)
         self.conv_out = nn.Conv2d(c_in, 2 * z_channels if double_z else z_channels, 3, padding=1)
 
-    def _add(self, name: str, module: nn.Module) -> None:
-        self.add_module(name, module)
-        self.order.append(name)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv_in(x)
-        for name in self.order:
-            h = getattr(self, name)(h)
-        return self.conv_out(_swish(self.norm_out(h)))
+class Decoder(_ConvStack):
+    """conv_in, the mid ResNet, AttnBlock and ResNet, then per level from the
+    coarsest ``num_res_blocks + 1`` ResNet blocks (no per-level attention, as
+    in the reference) and, after every level but the finest, a nearest x2
+    upsample; then GroupNorm, swish and conv_out."""
+
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 1, 2, 2, 4),
+                 num_res_blocks: int = 2, z_channels: int = 16, out_ch: int = 3):
+        super().__init__()
+        c_in = ch * ch_mult[-1]
+        self.conv_in = nn.Conv2d(z_channels, c_in, 3, padding=1)
+        self.order = []  # child names in call order
+        self._add("mid_block_1", ResnetBlock(c_in, c_in))
+        self._add("mid_attn_1", AttnBlock(c_in))
+        self._add("mid_block_2", ResnetBlock(c_in, c_in))
+        for i in reversed(range(len(ch_mult))):
+            for j in range(num_res_blocks + 1):
+                self._add(f"up_{i}_block_{j}", ResnetBlock(c_in, ch * ch_mult[i]))
+                c_in = ch * ch_mult[i]
+            if i != 0:
+                self._add(f"up_{i}_upsample", Upsample(c_in))
+        self.norm_out = nn.GroupNorm(32, c_in, eps=1e-6)
+        self.conv_out = nn.Conv2d(c_in, out_ch, 3, padding=1)
 
 
 class KLVae(nn.Module):
-    """The AutoencoderKL's encode half. ``encode`` maps (B, 3, H, W) frames in
-    [-1, 1] to fp32 (mean, logvar), each (B, embed_dim, H/16, W/16)."""
+    """The AutoencoderKL. ``encode`` maps (B, 3, H, W) frames in [-1, 1] to
+    fp32 (mean, logvar), each (B, embed_dim, H/16, W/16); ``decode`` maps
+    (B, embed_dim, h, w) latents back to fp32 frames, one x2 per level of
+    ``ch_mult`` after the first: (B, 3, 16h, 16w) at the default's five."""
 
     def __init__(self, embed_dim: int = 16, ch_mult: Sequence[int] = (1, 1, 2, 2, 4),
                  resolution: int = 256, ch: int = 128):
         super().__init__()
         self.encoder = Encoder(ch=ch, ch_mult=ch_mult, z_channels=embed_dim,
                                resolution=resolution)
+        self.decoder = Decoder(ch=ch, ch_mult=ch_mult, z_channels=embed_dim)
         self.quant_conv = nn.Linear(2 * embed_dim, 2 * embed_dim)
+        self.post_quant_conv = nn.Linear(embed_dim, embed_dim)
 
     def encode(self, x_nchw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x_nchw.to(self.quant_conv.weight.dtype)
         moments = _channels_last_linear(self.quant_conv, self.encoder(x)).float()
         mean, logvar = moments.chunk(2, dim=1)
         return mean, logvar.clamp(-30.0, 20.0)
+
+    def decode(self, z_nchw: torch.Tensor) -> torch.Tensor:
+        z = z_nchw.to(self.post_quant_conv.weight.dtype)
+        return self.decoder(_channels_last_linear(self.post_quant_conv, z)).float()
 
 
 def sample_posterior(mean: torch.Tensor, logvar: torch.Tensor,

@@ -83,8 +83,6 @@ _UNPORTED_KEYS = {
 }
 # the tasks whose serving path is ported (a task matches if its name holds one)
 _PORTED_TASKS = ("pusht", "kitchen")
-# Subtrees of the JAX VAE tree that no ported module holds yet: the decode half
-VAE_SKIP = (("decoder",), ("post_quant_conv",))
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
@@ -135,8 +133,6 @@ class UnifiedVideoActionPolicy:
             raise ValueError(f"obs_codec must be None or 'yuv420', got {obs_codec!r}")
         amp = autoregressive_model_params
         predict_action = bool(_get(action_model_params, "predict_action", False))
-        if not (predict_action or train):
-            raise ValueError("serving needs the action head (action_model_params.predict_action)")
 
         self.device = resolve_device(device)
         self.dtype = _DTYPES[compute_dtype]
@@ -174,6 +170,7 @@ class UnifiedVideoActionPolicy:
             mask_ratio_min=float(_get(amp, "mask_ratio_min", 0.7)),
             diffloss_d=int(_get(amp, "diffloss_d", 6)),
             diffloss_w=int(_get(amp, "diffloss_w", 1024)),
+            num_sampling_steps=str(_get(amp, "num_sampling_steps", "100")),
             predict_video=bool(_get(amp, "predict_video", True)),
             predict_action=predict_action,
             act_diff_training_steps=int(_get(amp, "act_diff_training_steps", 1000)),
@@ -259,9 +256,10 @@ class UnifiedVideoActionPolicy:
         layout, numpy leaves) through the weight bridge. Under
         ``serving_quant="int8"`` the bridge quantizes the dense kernels from
         their fp32 values, whatever the compute dtype. ``vae_tree`` is kept
-        as :attr:`vae_tree` (the decode half too, which no module holds)."""
+        as :attr:`vae_tree`, in fp32 where the VAE runs in bf16. Either tree
+        must hold every leaf, the decoder's and ``post_quant_conv`` too."""
         convert.load_into(self.mar, mar_tree)
-        convert.load_into(self.vae, vae_tree, skip=VAE_SKIP)
+        convert.load_into(self.vae, vae_tree)
         self.vae_tree = vae_tree
 
     def init_params(self, seed: int) -> None:
@@ -278,7 +276,7 @@ class UnifiedVideoActionPolicy:
             if not os.path.exists(self.vae_path):
                 raise FileNotFoundError(f"autoencoder_path {self.vae_path!r} does not exist")
             self.vae_tree = convert.load_flat_npz(self.vae_path)
-            convert.load_into(self.vae, self.vae_tree, skip=VAE_SKIP)
+            convert.load_into(self.vae, self.vae_tree)
         if self.pretrained_model_path and os.path.exists(self.pretrained_model_path):
             self.load_pretrained(self.pretrained_model_path)
 
@@ -321,7 +319,7 @@ class UnifiedVideoActionPolicy:
 
     def vae_params(self) -> Dict[str, Dict]:
         """The VAE's flax tree in fp32: :attr:`vae_tree` where one was read,
-        else the encoder's current weights."""
+        else the VAE's current weights."""
         return self.vae_tree if self.vae_tree is not None else convert.to_flax_tree(self.vae)
 
     def set_normalizer(self, normalizer: LinearNormalizer) -> None:
@@ -342,6 +340,9 @@ class UnifiedVideoActionPolicy:
         """Shapes of one call's draws; ``n_new`` is the number of frames the
         call VAE-encodes (all ``n_frames`` unless a cached call reuses some)."""
         c = self.mar_cfg
+        if not c.predict_action:
+            raise ValueError("predicting actions needs the action head "
+                             "(action_model_params.predict_action)")
         n = batch * c.num_action_tokens
         n_new = c.n_frames if n_new is None else n_new
         return {

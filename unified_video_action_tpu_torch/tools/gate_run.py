@@ -8,7 +8,8 @@ with the port, then the 50-seed PushT score of its best top-k EMA.
 
 1. Stage 1, ``train_torch.py`` on the flagship's config (``latest/meta.json``)
    with the recipe's stage-1 overrides: ``video_model``, no action head,
-   ``checkpoint_every=1``, on the committed corpus
+   ``checkpoint_every=1``, the video FVD every epoch (``sample_every=1``;
+   the top-k by ``video_fvd_vae``), on the committed corpus
    (``corpora/pusht_demos_r5b.npz``).
 2. Stage 2, ``train_torch.py`` with the recipe's stage-2 overrides:
    ``policy_model_full_dynamics_model`` from stage 1's ``checkpoints/latest``

@@ -8,7 +8,7 @@ A checkpoint is a directory:
   checkpoint names its leaves without the module that wrote it, and the
   stage bootstrap can merge it into another model), AdamW's state dict (its
   moments), the scheduler's state dict, and the frozen VAE's fp32 flax tree
-  (the decode half too), so a checkpoint serves without ``autoencoder_path``;
+  (encoder and decoder), so a checkpoint serves without ``autoencoder_path``;
 * ``meta.json``: ``epoch``, ``step`` and ``cfg``;
 * ``normalizer.npz``.
 
@@ -45,7 +45,6 @@ import torch
 
 from unified_video_action_tpu_torch import convert
 from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
-from unified_video_action_tpu_torch.policy.policy import VAE_SKIP
 
 PAYLOAD = "state.pt"
 WEIGHTS = "weights.npz"
@@ -273,7 +272,7 @@ def load_checkpoint(path: str, state):
         p.copy_(weights[name])
         state.ema[name].copy_(ema[name])
     policy.vae_tree = vae_tree
-    convert.load_into(policy.vae, vae_tree, skip=VAE_SKIP)
+    convert.load_into(policy.vae, vae_tree)
     state.step = step
     return state, meta, normalizer
 

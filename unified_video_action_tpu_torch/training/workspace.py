@@ -11,9 +11,10 @@ exported checkpoint's ``meta.json``, e.g. the flagship's) and returns the
 ``TrainState``. Under the config's ``output_dir`` it writes:
 
 * ``logs.jsonl``: one line an epoch (JAX's step log: the last step's
-  metrics, ``val_action_l2_distances``, ``test_mean_score`` and the
-  runner's scores, ``early_stopped``, ``_step``; and the count of the
-  epoch's steps with a metric that is not finite). A run that resumes
+  metrics, ``video_fvd_vae`` and ``video_fvd_pixel`` (or ``video_fvd``),
+  ``val_action_l2_distances``, ``test_mean_score`` and the runner's scores,
+  ``early_stopped``, ``_step``; and the count of the epoch's steps with a
+  metric that is not finite). A run that resumes
   appends to it; any other run starts it empty.
 * ``tracker/`` (``trackers.build_tracker``: the same lines as
   ``metrics.jsonl``, ``config.json``, ``summary.json``) and
@@ -27,10 +28,13 @@ exported checkpoint's ``meta.json``, e.g. the flagship's) and returns the
 The cadences (``val_every``, ``rollout_every``, ``checkpoint_every``,
 ``sample_every``) fire at epochs divisible by them; 0 or less means never;
 ``training.debug`` sets each to 1, 2 epochs of 3 steps, 3 validation
-batches, a rollout of one train and one test seed of 20 steps. Validation is
-the RMSE of the EMA policy's actions against the future actions on the
-validation split (``val_action_l2``); rollouts run the task's env runner
-(``runners/base.py``). Both serve the EMA weights through one serving policy
+batches, a rollout of one train and one test seed of 20 steps. The
+``sample_every`` hook is the video FVD of the EMA policy on the validation
+split (``eval/offline.test_video_fvd``; an error in it is printed as ``[fvd]
+skipped`` and training goes on, as in JAX). Validation is the RMSE of the
+EMA policy's actions against the future actions on the validation split
+(``val_action_l2``); rollouts run the task's env runner
+(``runners/base.py``). All three serve the EMA weights through one serving policy
 on the trainer's device (its attention through the CUDA kernel on the card),
 built at the first and refreshed at each. Early stopping counts rollouts
 without a new best ``test_mean_score`` (or, with ``rollout_every <= 0``,
@@ -42,8 +46,8 @@ a resumed run replays. Every key of the config's ``training``,
 ``checkpoint``, ``ema``, ``logging``, ``dataloader`` and ``val_dataloader``
 sections is acted on or named in the log as ignored (:func:`config_report`).
 Only the device-resident input path is ported (``dataloader.device_resident:
-true``; on the CPU the store is host memory). The host loader, the video FVD
-of ``sample_every`` and more than one GPU wait for later slices.
+true``; on the CPU the store is host memory). The host loader and more than
+one GPU wait for later slices.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ import torch
 
 from unified_video_action_tpu_torch.data.device_dataset import DeviceReplayDataset
 from unified_video_action_tpu_torch.data.pusht_dataset import PushTImageDataset
+from unified_video_action_tpu_torch.eval import offline
 from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 from unified_video_action_tpu_torch.training import checkpoint as ckpt_lib
 from unified_video_action_tpu_torch.training.ema import EmaConfig
@@ -303,6 +308,21 @@ class Trainer:
         self.serving.set_normalizer(self.policy.normalizer)
         return self.serving
 
+    def val_batches(self) -> Iterator[Dict[str, Any]]:
+        """The validation windows in order, in batches of the training batch
+        size, gathered from the device store."""
+        n = len(self.val_data)
+        for start in range(0, n, self.batch_size):
+            yield self.val_data.gather(np.arange(start, min(start + self.batch_size, n)))
+
+    def video_fvd(self) -> Dict[str, float]:
+        """JAX's ``sample_every`` hook (``training/workspace.py:452-473``):
+        ``eval.offline.test_video_fvd`` of the EMA policy over 4 validation
+        batches (1 under ``debug``), its media under ``output_dir/media``."""
+        return offline.test_video_fvd(self.serving_policy(), self.val_batches(),
+                              num_batches=1 if self.debug else 4,
+                              output_dir=os.path.join(self.output_dir, "media"))
+
     def validate(self) -> Optional[float]:
         """The mean of ``val_action_l2`` over the validation windows, in
         order, in batches of the training batch size, at most
@@ -313,10 +333,9 @@ class Trainer:
             return None
         policy = self.serving_policy()
         losses = []
-        for j, start in enumerate(range(0, n, self.batch_size)):
+        for j, batch in enumerate(self.val_batches()):
             if self.max_val_steps is not None and j >= self.max_val_steps:
                 break
-            batch = self.val_data.gather(np.arange(start, min(start + self.batch_size, n)))
             losses.append(val_action_l2(policy, batch, self.generator))
         return float(np.mean(losses))
 
@@ -419,9 +438,12 @@ class Trainer:
                 if preempted():
                     break  # the unfinished epoch is saved below and replayed on resume
                 step_log = self.epoch_log(steps, t0)
-                if self.policy.mar_cfg.predict_video and fires(self.sample_every):
-                    print("[fvd] skipped: the video FVD (eval/offline.test_video_fvd) needs video "
-                          "sampling, which is not ported (ROADMAP A7)", flush=True)
+                if (self.policy.mar_cfg.predict_video and fires(self.sample_every)
+                        and len(self.val_data) > 0):
+                    try:
+                        step_log.update(self.video_fvd())
+                    except Exception as e:  # the video eval never stops training, as in JAX
+                        print(f"[fvd] skipped: {e}", flush=True)
                 if fires(self.val_every):
                     l2 = self.validate()
                     if l2 is not None:
