@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PushT serving, evaluation and training paths
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, evaluation and training paths (PushT,
+kitchen, UMI and toolhang) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -49,7 +49,7 @@ attention_plan picks.
            (the kernel with planted faults, which that comparison must
            reject), and the card in fp32 against the port on the CPU in fp32;
            one fp32 request at B=128 (the fp32 kernel once per block), its
-           device time, stages and attention device ms.
+           device time and stages.
 5. serve_256px  the reference's own PushT model as the JAX package's parity
            tier serves it (config.PUSHT_256: mar_base, 96 px frames upscaled
            to 256 on the card, 1024 tokens, the KL-16 VAE with ch 128, 100
@@ -58,8 +58,8 @@ attention_plan picks.
            softmax attention kernel launched once per ViT block (and no
            other attention kernel), the kernel route against the plain
            route at B=8 with the serve limits and the controls that can
-           plant a fault at N = 1024, request times, a stage breakdown and
-           the device's busy share.
+           plant a fault at N = 1024, request times and a stage breakdown
+           at both batches.
 5b. serve_small96  mar_small, the single-chip PushT model (config.
            PUSHT_SMALL96: 6+6 blocks, d=768 over 6 heads of D = 128, 96 px,
            144 tokens, the committed pusht_vae96.npz, numpy-seeded MAR and
@@ -89,7 +89,25 @@ attention_plan picks.
 5e. serve_huge256  mar_huge at 256 px (config.PUSHT_HUGE256: 1024 tokens,
            the seeded ch-128 KL-16 VAE): serve_256px's checks, 40 launches a
            call of the online kernel's D = 80 instance, request times, the
-           stage breakdown and the device's busy share.
+           stage breakdown at both batches.
+5f. serve_umi  the UMI multi-task model (config.UMI_MULTI: mar_base at 256 px,
+           224 px frames upscaled on the card, 1024 frame tokens and the
+           64-token text buffer, N = 1088; the streams: history actions,
+           the 16-d relative-pose state, CLIP-width language latents from the
+           hash encoder; the seeded ch-128 KL-16 VAE, numpy-seeded MAR), the
+           obs-dict predict_action on the 16-step relative-pose window with
+           past_action at B=1 (a robot controller) and B=32: each call 24
+           launches of the online kernel's D = 64 instance and no other
+           attention kernel; the kernel route against the plain route at B=8
+           with the streams, the serve limits and the controls that plant a
+           fault at N = 1088 (a multiple of the serve controls' 64-row KV
+           tile; the kernel phase plants the online kernel's 128-row edge
+           there); the card in fp32 against the CPU in fp32 at B=1; request
+           times.
+5g. serve_toolhang  config.TOOLHANG (N = 1024, both 240 px cameras, the
+           wrist one VAE-encoded as a stream, the 9-d state, a 9-d
+           proprioception head): serve_umi's checks at B=1 and B=8 with the
+           controls that plant a fault at N = 1024.
 6. deployed  the deployed tier, predict_action_cached with ddim10 +
            serving_quant="int8" + obs_codec="yuv420", same width and
            weights, bf16, at B=1 and B=128: a full call on a 16-frame window,
@@ -102,7 +120,7 @@ attention_plan picks.
            bf16 route. Request times, a stage breakdown and the device's
            busy share.
 7. rollout the PushT evaluation path: PushTImageRunner (16 test seeds from
-           100000, 32 env steps: a full and three cached calls per env) at
+           100000, 16 env steps: a full and a cached call per env) at
            the same width and weights, closing the loop through the port's
            env. (a) the deployed tier latent-cached over two streams, (b) the
            same with the plain-int8 route and the same generator seed, (c)
@@ -118,11 +136,11 @@ attention_plan picks.
            100-step sampler on the tokens a round reveals; the VAE decode;
            eval/offline.test_video_fvd). The flagship (mar_base, 96 px, the
            numpy-seeded MAR and the committed pusht_vae96.npz with its
-           decoder): test_video_fvd over 4 batches of 32 validation windows
+           decoder): test_video_fvd over 2 batches of 32 validation windows
            of the corpus at num_iter 1, video_fvd_vae and video_fvd_pixel,
            ms per batch by stage (encode, MAR, action sampler, video
            sampler, decode) and the device's busy share; sample_video at
-           num_iter 4 and B=8 (the rank slices). Each counted: the single-
+           num_iter 2 and B=8 (the rank slices). Each counted: the single-
            pass D = 64 instance 24 times a round, no other attention
            kernel. The kernel route against the plain route under the same
            draws (every attention call within the serve limits, the latents
@@ -144,7 +162,7 @@ attention_plan picks.
            out in the port's PushT env. Checks: 3 fp32 steps (no TF32) at B=2
            on the card and on the CPU with the same weights, batches, noise
            and dropout masks, each step's losses and grad_norm within
-           TRAIN_PARITY_RTOL; 30 bf16 steps at B=32 with every metric finite
+           TRAIN_PARITY_RTOL; 15 bf16 steps at B=32 with every metric finite
            and no uva_* kernel launched (training attends through the plain
            path: the kernels have no backward); an overfit run on one fixed
            batch whose loss must fall below OVERFIT_FRACTION of its first;
@@ -177,6 +195,28 @@ attention_plan picks.
            B=32, bit-equal to the EMA in memory under the same noise. Seconds
            and bytes of a checkpoint's save and load and of the export, ms
            per step on the corpus, the rollouts' wall time.
+10. train_umi  the UMI model's stage 2 (config.UMI_MULTI with
+           config.UMI_TRAIN_OVERRIDES and its grad_checkpointing on) through
+           train_torch.py's Trainer and the host loader, on the port's
+           synthetic corpus (three datasets of 4 episodes at 224 px, written
+           here by tools/gen_synthetic_umi.py): 3 fp32 steps at B=1 with the
+           model cut to 2+2 blocks at full width on the card and on the CPU
+           (the same batches, noise, label drop and dropout masks) within
+           TRAIN_PARITY_RTOL; UMI_STEPS bf16 steps at B=32 at full depth,
+           both task modes, the random history frequency, every metric
+           finite, no uva_* kernel launched; ms per step by CUDA events, peak
+           memory; one val_action_l2_distances reading whose predict call
+           launches the online kernel's D = 64 instance once per block.
+
+The phases' depth was cut to keep the script inside its time limit when the
+UMI phases joined: timed requests 5 at B=1 and 3 at larger B (9 and 5
+before), stage breakdowns of 3 (5), the profiled request of a breakdown
+(the device's busy share) only for the flagship at B=128 and the deployed
+tier (the other breakdowns keep their stages by CUDA events), the fp32 request 3
+(5), the video FVD 2 batches (4), sample_video at num_iter 2 (4), the
+rollout 16 env steps (32), the train phase 15 bf16 steps, 6 timed and 2
+profiled (30, 10 and 5), train_run 4 steps an epoch (8) and 16-step
+rollouts (24).
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
 object with every kernel's numbers, and the result:
@@ -187,9 +227,11 @@ It needs one card and reads only files of this repository.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -264,6 +306,10 @@ SERVE_CALL_REL_RMS = 2.5e-3
 # the planted faults (``control_faults``) that those limits must reject; the
 # smaller scale errors are printed to show how far the limits see
 REJECTED_CONTROLS = ("exp_base_2", "unmasked_kv_edge", "scale_x1.1")
+# repetitions of the timed requests (B = 1; B of 32 and more) and of a stage
+# breakdown's timed requests: 9, 5 and 5 before the UMI phases joined (the
+# whole script must keep inside its time limit)
+REPS_B1, REPS_LARGE, STAGE_REPS = 5, 3, 3
 # the unmasked_kv_edge control pads the keys and values with zeros up to a
 # multiple of this (144 -> 192): the softmax then weighs 48 zero keys, as a
 # kernel that left a 64-wide KV tile's ragged edge unmasked would
@@ -378,6 +424,9 @@ ATTENTION_CASES = [
     (8, 257, 12, 64, torch.bfloat16, True), (8, 1000, 12, 64, torch.bfloat16, True),
     (1, 1000, 12, 64, torch.bfloat16, True),
     (8, 1088, 12, 64, torch.bfloat16, True), (8, 1088, 12, 64, torch.float32, True),
+    # the UMI path's N = 1088 (1024 frame tokens and the text buffer) at its
+    # serving batches: 128-row items at B = 32, 64-row ones at B = 1
+    (32, 1088, 12, 64, torch.bfloat16, True), (1, 1088, 12, 64, torch.bfloat16, True),
     (1, 2304, 12, 64, torch.bfloat16, True), (1, 2304, 12, 64, torch.float32, True),
     (8, 1088, 12, 64, torch.bfloat16, False),
     # fp32 (the 3xTF32 kernel) beyond the serving shape: the 256 px path's
@@ -687,11 +736,12 @@ def check_actions(policy, actions: torch.Tensor, batch: int) -> None:
         raise AssertionError(f"normalized actions reach {span}, outside [-1, 1]")
 
 
-def breakdown(policy, frames: torch.Tensor, noise, reps: int = 5) -> dict:
+def breakdown(policy, frames: torch.Tensor, noise, reps: int = STAGE_REPS,
+              profiled: bool = True) -> dict:
     """One request's stages by CUDA events (median ms of ``reps``; the gaps
     the host leaves between launches count in the stage they fall in), and
-    the device's busy share of one request by ``torch.profiler``, with the
-    kernels that took most device time."""
+    (``profiled``) the device's busy share of one request by
+    ``torch.profiler``, with the kernels that took most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -719,6 +769,8 @@ def breakdown(policy, frames: torch.Tensor, noise, reps: int = 5) -> dict:
             for i, k in enumerate(stages):
                 times[k].append(events[i].elapsed_time(events[i + 1]))
         out = {k: statistics.median(v) for k, v in times.items()}
+        if not profiled:
+            return out
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -809,7 +861,7 @@ def checked_attention(attention_ops, policy, impl):
 
 
 def route_readings(attention_ops, policy, policy32, frames: dict, noise: dict,
-                   text: dict = None) -> dict:
+                   text: dict = None, streams: dict = None) -> dict:
     """The kernel route of the bf16 ``policy`` and each planted fault of
     ``control_faults``, against its plain-attention route at each batch of
     ``frames`` (with ``text``, the encoded goal of each batch) under the
@@ -819,19 +871,25 @@ def route_readings(attention_ops, policy, policy32, frames: dict, noise: dict,
     differences; and every attention call of the request held against the
     plain version on that call's own inputs (the worst errors of
     ``attention_check``, and whether every call was finite and within
-    SERVE_CALL_REL_RMS and ATTN_BF16_MAX_OVER_RMS)."""
+    SERVE_CALL_REL_RMS and ATTN_BF16_MAX_OVER_RMS). ``streams``: each
+    batch's ``history_actions`` and ``proprio`` as ``predict_action_frames``
+    takes them (the UMI and toolhang models)."""
     text = text or {B: None for B in frames}
+    streams = streams or {B: {} for B in frames}
     refs = {}
     with torch.no_grad():
         policy.set_attn_impl("plain")
         policy32.set_attn_impl("plain")
         for B in frames:
             cond = policy._encode_frames(policy._prep_frames(frames[B].cuda()), noise[B]["vae"])
+            proprio, history = policy._prep_modalities(streams[B].get("proprio"),
+                                                       streams[B].get("history_actions"), noise[B])
+            mods = {"history_actions": history, "proprio": proprio}
             refs[B] = {
-                "cond": cond, "z_ref": policy32.mar.policy_latents(cond, text[B]),
-                "z_plain": policy.mar.policy_latents(cond, text[B]).float(),
+                "cond": cond, "mods": mods, "z_ref": policy32.mar.policy_latents(cond, text[B], **mods),
+                "z_plain": policy.mar.policy_latents(cond, text[B], **mods).float(),
                 "actions": normalized(policy, policy.predict_action_frames(
-                    frames[B], noise=noise[B], text_latents=text[B])),
+                    frames[B], noise=noise[B], text_latents=text[B], **streams[B])),
             }
         policy32.set_attn_impl("kernel")
 
@@ -840,8 +898,9 @@ def route_readings(attention_ops, policy, policy32, frames: dict, noise: dict,
         r = refs[B]
         with checked_attention(attention_ops, policy, impl) as calls:
             with torch.no_grad():
-                z = policy.mar.policy_latents(r["cond"], text[B]).float()
-            actions = policy.predict_action_frames(frames[B], noise=noise[B], text_latents=text[B])
+                z = policy.mar.policy_latents(r["cond"], text[B], **r["mods"]).float()
+            actions = policy.predict_action_frames(frames[B], noise=noise[B], text_latents=text[B],
+                                                   **streams[B])
         da = (normalized(policy, actions) - r["actions"]).abs().flatten()
         return {
             "z_err_kernel": (z - r["z_ref"]).abs().mean().item(),
@@ -878,13 +937,13 @@ def serve_limit_failures(d: dict) -> list:
 
 
 def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, rejected,
-                text: dict = None) -> dict:
+                text: dict = None, streams: dict = None) -> dict:
     """``route_readings``, held to the serve limits (``serve_limit_failures``):
     the kernel route must pass them at every batch, and each control named
     in ``rejected`` must fail one at some batch, else the limits could not
     tell a wrong kernel. Raises on a failure; returns the kernel route's
     readings by batch."""
-    readings = route_readings(attention_ops, policy, policy32, frames, noise, text)
+    readings = route_readings(attention_ops, policy, policy32, frames, noise, text, streams)
     diffs = readings.pop("kernel")
     log(f"kernel vs plain attention, bf16: {json.dumps(diffs)}; limits: z_err_kernel <= "
         f"{SERVE_Z_FLOOR_RATIO} z_err_plain, action_mean {SERVE_ACTION_MEAN_ATOL}, "
@@ -907,13 +966,13 @@ def route_check(attention_ops, policy, policy32, frames: dict, noise: dict, reje
 FP32_REQUEST_BATCH = 128
 
 
-def fp32_request(policy32, reps: int = 5) -> dict:
+def fp32_request(policy32, reps: int = REPS_LARGE) -> dict:
     """One fp32 ``predict_action_frames`` request of ``policy32`` (a mar_base
     policy with compute_dtype="float32") at FP32_REQUEST_BATCH, 100 steps,
     on seeded frames and noise: the attention launches of one request by
     instance (``attention_instances``), the median device time of ``reps``
-    requests by CUDA events after a warm-up, and one profiled request's
-    stages with the attention kernel's device ms (``breakdown``)."""
+    requests by CUDA events after a warm-up, and its stages by CUDA events
+    (``breakdown``, not profiled)."""
     from unified_video_action_tpu_torch.ops import attention as attention_ops
 
     B = FP32_REQUEST_BATCH
@@ -935,7 +994,7 @@ def fp32_request(policy32, reps: int = 5) -> dict:
         end.synchronize()
         ms.append(start.elapsed_time(end))
     return {"B": B, "median_ms": statistics.median(ms), "ms": ms, "attention_instances": launches,
-            **breakdown(policy32, frames, noise)}
+            **breakdown(policy32, frames, noise, profiled=False)}
 
 
 def phase_serve(attention_ops, trees, normalizer):
@@ -1035,8 +1094,8 @@ def phase_serve(attention_ops, trees, normalizer):
         return statistics.median(dev), statistics.median(host)
 
     torch.cuda.reset_peak_memory_stats()
-    p50_b1, host_b1 = request_ms(1, 9)
-    ms_b128, host_b128 = request_ms(128, 5)
+    p50_b1, host_b1 = request_ms(1, REPS_B1)
+    ms_b128, host_b128 = request_ms(128, REPS_LARGE)
     serve = {
         "p50_latency_ms_b1": p50_b1, "p50_host_ms_b1": host_b1,
         "chunks_per_s_b128": 128 / (ms_b128 / 1e3), "median_ms_b128": ms_b128,
@@ -1047,7 +1106,8 @@ def phase_serve(attention_ops, trees, normalizer):
     }
     log("serve " + json.dumps(serve))
     for B in (1, 128):
-        log(f"where the time goes, B={B}: " + json.dumps(breakdown(policy, frames[B], noise[B])))
+        log(f"where the time goes, B={B}: " + json.dumps(breakdown(policy, frames[B], noise[B],
+                                                                  profiled=B > 1)))
 
     # the card in fp32 (kernel route) against the port on the CPU in fp32
     cpu32 = make_policy("cpu", "float32")
@@ -1092,7 +1152,7 @@ def phase_serve_256px(attention_ops, normalizer, name: str, run_cfg: dict) -> di
     online-softmax kernel's instance at the D the config implies once per
     ViT block, no other attention kernel), the kernel route against the
     plain route at B=8 with the serve limits and controls, then request
-    times (median of 5), the stage breakdown and the device's busy share.
+    times (median of REPS_LARGE) and the stage breakdown at both batches.
     Returns the launches of the counted calls."""
     from unified_video_action_tpu_torch import convert
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
@@ -1156,7 +1216,7 @@ def phase_serve_256px(attention_ops, normalizer, name: str, run_cfg: dict) -> di
                         REJECTED_CONTROLS_256)
     del policy32
 
-    def request_ms(B: int, reps: int = 5):
+    def request_ms(B: int, reps: int = REPS_LARGE):
         dev, host = [], []
         for _ in range(reps):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1178,7 +1238,8 @@ def phase_serve_256px(attention_ops, normalizer, name: str, run_cfg: dict) -> di
              "card": card_line()}
     log(f"{name} " + json.dumps(serve))
     for B in BATCHES_256:
-        log(f"{name}, where the time goes, B={B}: " + json.dumps(breakdown(policy, frames[B], noise[B])))
+        log(f"{name}, where the time goes, B={B}: " + json.dumps(breakdown(
+            policy, frames[B], noise[B], profiled=False)))
     return launches
 
 
@@ -1370,9 +1431,10 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
         return statistics.median(ms)
 
     torch.cuda.reset_peak_memory_stats()
-    serve = {"p50_ms_b1": request_ms(1, 9, False), "median_ms_b128": request_ms(128, 5, False),
-             "p50_cached_deployed_ms_b1": request_ms(1, 9, True),
-             "median_cached_deployed_ms_b128": request_ms(128, 5, True)}
+    serve = {"p50_ms_b1": request_ms(1, REPS_B1, False),
+             "median_ms_b128": request_ms(128, REPS_LARGE, False),
+             "p50_cached_deployed_ms_b1": request_ms(1, REPS_B1, True),
+             "median_cached_deployed_ms_b128": request_ms(128, REPS_LARGE, True)}
     serve["chunks_per_s_b128"] = 128 / (serve["median_ms_b128"] / 1e3)
     serve.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, kernel_vs_plain=diffs,
                  attention_instance=attention_plan_of(attention_ops, c, 128, torch.bfloat16).instance,
@@ -1380,7 +1442,8 @@ def phase_serve_small(attention_ops, int8_ops, name: str, run_cfg: dict, normali
     log(f"{name} " + json.dumps(serve))
     # the stages of one request (the breakdown runs the MAR without a goal:
     # the text buffer's 64 tokens cost the same with the null latent)
-    log(f"{name}, where the time goes, B=128: " + json.dumps(breakdown(policy, frames[128], noise[128])))
+    log(f"{name}, where the time goes, B=128: " + json.dumps(breakdown(
+        policy, frames[128], noise[128], profiled=False)))
     return launches, fp32_paths
 
 
@@ -1679,7 +1742,7 @@ def int8_request_ms(rows, calls: dict, B: int, key: str) -> float:
                if r["layer"].endswith(f" B={B}"))
 
 
-def deployed_breakdown(policy, obs, cache, noise, reps: int = 5) -> dict:
+def deployed_breakdown(policy, obs, cache, noise, reps: int = STAGE_REPS) -> dict:
     """One cached request's stages (median ms of ``reps``): the host's frame
     selection and YUV420 encode (host clock), then by CUDA events the copy
     to the card, the decode and VAE encode of the new frames, the MAR pass,
@@ -1894,9 +1957,10 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     timing = {
-        "p50_cached_ms_b1": request_ms(1, True, 9), "p50_full_ms_b1": request_ms(1, False, 9),
-        "median_cached_ms_b128": request_ms(128, True, 5),
-        "median_full_ms_b128": request_ms(128, False, 5),
+        "p50_cached_ms_b1": request_ms(1, True, REPS_B1),
+        "p50_full_ms_b1": request_ms(1, False, REPS_B1),
+        "median_cached_ms_b128": request_ms(128, True, REPS_LARGE),
+        "median_full_ms_b128": request_ms(128, False, REPS_LARGE),
     }
     timing["chunks_per_s_b128_cached"] = 128 / (timing["median_cached_ms_b128"] / 1e3)
     timing["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1912,7 +1976,7 @@ def phase_serve_deployed(attention_ops, int8_ops, trees, normalizer) -> dict:
 # the rollout phase: PushTImageRunner on the test seeds from 100000, 4
 # control steps of 8 actions each (a full and three cached calls per env)
 ROLLOUT_ENVS = 16
-ROLLOUT_MAX_STEPS = 32
+ROLLOUT_MAX_STEPS = 16  # 32 before the UMI phases joined
 ROLLOUT_SEED = SEED + 20
 
 
@@ -2081,8 +2145,8 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
 # the video phase: Mar.sample_video (MaskGIT rounds, each one encoder and
 # decoder pass, then the video head's sampler on the tokens the round
 # reveals), the VAE decode and eval/offline.test_video_fvd
-VIDEO_FVD_BATCHES, VIDEO_FVD_BATCH = 4, 32  # validation windows of the corpus
-VIDEO_ITER_BATCH, VIDEO_ITERS = 8, 4  # the rank slices: sample_video at num_iter 4
+VIDEO_FVD_BATCHES, VIDEO_FVD_BATCH = 2, 32  # validation windows of the corpus (4 before the UMI phases joined)
+VIDEO_ITER_BATCH, VIDEO_ITERS = 8, 2  # the rank slices: sample_video at num_iter 2 (4 before)
 VIDEO_ROUTE_BATCH = 4  # the 256 px and kitchen paths' batch (8 rows under CFG)
 VIDEO_CFG = 1.5
 VIDEO_FP32_BATCH, VIDEO_FP32_ITERS = 2, 2  # the card in fp32 against the CPU
@@ -2465,11 +2529,11 @@ def phase_video(attention_ops, trees, normalizer, dataset) -> dict:
 # synthetic store of TRAIN_EPISODES episodes of the port's PushT env
 TRAIN_EPISODES = 6
 TRAIN_OUT = os.path.join(REPO, "build", "train_smoke")
-TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH = 6, 5  # 30 bf16 steps at the recipe's B = 32
+TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH = 3, 5  # 15 bf16 steps at the recipe's B = 32 (30 before)
 TRAIN_PARITY_B = 2
 TRAIN_PARITY_MODES = ("full_dynamic_model", "policy_model", "full_dynamic_model")
 TRAIN_PARITY_RTOL = 1e-4
-TRAIN_TIMED_STEPS, TRAIN_WARMUP_STEPS, TRAIN_PROFILED_STEPS = 10, 3, 5
+TRAIN_TIMED_STEPS, TRAIN_WARMUP_STEPS, TRAIN_PROFILED_STEPS = 6, 2, 2  # 10, 3, 5 before
 OVERFIT_STEPS, OVERFIT_WARMUP = 30, 5
 # the loss at the overfit run's last step must fall below this share of its
 # first: on an NVIDIA H100 80GB HBM3 at 700 W the run gives 0.121 (5.307 ->
@@ -2732,9 +2796,9 @@ def phase_train(attention_ops, int8_ops) -> dict:
 CORPUS = os.path.join(REPO, "corpora", "pusht_demos_r5b.npz")
 CORPUS_EPISODES, CORPUS_STEPS = 300, 74256
 RUN_OUT = os.path.join(REPO, "build", "train_run")
-RUN_STEPS = 8  # capped steps an epoch
+RUN_STEPS = 4  # capped steps an epoch (8 before the UMI phases joined)
 RUN_VAL_STEPS = 2
-RUN_TEST_SEEDS, RUN_MAX_STEPS = 4, 24  # the rollout: test seeds from 100000, env steps
+RUN_TEST_SEEDS, RUN_MAX_STEPS = 4, 16  # the rollout: test seeds from 100000, env steps (24 before)
 RUN_TIMED_STEPS, RUN_WARMUP_STEPS = 8, 2
 
 
@@ -3082,6 +3146,375 @@ def phase_train_run(attention_ops, int8_ops, dataset) -> dict:
         shutil.rmtree(RUN_OUT, ignore_errors=True)
 
 
+# ------------------------------------- UMI and toolhang: the conditioning streams
+
+# the UMI multi-task model (config.UMI_MULTI: mar_base at 256 px, 1024 frame
+# tokens and the 64-token text buffer, N = 1088, the online kernel with a
+# 64-row last KV tile) and the toolhang model (config.TOOLHANG: N = 1024, the
+# second camera and the 9-d state)
+UMI_BATCHES, UMI_ROUTE_BATCH = (1, 32), 8
+TOOLHANG_BATCHES, TOOLHANG_ROUTE_BATCH = (1, 8), 8
+UMI_PROMPT = "pick up the cup and place it on the saucer"
+# N = 1088 is a multiple of the serve controls' 64-row KV tile, so the
+# unmasked_kv_edge control plants no fault on this path (it gave the kernel
+# route's readings to the digit on the card); the kernel phase holds the
+# online kernel's 128-row KV edge at N = 1088 (64 rows) with that control
+REJECTED_CONTROLS_UMI = ("exp_base_2", "scale_x1.1")
+
+
+def umi_obs(B: int, rng) -> dict:
+    """A 16-step UMI observation window as the robot's controller sends it
+    (``eval_real.py``): 224 px frames, the relative-pose state keys and the
+    past actions."""
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"camera0_rgb": rng.integers(0, 256, (B, 16, 3, 224, 224), dtype=np.uint8),
+            "robot0_eef_pos": 0.1 * f(B, 16, 3), "robot0_eef_rot_axis_angle": f(B, 16, 6),
+            "robot0_gripper_width": rng.uniform(size=(B, 16, 1)).astype(np.float32),
+            "robot0_eef_rot_axis_angle_wrt_start": f(B, 16, 6), "past_action": 0.1 * f(B, 16, 10)}
+
+
+def toolhang_obs(B: int, rng) -> dict:
+    """A 16-step toolhang window: both 240 px cameras and the 9-d state."""
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"sideview_image": rng.integers(0, 256, (B, 16, 3, 240, 240), dtype=np.uint8),
+            "robot0_eye_in_hand_image": rng.integers(0, 256, (B, 16, 3, 240, 240), dtype=np.uint8),
+            "robot0_eef_pos": f(B, 16, 3), "robot0_eef_quat": f(B, 16, 4),
+            "robot0_gripper_qpos": f(B, 16, 2)}
+
+
+def phase_serve_streams(attention_ops, name: str, run_cfg: dict, batches, route_batch, make_obs,
+                        rejected, goal=None) -> tuple:
+    """A model with conditioning streams at full width (``run_cfg``:
+    config.UMI_MULTI or config.TOOLHANG; numpy-seeded MAR, denoiser and
+    ch-128 VAE weights; bf16, 100 sampler steps) through the obs-dict
+    predict_action (``goal``: precomputed language latents). Counted: one
+    call at each of ``batches``, each launching the instance attention_plan
+    names (the online kernel at D = 64) once per ViT block and no other
+    attention kernel. Then the kernel route against the plain route at
+    ``route_batch`` with the serve limits and the controls ``rejected``,
+    the streams fed to both; the card in fp32 against the port on the CPU
+    in fp32 at B=1; request times. Returns the launches of the counted
+    calls and those of the fp32 kernel in the fp32 call by path."""
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+    from unified_video_action_tpu_torch.utils import image as image_util
+    from unified_video_action_tpu_torch.utils.frames import select_frame_indices
+
+    def make_policy(device="cuda", dtype="bfloat16"):
+        return UnifiedVideoActionPolicy.from_cfg(run_cfg, device=device, compute_dtype=dtype)
+
+    policy = make_policy()
+    c = policy.mar_cfg
+    D = c.encoder_embed_dim // c.encoder_num_heads
+    trees = (convert.seeded_tree(policy.mar, SEED), convert.seeded_tree(policy.vae, SEED + 1))
+    policy.load_params(*trees)
+    log(f"{name} policy: mar {c.encoder_depth}+{c.decoder_depth} blocks, d={c.encoder_embed_dim}, "
+        f"{c.encoder_num_heads} heads of D={D}, {c.img_size}px, {c.total_tokens} frame tokens, "
+        f"{c.attention_tokens} attended, {c.n_streams} streams (history {c.use_history_action}, "
+        f"state {c.proprio_dim if c.use_proprioception else None}, second camera "
+        f"{policy.encodes_second_camera}, text {c.has_text}), action dim {policy.action_dim}, "
+        f"{policy.mar.diffactloss.num_steps} sampler steps, {policy.dtype}; MAR+heads "
+        f"{sum(p.numel() for p in policy.mar.parameters()) / 1e6:.1f}M and VAE "
+        f"{sum(p.numel() for p in policy.vae.parameters()) / 1e6:.1f}M numpy-seeded "
+        f"(seeds {SEED}, {SEED + 1})")
+
+    rng = np.random.default_rng(SEED + 60)
+    sizes = sorted(set(batches) | {route_batch, 1})
+    obs = {B: make_obs(B, rng) for B in sizes}
+    noise = {B: policy.sample_noise(B, torch.Generator(device="cuda").manual_seed(SEED + 60 + B))
+             for B in sizes}
+    for B in batches:  # warm-up: not counted
+        policy.predict_action(obs[B], noise=noise[B], language_goal=goal)
+    torch.cuda.synchronize()
+
+    # the path: every count set to 0 just before, read just after
+    counters = (attention_ops.launch_count, attention_ops.instance_count)
+    for counter in counters:
+        for k in counter:
+            counter[k] = 0
+
+    def counts() -> dict:
+        return {k: v for counter in counters for k, v in counter.items()}
+
+    per_call = {}
+    for B in batches:
+        before = counts()
+        res = policy.predict_action(obs[B], noise=noise[B], language_goal=goal)
+        per_call[B] = {k: v - before[k] for k, v in counts().items()}
+        if res["action"].shape != (B, policy.n_action_steps, policy.action_dim):
+            raise AssertionError(f"{name}: action shape {res['action'].shape}")
+        check_actions(policy, torch.from_numpy(res["action_pred"]), B)
+    torch.cuda.synchronize()
+    launches = counts()
+    blocks = c.encoder_depth + c.decoder_depth
+    for B in batches:
+        plan = attention_plan_of(attention_ops, c, B, torch.bfloat16)
+        want = {**attention_launches_per_request(attention_ops, c, B, torch.bfloat16),
+                **attention_instances_per_request(attention_ops, c, B, torch.bfloat16)}
+        log(f"{name} predict_action B={B}: plan {plan}, launches "
+            f"{json.dumps({k: v for k, v in per_call[B].items() if v})}")
+        if (per_call[B] != want or per_call[B][plan.instance] != blocks
+                or plan.instance != f"attention_wgmma_online_d{D}"):
+            raise AssertionError(f"{name} B={B}: launches {per_call[B]}, want {want} "
+                                 f"({blocks} of attention_wgmma_online_d{D})")
+
+    # the streams as predict_action_frames takes them, read from the windows
+    idx = select_frame_indices(16, c.n_frames)
+
+    def request_inputs(B):
+        o = image_util.remap_image_keys(policy.task_name, obs[B])
+        frames = torch.from_numpy(np.ascontiguousarray(o["image"][:, idx]))
+        streams = {"history_actions": policy._history_actions(o),
+                   "proprio": policy._build_proprio_eval(o, idx)}
+        return frames, streams, policy._encode_language_goal(goal, B)
+
+    inputs = {B: request_inputs(B) for B in (route_batch, 1)}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    policy32 = make_policy(dtype="float32")
+    policy32.load_params(*trees)
+    rb = route_batch
+    diffs = route_check(attention_ops, policy, policy32, {rb: inputs[rb][0]}, {rb: noise[rb]},
+                        rejected, {rb: inputs[rb][2]}, {rb: inputs[rb][1]})
+
+    # the card in fp32 (the fp32 kernel at D) against the port on the CPU in fp32
+    cpu32 = make_policy(device="cpu", dtype="float32")
+    cpu32.load_params(*trees)
+    frames, streams, text = inputs[1]
+    cpu_noise = {k: v.cpu() for k, v in noise[1].items()}
+    before = attention_ops.instance_count[f"attention_f32_d{D}"]
+    on_card = policy32.predict_action_frames(frames, noise=cpu_noise, text_latents=text,
+                                             **streams).cpu()
+    f32_launches = attention_ops.instance_count[f"attention_f32_d{D}"] - before
+    t0 = time.perf_counter()
+    on_cpu = cpu32.predict_action_frames(frames, noise=cpu_noise,
+                                         text_latents=None if text is None else text.cpu(), **streams)
+    cpu_s = time.perf_counter() - t0
+    d = (normalized(policy, on_card) - normalized(policy, on_cpu)).abs().max().item()
+    log(f"{name} card fp32 ({f32_launches} launches of attention_f32_d{D}) vs CPU fp32 ({cpu_s:.1f}s), "
+        f"B=1, normalized actions: max abs {d}; atol {SERVE_FP32_ATOL}")
+    if d > SERVE_FP32_ATOL or f32_launches != blocks:
+        raise AssertionError(f"{name}: the card's fp32 run disagrees with the CPU's ({d}) or did not "
+                             f"launch the fp32 kernel once per block ({f32_launches})")
+    del policy32, cpu32
+
+    # request times on the host clock, each until the action is on the host
+    def request_ms(B: int, reps: int) -> float:
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            policy.predict_action(obs[B], noise=noise[B], language_goal=goal)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    torch.cuda.reset_peak_memory_stats()
+    big = max(batches)
+    serve = {"p50_ms_b1": request_ms(1, REPS_B1), f"median_ms_b{big}": request_ms(big, REPS_LARGE)}
+    serve.update({f"chunks_per_s_b{big}": big / (serve[f"median_ms_b{big}"] / 1e3),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "kernel_vs_plain": diffs,
+                  "attention_instance": attention_plan_of(attention_ops, c, big, torch.bfloat16).instance,
+                  "card": card_line()})
+    log(f"{name} " + json.dumps(serve))
+    return launches, {f"{name}_fp32_vs_cpu_b1": {f"attention_f32_d{D}": f32_launches}}
+
+
+# train_umi: the UMI stage-2 recipe (config.UMI_MULTI with
+# config.UMI_TRAIN_OVERRIDES) on the port's synthetic corpus, made here
+UMI_OUT = os.path.join(REPO, "build", "train_umi")
+UMI_EPISODES, UMI_EPISODE_LEN = 4, 60  # a dataset; one of each dataset's four is validation's
+UMI_STEPS = 5  # bf16 steps at the config's B = 32
+UMI_TIMED_FROM = 2  # the first steps warm up
+UMI_PARITY_B, UMI_PARITY_DEPTH = 1, 2  # fp32 card-vs-CPU steps at full width, 2+2 blocks
+UMI_PARITY_MODES = ("policy_model", "full_dynamic_model", "policy_model")
+
+
+def umi_train_config(paths: dict, *overrides: str) -> dict:
+    from unified_video_action_tpu_torch import config as port_config
+    from unified_video_action_tpu_torch.config import apply_overrides
+
+    cfg = copy.deepcopy(port_config.UMI_MULTI)
+    apply_overrides(cfg, [*port_config.UMI_TRAIN_OVERRIDES, f"training.seed={SEED}",
+                          # B = 32 at N = 1088 does not fit without it (PERF.md)
+                          "model.policy.autoregressive_model_params.grad_checkpointing=true",
+                          "training.num_epochs=1", f"training.max_train_steps={UMI_STEPS}",
+                          "training.max_val_steps=1", "training.checkpoint_every=0",
+                          "task.dataset.val_ratio=0.25", f"output_dir={UMI_OUT}/run", *overrides])
+    for name, path in paths.items():
+        cfg["task"]["dataset"]["datasets_cfg"][name]["path"] = path
+    return cfg
+
+
+def umi_parity(paths: dict, trainer) -> dict:
+    """UMI_PARITY_MODES' steps in fp32 (no TF32) at B = UMI_PARITY_B with the
+    model cut to UMI_PARITY_DEPTH + UMI_PARITY_DEPTH blocks at full width, on
+    the card and on the CPU: the same weights, loader batches (the random
+    history frequency, language latents, the per-sample state gather), noise
+    (the label drop) and dropout masks; each step's metrics within
+    TRAIN_PARITY_RTOL."""
+    from unified_video_action_tpu_torch.data.loader import collate
+    from unified_video_action_tpu_torch.training.ema import EmaConfig
+    from unified_video_action_tpu_torch.training.train_state import create_train_state, train_step
+    from unified_video_action_tpu_torch.training.workspace import build_policy, to_device_batch
+
+    amp = "model.policy.autoregressive_model_params."
+    cfg = umi_train_config(paths, "model.policy.compute_dtype=float32", f"{amp}model_size=custom",
+                           *(f"{amp}{k}={v}" for k, v in (
+                               ("encoder_embed_dim", 768), ("decoder_embed_dim", 768),
+                               ("encoder_num_heads", 12), ("decoder_num_heads", 12),
+                               ("encoder_depth", UMI_PARITY_DEPTH), ("decoder_depth", UMI_PARITY_DEPTH))))
+    policies = {dev: build_policy(cfg, torch.device(dev)) for dev in ("cpu", "cuda")}
+    vae = trainer.policy.vae_params()
+    for p in policies.values():
+        p.init_params(SEED)
+        p.set_normalizer(trainer.normalizer)
+        load_vae(p, vae)
+    policies["cuda"].mar.load_state_dict(policies["cpu"].mar.state_dict())
+    states = {dev: create_train_state(p, EmaConfig(), learning_rate=1e-4, weight_decay=0.02,
+                                      betas=(0.9, 0.95), warmup_steps=500, total_steps=1000)
+              for dev, p in policies.items()}
+    rng = np.random.default_rng(SEED + 7)
+    items = rng.choice(len(trainer.dataset), (len(UMI_PARITY_MODES), UMI_PARITY_B), replace=False)
+    steps, seconds = [], {"cpu": 0.0, "cuda": 0.0}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for k, mode in enumerate(UMI_PARITY_MODES):
+            host = collate([trainer.dataset[int(i)] for i in items[k]])
+            frames = np.arange(3, 11)
+            gen = torch.Generator().manual_seed(SEED + k)
+            noise = policies["cpu"].sample_train_noise(UMI_PARITY_B, gen)
+            drop = policies["cpu"].mar.draw_dropout(UMI_PARITY_B, gen, torch.device("cpu"))
+            row = {"mode": mode}
+            for dev in ("cpu", "cuda"):
+                to = lambda t: t.to(dev)
+                t0 = time.perf_counter()
+                m = train_step(states[dev], to_device_batch(host, torch.device(dev)), mode, frames,
+                               noise={k2: to(v) for k2, v in noise.items()},
+                               drop={s2: [tuple(None if x is None else to(x) for x in blk)
+                                          for blk in v] for s2, v in drop.items()})
+                row[dev] = {k2: v.item() for k2, v in m.items()}
+                seconds[dev] += time.perf_counter() - t0
+            for key, want in row["cpu"].items():
+                got = row["cuda"][key]
+                if not np.isfinite(got) or abs(got - want) > TRAIN_PARITY_RTOL * abs(want):
+                    raise AssertionError(f"train_umi parity step {k + 1} ({mode}): {key} {got} on the "
+                                         f"card, {want} on the CPU")
+            log(f"train_umi parity step {k + 1} ({mode}): card {json.dumps(row['cuda'])}, "
+                f"CPU {json.dumps(row['cpu'])}")
+            steps.append(row)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log(f"train_umi parity: {UMI_PARITY_DEPTH}+{UMI_PARITY_DEPTH} blocks of d=768 at B={UMI_PARITY_B}, "
+        f"CPU {seconds['cpu']:.1f}s, card {seconds['cuda']:.1f}s for {len(steps)} steps")
+    return {"steps": steps, "cpu_s": seconds["cpu"], "card_s": seconds["cuda"]}
+
+
+def load_vae(policy, tree: dict) -> None:
+    """The VAE of ``tree`` (flax layout, fp32) into ``policy``, kept as its
+    ``vae_tree`` (what its serving policies and checkpoints read)."""
+    from unified_video_action_tpu_torch import convert
+
+    convert.load_into(policy.vae, tree)
+    policy.vae_tree = tree
+
+
+def phase_train_umi(attention_ops, int8_ops) -> dict:
+    """The UMI multi-task model's stage 2 on the card through train_torch.py's
+    Trainer and the host loader: the port's synthetic corpus
+    (tools/gen_synthetic_umi.py: three datasets of UMI_EPISODES episodes at
+    224 px) written here; fp32 card-vs-CPU steps (umi_parity); UMI_STEPS bf16
+    steps at the config's B = 32 (mar_base, N = 1088, both task modes drawn,
+    the random history frequency, the label drop, dropout 0.1) with every
+    metric finite and no uva_* kernel launched, ms per step by CUDA events
+    and peak memory; then the epoch's validation: one
+    val_action_l2_distances reading, its predict call launching the online
+    kernel's D = 64 instance once per ViT block. Returns the phase's numbers
+    and the validation's launches."""
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.tools.gen_synthetic_umi import write_corpus
+    from unified_video_action_tpu_torch.training.train_state import train_step
+    from unified_video_action_tpu_torch.training.workspace import Trainer
+
+    t0 = time.perf_counter()
+    shutil.rmtree(UMI_OUT, ignore_errors=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        paths = write_corpus(os.path.join(UMI_OUT, "umi"), UMI_EPISODES, UMI_EPISODE_LEN, 224)
+    corpus_s = time.perf_counter() - t0
+    cfg = umi_train_config(paths)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, "cuda")
+    policy = trainer.policy
+    c = policy.mar_cfg
+    # the KL-16 VAE's kl16.ckpt is absent: a numpy-seeded ch-128 VAE
+    load_vae(policy, convert.seeded_tree(policy.vae, SEED + 1))
+    log(f"train_umi: corpus of {len(paths)} datasets x {UMI_EPISODES} episodes x {UMI_EPISODE_LEN} "
+        f"steps at 224 px written in {corpus_s:.1f}s; {len(trainer.dataset)} training and "
+        f"{len(trainer.val_dataset)} validation items; trainer built in {time.perf_counter() - t0:.1f}s: "
+        f"{c.encoder_depth}+{c.decoder_depth} blocks of d={c.encoder_embed_dim}, {c.attention_tokens} "
+        f"tokens, streams: state {c.proprio_dim}, text {c.has_text}, history "
+        f"{c.use_history_action}, different_history_freq {c.different_history_freq}, "
+        f"grad_checkpointing {c.grad_checkpointing}; B={trainer.batch_size}, {policy.dtype}, "
+        f"{trainer.loader.num_workers} loader workers")
+    if c.use_history_action or not (c.use_proprioception and c.has_text and c.different_history_freq):
+        raise AssertionError(f"train_umi: not the stage-2 streams: {c}")
+
+    parity = umi_parity(paths, trainer)
+
+    # the bf16 steps, timed
+    for counter in (attention_ops.launch_count, int8_ops.launch_count):
+        for k in counter:
+            counter[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, modes, metrics, events = trainer.state, [], [], []
+    t0 = time.perf_counter()
+    for i, (mode, frames, batch) in enumerate(trainer.batches()):
+        if i == UMI_STEPS:
+            break
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        metrics.append(train_step(state, batch, mode, frames, generator=trainer.generator,
+                                  pregathered=True))
+        modes.append(mode)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    end.synchronize()
+    events.append(end)
+    steps_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(len(events) - 1)]
+    launched = {k: v for k, v in {**attention_ops.launch_count, **int8_ops.launch_count}.items() if v}
+    values = [{k: v.item() for k, v in m.items()} for m in metrics]
+    log(f"train_umi: {len(values)} bf16 steps at B={trainer.batch_size} in {steps_s:.1f}s, modes "
+        f"{modes}; losses {json.dumps(values)}; uva_* launches {launched}")
+    if (len(values) != UMI_STEPS or set(modes) != set(policy.task_modes) or launched
+            or not all(np.isfinite(list(v.values())).all() for v in values)):
+        raise AssertionError(f"train_umi: steps {len(values)}, modes {modes}, launches {launched}, "
+                             f"metrics {values}")
+
+    # the epoch's validation: one reading through the serving policy
+    for counter in (attention_ops.launch_count, attention_ops.instance_count):
+        for k in counter:
+            counter[k] = 0
+    val = trainer.validate()
+    val_launches = {**attention_ops.launch_count, **attention_ops.instance_count}
+    plan = attention_plan_of(attention_ops, c, trainer.batch_size, torch.bfloat16)
+    blocks = c.encoder_depth + c.decoder_depth
+    log(f"train_umi validation: val_action_l2_distances {val}; launches "
+        f"{json.dumps({k: v for k, v in val_launches.items() if v})}")
+    if (val is None or not np.isfinite(val) or val_launches[plan.instance] != blocks
+            or sum(val_launches[k] for k in attention_ops.launch_count) != blocks):
+        raise AssertionError(f"train_umi validation: {val}, launches {val_launches}")
+    perf = {"ms_per_step": statistics.median(step_ms[UMI_TIMED_FROM:]), "step_ms": step_ms,
+            "samples_per_s": trainer.batch_size / (statistics.median(step_ms[UMI_TIMED_FROM:]) / 1e3),
+            "peak_mem_gb": peak / 1e9, "grad_checkpointing": c.grad_checkpointing,
+            "B": trainer.batch_size, "val_action_l2_distances": val, "card": card_line()}
+    log(f"train_umi perf: {json.dumps(perf)}")
+    shutil.rmtree(UMI_OUT, ignore_errors=True)
+    return {"perf": perf, "parity": parity, "launches_validate": val_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -3135,6 +3568,18 @@ def main() -> int:
     with Phase("serve_huge256"):
         launches_huge256 = phase_serve_256px(attention_ops, normalizer, "serve_huge256",
                                              port_config.PUSHT_HUGE256)
+    from unified_video_action_tpu_torch.utils.language import HashTextEncoder
+
+    with Phase("serve_umi"):
+        launches_umi, paths = phase_serve_streams(
+            attention_ops, "serve_umi", port_config.UMI_MULTI, UMI_BATCHES, UMI_ROUTE_BATCH, umi_obs,
+            REJECTED_CONTROLS_UMI, goal=HashTextEncoder().encode(UMI_PROMPT))
+        fp32_paths.update(paths)
+    with Phase("serve_toolhang"):
+        launches_toolhang, paths = phase_serve_streams(
+            attention_ops, "serve_toolhang", port_config.TOOLHANG, TOOLHANG_BATCHES,
+            TOOLHANG_ROUTE_BATCH, toolhang_obs, REJECTED_CONTROLS_256)
+        fp32_paths.update(paths)
     with Phase("deployed"):
         deployed, gemm_request_ms, calls = phase_serve_deployed(
             attention_ops, int8_ops, trees, normalizer)
@@ -3153,6 +3598,8 @@ def main() -> int:
         train = phase_train(attention_ops, int8_ops)
     with Phase("train_run"):
         train_run = phase_train_run(attention_ops, int8_ops, corpus)
+    with Phase("train_umi"):
+        train_umi = phase_train_umi(attention_ops, int8_ops)
 
     # the int8_gemm device time of one deployed request: profiled (cached
     # request) and modelled from the kernel phase (every layer's calls times
@@ -3174,7 +3621,9 @@ def main() -> int:
                          "sample_video_num_iter4": video["flagship"]["launches_iter"],
                          "sample_video_256px": video["256px"]["launches"],
                          "sample_video_kitchen128_cfg": video["kitchen128"]["launches"],
-                         "train_run_video_fvd": train_run["launches"]["video_fvd"]}
+                         "train_run_video_fvd": train_run["launches"]["video_fvd"],
+                         "serve_umi": launches_umi, "serve_toolhang": launches_toolhang,
+                         "train_umi_validation": train_umi["launches_validate"]}
     attention_keys = tuple(attention_ops.launch_count) + attention_ops.INSTANCES
     attention_by_path = {path: {k: n.get(k, 0) for k in attention_keys}
                          for path, n in attention_by_path.items()}
@@ -3253,7 +3702,7 @@ def main() -> int:
                                    for k, r in side_rows.items()},
                                 "attention_stage": stage_entry}},
         {**attention_entry("flash_attention_online", "attention_wgmma_online_d64", 67,
-                           (128, 1024, 12, 64), b1=(1, 1024)),
+                           (128, 1024, 12, 64), b1=(1, 1024), umi_b32=(32, 1088), umi_b1=(1, 1088)),
          "by_shape": {f"({r['B']}, {r['N']})": {"ms": r["ms"], "library_ms": r["library_ms"],
                                                 "bound_ms": r["bound_ms"]}
                       for r in rows if r["instance"] == "attention_wgmma_online_d64"}},
@@ -3318,6 +3767,7 @@ def main() -> int:
     ]}
     log(f"train: {json.dumps({k: train[k] for k in ('perf', 'overfit', 'run_s')})}")
     log(f"train_run: {json.dumps(train_run['perf'])}")
+    log(f"train_umi: {json.dumps(train_umi['perf'])}")
     log(f"video: {json.dumps({'fvd': video['flagship']['fvd'], 'stages': video['flagship']['stages'], 'psnr': video['flagship']['psnr']})}")
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(card, flush=True)

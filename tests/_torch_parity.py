@@ -92,7 +92,8 @@ def video_draws(key, shapes):
     from ``k_order, key = split(key)``; per round ``key, ka = split(key)``
     for the action head where the round samples it (``head_draws``), then
     ``key, kv = split(key)`` for the video head, whose ``noise_key,
-    loop_key = split(kv)`` give the start and the per-step noise. Returns
+    loop_key = split(kv)`` give the start and the per-step noise, then
+    likewise ``key, kw = split(key)`` for the wrist head where there is one. Returns
     torch tensors in the form ``sample_video`` takes."""
     from unified_video_action_tpu.models.mar import sample_orders
 
@@ -111,6 +112,12 @@ def video_draws(key, shapes):
         steps = r["video_steps"][0]
         d["video_steps"] = np.stack([np.asarray(jax.random.normal(k, r["video_steps"][1:]))
                                      for k in jax.random.split(loop_key, steps)])
+        if "wrist_init" in r:  # the wrist head's: key, kw = split(key) (mar.py:839)
+            key, kw = jax.random.split(key)
+            noise_key, loop_key = jax.random.split(kw)
+            d["wrist_init"] = np.asarray(jax.random.normal(noise_key, r["wrist_init"]))
+            d["wrist_steps"] = np.stack([np.asarray(jax.random.normal(k, r["wrist_steps"][1:]))
+                                         for k in jax.random.split(loop_key, steps)])
         rounds.append({k: torch.tensor(v) for k, v in d.items()})
     order = torch.tensor(np.asarray(sample_orders(k_order, B, S)), dtype=torch.int64)
     return {"order_rank": order, "rounds": rounds}
@@ -118,15 +125,18 @@ def video_draws(key, shapes):
 
 def policy_draws(key, noise_shapes):
     """The draws of the JAX policy's predict fn (policy.py:443): the key
-    splits into (k_vae, k_wrist, k_samp); k_vae feeds the VAE posterior and
-    k_samp the action head. Returns torch tensors keyed as the port's
+    splits into (k_vae, k_wrist, k_samp); k_vae feeds the VAE posterior,
+    k_wrist the second camera's where the shapes name one (``vae_wrist``)
+    and k_samp the action head. Returns torch tensors keyed as the port's
     ``UnifiedVideoActionPolicy.sample_noise``."""
-    k_vae, _k_wrist, k_samp = jax.random.split(key, 3)
+    k_vae, k_wrist, k_samp = jax.random.split(key, 3)
     steps, n, channels = noise_shapes["steps"]
     init, per_step = head_draws(k_samp, n, channels, steps)
-    vae = np.asarray(jax.random.normal(k_vae, noise_shapes["vae"]))
-    return {k: torch.tensor(v) for k, v in
-            {"vae": vae, "init": init, "steps": per_step}.items()}
+    out = {"vae": np.asarray(jax.random.normal(k_vae, noise_shapes["vae"])),
+           "init": init, "steps": per_step}
+    if "vae_wrist" in noise_shapes:
+        out["vae_wrist"] = np.asarray(jax.random.normal(k_wrist, noise_shapes["vae_wrist"]))
+    return {k: torch.tensor(v) for k, v in out.items()}
 
 
 # W8A8 parity. x_q = round(x / scale) is a step function: a float32 rounding

@@ -62,7 +62,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "data.sampler", "data.pusht_dataset", "data.device_dataset",
                      "training.optim", "training.ema", "training.train_state",
                      "training.workspace", "training.checkpoint", "training.trackers",
-                     "eval.metrics", "eval.offline", "eval.i3d"):
+                     "eval.metrics", "eval.offline", "eval.i3d", "utils.rotation",
+                     "utils.pose", "data.umi_dataset", "data.loader"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))

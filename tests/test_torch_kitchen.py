@@ -262,7 +262,16 @@ def test_kitchen_async_halves_take_the_goal(kitchen_pair):
 
 @pytest.mark.parametrize("task", ["libero10", "toolhang", "umi"])
 def test_other_tasks_stay_refused(task):
+    """libero stays refused; toolhang and umi are ported now and build with
+    JAX's state and proprioception-head widths for their task."""
     kw = _kitchen_kwargs()
     kw["task_name"] = task
-    with pytest.raises(NotImplementedError, match="not ported"):
-        UnifiedVideoActionPolicy(**kw, device="cpu")
+    if task == "libero10":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            UnifiedVideoActionPolicy(**kw, device="cpu")
+        return
+    port = UnifiedVideoActionPolicy(**kw, use_proprioception=True, device="cpu")
+    want = JaxPolicy(**kw, use_proprioception=True).mar_cfg
+    got = port.mar_cfg
+    assert (got.proprio_dim, got.proprio_pred_dim, got.proprio_use_image) == (
+        want.proprio_dim, want.proprio_pred_dim, want.proprio_use_image)

@@ -119,11 +119,17 @@ def test_cuda_is_required_unless_the_cpu_is_asked_for(monkeypatch):
         UnifiedVideoActionPolicy(**TINY_POLICY_KW)
 
 
-@pytest.mark.parametrize("option", [{"predict_wrist_img": True}, {"use_history_action": True},
-                                    {"use_proprioception": True}])
+@pytest.mark.parametrize("option", [
+    {"task_name": "libero10"},
+    {"action_model_params": {"predict_action": True, "act_model_type": "conv_ori"}},
+    {"action_model_params": {"predict_action": True, "act_model_type": "conv2"}},
+])
 def test_unported_options_are_refused(option):
+    """What the port still refuses: the libero tasks and the action pools
+    other than conv_fc (the conditioning streams that this test refused
+    before are ported: tests/test_torch_mar_streams.py, test_torch_umi_policy.py)."""
     with pytest.raises(NotImplementedError):
-        UnifiedVideoActionPolicy(**TINY_POLICY_KW, **option, device="cpu")
+        UnifiedVideoActionPolicy(**{**TINY_POLICY_KW, **option}, device="cpu")
 
 
 def test_unknown_options_and_bad_noise_are_refused():

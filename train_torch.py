@@ -5,8 +5,17 @@
         task.dataset.dataset_path=corpora/pusht_demos_r5b.npz training.max_train_steps=20
 
 ``--run-config`` is an exported checkpoint's ``meta.json`` (its ``cfg`` is
-the run config) or a JSON file holding the run config itself; the dotted
-overrides after it set keys of that config (``config.apply_overrides``).
+the run config) or a JSON file holding the run config itself; ``--config
+umi_multi`` takes ``config.UMI_MULTI``, the UMI multi-task model's stage 2
+on the three ``.npz`` stores that ``unified_video_action_tpu_torch/tools/
+gen_synthetic_umi.py`` writes under ``data/umi/``, through the host loader
+(with ``config.UMI_TRAIN_OVERRIDES``: JAX refuses the history actions of
+UMI's 32-step window in training). The dotted overrides after either set
+keys of that config (``config.apply_overrides``):
+
+    python3 unified_video_action_tpu_torch/tools/gen_synthetic_umi.py --root data/umi
+    python3 train_torch.py --config umi_multi training.num_epochs=2 training.max_train_steps=10
+
 The run initializes the MAR from ``training.seed`` (and merges the port
 checkpoint at ``pretrained_model_path`` into it, the stage-1 -> stage-2
 bootstrap), reads the VAE from ``autoencoder_path``, trains on the card
@@ -23,10 +32,16 @@ SIGINT saves it and stops.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 
+from unified_video_action_tpu_torch import config as port_config
 from unified_video_action_tpu_torch.config import apply_overrides
 from unified_video_action_tpu_torch.training.workspace import Trainer
+
+
+# --config: a run config kept as data, and the overrides it trains with
+CONFIGS = {"umi_multi": (port_config.UMI_MULTI, port_config.UMI_TRAIN_OVERRIDES)}
 
 
 def load_run_config(path: str) -> dict:
@@ -51,12 +66,21 @@ def video_monitor(cfg: dict) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--run-config", required=True,
-                    help="a meta.json with the run config under 'cfg', or the run config as JSON")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--run-config",
+                     help="a meta.json with the run config under 'cfg', or the run config as JSON")
+    src.add_argument("--config", choices=sorted(CONFIGS),
+                     help="a run config of unified_video_action_tpu_torch.config")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     ap.add_argument("overrides", nargs="*", help="dotted overrides, e.g. training.max_train_steps=20")
     args = ap.parse_args(argv)
-    cfg = load_run_config(args.run_config)
+    if args.config:
+        cfg, base = CONFIGS[args.config]
+        cfg = copy.deepcopy(cfg)
+        print(f"[config] {args.config} with {list(base)}", flush=True)
+        apply_overrides(cfg, base)
+    else:
+        cfg = load_run_config(args.run_config)
     apply_overrides(cfg, args.overrides)
     return Trainer(video_monitor(cfg), args.device).run()
 

@@ -8,7 +8,7 @@ lists and maps, and otherwise the string. Composing a config from the JAX
 package's yaml files is not ported: the port reads the ``cfg`` that an
 exported checkpoint's ``meta.json`` embeds, or a config kept here as data.
 
-Five run configs are kept here as data, each the ``cfg`` that the JAX
+Seven run configs are kept here as data, each the ``cfg`` that the JAX
 package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
 ``model.policy``: what serving reads), with the overrides named below.
 ``UnifiedVideoActionPolicy.from_cfg(cfg, device=...)`` builds each:
@@ -44,6 +44,34 @@ package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
   tokens at head dimension 80, the KL-16 VAE with ``ch`` 128,
   ``vae_encode_chunk`` 64: ``PUSHT_256``'s composition plus the same
   ``model_size`` override.
+* ``UMI_MULTI``: the UMI multi-task model, a whole run config (the
+  training, checkpoint, EMA, logging and loader sections too):
+  ``uva_umi_multi.yaml`` over ``task/umi_multi.yaml`` and
+  ``model/uva.yaml`` (mar_base at 256 px, 1024 frame tokens, 224 px frames
+  upscaled on the device, 10-d relative-pose actions, B = 32) with the
+  stage-2 overrides of ``scripts/training/train_uva_umi.sh:13-17``
+  (``predict_action``, ``shift_action: false``, ``different_history_freq``)
+  and the streams of the reference's UMI model (the umi case of
+  ``tests/test_mar_import_parity.py:58-59``): ``use_proprioception`` (16-d
+  state), ``use_history_action`` and ``language_emb_model: clip`` (the
+  64-token text buffer: 1088 tokens attended). Its datasets are the three
+  ``.npz`` stores that ``tools/gen_synthetic_umi.py`` writes under
+  ``data/umi/`` (JAX's config names zarr stores there, which the port does
+  not read yet). ``predict_proprioception`` stays off: JAX's UMI branch of
+  ``_build_proprio_train`` builds no target for it. JAX refuses history
+  actions in training on UMI's 32-step window (15 history rows do not
+  divide 1024 tokens), and so does the port: training takes
+  ``UMI_TRAIN_OVERRIDES``.
+* ``TOOLHANG``: ``uva_toolhang.yaml`` (``task/toolhang.yaml`` +
+  ``model/uva.yaml``: 240 px frames from two cameras, the side view the
+  main one, the wrist camera a conditioning stream, 10-d actions) with
+  ``use_proprioception`` (the 9-d eef pose and gripper state) and
+  ``predict_proprioception`` (a 9-d proprioception head), as the toolhang
+  case of ``tests/test_mar_import_parity.py:61-63``, and the action head on.
+
+The three 256 px configs have no checkpoint paths (the KL-16 VAE's
+``kl16.ckpt`` and the MAR's release are not in the repository): their
+weights load separately.
 """
 
 from __future__ import annotations
@@ -66,6 +94,30 @@ _KITCHEN_SHAPE_META = {
     "obs": {
         "agentview_rgb": {"shape": [3, 128, 128], "type": "rgb"},
         "language": {"shape": [15], "type": "low_dim"},
+    },
+}
+
+
+_UMI_SHAPE_META = {
+    "image_resolution": 224,
+    "action": {"shape": [10]},
+    "obs": {
+        "camera0_rgb": {"shape": [3, 224, 224], "type": "rgb"},
+        "robot0_eef_pos": {"shape": [3], "type": "low_dim"},
+        "robot0_eef_rot_axis_angle": {"shape": [6], "type": "low_dim"},
+        "robot0_gripper_width": {"shape": [1], "type": "low_dim"},
+        "robot0_eef_rot_axis_angle_wrt_start": {"shape": [6], "type": "low_dim"},
+    },
+}
+_TOOLHANG_SHAPE_META = {
+    "image_resolution": 240,
+    "action": {"shape": [10]},
+    "obs": {
+        "sideview_image": {"shape": [3, 240, 240], "type": "rgb"},
+        "robot0_eye_in_hand_image": {"shape": [3, 240, 240], "type": "rgb"},
+        "robot0_eef_pos": {"shape": [3], "type": "low_dim"},
+        "robot0_eef_quat": {"shape": [4], "type": "low_dim"},
+        "robot0_gripper_qpos": {"shape": [2], "type": "low_dim"},
     },
 }
 
@@ -136,6 +188,57 @@ KITCHEN_SMALL128 = _run_config("kitchen", _KITCHEN_SHAPE_META, "mar_small", 128,
                                "pretrained_models/vae/kitchen_vae128.npz",
                                selected_training_mode="policy_model_full_dynamics_model",
                                language_emb_model="clip")
+
+
+TOOLHANG = _run_config("toolhang", _TOOLHANG_SHAPE_META, "mar_base", 256, 128, None,
+                       use_proprioception=True, predict_proprioception=True)
+
+_UMI_DATASETS = {
+    "cup": {"path": "data/umi/cup.npz", "mask_mirror": True,
+            "prompt": "pick up the cup and place it on the saucer"},
+    "towel": {"path": "data/umi/towel.npz", "mask_mirror": False, "prompt": "fold the towel"},
+    "mouse": {"path": "data/umi/mouse.npz", "mask_mirror": True,
+              "prompt": "pick up the mouse and place it on the mousepad"},
+}
+UMI_MULTI = _run_config("umi", _UMI_SHAPE_META, "mar_base", 256, 128, None,
+                        shift_action=False, different_history_freq=True, use_proprioception=True,
+                        use_history_action=True, language_emb_model="clip")
+UMI_MULTI["task"].update({
+    "task_type": "multiple_datasets",
+    "task_modes": ["policy_model", "full_dynamic_model"],
+    "datasets": copy.deepcopy(_UMI_DATASETS),
+    "dataset": {
+        "_target_": "unified_video_action_tpu_torch.data.umi_dataset.build_umi_multi_from_config",
+        "datasets_cfg": copy.deepcopy(_UMI_DATASETS),
+        "normalizer_type": "none",
+        "random_img_sampling": True,
+        "val_ratio": 0.02,
+    },
+})
+UMI_MULTI.update({
+    "name": "uva",
+    "dataloader": {"batch_size": 32, "num_workers": 8, "shuffle": True},
+    "val_dataloader": {"batch_size": 32, "num_workers": 8, "shuffle": False},
+    "training": {
+        "checkpoint_every": 10, "debug": False, "gradient_accumulate_every": 1,
+        "lr_scheduler": "cosine", "lr_warmup_steps": 1000, "max_train_steps": None,
+        "max_val_steps": None, "num_epochs": 3050, "resume": True, "rollout_every": 10,
+        "sample_every": 5, "seed": 42, "use_ema": True, "val_every": 1, "mesh": {"data": -1},
+    },
+    "checkpoint": {"save_last_ckpt": True, "topk": {
+        "monitor_key": "val_action_l2_distances",
+        "format_str": "epoch={epoch:04d}-val_action_l2={val_action_l2_distances:.4f}",
+        "k": 5, "mode": "min"}},
+    "ema": {"inv_gamma": 1.0, "max_value": 0.9999, "min_value": 0.0, "power": 0.75,
+            "update_after_step": 0},
+    "logging": {"name": "train_uva_umi_multi", "project": "unified_video_action_tpu",
+                "mode": "offline"},
+    "output_dir": "data/outputs/train_uva_umi_multi",
+})
+# what training UMI_MULTI takes: JAX's compute_loss refuses the history
+# actions of UMI's 32-step window (15 rows, mar.py:412), so training runs
+# without that stream; every other stream trains
+UMI_TRAIN_OVERRIDES = ("model.policy.use_history_action=false",)
 
 
 def parse_value(s: str) -> Any:

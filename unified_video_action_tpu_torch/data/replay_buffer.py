@@ -2,14 +2,16 @@
 held in memory): a time-major dict of ``data`` arrays plus the
 ``episode_ends``. It loads two formats: a ``.npz`` holding the ``data``
 arrays and ``episode_ends`` (``tools/export_corpus.py`` writes one from a
-committed HDF5 corpus), read with numpy alone, and the JAX package's HDF5
-format through ``h5py``, imported where such a file is read, which raises
-where ``h5py`` is absent. The zarr stores and writing HDF5 wait for a later
-slice.
+committed HDF5 corpus, ``tools/gen_synthetic_umi.py`` the synthetic UMI
+corpus; :meth:`ReplayBuffer.save` writes one), read with numpy alone, and
+the JAX package's HDF5 format through ``h5py``, imported where such a file
+is read, which raises where ``h5py`` is absent. The zarr stores and writing
+HDF5 wait for a later slice.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -30,8 +32,19 @@ class ReplayBuffer:
     def n_steps(self) -> int:
         return 0 if self.n_episodes == 0 else int(self.episode_ends[-1])
 
+    @classmethod
+    def create_empty(cls) -> "ReplayBuffer":
+        return cls()
+
+    @property
+    def episode_lengths(self) -> np.ndarray:
+        return self.episode_ends - np.concatenate([[0], self.episode_ends[:-1]])
+
     def keys(self):
         return self.data.keys()
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.data
 
     def __getitem__(self, key: str) -> np.ndarray:
         return self.data[key]
@@ -50,6 +63,14 @@ class ReplayBuffer:
             else:
                 self.data[k] = np.concatenate([self.data[k], v], axis=0)
         self.episode_ends = np.append(self.episode_ends, self.n_steps + n)
+
+    def save(self, path: str) -> None:
+        """An uncompressed ``.npz`` of the ``data`` arrays and
+        ``episode_ends``, which :meth:`load` reads."""
+        if not path.endswith(".npz"):
+            raise ValueError(f"the port writes .npz replay buffers only, got {path!r}")
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez(path, episode_ends=self.episode_ends, **self.data)
 
     @classmethod
     def load(cls, path: str, keys: Optional[Iterable[str]] = None) -> "ReplayBuffer":

@@ -84,6 +84,9 @@ def test_video_fvd(policy, val_batches: Iterable[Mapping], num_batches: int = 4,
     (:func:`save_video_grid`, ``real_vs_pred``). Returns ``video_fvd_vae``
     and ``video_fvd`` or ``video_fvd_pixel``."""
     c = policy.mar_cfg
+    if c.use_proprioception:
+        raise ValueError("test_video_fvd gives sample_video no proprioception, as JAX's does "
+                         "(whose forward_encoder then fails its assertion)")
     task_mode = "full_dynamic_model" if c.predict_action else "video_model"
     real_videos, pred_videos, real_lat, pred_lat = [], [], [], []
     for bi, batch in enumerate(val_batches):
@@ -92,6 +95,8 @@ def test_video_fvd(policy, val_batches: Iterable[Mapping], num_batches: int = 4,
         obs = image_util.remap_image_keys(policy.task_name, dict(batch["obs"]))
         image = torch.as_tensor(obs["image"]).to(policy.device)
         idx = select_frame_indices(image.shape[1], eval=False)
+        if idx.max() >= image.shape[1]:  # JAX's gather clamps; a CUDA index would trap
+            raise ValueError(f"frames {idx.tolist()} of a {image.shape[1]}-frame window")
         frames = image_util.to_unit_float(image[:, torch.as_tensor(idx, device=image.device)])
         frames = image_util.to_model_range(image_util.resize_video(frames, c.img_size))
         half = len(idx) // 2

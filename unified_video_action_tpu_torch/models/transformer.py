@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.func import functional_call
 
 from unified_video_action_tpu_torch.ops.attention import attention_plain, dropout, flash_attention
 from unified_video_action_tpu_torch.ops.int8_mm import w8a8_linear
@@ -158,6 +159,11 @@ class ViTBlock(nn.Module):
         return x + dropout(self.mlp_fc2(h), mlp_keep, self.attn.proj_dropout)
 
 
+def _run_block(block: nn.Module, names: Sequence[str], x: torch.Tensor,
+               masks: Optional[BlockMasks], *params: torch.Tensor) -> torch.Tensor:
+    return functional_call(block, dict(zip(names, params)), (x, masks))
+
+
 class TransformerStack(nn.Module):
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  quant: bool = False, attn_dropout: float = 0.0, proj_dropout: float = 0.0,
@@ -182,7 +188,13 @@ class TransformerStack(nn.Module):
             elif self.training and drop is not None:
                 masks = drop[i]
             if self.training and self.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(block, x, masks, use_reentrant=False)
+                # the block's parameters go in as inputs, so that the backward's
+                # recompute uses the tensors of this forward: under the
+                # policy's functional_call (bf16 casts of the fp32
+                # parameters) the module holds the casts only while it runs
+                names, params = zip(*block.named_parameters())
+                x = torch.utils.checkpoint.checkpoint(_run_block, block, names, x, masks, *params,
+                                                      use_reentrant=False)
             else:
                 x = block(x, masks)
         return x

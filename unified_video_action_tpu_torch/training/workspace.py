@@ -45,9 +45,16 @@ after the step in flight and save ``latest`` with the unfinished epoch, which
 a resumed run replays. Every key of the config's ``training``,
 ``checkpoint``, ``ema``, ``logging``, ``dataloader`` and ``val_dataloader``
 sections is acted on or named in the log as ignored (:func:`config_report`).
-Only the device-resident input path is ported (``dataloader.device_resident:
-true``; on the CPU the store is host memory). The host loader and more than
-one GPU wait for later slices.
+Two input paths: the device-resident store (``dataloader.device_resident:
+true``, the PushT datasets; on the CPU the store is host memory), and the
+host loader (``data/loader.py``) for the UMI datasets of a
+``task_type: multiple_datasets`` config, as JAX runs them (``training/
+workspace.py:169-181``, ``:340-375``): its batches collated on the host by
+``dataloader.num_workers`` threads (``worker_mode`` "process" forks them),
+the task mode and the frame indices (a random history frequency under
+``different_history_freq``) drawn per batch, the numeric fields copied to
+the device and the string ones (``dataset_name``) left behind. More than
+one GPU waits for a later slice.
 """
 
 from __future__ import annotations
@@ -62,7 +69,12 @@ import numpy as np
 import torch
 
 from unified_video_action_tpu_torch.data.device_dataset import DeviceReplayDataset
+from unified_video_action_tpu_torch.data.loader import DataLoader
 from unified_video_action_tpu_torch.data.pusht_dataset import PushTImageDataset
+from unified_video_action_tpu_torch.data.umi_dataset import (
+    UmiMultiDataset,
+    build_umi_multi_from_config,
+)
 from unified_video_action_tpu_torch.eval import offline
 from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 from unified_video_action_tpu_torch.training import checkpoint as ckpt_lib
@@ -92,6 +104,8 @@ ACTED_ON = {
     "dataloader": {"batch_size", "device_resident"},
     "val_dataloader": set(),
 }
+# the loader keys the host loader acts on besides those
+HOST_LOADER_KEYS = {"num_workers", "worker_mode", "prefetch"}
 # the keys it ignores, each with the reason the log gives; a key in neither
 # table is named as one the port does not read
 IGNORED = {
@@ -107,9 +121,16 @@ IGNORED = {
     "dataloader.shuffle": "the training windows are shuffled every epoch, as JAX's loader "
                           "shuffles them whatever the key says",
     "val_dataloader.batch_size": "validation batches take dataloader.batch_size, as in JAX",
-    "val_dataloader.num_workers": "the device-resident store has no loader workers",
+    "val_dataloader.num_workers": "the device-resident store has no loader workers; the host "
+                                  "loader validates with 2 workers, as JAX's",
     "val_dataloader.shuffle": "validation takes its windows in order, as in JAX",
 }
+
+
+def uses_host_loader(cfg: Mapping) -> bool:
+    """Whether the run reads its batches through the host loader (not the
+    device-resident store)."""
+    return not (cfg.get("dataloader") or {}).get("device_resident", False)
 
 
 def config_report(cfg: Mapping) -> Dict[str, str]:
@@ -117,6 +138,8 @@ def config_report(cfg: Mapping) -> Dict[str, str]:
     sections that the trainer ignores (``IGNORED``, or not read at all)."""
     out = {}
     for section, acted in ACTED_ON.items():
+        if section == "dataloader" and uses_host_loader(cfg):
+            acted = acted | HOST_LOADER_KEYS
         for key in (cfg.get(section) or {}):
             dotted = f"{section}.{key}"
             if key not in acted:
@@ -124,14 +147,30 @@ def config_report(cfg: Mapping) -> Dict[str, str]:
     return out
 
 
-def build_dataset(cfg: Mapping) -> PushTImageDataset:
+def build_dataset(cfg: Mapping) -> Union[PushTImageDataset, UmiMultiDataset]:
+    """The task's dataset from its ``_target_``: ``PushTImageDataset`` or
+    ``build_umi_multi_from_config`` (the UMI datasets)."""
     ds_cfg = dict(cfg["task"]["dataset"])
     name = str(ds_cfg.get("_target_", "PushTImageDataset")).rsplit(".", 1)[-1]
-    if name != "PushTImageDataset":
-        raise NotImplementedError(f"dataset {name!r} is not ported; only PushTImageDataset")
+    builders = {"PushTImageDataset": PushTImageDataset,
+                "build_umi_multi_from_config": build_umi_multi_from_config}
+    if name not in builders:
+        raise NotImplementedError(f"dataset {name!r} is not ported; only {sorted(builders)}")
     for k in _DATASET_IGNORED:
         ds_cfg.pop(k, None)
-    return PushTImageDataset(**ds_cfg)
+    return builders[name](**ds_cfg)
+
+
+def to_device_batch(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Any]:
+    """A host loader's numpy batch on ``device``: numeric leaves as tensors,
+    string leaves (``dataset_name``) left out, as JAX's ``_to_jax_batch``."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, Mapping):
+            out[k] = to_device_batch(v, device)
+        elif np.asarray(v).dtype.kind not in "USO":
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return out
 
 
 def build_policy(cfg: Mapping, device: torch.device) -> UnifiedVideoActionPolicy:
@@ -151,19 +190,36 @@ def val_action_l2(policy: UnifiedVideoActionPolicy, batch: Mapping[str, Any],
     window of ``batch`` (``obs["image"]`` (B, T, 3, H, W) uint8, ``action``
     (B, T, A)) and the window's future actions, over the first 9 action
     dimensions; None without the action head. ``noise`` injects the
-    predict call's draws; otherwise they come from ``generator``."""
+    predict call's draws; otherwise they come from ``generator``.
+
+    A UMI batch (``img_indices`` in its obs) holds the 8 frames its items
+    train on, the first 4 the conditioning ones: those condition the
+    prediction as they condition training, with the state as training
+    takes it (``_build_proprio_train``) and the batch's language latents,
+    and the future is the second half of the action window. JAX's function
+    raises on such a batch (its frame selection picks frames 3-6 of the
+    4-frame half-window), so this reading has no JAX counterpart beyond its
+    predict program on the same inputs."""
     if not policy.mar_cfg.predict_action:
         return None
-    image = batch["obs"]["image"]
+    obs = image_util.remap_image_keys(policy.task_name, dict(batch["obs"]))
+    image = obs["image"]
     T = image.shape[1]
     window = image[:, : T // 2]
-    if policy.obs_codec or window.dtype != torch.uint8:
+    if "img_indices" in obs:
+        text = batch.get("language_latents")
+        text = None if text is None else policy._encode_language_goal(text, image.shape[0])
+        proprio, _ = policy._build_proprio_train(obs, np.arange(T), {})
+        pred = policy.predict_action_frames(window, generator, noise, text, None, proprio)
+        T = batch["action"].shape[1]
+    elif policy.obs_codec or window.dtype != torch.uint8:
         pred = policy.predict_action_async({"image": window.cpu().numpy()}, generator, noise)
     else:
         frames = window[:, select_frame_indices(T // 2, policy.mar_cfg.n_frames)]
         pred = policy.predict_action_frames(frames, generator, noise)
     pred = pred.cpu().numpy()
-    _, future = split_trajectory(np.asarray(batch["action"].cpu()), T, policy.shift_action)
+    _, future = split_trajectory(np.asarray(batch["action"].cpu()), T, policy.shift_action,
+                                 policy.use_history_action)
     n = min(pred.shape[-1], 9)
     d = pred[..., :n] - future[..., :n]
     return float(np.sqrt((d ** 2).mean()))
@@ -175,7 +231,8 @@ class Trainer:
     of one corpus share it)."""
 
     def __init__(self, cfg: Mapping, device: Union[str, torch.device] = "cuda",
-                 output_dir: Optional[str] = None, dataset: Optional[PushTImageDataset] = None):
+                 output_dir: Optional[str] = None,
+                 dataset: Optional[Union[PushTImageDataset, UmiMultiDataset]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.output_dir = output_dir or cfg.get("output_dir", "outputs/run")
@@ -198,9 +255,7 @@ class Trainer:
             "early_stop_patience") else None
         self.resume = bool(tcfg.get("resume", False))
         self.batch_size = 2 if debug else int(cfg["dataloader"]["batch_size"])
-        if not cfg["dataloader"].get("device_resident", False):
-            raise NotImplementedError("only the device-resident input path is ported: "
-                                      "set dataloader.device_resident=true")
+        self.host_loader = uses_host_loader(cfg)
         self.ignored_keys = config_report(cfg)
         for key, why in self.ignored_keys.items():
             print(f"[config] ignored {key}: {why}", flush=True)
@@ -212,8 +267,21 @@ class Trainer:
         self.val_dataset = self.dataset.get_validation_dataset()
         self.normalizer = self.dataset.get_normalizer()
         self.policy.set_normalizer(self.normalizer)
-        self.data = DeviceReplayDataset(self.dataset, self.device)
-        self.val_data = self.data.split(self.val_dataset)
+        if self.host_loader:
+            if not isinstance(self.dataset, UmiMultiDataset):
+                raise NotImplementedError("the host loader serves the UMI datasets; set "
+                                          "dataloader.device_resident=true for PushT")
+            dl = cfg["dataloader"]
+            loader = dict(worker_mode=dl.get("worker_mode", "thread"),
+                          prefetch=int(dl.get("prefetch", 2)))
+            self.loader = DataLoader(self.dataset, self.batch_size, shuffle=True, seed=self.seed,
+                                     num_workers=int(dl.get("num_workers", 4)), **loader)
+            self.val_loader = DataLoader(self.val_dataset, self.batch_size, shuffle=False,
+                                         drop_last=False, num_workers=2, **loader)
+            self.data, self.val_data = self.dataset, self.val_dataset
+        else:
+            self.data = DeviceReplayDataset(self.dataset, self.device)
+            self.val_data = self.data.split(self.val_dataset)
         steps_per_epoch = max(len(self.data) // self.batch_size, 1)
         if self.max_train_steps is not None:
             steps_per_epoch = min(steps_per_epoch, self.max_train_steps)
@@ -262,8 +330,11 @@ class Trainer:
     def batches(self) -> Iterator[Tuple[str, np.ndarray, Dict[str, Any]]]:
         """One epoch of (task mode, frame indices, batch on the device): the
         samples shuffled by a generator seeded with (seed, epoch), the last
-        partial batch dropped; only indices and the augmentation's scalars
-        cross to the device."""
+        partial batch dropped; from the device store only indices and the
+        augmentation's scalars cross to the device."""
+        if self.host_loader:
+            yield from self.host_batches()
+            return
         order = np.arange(len(self.data))
         np.random.default_rng((self.seed, self.epoch)).shuffle(order)
         for s in range(len(order) // self.batch_size):
@@ -272,6 +343,24 @@ class Trainer:
             frame_indices = select_frame_indices(self.data.horizon, eval=False)
             aug = self.draw_aug(self.batch_size) if self.data.data_aug else None
             yield task_mode, frame_indices, self.data.gather(idxs, frame_indices, aug)
+
+    def host_batches(self) -> Iterator[Tuple[str, np.ndarray, Dict[str, Any]]]:
+        """JAX's host-loader ``prepare`` (``training/workspace.py:340-375``):
+        per batch of the loader, the task mode and then the frame indices
+        drawn on the host (the history frames at random under
+        ``different_history_freq``); a window the items did not gather
+        already (no ``img_indices``) keeps only those frames; then the copy
+        to the device."""
+        for b in self.loader:
+            task_mode = self.policy.choose_task_mode(self.np_rng)
+            obs = b["obs"]
+            key = image_util.main_image_key(self.policy.task_name, obs)
+            frame_indices = select_frame_indices(
+                obs[key].shape[1], eval=False,
+                different_history_freq=self.policy.different_history_freq, rng=self.np_rng)
+            if "img_indices" not in obs:
+                b = dict(b, obs=dict(obs, **{key: obs[key][:, frame_indices]}))
+            yield task_mode, frame_indices, to_device_batch(b, self.device)
 
     def train_epoch(self, stop=lambda: False) -> List[Dict[str, torch.Tensor]]:
         """The epoch's steps (at most ``max_train_steps``; after the step in
@@ -310,7 +399,12 @@ class Trainer:
 
     def val_batches(self) -> Iterator[Dict[str, Any]]:
         """The validation windows in order, in batches of the training batch
-        size, gathered from the device store."""
+        size, gathered from the device store (or collated by the host loader
+        and copied to the device)."""
+        if self.host_loader:
+            for b in self.val_loader:
+                yield to_device_batch(b, self.device)
+            return
         n = len(self.val_data)
         for start in range(0, n, self.batch_size):
             yield self.val_data.gather(np.arange(start, min(start + self.batch_size, n)))

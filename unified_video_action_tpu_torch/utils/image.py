@@ -1,5 +1,5 @@
 """Frame preprocessing (port of ``utils/image.py``: the per-task camera-key
-remap at :25-43, ``resize_video`` and ``to_model_range`` at :57-72, and for
+remap and ``main_image_key`` at :25-54, ``resize_video`` and ``to_model_range`` at :57-72, and for
 training ``aug_margins``, ``augment_video`` and ``to_unit_float`` at
 :75-133)."""
 
@@ -35,6 +35,17 @@ def remap_image_keys(task_name: str, obs: Dict) -> Dict:
         if src in out:
             out[dst] = out.pop(src)
     return out
+
+
+def main_image_key(task_name: str, obs: Dict) -> str:
+    """The raw obs key that :func:`remap_image_keys` would rename to
+    ``image`` (host code gathers frames before the remap), else ``image``."""
+    for task, m in TASK_IMAGE_KEYS.items():
+        if task in task_name:
+            for src, dst in m.items():
+                if dst == "image" and src in obs:
+                    return src
+    return "image"
 
 
 def resize_video(x: torch.Tensor, size: int = 256) -> torch.Tensor:
