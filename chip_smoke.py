@@ -108,6 +108,26 @@ attention_plan picks.
            wrist one VAE-encoded as a stream, the 9-d state, a 9-d
            proprioception head): serve_umi's checks at B=1 and B=8 with the
            controls that plant a fault at N = 1024.
+5h. real_loop  the real-robot deployment path in a closed loop: the
+           shared-memory library built from native/shm_ipc.cpp by g++; the
+           sim-backed UmiRealEnv (the arm, the gripper and a 224 px camera,
+           each a spawned process over that library's rings and queues) at
+           10 Hz with the 16-step UMI window; config.UMI_MULTI on
+           serve_umi's seeded weights behind the port's PolicyInferenceNode
+           (bf16, 100 steps, the hash encoder's latent as the task's). Each
+           of 10 cycles: get_obs, get_real_umi_obs_dict against the
+           episode's start pose, node.infer, get_real_umi_action, the
+           timestamps the aligned obs time plus k / 10 Hz, exec_actions.
+           Checks: 24 online D = 64 launches a request and no other
+           attention kernel, finite absolute actions, at least one fresh
+           action a cycle; one recorded cycle replayed through the kernel
+           route against the plain route (the serve limits and controls)
+           and in fp32 on the card against the CPU; at the end the arm's
+           pose on its own trajectory and that on the last action within
+           1e-3, the gripper on the last width; the episode's timestamps
+           increasing and its actions those the controllers kept. Prints
+           the request ms, the obs-to-first-action latency, the stale
+           actions dropped, the control period and /dev/shm's size.
 6. deployed  the deployed tier, predict_action_cached with ddim10 +
            serving_quant="int8" + obs_codec="yuv420", same width and
            weights, bf16, at B=1 and B=128: a full call on a 16-frame window,
@@ -3197,8 +3217,6 @@ def phase_serve_streams(attention_ops, name: str, run_cfg: dict, batches, route_
     calls and those of the fp32 kernel in the fp32 call by path."""
     from unified_video_action_tpu_torch import convert
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
-    from unified_video_action_tpu_torch.utils import image as image_util
-    from unified_video_action_tpu_torch.utils.frames import select_frame_indices
 
     def make_policy(device="cuda", dtype="bfloat16"):
         return UnifiedVideoActionPolicy.from_cfg(run_cfg, device=device, compute_dtype=dtype)
@@ -3259,16 +3277,7 @@ def phase_serve_streams(attention_ops, name: str, run_cfg: dict, batches, route_
                                  f"({blocks} of attention_wgmma_online_d{D})")
 
     # the streams as predict_action_frames takes them, read from the windows
-    idx = select_frame_indices(16, c.n_frames)
-
-    def request_inputs(B):
-        o = image_util.remap_image_keys(policy.task_name, obs[B])
-        frames = torch.from_numpy(np.ascontiguousarray(o["image"][:, idx]))
-        streams = {"history_actions": policy._history_actions(o),
-                   "proprio": policy._build_proprio_eval(o, idx)}
-        return frames, streams, policy._encode_language_goal(goal, B)
-
-    inputs = {B: request_inputs(B) for B in (route_batch, 1)}
+    inputs = {B: request_inputs(policy, obs[B], goal) for B in (route_batch, 1)}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     policy32 = make_policy(dtype="float32")
@@ -3276,27 +3285,9 @@ def phase_serve_streams(attention_ops, name: str, run_cfg: dict, batches, route_
     rb = route_batch
     diffs = route_check(attention_ops, policy, policy32, {rb: inputs[rb][0]}, {rb: noise[rb]},
                         rejected, {rb: inputs[rb][2]}, {rb: inputs[rb][1]})
-
-    # the card in fp32 (the fp32 kernel at D) against the port on the CPU in fp32
-    cpu32 = make_policy(device="cpu", dtype="float32")
-    cpu32.load_params(*trees)
-    frames, streams, text = inputs[1]
-    cpu_noise = {k: v.cpu() for k, v in noise[1].items()}
-    before = attention_ops.instance_count[f"attention_f32_d{D}"]
-    on_card = policy32.predict_action_frames(frames, noise=cpu_noise, text_latents=text,
-                                             **streams).cpu()
-    f32_launches = attention_ops.instance_count[f"attention_f32_d{D}"] - before
-    t0 = time.perf_counter()
-    on_cpu = cpu32.predict_action_frames(frames, noise=cpu_noise,
-                                         text_latents=None if text is None else text.cpu(), **streams)
-    cpu_s = time.perf_counter() - t0
-    d = (normalized(policy, on_card) - normalized(policy, on_cpu)).abs().max().item()
-    log(f"{name} card fp32 ({f32_launches} launches of attention_f32_d{D}) vs CPU fp32 ({cpu_s:.1f}s), "
-        f"B=1, normalized actions: max abs {d}; atol {SERVE_FP32_ATOL}")
-    if d > SERVE_FP32_ATOL or f32_launches != blocks:
-        raise AssertionError(f"{name}: the card's fp32 run disagrees with the CPU's ({d}) or did not "
-                             f"launch the fp32 kernel once per block ({f32_launches})")
-    del policy32, cpu32
+    f32_launches = fp32_card_vs_cpu(attention_ops, name, policy32, make_policy(device="cpu", dtype="float32"),
+                                    trees, inputs[1], noise[1])
+    del policy32
 
     # request times on the host clock, each until the action is on the host
     def request_ms(B: int, reps: int) -> float:
@@ -3318,6 +3309,293 @@ def phase_serve_streams(attention_ops, name: str, run_cfg: dict, batches, route_
     log(f"{name} " + json.dumps(serve))
     return launches, {f"{name}_fp32_vs_cpu_b1": {f"attention_f32_d{D}": f32_launches}}
 
+
+def request_inputs(policy, obs: dict, goal=None) -> tuple:
+    """An obs-dict request as ``predict_action_frames`` takes it, made as
+    ``predict_action_async`` makes it: the selected frames (float frames
+    rounded to uint8), the streams (``history_actions``, ``proprio``) and
+    the encoded goal."""
+    from unified_video_action_tpu_torch.utils import image as image_util
+    from unified_video_action_tpu_torch.utils.frames import select_frame_indices
+
+    o = image_util.remap_image_keys(policy.task_name, obs)
+    image = np.asarray(o["image"])
+    idx = select_frame_indices(image.shape[1], policy.mar_cfg.n_frames)
+    sel = image[:, idx]
+    if sel.dtype != np.uint8:
+        sel = np.round(sel * 255.0).astype(np.uint8)
+    streams = {"history_actions": policy._history_actions(o),
+               "proprio": policy._build_proprio_eval(o, idx)}
+    return (torch.from_numpy(np.ascontiguousarray(sel)), streams,
+            policy._encode_language_goal(goal, image.shape[0]))
+
+
+def fp32_card_vs_cpu(attention_ops, name: str, policy32, cpu32, trees, inputs, noise) -> int:
+    """The card in fp32 (``policy32``: the fp32 kernel at the model's D)
+    against the port on the CPU in fp32 (``cpu32``, given ``trees``) on one
+    request (``request_inputs``' tuple and its draws), normalized actions
+    within SERVE_FP32_ATOL, the fp32 kernel once per ViT block. Returns its
+    launches."""
+    c = policy32.mar_cfg
+    D = c.encoder_embed_dim // c.encoder_num_heads
+    blocks = c.encoder_depth + c.decoder_depth
+    cpu32.load_params(*trees)
+    frames, streams, text = inputs
+    cpu_noise = {k: v.cpu() for k, v in noise.items()}
+    before = attention_ops.instance_count[f"attention_f32_d{D}"]
+    on_card = policy32.predict_action_frames(frames, noise=cpu_noise, text_latents=text,
+                                             **streams).cpu()
+    f32_launches = attention_ops.instance_count[f"attention_f32_d{D}"] - before
+    t0 = time.perf_counter()
+    on_cpu = cpu32.predict_action_frames(frames, noise=cpu_noise,
+                                         text_latents=None if text is None else text.cpu(), **streams)
+    cpu_s = time.perf_counter() - t0
+    d = (normalized(policy32, on_card) - normalized(policy32, on_cpu)).abs().max().item()
+    log(f"{name} card fp32 ({f32_launches} launches of attention_f32_d{D}) vs CPU fp32 ({cpu_s:.1f}s), "
+        f"B={frames.shape[0]}, normalized actions: max abs {d}; atol {SERVE_FP32_ATOL}")
+    if d > SERVE_FP32_ATOL or f32_launches != blocks:
+        raise AssertionError(f"{name}: the card's fp32 run disagrees with the CPU's ({d}) or did not "
+                             f"launch the fp32 kernel once per block ({f32_launches})")
+    return f32_launches
+
+
+# real_loop: the real-robot deployment path (eval_real_torch.py's policy
+# node, the UMI obs and action bridge, the shared-memory IPC) in a closed
+# loop with the sim-backed UmiRealEnv
+REAL_HZ = 10.0  # the control rate: the obs window's spacing and the actions'
+REAL_HORIZON = 16  # the UMI window of umi_obs, for the frames and the state
+REAL_CYCLES = 10  # requests in the loop (at least 8)
+REAL_RECORDED_CYCLE = 3  # the cycle whose request the route and fp32 checks replay
+REAL_CAMERA = dict(px=224, fps=20.0, get_max_k=32)  # 32 frames cover the 1.5 s window
+REAL_ARM = dict(hz=125.0, get_max_k=256)  # 2 s of state
+REAL_GRIPPER = dict(hz=30.0, get_max_k=64)
+REAL_INIT_POSE = (0.4, 0.0, 0.3, 0.0, 3.0, 0.0)
+# the speed limits (m/s, rad/s) lie past the seeded policy's jumps (relative
+# positions up to 1 m, any rotation), so each waypoint lands at its time
+REAL_SPEED = 100.0
+REAL_TAU = 0.02  # the sim arm's lag, s: 0.5 s settles a 1 m jump to 1e-9 m
+REAL_SETTLE_S = 0.5
+REAL_POSE_ATOL = 1e-3  # m and rad: the arm against its trajectory at the end
+REAL_TASK = "cup"
+
+
+def rotation_angle(a: np.ndarray, b: np.ndarray) -> float:
+    """The angle (rad) between two axis-angle rotations."""
+    from unified_video_action_tpu_torch.utils.rotation import axis_angle_to_matrix
+
+    r = axis_angle_to_matrix(np.asarray(a, np.float64)).T @ axis_angle_to_matrix(np.asarray(b, np.float64))
+    return float(np.arccos(np.clip((np.trace(r) - 1.0) / 2.0, -1.0, 1.0)))
+
+
+def superseded(rows: list, timestamps) -> list:
+    """The action timestamps an episode records after a chunk scheduled at
+    ``timestamps``: the chunk replaces the rows from its first timestamp on,
+    as it replaces those waypoints in the controllers' trajectories."""
+    ts = list(timestamps)
+    return [t for t in rows if not ts or t < ts[0]] + ts
+
+
+def phase_real_loop(attention_ops) -> tuple:
+    """UMI served to a robot in a closed loop: config.UMI_MULTI on the
+    seeded weights of serve_umi, bf16, 100 sampler steps, the kernel route,
+    behind the port's PolicyInferenceNode (the hash encoder's latent as the
+    task's language latent, smoothing window 3); the sim-backed UmiRealEnv
+    (the arm at REAL_ARM, the gripper, one 224 px camera at 20 fps; each a
+    spawned process over the shared-memory library built from
+    native/shm_ipc.cpp) at REAL_HZ with the 16-step window. Each cycle:
+    get_obs, get_real_umi_obs_dict against the episode's start pose,
+    node.infer, get_real_umi_action on the latest pose, the timestamps the
+    aligned obs time plus k / REAL_HZ, exec_actions; a cycle every
+    n_action_steps / REAL_HZ (0.8 s) or, when the request outlasts that, as
+    soon as it returns. Checks: 24 online D = 64 launches a request and no
+    other attention kernel; every absolute action finite and every cycle
+    scheduling at least one; the recorded cycle's request replayed through
+    the kernel route against the plain route (route_check, the serve limits
+    and the controls) and in fp32 on the card against the CPU; the arm's
+    pose against its own trajectory (TargetTCPPose) and that against the
+    last action, within REAL_POSE_ATOL, the gripper's width against the last
+    action; the episode's timestamps increasing and its actions those the
+    controllers kept. Returns the loop's launches and the fp32 launches."""
+    from unified_video_action_tpu_torch import config as port_config
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.ipc import shm
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+    from unified_video_action_tpu_torch.real import (CameraProcess, PoseInterpolationController,
+                                                     UmiRealEnv, WidthController)
+    from unified_video_action_tpu_torch.real.sim import SimArmBackend, SimCameraBackend, SimGripperBackend
+    from unified_video_action_tpu_torch.serving.real_inference import (get_real_umi_action,
+                                                                       get_real_umi_obs_dict)
+    from unified_video_action_tpu_torch.serving.zmq_server import PolicyInferenceNode
+    from unified_video_action_tpu_torch.utils.language import HashTextEncoder
+
+    log(f"g++ native/shm_ipc.cpp -> {shm.library_path().name}: {shm.build():.1f}s")
+    fs = os.statvfs("/dev/shm")
+    shm_size, shm_free = fs.f_blocks * fs.f_frsize, fs.f_bavail * fs.f_frsize
+
+    def make_policy(device="cuda", dtype="bfloat16"):
+        return UnifiedVideoActionPolicy.from_cfg(port_config.UMI_MULTI, device=device, compute_dtype=dtype)
+
+    policy = make_policy()
+    c = policy.mar_cfg
+    trees = (convert.seeded_tree(policy.mar, SEED), convert.seeded_tree(policy.vae, SEED + 1))
+    policy.load_params(*trees)
+    goal = HashTextEncoder().encode(UMI_PROMPT)
+    node = PolicyInferenceNode(policy, {REAL_TASK: goal}, smooth_window=3, seed=SEED)
+
+    px = REAL_CAMERA["px"]
+    robot = PoseInterpolationController(
+        SimArmBackend(init_pose=np.asarray(REAL_INIT_POSE), tau=REAL_TAU), frequency=REAL_ARM["hz"],
+        max_pos_speed=REAL_SPEED, max_rot_speed=REAL_SPEED, get_max_k=REAL_ARM["get_max_k"])
+    gripper = WidthController(SimGripperBackend(init_width=0.08, max_speed=REAL_SPEED),
+                              frequency=REAL_GRIPPER["hz"], max_speed=REAL_SPEED,
+                              get_max_k=REAL_GRIPPER["get_max_k"])
+    cam = CameraProcess(SimCameraBackend((px, px), seed=SEED), resolution=(px, px),
+                        fps=REAL_CAMERA["fps"], get_max_k=REAL_CAMERA["get_max_k"])
+    env = UmiRealEnv(robot, gripper, [cam], frequency=REAL_HZ, camera_obs_horizon=REAL_HORIZON,
+                     robot_obs_horizon=REAL_HORIZON, gripper_obs_horizon=REAL_HORIZON)
+    rings = [cam.ring, robot.ring, gripper.ring, robot.input_queue, gripper.input_queue]
+    need = sum(r.nbytes for r in rings)
+    log(f"/dev/shm: {shm_size} bytes, {shm_free} free; the loop's rings and queues {need} bytes "
+        f"(the camera's {cam.ring.n_slots} slots of {cam.ring.slot_bytes} bytes)")
+    if shm_free < need:
+        env.stop()
+        raise AssertionError(f"/dev/shm has {shm_free} bytes free, the loop needs {need}")
+
+    counters = (attention_ops.launch_count, attention_ops.instance_count)
+
+    def counts() -> dict:
+        return {k: v for counter in counters for k, v in counter.items()}
+
+    period = policy.n_action_steps / REAL_HZ
+    t_start = time.perf_counter()
+    with env:
+        log(f"real_loop env: arm, gripper and camera processes ready in {time.perf_counter() - t_start:.1f}s")
+        time.sleep(REAL_HORIZON / REAL_HZ)  # the state streams cover the window
+        obs = env.get_obs()
+        start_pose = np.concatenate([obs["robot0_eef_pos"][-1], obs["robot0_eef_rot_axis_angle"][-1]])
+
+        def request(obs) -> dict:
+            return {k: v[None] for k, v in
+                    get_real_umi_obs_dict(obs, episode_start_pose=start_pose).items()}
+
+        node.infer(request(obs), REAL_TASK)  # warm-up: not counted
+        torch.cuda.synchronize()
+        env.start_episode()
+        for counter in counters:
+            for k in counter:
+                counter[k] = 0
+        loop = {"request_ms": [], "latency_ms": [], "fresh": [], "sent": [], "cycle_start": []}
+        per_request, rows, recorded, last = [], [], None, None
+        for i in range(REAL_CYCLES):
+            t_cycle = time.perf_counter()
+            loop["cycle_start"].append(t_cycle)
+            obs = env.get_obs()
+            req = request(obs)
+            noise = None
+            if i == REAL_RECORDED_CYCLE:
+                noise = policy.sample_noise(1, torch.Generator(device="cuda").manual_seed(SEED + 90))
+                recorded = (req, noise)
+            before = counts()
+            t0 = time.perf_counter()
+            action = node.infer(req, REAL_TASK, noise=noise)
+            loop["request_ms"].append((time.perf_counter() - t0) * 1e3)
+            per_request.append({k: v - before[k] for k, v in counts().items()})
+            current = np.concatenate([obs["robot0_eef_pos"][-1], obs["robot0_eef_rot_axis_angle"][-1]])
+            actions = get_real_umi_action(action[0], current)
+            stamps = obs["timestamp"][-1] + np.arange(len(actions)) / REAL_HZ
+            if actions.shape != (16, 7) or not np.isfinite(actions).all():
+                raise AssertionError(f"real_loop cycle {i}: absolute actions {actions.shape}, "
+                                     f"finite {np.isfinite(actions).all()}")
+            t_exec = time.time()
+            n = env.exec_actions(actions, stamps)
+            loop["latency_ms"].append((t_exec - obs["timestamp"][-1]) * 1e3)
+            loop["fresh"].append(n)
+            loop["sent"].append(len(actions))
+            if n == 0:
+                raise AssertionError(f"real_loop cycle {i}: every action was stale "
+                                     f"(request {loop['request_ms'][-1]:.1f} ms)")
+            rows = superseded(rows, stamps[len(stamps) - n:])  # the fresh ones are the last n
+            last = (actions[-1], stamps[-1])
+            time.sleep(max(0.0, t_cycle + period - time.perf_counter()))
+        launches = counts()
+        # the trajectories end at the last action's time; then they settle
+        time.sleep(max(0.0, last[1] - time.time()) + REAL_SETTLE_S)
+        arm, width = env.get_robot_state(), gripper.get_state()
+        episode = env.end_episode()
+    log(f"real_loop env stopped; {time.perf_counter() - t_start:.1f}s since the processes started")
+
+    # launches: each request the online kernel's D = 64 instance once per block
+    blocks = c.encoder_depth + c.decoder_depth
+    want = {**attention_launches_per_request(attention_ops, c, 1, torch.bfloat16),
+            **attention_instances_per_request(attention_ops, c, 1, torch.bfloat16)}
+    plan = attention_plan_of(attention_ops, c, 1, torch.bfloat16)
+    bad = [i for i, got in enumerate(per_request) if got != want]
+    if bad or plan.instance != "attention_wgmma_online_d64" or want[plan.instance] != blocks:
+        raise AssertionError(f"real_loop: requests {bad} launched {[per_request[i] for i in bad]}, "
+                             f"want {want} ({blocks} of attention_wgmma_online_d64)")
+
+    # the arm against its own trajectory at the end, and that against the last action
+    actual, target = arm["ActualTCPPose"][-1], arm["TargetTCPPose"][-1]
+    pose_err = {
+        "arm_vs_trajectory_pos": float(np.abs(actual[:3] - target[:3]).max()),
+        "arm_vs_trajectory_rot": rotation_angle(actual[3:], target[3:]),
+        "trajectory_vs_last_action_pos": float(np.abs(target[:3] - last[0][:3]).max()),
+        "trajectory_vs_last_action_rot": rotation_angle(target[3:], last[0][3:6]),
+        "gripper_vs_last_action": float(abs(width["gripper_position"][-1] - last[0][6])),
+    }
+    log(f"real_loop end state: {json.dumps(pose_err)}; atol {REAL_POSE_ATOL}")
+    if max(pose_err.values()) > REAL_POSE_ATOL:
+        raise AssertionError(f"real_loop: the arm or gripper is off its trajectory: {pose_err}")
+
+    # the episode: increasing timestamps, and the actions the controllers kept
+    increasing = {k: bool(np.all(np.diff(v) > 0)) for k, v in episode.items() if k.endswith("_timestamp")}
+    kept = episode["action_timestamp"].tolist() == rows and episode["action"].shape == (len(rows), 7)
+    log(f"real_loop episode: {json.dumps({k: list(np.shape(v)) for k, v in episode.items()})}, "
+        f"timestamps increasing {json.dumps(increasing)}, {len(rows)} actions kept of "
+        f"{sum(loop['fresh'])} scheduled")
+    if not all(increasing.values()) or not kept:
+        raise AssertionError(f"real_loop: episode timestamps {increasing}, actions kept as the "
+                             f"controllers kept them: {kept}")
+
+    # the recorded cycle's request: the kernel route against the plain route,
+    # and the card in fp32 against the CPU in fp32
+    req, noise = recorded
+    inputs = request_inputs(policy, req, goal)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    policy32 = make_policy(dtype="float32")
+    policy32.load_params(*trees)
+    diffs = route_check(attention_ops, policy, policy32, {1: inputs[0]}, {1: noise},
+                        REJECTED_CONTROLS_UMI, {1: inputs[2]}, {1: inputs[1]})
+    f32_launches = fp32_card_vs_cpu(attention_ops, "real_loop", policy32,
+                                    make_policy(device="cpu", dtype="float32"), trees, inputs, noise)
+    del policy32
+
+    periods = np.diff(loop["cycle_start"]) * 1e3
+    stale = sum(loop["sent"]) - sum(loop["fresh"])
+    summary = {
+        "requests": len(loop["request_ms"]),
+        "request_ms_median": statistics.median(loop["request_ms"]),
+        "request_ms_max": max(loop["request_ms"]),
+        "obs_to_action_ms_median": statistics.median(loop["latency_ms"]),
+        "obs_to_action_ms_max": max(loop["latency_ms"]),
+        "stale_dropped": stale, "actions_sent": sum(loop["sent"]),
+        "control_period_ms_median": float(np.median(periods)),
+        "control_period_ms_max": float(periods.max()), "control_period_ms_target": period * 1e3,
+        "dev_shm_bytes": shm_size, "dev_shm_free_bytes": shm_free,
+        "launches_per_request": {k: v for k, v in want.items() if v},
+        "kernel_vs_plain": diffs, "card": card_line(),
+    }
+    log(f"real_loop requests (host clock, obs dict to smoothed chunk): median "
+        f"{summary['request_ms_median']:.2f} ms, max {summary['request_ms_max']:.2f} ms over {REAL_CYCLES}")
+    log(f"real_loop obs-to-first-action latency (aligned obs time to exec_actions): median "
+        f"{summary['obs_to_action_ms_median']:.2f} ms, max {summary['obs_to_action_ms_max']:.2f} ms")
+    log(f"real_loop stale actions dropped by exec_actions: {stale} of {summary['actions_sent']}")
+    log(f"real_loop control period: median {summary['control_period_ms_median']:.2f} ms, max "
+        f"{summary['control_period_ms_max']:.2f} ms (target {period * 1e3:.0f} ms)")
+    log(f"real_loop /dev/shm: {shm_size} bytes, {shm_free} free; card: {summary['card']}")
+    log(f"real_loop " + json.dumps(summary))
+    return launches, {"real_loop_fp32_vs_cpu_b1": {"attention_f32_d64": f32_launches}}
 
 # train_umi: the UMI stage-2 recipe (config.UMI_MULTI with
 # config.UMI_TRAIN_OVERRIDES) on the port's synthetic corpus, made here
@@ -3580,6 +3858,9 @@ def main() -> int:
             attention_ops, "serve_toolhang", port_config.TOOLHANG, TOOLHANG_BATCHES,
             TOOLHANG_ROUTE_BATCH, toolhang_obs, REJECTED_CONTROLS_256)
         fp32_paths.update(paths)
+    with Phase("real_loop"):
+        launches_real, paths = phase_real_loop(attention_ops)
+        fp32_paths.update(paths)
     with Phase("deployed"):
         deployed, gemm_request_ms, calls = phase_serve_deployed(
             attention_ops, int8_ops, trees, normalizer)
@@ -3623,6 +3904,7 @@ def main() -> int:
                          "sample_video_kitchen128_cfg": video["kitchen128"]["launches"],
                          "train_run_video_fvd": train_run["launches"]["video_fvd"],
                          "serve_umi": launches_umi, "serve_toolhang": launches_toolhang,
+                         "real_loop": launches_real,
                          "train_umi_validation": train_umi["launches_validate"]}
     attention_keys = tuple(attention_ops.launch_count) + attention_ops.INSTANCES
     attention_by_path = {path: {k: n.get(k, 0) for k in attention_keys}

@@ -1,13 +1,17 @@
 """The port stands alone: importing unified_video_action_tpu_torch and every
-module in it (the offline evaluation of ``eval/`` too), and train_torch.py,
-loads no JAX, no flax, no optax, no orbax and nothing of the JAX package, and
-no OpenCV, PIL, dill, h5py or zstandard (which the card's machine lacks; h5py
-and zstandard are imported only inside the
-functions that read a file with them); chip_smoke.py, train_torch.py and the card's tests import
-none of them either, and
-chip_smoke.py refuses to run without a CUDA device or without the package
-beside it. eval_sim_torch.py imports nothing of the JAX package (orbax, to
-read an orbax checkpoint, only inside the function that reads it).
+module in it (the offline evaluation of ``eval/`` too, and the real-robot
+stack of ``ipc/``, ``real/`` and ``serving/``), and train_torch.py, loads no
+JAX, no flax, no optax, no orbax and nothing of the JAX package, and no
+OpenCV, PIL, dill, h5py, zstandard or zmq (which the card's machine lacks;
+h5py, zstandard and zmq are imported only inside the functions that need
+them); chip_smoke.py, train_torch.py and the card's tests import none of
+them either. OpenCV appears only in ``real/``, and there only inside the
+functions of a real camera, the fisheye remap, the visualizer's window and
+the video recorder, never at a module's top level. chip_smoke.py refuses to
+run without a CUDA device or without the package beside it.
+eval_sim_torch.py and eval_real_torch.py import nothing of the JAX package
+(orbax, to read an orbax checkpoint, only inside the function that reads
+it; zmq only inside the server).
 
 The import check runs in a fresh interpreter, since this test process has
 JAX loaded already.
@@ -23,8 +27,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "unified_video_action_tpu")
 NOT_ON_THE_CARD = ("cv2", "PIL", "dill")
 # not on the card either: imported only inside the functions that read a file
-# with them (ReplayBuffer.load of HDF5, tools/export_corpus.py)
-LAZY_ONLY = ("h5py", "zstandard")
+# with them (ReplayBuffer.load of HDF5, tools/export_corpus.py) or serve with
+# them (zmq: serving/zmq_server.py's serve)
+LAZY_ONLY = ("h5py", "zstandard", "zmq")
+# the real-robot stack, where OpenCV may be imported inside a function (the
+# card's machine never calls one of those)
+REAL = os.path.join(REPO, "unified_video_action_tpu_torch", "real")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -63,7 +71,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "training.optim", "training.ema", "training.train_state",
                      "training.workspace", "training.checkpoint", "training.trackers",
                      "eval.metrics", "eval.offline", "eval.i3d", "utils.rotation",
-                     "utils.pose", "data.umi_dataset", "data.loader"):
+                     "utils.pose", "data.umi_dataset", "data.loader", "ipc.shm",
+                     "real", "real.trajectory", "real.controller", "real.camera", "real.sim",
+                     "real.env", "real.bimanual", "real.visualizer", "real.video_recorder",
+                     "real.fisheye", "real.rtde", "real.wsg", "serving.real_inference",
+                     "serving.zmq_server"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
@@ -92,9 +104,12 @@ def test_chip_smoke_the_port_and_its_card_tests_import_no_jax():
     for root, _, files in os.walk(os.path.join(REPO, "unified_video_action_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in sources:
-        bad = _imported_roots(path) & set(FORBIDDEN + NOT_ON_THE_CARD)
-        bad |= _module_level_roots(path) & set(LAZY_ONLY)
+        in_real = os.path.dirname(path) == REAL
+        bad = _imported_roots(path) & set(FORBIDDEN + NOT_ON_THE_CARD) - ({"cv2"} if in_real else set())
+        bad |= _module_level_roots(path) & set(LAZY_ONLY + NOT_ON_THE_CARD)
         assert not bad, (path, bad)
+    lazy_cv2 = sorted(os.path.basename(p) for p in sources if "cv2" in _imported_roots(p))
+    assert lazy_cv2 == ["fisheye.py", "sim.py", "video_recorder.py", "visualizer.py"], lazy_cv2
 
 
 def _module_level_roots(path):
@@ -117,6 +132,15 @@ def test_eval_sim_torch_imports_nothing_of_the_jax_package():
     assert "orbax" not in _module_level_roots(path)
     out = _run([path, "--help"], cwd=REPO)
     assert out.returncode == 0 and "--weights" in out.stdout, out.stderr
+
+
+def test_eval_real_torch_imports_nothing_of_the_jax_package():
+    path = os.path.join(REPO, "eval_real_torch.py")
+    everywhere = _imported_roots(path)
+    assert not everywhere & {"jax", "jaxlib", "flax", "optax", "orbax", "unified_video_action_tpu",
+                             *NOT_ON_THE_CARD, *LAZY_ONLY}, everywhere
+    out = _run([path, "--help"], cwd=REPO)
+    assert out.returncode == 0 and "--language-latents" in out.stdout, out.stderr
 
 
 def test_chip_smoke_fails_without_cuda():
