@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, evaluation and training paths (PushT,
-kitchen, UMI and toolhang) on one NVIDIA GPU.
+kitchen, UMI, the robomimic tool-hang and LIBERO-10 suites, the CLIP text
+tower) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -227,6 +228,31 @@ attention_plan picks.
            finite, no uva_* kernel launched; ms per step by CUDA events, peak
            memory; one val_action_l2_distances reading whose predict call
            launches the online kernel's D = 64 instance once per block.
+11. suite_toolhang  robomimic's tool-hang trained then evaluated: a
+           synthetic robomimic-layout store (8 demos of 64 steps, two 240 px
+           cameras, a smooth absolute pose trajectory) written here by
+           tools/gen_synthetic_suites.py; config.TOOLHANG with
+           config.SUITE_TRAIN_OVERRIDES through train_torch.py's Trainer and
+           the host loader, SUITE_STEPS bf16 steps at B = SUITE_B (every
+           metric finite, no uva_* launch; ms per step, peak memory); the
+           slim export evaluated through eval_sim_torch.py's evaluate on the
+           stub backend (2 train and 4 test envs, 64 steps): every request 24
+           launches of the online kernel's D = 64 instance and no other
+           attention kernel, finite actions, each stub's action_log the
+           runner's undone (axis-angle) actions, the log's keys and its
+           .STUB file name; the first request through the kernel route
+           against the plain route (the serve limits and the controls that
+           plant a fault at N = 1024) and its first env in fp32 on the card
+           against the CPU. Request ms at the runner's batch.
+12. suite_libero10  LIBERO-10 the same way: ten synthetic task stores
+           named by LIBERO10_TASK_NAMES (3 demos of 48 steps at 128 px),
+           config.LIBERO10 with data_aug (ColorJitter on the host loader),
+           make_libero_runners on the stub (2 test envs a task, 32 steps);
+           beside suite_toolhang's checks, one language goal per runner and
+           test_mean_score the mean of the per-task means.
+13. clip   the CLIP text tower at the width of openai/clip-vit-base-patch32
+           on seeded weights through get_text_encoder: fp32 and bf16 on the
+           card against fp32 on the CPU.
 
 The phases' depth was cut to keep the script inside its time limit when the
 UMI phases joined: timed requests 5 at B=1 and 3 at larger B (9 and 5
@@ -3793,6 +3819,299 @@ def phase_train_umi(attention_ops, int8_ops) -> dict:
     return {"perf": perf, "parity": parity, "launches_validate": val_launches}
 
 
+# suite_toolhang, suite_libero10: the robomimic and LIBERO suites, trained
+# then evaluated on the stub backend (the simulators are not on the card's
+# machine; a stub's score is a seed schedule that measures nothing)
+SUITE_OUT = os.path.join(REPO, "build", "suites")
+SUITE_STEPS, SUITE_B, SUITE_TIMED_FROM = 4, 8, 1  # bf16 steps at B = 8; the first warms up
+SUITE_TOKENS = 1024  # both configs: 4 frames of 16 x 16 tokens, no text buffer
+SUITE_EVAL = {  # the runners' overrides: (n_train, n_test, max_steps)
+    "toolhang": ("task.env_runner.n_train=2", "task.env_runner.n_test=4",
+                 "task.env_runner.max_steps=64"),
+    "libero10": ("task.env_runner.n_test=2", "task.env_runner.max_steps=32"),
+}
+# the log keys an evaluation writes beside the runners' scores
+EVAL_LOG_KEYS = {"test_mean_score", "env_backend", "STUB_SCORES_NOT_REAL", "ckpt_source",
+                 "ckpt_digest", "act_steps", "serving_quant", "obs_codec", "port", "device",
+                 "compute_dtype", "eval_wall_s"}
+
+
+@contextlib.contextmanager
+def recorded_requests(attention_ops):
+    """Within the block, every ``UnifiedVideoActionPolicy.predict_action``
+    call is recorded: its goal, action chunk, host ms (the action copied to
+    the host) and the attention launches it made, by kernel and instance;
+    and the first call's obs dict."""
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    original = UnifiedVideoActionPolicy.predict_action
+    calls = []
+    counters = (attention_ops.launch_count, attention_ops.instance_count)
+
+    def counts() -> dict:
+        return {k: v for counter in counters for k, v in counter.items()}
+
+    def recorded(self, obs_dict, generator=None, noise=None, language_goal=None):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(self, obs_dict, generator, noise, language_goal)
+        ms = (time.perf_counter() - t0) * 1e3
+        calls.append({"obs": None if calls else {k: np.array(v) for k, v in obs_dict.items()},
+                      "goal": language_goal, "action": out["action"],
+                      "action_pred": out["action_pred"], "ms": ms,
+                      "launches": {k: v - before[k] for k, v in counts().items()}})
+        return out
+
+    UnifiedVideoActionPolicy.predict_action = recorded
+    try:
+        yield calls
+    finally:
+        UnifiedVideoActionPolicy.predict_action = original
+
+
+def check_stub_logs(name: str, runner) -> int:
+    """Every stub of ``runner``'s last run received the runner's undone
+    actions (7-d, axis-angle), cut where its episode ended; returns the
+    actions the stubs received."""
+    stepped = np.stack(runner.env_actions, axis=1)  # (envs, calls, n_action_steps, 7)
+    received = 0
+    for i, env in enumerate(runner.raw_envs):
+        flat = stepped[i].reshape(-1, stepped.shape[-1]).astype(np.float32)
+        log = np.stack(env.action_log)
+        if (stepped.shape[-1] != 7 or not 0 < len(log) <= len(flat)
+                or not np.array_equal(log, flat[: len(log)])):
+            raise AssertionError(f"{name}: env {i}'s stub received {log.shape} actions, not the "
+                                 f"runner's {flat.shape}")
+        received += len(log)
+    return received
+
+
+def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
+    """One suite (``kind``: "toolhang", config.TOOLHANG, or "libero10",
+    config.LIBERO10 with data_aug) at full width through train_torch.py's
+    Trainer and the host loader on synthetic stores written here by
+    tools/gen_synthetic_suites.py (toolhang: 8 demos of 64 steps, two 240
+    px cameras; LIBERO-10: ten task stores of 3 demos of 48 steps at 128
+    px), config.SUITE_TRAIN_OVERRIDES (grad_checkpointing): SUITE_STEPS bf16
+    steps at B = SUITE_B with every metric finite and no uva_* kernel
+    launched, ms per step by CUDA events, peak memory; the slim export;
+    eval_sim_torch.py's evaluate on it with the stub backend (SUITE_EVAL):
+    every request 24 launches of the online kernel's D = 64 instance and no
+    other attention kernel, finite actions, each stub's action_log the
+    runner's undone actions, the log's keys and its .STUB name; for LIBERO
+    one goal per runner and test_mean_score the mean of the per-task means.
+    Then the first request through the kernel route against the plain
+    route (the serve limits, the controls that plant a fault at N = 1024),
+    and its first env in fp32 on the card against the CPU. Returns the
+    phase's numbers, the counted launches and the fp32 check's."""
+    import eval_sim_torch
+    from unified_video_action_tpu_torch import config as port_config
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.config import apply_overrides
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+    from unified_video_action_tpu_torch.tools import gen_synthetic_suites as gen
+    from unified_video_action_tpu_torch.training.train_state import train_step
+    from unified_video_action_tpu_torch.training.workspace import Trainer
+
+    name = f"suite_{kind}"
+    out = os.path.join(SUITE_OUT, kind)
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = os.path.join(out, "data")
+    if kind == "toolhang":
+        store = gen.write_toolhang(data)
+        data_keys = [f"task.dataset.dataset_path={store}", f"task.env_runner.dataset_path={store}"]
+    else:
+        store = os.path.dirname(gen.write_libero10(data)[0])
+        data_keys = [f"task.dataset.dataset_dir={store}", f"task.env_runner.dataset_dir={store}"]
+    corpus_s = time.perf_counter() - t0
+    cfg = copy.deepcopy({"toolhang": port_config.TOOLHANG, "libero10": port_config.LIBERO10}[kind])
+    apply_overrides(cfg, [*port_config.SUITE_TRAIN_OVERRIDES, *data_keys, f"training.seed={SEED}",
+                          f"dataloader.batch_size={SUITE_B}", "training.num_epochs=1",
+                          f"output_dir={out}/run"])
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, "cuda")
+    policy = trainer.policy
+    c = policy.mar_cfg
+    # the KL-16 VAE's kl16.ckpt is absent: a numpy-seeded ch-128 VAE
+    load_vae(policy, convert.seeded_tree(policy.vae, SEED + 1))
+    log(f"{name}: stores written in {corpus_s:.1f}s; {len(trainer.dataset)} training and "
+        f"{len(trainer.val_dataset)} validation windows; trainer built in "
+        f"{time.perf_counter() - t0:.1f}s: {c.encoder_depth}+{c.decoder_depth} blocks of "
+        f"d={c.encoder_embed_dim}, {c.attention_tokens} tokens, state "
+        f"{c.proprio_dim if c.use_proprioception else None}, second camera "
+        f"{policy.encodes_second_camera}, text {c.has_text}, grad_checkpointing "
+        f"{c.grad_checkpointing}; B={trainer.batch_size}, {policy.dtype}, "
+        f"data_aug {getattr(trainer.dataset, 'transforms', None) is not None}")
+    if (c.attention_tokens != SUITE_TOKENS or not c.grad_checkpointing
+            or trainer.batch_size != SUITE_B):
+        raise AssertionError(f"{name}: not the config's model: {c}")
+
+    # the bf16 steps, timed
+    for counter in (attention_ops.launch_count, int8_ops.launch_count):
+        for k in counter:
+            counter[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics, events = [], []
+    t0 = time.perf_counter()
+    for i, (mode, frames, batch) in enumerate(trainer.batches()):
+        if i == SUITE_STEPS:
+            break
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        metrics.append(train_step(trainer.state, batch, mode, frames, generator=trainer.generator,
+                                  pregathered=True))
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    end.synchronize()
+    events.append(end)
+    steps_s = time.perf_counter() - t0
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(len(events) - 1)]
+    launched = {k: v for k, v in {**attention_ops.launch_count, **int8_ops.launch_count}.items() if v}
+    values = [{k: v.item() for k, v in m.items()} for m in metrics]
+    train = {"ms_per_step": statistics.median(step_ms[SUITE_TIMED_FROM:]), "step_ms": step_ms,
+             "steps_s": steps_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "B": trainer.batch_size, "card": card_line()}
+    log(f"{name}: {len(values)} bf16 steps, losses {json.dumps(values)}; uva_* launches {launched}; "
+        f"{json.dumps(train)}")
+    if (len(values) != SUITE_STEPS or launched
+            or not all(np.isfinite(list(v.values())).all() for v in values)):
+        raise AssertionError(f"{name}: steps {len(values)}, launches {launched}, metrics {values}")
+
+    # the export, evaluated through eval_sim_torch.py on the stub
+    t0 = time.perf_counter()
+    export = trainer.export(os.path.join(out, "export"))
+    export_s = time.perf_counter() - t0
+    del trainer, policy
+    torch.cuda.empty_cache()
+    eval_cfg = json.load(open(os.path.join(export, "meta.json")))["cfg"]
+    apply_overrides(eval_cfg, ["task.env_runner.env_backend=stub", *SUITE_EVAL[kind]])
+    for counter in (attention_ops.launch_count, attention_ops.instance_count):
+        for k in counter:
+            counter[k] = 0
+    t0 = time.perf_counter()
+    with recorded_requests(attention_ops) as calls, contextlib.redirect_stdout(io.StringIO()):
+        eval_log, policy, runners, log_path = eval_sim_torch.evaluate(
+            eval_cfg, export, os.path.join(out, "eval"), device="cuda")
+    eval_s = time.perf_counter() - t0
+    launches = {**attention_ops.launch_count, **attention_ops.instance_count}
+    runners = runners if isinstance(runners, list) else [runners]
+    batch = len(calls[0]["action"])
+    want = {**attention_launches_per_request(attention_ops, c, batch, torch.bfloat16),
+            **attention_instances_per_request(attention_ops, c, batch, torch.bfloat16)}
+    plan = attention_plan_of(attention_ops, c, batch, torch.bfloat16)
+    if plan.instance != "attention_wgmma_online_d64" or want[plan.instance] != c.encoder_depth + \
+            c.decoder_depth:
+        raise AssertionError(f"{name}: plan {plan}, launches a request {want}")
+    for k, call in enumerate(calls):
+        if call["launches"] != want:
+            raise AssertionError(f"{name} request {k}: launches {call['launches']}, want {want}")
+        check_actions(policy, torch.from_numpy(call["action_pred"]), batch)
+    if any(launches[k] != len(calls) * v for k, v in want.items()):
+        raise AssertionError(f"{name}: {launches} launched over {len(calls)} requests")
+    received = sum(check_stub_logs(name, r) for r in runners)
+    score_keys = {k for k in eval_log if "sim_max_reward" in k or "mean_score" in k}
+    if (not log_path.endswith(".STUB.json") or set(eval_log) != EVAL_LOG_KEYS | score_keys
+            or eval_log["env_backend"] != "stub" or json.load(open(log_path)) != eval_log):
+        raise AssertionError(f"{name}: the log {log_path}: {sorted(eval_log)}")
+    means = [eval_log[getattr(r, "log_prefix", "") + "test/mean_score"] for r in runners]
+    if (abs(eval_log["test_mean_score"] - sum(means) / len(means)) > 1e-12
+            or len([k for k in eval_log if "sim_max_reward" in k])
+            != sum(len(r.raw_envs) for r in runners)):
+        raise AssertionError(f"{name}: test_mean_score {eval_log['test_mean_score']} of {means}")
+    if kind == "libero10":
+        goals = {r.language_goal for r in runners}
+        per_call = [call["goal"] for call in calls]
+        if (len(runners) != 10 or len(goals) != 10 or set(per_call) != goals
+                or sorted(set(per_call), key=per_call.index) != [r.language_goal for r in runners]):
+            raise AssertionError(f"{name}: goals {per_call} for runners {goals}")
+    request_ms = statistics.median(call["ms"] for call in calls)
+    log(f"{name} eval: {len(runners)} runner(s), {len(calls)} requests at B={batch} "
+        f"(median {request_ms:.2f} ms, by the host clock to the action on the host), "
+        f"{received} actions received by the stubs; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; {log_path} in {eval_s:.1f}s; "
+        f"scores {json.dumps({k: v for k, v in eval_log.items() if 'mean_score' in k})}")
+
+    # the first request: kernel route against plain, and fp32 card vs CPU
+    first = calls[0]
+    noise = {B: policy.sample_noise(B, torch.Generator(device="cuda").manual_seed(SEED + 70 + B))
+             for B in (batch, 1)}
+    inputs = {batch: request_inputs(policy, first["obs"], first["goal"]),
+              1: request_inputs(policy, {k: v[:1] for k, v in first["obs"].items()}, first["goal"])}
+    trees = eval_sim_torch.load_weights(export)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    policy32 = UnifiedVideoActionPolicy.from_cfg(eval_cfg, device="cuda", compute_dtype="float32")
+    policy32.load_params(*trees)
+    policy32.set_normalizer(policy.normalizer)
+    diffs = route_check(attention_ops, policy, policy32, {batch: inputs[batch][0]},
+                        {batch: noise[batch]}, REJECTED_CONTROLS_256, {batch: inputs[batch][2]},
+                        {batch: inputs[batch][1]})
+    cpu32 = UnifiedVideoActionPolicy.from_cfg(eval_cfg, device="cpu", compute_dtype="float32")
+    cpu32.set_normalizer(policy.normalizer)
+    f32_launches = fp32_card_vs_cpu(attention_ops, name, policy32, cpu32, trees, inputs[1], noise[1])
+    D = c.encoder_embed_dim // c.encoder_num_heads
+    del policy32, cpu32, policy
+    shutil.rmtree(out, ignore_errors=True)
+    perf = {"train": train, "export_s": export_s, "eval_s": eval_s, "requests": len(calls),
+            "request_batch": batch, "request_ms_median": request_ms,
+            "request_ms": [call["ms"] for call in calls], "stub_actions": received,
+            "kernel_vs_plain": diffs, "card": card_line()}
+    log(f"{name} perf: {json.dumps(perf)}")
+    return perf, launches, {f"{name}_fp32_vs_cpu_b1": {f"attention_f32_d{D}": f32_launches}}
+
+
+# clip: the CLIP text tower at the width of openai/clip-vit-base-patch32
+CLIP_B = 8
+CLIP_FP32_RTOL = 1e-4  # ||card - CPU|| / ||CPU||, both fp32 (no TF32): summation order only
+CLIP_BF16_RTOL = 3e-2  # the same in bf16: 12 layers of bf16 roundings
+
+
+def phase_clip() -> dict:
+    """models/clip.ClipTextModel at the width of openai/clip-vit-base-patch32
+    (12 layers, 512 wide, 8 heads, 77 tokens, vocabulary 49,408, projection
+    512) on numpy-seeded weights, through get_text_encoder and
+    ClipTextEncoder.encode_ids (the tokenizer's vocabulary is not in the
+    repository: token ids drawn from a seed, the end-of-text token at
+    several positions, twice in a row, and nowhere): fp32 and bf16 on the
+    card against fp32 on the CPU, relative L2 within CLIP_FP32_RTOL and
+    CLIP_BF16_RTOL; ms per encode by CUDA events. Its attention is causal and
+    plain: no kernel launch."""
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.models.clip import ClipTextConfig, ClipTextModel
+    from unified_video_action_tpu_torch.utils.language import ClipTextEncoder, get_text_encoder
+
+    cfg = ClipTextConfig()
+    with torch.device("meta"):
+        weights = convert.seeded_tree(ClipTextModel(cfg), SEED + 80)
+    rng = np.random.default_rng(SEED + 80)
+    ids = rng.integers(1, cfg.eos_token_id, (CLIP_B, cfg.max_position_embeddings))
+    for row, at in enumerate((5, 12, 30, 76, 0, 20)):
+        ids[row, at] = cfg.eos_token_id
+    ids[6, [3, 9]] = cfg.eos_token_id  # pooled at the first; row 7: no end-of-text token
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = ClipTextEncoder(weights, cfg, device="cpu").encode_ids(ids)
+    out = {"B": CLIP_B, "tokens": cfg.max_position_embeddings, "card": card_line()}
+    for dtype in (torch.float32, torch.bfloat16):
+        enc, max_length = get_text_encoder("libero10", "clip", weights, device="cuda", dtype=dtype)
+        if not isinstance(enc, ClipTextEncoder) or max_length != 77:
+            raise AssertionError(f"clip: get_text_encoder gave {type(enc).__name__}, {max_length}")
+        got = enc.encode_ids(ids)
+        rel = float(np.linalg.norm(got - cpu) / np.linalg.norm(cpu))
+        tag = str(dtype).replace("torch.", "")
+        ms = time_ms(lambda: enc.model(torch.as_tensor(ids, device="cuda")), reps=10, rounds=3)
+        out[tag] = {"rel_l2_vs_cpu_fp32": rel, "max_abs": float(np.abs(got - cpu).max()), "ms": ms}
+        limit = CLIP_FP32_RTOL if dtype == torch.float32 else CLIP_BF16_RTOL
+        if not np.isfinite(got).all() or got.shape != (CLIP_B, cfg.projection_dim) or rel > limit:
+            raise AssertionError(f"clip {tag}: relative L2 {rel} against the CPU, limit {limit}")
+        del enc
+    log(f"clip: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -3881,6 +4200,14 @@ def main() -> int:
         train_run = phase_train_run(attention_ops, int8_ops, corpus)
     with Phase("train_umi"):
         train_umi = phase_train_umi(attention_ops, int8_ops)
+    suites, launches_suites = {}, {}
+    for kind in ("toolhang", "libero10"):
+        with Phase(f"suite_{kind}"):
+            suites[kind], launches_suites[f"suite_{kind}"], paths = phase_suite(
+                attention_ops, int8_ops, kind)
+            fp32_paths.update(paths)
+    with Phase("clip"):
+        clip = phase_clip()
 
     # the int8_gemm device time of one deployed request: profiled (cached
     # request) and modelled from the kernel phase (every layer's calls times
@@ -3905,7 +4232,8 @@ def main() -> int:
                          "train_run_video_fvd": train_run["launches"]["video_fvd"],
                          "serve_umi": launches_umi, "serve_toolhang": launches_toolhang,
                          "real_loop": launches_real,
-                         "train_umi_validation": train_umi["launches_validate"]}
+                         "train_umi_validation": train_umi["launches_validate"],
+                         **launches_suites}
     attention_keys = tuple(attention_ops.launch_count) + attention_ops.INSTANCES
     attention_by_path = {path: {k: n.get(k, 0) for k in attention_keys}
                          for path, n in attention_by_path.items()}
@@ -4050,6 +4378,9 @@ def main() -> int:
     log(f"train: {json.dumps({k: train[k] for k in ('perf', 'overfit', 'run_s')})}")
     log(f"train_run: {json.dumps(train_run['perf'])}")
     log(f"train_umi: {json.dumps(train_umi['perf'])}")
+    for kind, perf in suites.items():
+        log(f"suite_{kind}: {json.dumps({k: v for k, v in perf.items() if k != 'kernel_vs_plain'})}")
+    log(f"clip: {json.dumps(clip)}")
     log(f"video: {json.dumps({'fvd': video['flagship']['fvd'], 'stages': video['flagship']['stages'], 'psnr': video['flagship']['psnr']})}")
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(card, flush=True)

@@ -23,8 +23,12 @@ weights, read from the first of these that applies:
   and ``vae_params``), restored with ``orbax.checkpoint`` alone.
 
 The port's policy is built from the config and the weights go through the
-weight bridge. The task's env runner rolls out the policy, and the log is
-written to ``<output_dir>/eval_log_<name>.json`` with the JAX package's keys
+weight bridge. The task's env runner (``runners/base.load_env_runner``:
+PushT, the robomimic tasks, one LIBERO runner per task store) rolls out the
+policy, and the log is written to ``<output_dir>/eval_log_<name>.json``
+(``eval_log_<name>.STUB.json`` where a runner used the stub backend, whose
+scores are a seed schedule that measures nothing about the policy) with the
+JAX package's keys
 (per-seed ``sim_max_reward``, mean scores, ``ckpt_source``, ``ckpt_digest``,
 ``act_steps``, ``serving_quant``, ``obs_codec``, ``env_backend``) and
 ``port``, ``device``, ``compute_dtype`` and ``eval_wall_s``. The policy runs
@@ -83,36 +87,48 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
-    sys.path.insert(0, REPO)
-    import torch
-
-    from unified_video_action_tpu_torch.config import apply_overrides
-    from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
-    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
-    from unified_video_action_tpu_torch.runners.base import env_rollout, load_env_runner
-    from unified_video_action_tpu_torch.utils.ckpt_id import ckpt_digest
-
     with open(os.path.join(args.checkpoint, "meta.json")) as f:
         cfg = json.load(f).get("cfg")
     if cfg is None:
         raise NotImplementedError(
             "the checkpoint's meta.json has no cfg; composing --config-name is not ported")
-    apply_overrides(cfg, args.overrides)
-    os.makedirs(args.output_dir, exist_ok=True)
+    sys.path.insert(0, REPO)
+    from unified_video_action_tpu_torch.config import apply_overrides
 
+    apply_overrides(cfg, args.overrides)
+    log, _, _, out_path = evaluate(cfg, args.checkpoint, args.output_dir, args.weights,
+                                   args.device)
+    print(json.dumps({k: v for k, v in log.items() if "mean_score" in k}, indent=2))
+    print("wrote", out_path)
+    return out_path
+
+
+def evaluate(cfg: dict, checkpoint: str, output_dir: str, weights_npz=None, device="cuda"):
+    """``main`` on a run config: the policy of ``cfg`` holding the
+    checkpoint's weights (and its normalizer) rolls out the task's runners.
+    Writes the log; returns ``(log, policy, runners, path of the log)``."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+    from unified_video_action_tpu_torch.runners.base import env_rollout, load_env_runner
+    from unified_video_action_tpu_torch.utils.ckpt_id import ckpt_digest
+
+    os.makedirs(output_dir, exist_ok=True)
     t0 = time.perf_counter()
-    policy = UnifiedVideoActionPolicy.from_cfg(cfg, device=args.device)
-    policy.load_params(*load_weights(args.checkpoint, args.weights))
-    norm_path = os.path.join(args.checkpoint, "normalizer.npz")
+    policy = UnifiedVideoActionPolicy.from_cfg(cfg, device=device)
+    policy.load_params(*load_weights(checkpoint, weights_npz))
+    norm_path = os.path.join(checkpoint, "normalizer.npz")
     if os.path.exists(norm_path):
         policy.set_normalizer(LinearNormalizer.load(norm_path))
 
-    runner = load_env_runner(cfg, output_dir=args.output_dir)
+    runners = load_env_runner(cfg, output_dir=output_dir)
     generator = torch.Generator(device=policy.device).manual_seed(0)
-    log = env_rollout(policy, runner, generator)
+    log = env_rollout(policy, runners, generator)
 
-    log["ckpt_source"] = args.checkpoint
-    log["ckpt_digest"] = ckpt_digest(args.checkpoint)
+    log["ckpt_source"] = checkpoint
+    log["ckpt_digest"] = ckpt_digest(checkpoint)
     log["act_steps"] = str(policy.mar_cfg.act_diff_testing_steps)
     log["serving_quant"] = policy.serving_quant or "bf16"
     log["obs_codec"] = policy.obs_codec or "raw"
@@ -121,12 +137,13 @@ def main(argv=None):
     log["compute_dtype"] = str(policy.dtype).replace("torch.", "")
     log["eval_wall_s"] = time.perf_counter() - t0
 
-    name = os.path.basename(os.path.normpath(args.checkpoint))
-    out_path = os.path.join(args.output_dir, f"eval_log_{name}.json")
+    name = os.path.basename(os.path.normpath(checkpoint))
+    if "stub" in log.get("env_backend", ""):
+        name += ".STUB"  # a stub log names itself in its file name too
+    out_path = os.path.join(output_dir, f"eval_log_{name}.json")
     with open(out_path, "w") as f:
         json.dump(log, f, indent=2, sort_keys=True)
-    print(json.dumps({k: v for k, v in log.items() if "mean_score" in k}, indent=2))
-    print("wrote", out_path)
+    return log, policy, runners, out_path
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """The port stands alone: importing unified_video_action_tpu_torch and every
 module in it (the offline evaluation of ``eval/`` too, and the real-robot
-stack of ``ipc/``, ``real/`` and ``serving/``), and train_torch.py, loads no
+stack of ``ipc/``, ``real/`` and ``serving/``, and the robomimic and LIBERO
+suites: their stub envs, runners, datasets and augmentation, and the CLIP
+text tower), and train_torch.py, loads no
 JAX, no flax, no optax, no orbax and nothing of the JAX package, and no
 OpenCV, PIL, dill, h5py, zstandard or zmq (which the card's machine lacks;
 h5py, zstandard and zmq are imported only inside the functions that need
@@ -75,7 +77,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "real", "real.trajectory", "real.controller", "real.camera", "real.sim",
                      "real.env", "real.bimanual", "real.visualizer", "real.video_recorder",
                      "real.fisheye", "real.rtde", "real.wsg", "serving.real_inference",
-                     "serving.zmq_server"):
+                     "serving.zmq_server", "envs.stub", "envs.kitchen_tasks",
+                     "runners.robomimic_runner", "runners.libero_runner", "data.augmentation",
+                     "data.robomimic_dataset", "data.libero_dataset", "models.clip"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))

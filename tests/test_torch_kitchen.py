@@ -262,14 +262,13 @@ def test_kitchen_async_halves_take_the_goal(kitchen_pair):
 
 @pytest.mark.parametrize("task", ["libero10", "toolhang", "umi"])
 def test_other_tasks_stay_refused(task):
-    """libero stays refused; toolhang and umi are ported now and build with
-    JAX's state and proprioception-head widths for their task."""
+    """libero, toolhang and umi are ported now and build with JAX's state
+    and proprioception-head widths for their task; a task of no ported
+    family (the human-video one) stays refused."""
     kw = _kitchen_kwargs()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        UnifiedVideoActionPolicy(**dict(kw, task_name="human_pp"), device="cpu")
     kw["task_name"] = task
-    if task == "libero10":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            UnifiedVideoActionPolicy(**kw, device="cpu")
-        return
     port = UnifiedVideoActionPolicy(**kw, use_proprioception=True, device="cpu")
     want = JaxPolicy(**kw, use_proprioception=True).mar_cfg
     got = port.mar_cfg

@@ -120,14 +120,15 @@ def test_cuda_is_required_unless_the_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"task_name": "libero10"},
+    {"task_name": "human_pp"},
     {"action_model_params": {"predict_action": True, "act_model_type": "conv_ori"}},
     {"action_model_params": {"predict_action": True, "act_model_type": "conv2"}},
 ])
 def test_unported_options_are_refused(option):
-    """What the port still refuses: the libero tasks and the action pools
-    other than conv_fc (the conditioning streams that this test refused
-    before are ported: tests/test_torch_mar_streams.py, test_torch_umi_policy.py)."""
+    """What the port still refuses: the human-video task and the action
+    pools other than conv_fc (the conditioning streams and the libero tasks
+    that this test refused before are ported: tests/test_torch_mar_streams.py,
+    test_torch_umi_policy.py, test_torch_suite_runners.py)."""
     with pytest.raises(NotImplementedError):
         UnifiedVideoActionPolicy(**{**TINY_POLICY_KW, **option}, device="cpu")
 

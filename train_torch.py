@@ -16,6 +16,17 @@ keys of that config (``config.apply_overrides``):
     python3 unified_video_action_tpu_torch/tools/gen_synthetic_umi.py --root data/umi
     python3 train_torch.py --config umi_multi training.num_epochs=2 training.max_train_steps=10
 
+``--config toolhang`` and ``--config libero10`` take ``config.TOOLHANG`` and
+``config.LIBERO10`` (robomimic's tool-hang and LIBERO-10, with
+``config.SUITE_TRAIN_OVERRIDES``: ``grad_checkpointing``) on the stores
+that ``unified_video_action_tpu_torch/tools/gen_synthetic_suites.py`` writes
+under ``data/``; their rollouts need robosuite or LIBERO, or the stub
+backend, whose scores measure nothing about the policy:
+
+    python3 unified_video_action_tpu_torch/tools/gen_synthetic_suites.py --root data
+    python3 train_torch.py --config libero10 task.env_runner.env_backend=stub \
+        training.num_epochs=1 training.max_train_steps=10
+
 The run initializes the MAR from ``training.seed`` (and merges the port
 checkpoint at ``pretrained_model_path`` into it, the stage-1 -> stage-2
 bootstrap), reads the VAE from ``autoencoder_path``, trains on the card
@@ -41,7 +52,9 @@ from unified_video_action_tpu_torch.training.workspace import Trainer
 
 
 # --config: a run config kept as data, and the overrides it trains with
-CONFIGS = {"umi_multi": (port_config.UMI_MULTI, port_config.UMI_TRAIN_OVERRIDES)}
+CONFIGS = {"umi_multi": (port_config.UMI_MULTI, port_config.UMI_TRAIN_OVERRIDES),
+           "toolhang": (port_config.TOOLHANG, port_config.SUITE_TRAIN_OVERRIDES),
+           "libero10": (port_config.LIBERO10, port_config.SUITE_TRAIN_OVERRIDES)}
 
 
 def load_run_config(path: str) -> dict:

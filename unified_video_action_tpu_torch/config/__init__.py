@@ -8,7 +8,7 @@ lists and maps, and otherwise the string. Composing a config from the JAX
 package's yaml files is not ported: the port reads the ``cfg`` that an
 exported checkpoint's ``meta.json`` embeds, or a config kept here as data.
 
-Seven run configs are kept here as data, each the ``cfg`` that the JAX
+Eight run configs are kept here as data, each the ``cfg`` that the JAX
 package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
 ``model.policy``: what serving reads), with the overrides named below.
 ``UnifiedVideoActionPolicy.from_cfg(cfg, device=...)`` builds each:
@@ -67,9 +67,26 @@ package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
   main one, the wrist camera a conditioning stream, 10-d actions) with
   ``use_proprioception`` (the 9-d eef pose and gripper state) and
   ``predict_proprioception`` (a 9-d proprioception head), as the toolhang
-  case of ``tests/test_mar_import_parity.py:61-63``, and the action head on.
+  case of ``tests/test_mar_import_parity.py:61-63``, and the action head on:
+  a whole run config, its dataset the robomimic store
+  ``data/robomimic/tool_hang/ph/image_abs.npz`` (JAX's config names the
+  ``.hdf5``; ``tools/gen_synthetic_suites.py`` writes a synthetic store of
+  the layout) and its runner ``RobomimicImageRunner`` (the ``robosuite``
+  backend; ``task.env_runner.env_backend=stub`` runs it without robosuite).
+* ``LIBERO10``: ``uva_libero10.yaml`` (``task/libero10.yaml`` +
+  ``model/uva.yaml``: mar_base, 128 px agentview frames upscaled to 256 on
+  the device, 4 x 16 x 16 = 1024 tokens, 10-d rot6d actions; the composed
+  config has no ``language_emb_model``, so no text buffer: the runner's
+  language goal is not read, as in JAX) with the action head on, a whole
+  run config: the per-task stores under ``data/libero/libero_10`` (``.npz``
+  or ``.hdf5``) with ``data_aug``, and ``make_libero_runners`` (the
+  ``libero`` backend; ``task.env_runner.env_backend=stub`` runs it without
+  LIBERO).
 
-The three 256 px configs have no checkpoint paths (the KL-16 VAE's
+Training either suite takes ``SUITE_TRAIN_OVERRIDES``
+(``grad_checkpointing``: B = 32 at N = 1024).
+
+The 256 px configs have no checkpoint paths (the KL-16 VAE's
 ``kl16.ckpt`` and the MAR's release are not in the repository): their
 weights load separately.
 """
@@ -200,6 +217,33 @@ _UMI_DATASETS = {
     "mouse": {"path": "data/umi/mouse.npz", "mask_mirror": True,
               "prompt": "pick up the mouse and place it on the mousepad"},
 }
+
+
+def _training_sections(name: str) -> dict:
+    """The training sections that ``uva_umi_multi.yaml``, ``uva_toolhang.yaml``
+    and ``uva_libero10.yaml`` share but for the run's name."""
+    return {
+        "name": "uva",
+        "dataloader": {"batch_size": 32, "num_workers": 8, "shuffle": True},
+        "val_dataloader": {"batch_size": 32, "num_workers": 8, "shuffle": False},
+        "training": {
+            "checkpoint_every": 10, "debug": False, "gradient_accumulate_every": 1,
+            "lr_scheduler": "cosine", "lr_warmup_steps": 1000, "max_train_steps": None,
+            "max_val_steps": None, "num_epochs": 3050, "resume": True, "rollout_every": 10,
+            "sample_every": 5, "seed": 42, "use_ema": True, "val_every": 1, "mesh": {"data": -1},
+        },
+        "checkpoint": {"save_last_ckpt": True, "topk": {
+            "monitor_key": "val_action_l2_distances",
+            "format_str": "epoch={epoch:04d}-val_action_l2={val_action_l2_distances:.4f}",
+            "k": 5, "mode": "min"}},
+        "ema": {"inv_gamma": 1.0, "max_value": 0.9999, "min_value": 0.0, "power": 0.75,
+                "update_after_step": 0},
+        "logging": {"name": f"train_uva_{name}", "project": "unified_video_action_tpu",
+                    "mode": "offline"},
+        "output_dir": f"data/outputs/train_uva_{name}",
+    }
+
+
 UMI_MULTI = _run_config("umi", _UMI_SHAPE_META, "mar_base", 256, 128, None,
                         shift_action=False, different_history_freq=True, use_proprioception=True,
                         use_history_action=True, language_emb_model="clip")
@@ -215,30 +259,63 @@ UMI_MULTI["task"].update({
         "val_ratio": 0.02,
     },
 })
-UMI_MULTI.update({
-    "name": "uva",
-    "dataloader": {"batch_size": 32, "num_workers": 8, "shuffle": True},
-    "val_dataloader": {"batch_size": 32, "num_workers": 8, "shuffle": False},
-    "training": {
-        "checkpoint_every": 10, "debug": False, "gradient_accumulate_every": 1,
-        "lr_scheduler": "cosine", "lr_warmup_steps": 1000, "max_train_steps": None,
-        "max_val_steps": None, "num_epochs": 3050, "resume": True, "rollout_every": 10,
-        "sample_every": 5, "seed": 42, "use_ema": True, "val_every": 1, "mesh": {"data": -1},
-    },
-    "checkpoint": {"save_last_ckpt": True, "topk": {
-        "monitor_key": "val_action_l2_distances",
-        "format_str": "epoch={epoch:04d}-val_action_l2={val_action_l2_distances:.4f}",
-        "k": 5, "mode": "min"}},
-    "ema": {"inv_gamma": 1.0, "max_value": 0.9999, "min_value": 0.0, "power": 0.75,
-            "update_after_step": 0},
-    "logging": {"name": "train_uva_umi_multi", "project": "unified_video_action_tpu",
-                "mode": "offline"},
-    "output_dir": "data/outputs/train_uva_umi_multi",
-})
+UMI_MULTI.update(_training_sections("umi_multi"))
 # what training UMI_MULTI takes: JAX's compute_loss refuses the history
 # actions of UMI's 32-step window (15 rows, mar.py:412), so training runs
 # without that stream; every other stream trains
 UMI_TRAIN_OVERRIDES = ("model.policy.use_history_action=false",)
+
+TOOLHANG["task"].update({
+    "task_type": "single_dataset",
+    "task_modes": [],
+    "dataset": {
+        "_target_": "unified_video_action_tpu_torch.data.robomimic_dataset.RobomimicReplayImageDataset",
+        "dataset_path": "data/robomimic/tool_hang/ph/image_abs.npz",
+        "shape_meta": copy.deepcopy(_TOOLHANG_SHAPE_META),
+        "horizon": 32, "pad_before": 1, "pad_after": 7, "abs_action": True, "seed": 42,
+        "val_ratio": 0.02, "normalizer_type": "all",
+    },
+    "env_runner": {
+        "_target_": "unified_video_action_tpu_torch.runners.robomimic_runner.RobomimicImageRunner",
+        "dataset_path": "data/robomimic/tool_hang/ph/image_abs.npz",
+        "shape_meta": copy.deepcopy(_TOOLHANG_SHAPE_META),
+        "max_steps": 700, "n_action_steps": 8, "n_obs_steps": 16, "n_test": 50, "n_train": 6,
+        "test_start_seed": 100000, "abs_action": True,
+    },
+})
+TOOLHANG.update(_training_sections("toolhang"))
+
+_LIBERO_SHAPE_META = {
+    "image_resolution": 128,
+    "action": {"shape": [10]},
+    "obs": {
+        "agentview_rgb": {"shape": [3, 128, 128], "type": "rgb"},
+        "language": {"shape": [15], "type": "low_dim"},
+    },
+}
+LIBERO10 = _run_config("libero10", _LIBERO_SHAPE_META, "mar_base", 256, 128, None)
+LIBERO10["task"].update({
+    "task_type": "single_dataset",
+    "task_modes": [],
+    "dataset": {
+        "_target_": "unified_video_action_tpu_torch.data.libero_dataset.LiberoReplayImageDataset",
+        "dataset_dir": "data/libero/libero_10",
+        "shape_meta": copy.deepcopy(_LIBERO_SHAPE_META),
+        "horizon": 32, "pad_before": 1, "pad_after": 7, "abs_action": True, "seed": 42,
+        "val_ratio": 0.02, "data_aug": True, "language_max_length": 77,
+    },
+    "env_runner": {
+        "_target_": "unified_video_action_tpu_torch.runners.libero_runner.LiberoImageRunner",
+        "dataset_dir": "data/libero/libero_10",
+        "max_steps": 500, "n_action_steps": 8, "n_obs_steps": 16, "n_test": 10,
+        "test_start_seed": 100000, "abs_action": True, "env_backend": "libero",
+    },
+})
+LIBERO10.update(_training_sections("libero10"))
+
+# what training the two suites takes: B = 32 at N = 1024 does not fit the
+# card without recomputing the blocks' activations (as UMI at N = 1088)
+SUITE_TRAIN_OVERRIDES = ("model.policy.autoregressive_model_params.grad_checkpointing=true",)
 
 
 def parse_value(s: str) -> Any:

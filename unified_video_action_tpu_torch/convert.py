@@ -16,7 +16,9 @@ The port's modules carry the flax module names, so a flax leaf at path
   model reads the same tree as the float one.
 
 These are the inverses of ``linear_kernel`` and ``conv_kernel`` in the JAX
-package's ``models/torch_import.py``, kept here as the port's own copy.
+package's ``models/torch_import.py``, kept here as the port's own copy. The
+same rules load every tree of the JAX package: the MAR, the VAE and the CLIP
+text tower (``models/clip.py``, whose modules carry the flax names).
 :func:`to_flax_tree` is the reverse map: a float module's parameters (or a
 state of the same keys, such as the trainer's EMA) back to the flax tree,
 as numpy; :func:`merge_params` overlays one flax tree on another where the

@@ -30,8 +30,10 @@ Tasks: PushT, the language-conditioned kitchen suite
 (``language_emb_model="clip"``: every entry point takes ``language_goal``, a
 string, a list of strings or precomputed (B or 1, 512) latents, encoded by
 ``text_encoder``, which is ``utils.language.HashTextEncoder`` until the CLIP
-tower is ported), UMI (its goal always precomputed latents, as JAX takes
-it) and toolhang. The conditioning streams follow the config:
+tokenizer is ported), UMI (its goal always precomputed latents, as JAX takes
+it), toolhang and LIBERO (whose composed config has no text buffer: the
+runner's goal is not read, as in JAX). The conditioning streams follow the
+config:
 ``use_history_action`` (the obs dict's ``past_action``, normalized as the
 actions), ``use_proprioception`` (the state of the task's keys: UMI's four
 relative-pose keys, PushT's ``agent_pos``, robomimic's eef pose and gripper,
@@ -83,7 +85,7 @@ _TRAINING_KEYS = {"optimizer"}
 # plain version), whatever the JAX program chose ("xla", "pallas", "ring").
 _IGNORED_KEYS = {"attn_impl"}
 # the tasks whose serving path is ported (a task matches if its name holds one)
-_PORTED_TASKS = ("pusht", "kitchen", "umi", "toolhang")
+_PORTED_TASKS = ("pusht", "kitchen", "umi", "toolhang", "libero")
 # the state keys of each task family's proprioception (policy.py:655-666, :786-811)
 UMI_STATE_KEYS = ("robot0_eef_pos", "robot0_eef_rot_axis_angle", "robot0_gripper_width",
                   "robot0_eef_rot_axis_angle_wrt_start")

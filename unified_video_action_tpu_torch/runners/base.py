@@ -3,18 +3,23 @@ package's ``runners/base.py``).
 
 Equivalents of the reference's ``BaseImageRunner`` (env_runner/
 base_image_runner.py:1-10) and ``load_env_runner`` / ``env_rollout``
-(utils/load_env.py:7-60). The port runs PushT only: the libero and robomimic
-runners are refused until their slices come.
+(utils/load_env.py:7-60): the task's runner, LIBERO expanding into one runner
+per task store whose scores average into ``test_mean_score``
+(eval_sim.py:57-70); and ``undo_transform_action``, the rot6d -> axis-angle
+undo that the robomimic and LIBERO runners apply before stepping.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 
 class BaseImageRunner:
+    env_backend = "real"
+
     def __init__(self, output_dir: Optional[str] = None):
         self.output_dir = output_dir
 
@@ -22,9 +27,24 @@ class BaseImageRunner:
         raise NotImplementedError
 
 
+def undo_transform_action(action: np.ndarray, rot_tf) -> np.ndarray:
+    """Abs-action (..., 10) pos3 + rot6d + grip -> (..., 7) pos3 +
+    axis_angle + grip for env stepping; two arms (..., 20) -> (..., 14)
+    (reference robomimic_image_runner.py:368-385, shared by the libero
+    runner via libero_image_runner.py:110-118,352-355)."""
+    d = action.shape[-1]
+    is_dual = d == 20
+    a = action.reshape(*action.shape[:-1], 2, 10) if is_dual else action[..., None, :]
+    pos, rot6, grip = a[..., :3], a[..., 3:9], a[..., 9:]
+    rot = rot_tf.inverse(rot6)
+    out = np.concatenate([pos, rot, grip], axis=-1)
+    return out.reshape(*action.shape[:-1], -1)
+
+
 def load_env_runner(cfg, output_dir: Optional[str] = None):
-    """Instantiate the env runner for ``cfg["task"]`` (a plain nested dict,
-    e.g. an exported checkpoint's ``meta.json`` ``cfg``)."""
+    """Instantiate the env runner(s) for ``cfg["task"]`` (a plain nested
+    dict, e.g. an exported checkpoint's ``meta.json`` ``cfg``): one runner,
+    or a list for libero (one per task store)."""
     task = cfg["task"]
     er_cfg = dict(task.get("env_runner", {}))
     target = er_cfg.pop("_target_", "")
@@ -34,16 +54,23 @@ def load_env_runner(cfg, output_dir: Optional[str] = None):
         from unified_video_action_tpu_torch.runners.pusht_runner import PushTImageRunner
 
         return PushTImageRunner(output_dir=output_dir, **er_cfg)
-    if ("libero" in name or "libero" in target or "robomimic" in target
-            or name in ("toolhang", "square", "can", "lift")):
-        raise NotImplementedError(f"the {name!r} runner is not ported yet; only pusht")
+    if "libero" in name or "libero" in target:
+        from unified_video_action_tpu_torch.runners.libero_runner import make_libero_runners
+
+        return make_libero_runners(output_dir=output_dir, **er_cfg)
+    if "robomimic" in target or name in ("toolhang", "square", "can", "lift"):
+        from unified_video_action_tpu_torch.runners.robomimic_runner import RobomimicImageRunner
+
+        return RobomimicImageRunner(output_dir=output_dir, **er_cfg)
     raise ValueError(f"no runner for task {name!r} (target {target!r})")
 
 
 def env_rollout(policy, runners, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
     """Run one or many runners and average their per-task test scores into
     ``test_mean_score`` (reference utils/load_env.py:33-60, eval_sim.py:57-70).
-    Every log names its env backend (``env_backend``)."""
+    Every log names its env backend (``env_backend``); a stub backend's log
+    also holds ``STUB_SCORES_NOT_REAL`` (its scores are a seed schedule,
+    whatever the policy does), and a warning is printed."""
     if not isinstance(runners, (list, tuple)):
         runners = [runners]
     log: Dict[str, Any] = {}
@@ -60,4 +87,8 @@ def env_rollout(policy, runners, generator: Optional[torch.Generator] = None) ->
     if test_scores:
         log["test_mean_score"] = float(sum(test_scores) / len(test_scores))
     log["env_backend"] = "+".join(sorted(backends))
+    if "stub" in backends:
+        log["STUB_SCORES_NOT_REAL"] = True
+        print("=" * 70 + "\nWARNING: one or more env runners used the 'stub' backend —"
+              "\nscores below are a fixed seed schedule, NOT a policy evaluation.\n" + "=" * 70)
     return log

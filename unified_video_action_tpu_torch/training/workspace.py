@@ -48,13 +48,17 @@ sections is acted on or named in the log as ignored (:func:`config_report`).
 Two input paths: the device-resident store (``dataloader.device_resident:
 true``, the PushT datasets; on the CPU the store is host memory), and the
 host loader (``data/loader.py``) for the UMI datasets of a
-``task_type: multiple_datasets`` config, as JAX runs them (``training/
-workspace.py:169-181``, ``:340-375``): its batches collated on the host by
-``dataloader.num_workers`` threads (``worker_mode`` "process" forks them),
+``task_type: multiple_datasets`` config and for the robomimic and LIBERO
+datasets (``config.TOOLHANG``, ``config.LIBERO10``), as JAX runs them
+(``training/workspace.py:169-181``, ``:340-375``): its batches collated on
+the host by ``dataloader.num_workers`` threads (``worker_mode`` "process" forks them),
 the task mode and the frame indices (a random history frequency under
 ``different_history_freq``) drawn per batch, the numeric fields copied to
-the device and the string ones (``dataset_name``) left behind. More than
-one GPU waits for a later slice.
+the device and the string ones (``dataset_name``) left behind. Rollout
+scores of a stub backend (``runners/base.env_rollout``'s ``env_backend``)
+never count for early stopping (a warning is printed once), as in JAX
+(``training/workspace.py:526-536``). More than one GPU waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -69,8 +73,10 @@ import numpy as np
 import torch
 
 from unified_video_action_tpu_torch.data.device_dataset import DeviceReplayDataset
+from unified_video_action_tpu_torch.data.libero_dataset import LiberoReplayImageDataset
 from unified_video_action_tpu_torch.data.loader import DataLoader
 from unified_video_action_tpu_torch.data.pusht_dataset import PushTImageDataset
+from unified_video_action_tpu_torch.data.robomimic_dataset import RobomimicReplayImageDataset
 from unified_video_action_tpu_torch.data.umi_dataset import (
     UmiMultiDataset,
     build_umi_multi_from_config,
@@ -147,13 +153,22 @@ def config_report(cfg: Mapping) -> Dict[str, str]:
     return out
 
 
-def build_dataset(cfg: Mapping) -> Union[PushTImageDataset, UmiMultiDataset]:
-    """The task's dataset from its ``_target_``: ``PushTImageDataset`` or
-    ``build_umi_multi_from_config`` (the UMI datasets)."""
+# the datasets that the host loader serves
+HOST_DATASETS = (UmiMultiDataset, RobomimicReplayImageDataset, LiberoReplayImageDataset)
+Dataset = Union[PushTImageDataset, UmiMultiDataset, RobomimicReplayImageDataset,
+                LiberoReplayImageDataset]
+
+
+def build_dataset(cfg: Mapping) -> Dataset:
+    """The task's dataset from its ``_target_``: ``PushTImageDataset``,
+    ``build_umi_multi_from_config`` (the UMI datasets),
+    ``RobomimicReplayImageDataset`` or ``LiberoReplayImageDataset``."""
     ds_cfg = dict(cfg["task"]["dataset"])
     name = str(ds_cfg.get("_target_", "PushTImageDataset")).rsplit(".", 1)[-1]
     builders = {"PushTImageDataset": PushTImageDataset,
-                "build_umi_multi_from_config": build_umi_multi_from_config}
+                "build_umi_multi_from_config": build_umi_multi_from_config,
+                "RobomimicReplayImageDataset": RobomimicReplayImageDataset,
+                "LiberoReplayImageDataset": LiberoReplayImageDataset}
     if name not in builders:
         raise NotImplementedError(f"dataset {name!r} is not ported; only {sorted(builders)}")
     for k in _DATASET_IGNORED:
@@ -192,6 +207,11 @@ def val_action_l2(policy: UnifiedVideoActionPolicy, batch: Mapping[str, Any],
     dimensions; None without the action head. ``noise`` injects the
     predict call's draws; otherwise they come from ``generator``.
 
+    A batch of float frames, or one for a policy that reads streams (the
+    robomimic state and wrist camera), goes through ``predict_action`` with
+    the first half of every obs key, as JAX's does; the batch's
+    ``language_latents``, where it holds them, are the goal.
+
     A UMI batch (``img_indices`` in its obs) holds the 8 frames its items
     train on, the first 4 the conditioning ones: those condition the
     prediction as they condition training, with the state as training
@@ -206,17 +226,20 @@ def val_action_l2(policy: UnifiedVideoActionPolicy, batch: Mapping[str, Any],
     image = obs["image"]
     T = image.shape[1]
     window = image[:, : T // 2]
+    goal = batch.get("language_latents")
+    text = None if goal is None else policy._encode_language_goal(goal, image.shape[0])
     if "img_indices" in obs:
-        text = batch.get("language_latents")
-        text = None if text is None else policy._encode_language_goal(text, image.shape[0])
         proprio, _ = policy._build_proprio_train(obs, np.arange(T), {})
         pred = policy.predict_action_frames(window, generator, noise, text, None, proprio)
         T = batch["action"].shape[1]
-    elif policy.obs_codec or window.dtype != torch.uint8:
-        pred = policy.predict_action_async({"image": window.cpu().numpy()}, generator, noise)
+    elif (policy.obs_codec or window.dtype != torch.uint8 or policy.use_proprioception
+          or policy.use_history_action):
+        half = {k: np.asarray(v[:, : T // 2].cpu()) for k, v in obs.items()
+                if isinstance(v, torch.Tensor)}
+        pred = policy.predict_action_async(half, generator, noise, text)
     else:
         frames = window[:, select_frame_indices(T // 2, policy.mar_cfg.n_frames)]
-        pred = policy.predict_action_frames(frames, generator, noise)
+        pred = policy.predict_action_frames(frames, generator, noise, text)
     pred = pred.cpu().numpy()
     _, future = split_trajectory(np.asarray(batch["action"].cpu()), T, policy.shift_action,
                                  policy.use_history_action)
@@ -232,7 +255,7 @@ class Trainer:
 
     def __init__(self, cfg: Mapping, device: Union[str, torch.device] = "cuda",
                  output_dir: Optional[str] = None,
-                 dataset: Optional[Union[PushTImageDataset, UmiMultiDataset]] = None):
+                 dataset: Optional[Dataset] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.output_dir = output_dir or cfg.get("output_dir", "outputs/run")
@@ -268,9 +291,9 @@ class Trainer:
         self.normalizer = self.dataset.get_normalizer()
         self.policy.set_normalizer(self.normalizer)
         if self.host_loader:
-            if not isinstance(self.dataset, UmiMultiDataset):
-                raise NotImplementedError("the host loader serves the UMI datasets; set "
-                                          "dataloader.device_resident=true for PushT")
+            if not isinstance(self.dataset, HOST_DATASETS):
+                raise NotImplementedError("the host loader serves the UMI, robomimic and LIBERO "
+                                          "datasets; set dataloader.device_resident=true for PushT")
             dl = cfg["dataloader"]
             loader = dict(worker_mode=dl.get("worker_mode", "thread"),
                           prefetch=int(dl.get("prefetch", 2)))
@@ -546,8 +569,18 @@ class Trainer:
                     runner_log = self.rollout()
                     step_log.update({k: v for k, v in runner_log.items()
                                      if "mean_score" in k or "sim_max_reward" in k})
-                    step_log["test_mean_score"] = runner_log.get("test/mean_score", 0.0)
-                    if self.early_stop_patience is not None:
+                    # the mean over the runners' test scores (one runner's own;
+                    # JAX's reads "test/mean_score", which a libero log only
+                    # holds under each task's prefix: ROADMAP C15)
+                    step_log["test_mean_score"] = runner_log.get("test_mean_score", 0.0)
+                    if self.early_stop_patience is not None and "stub" in str(
+                            runner_log.get("env_backend", "")):
+                        if not early.get("stub_warned"):
+                            early["stub_warned"] = True
+                            print("[early-stop] the env runner uses the stub backend; its scores "
+                                  "do not depend on the policy: early stopping is off for this "
+                                  "run", flush=True)
+                    elif self.early_stop_patience is not None:
                         self._early_stop(early, step_log["test_mean_score"], "test_mean_score",
                                          1.0, step_log)
                 if (self.early_stop_patience is not None and self.rollout_every <= 0
