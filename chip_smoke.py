@@ -116,7 +116,7 @@ attention_plan picks.
            10 Hz with the 16-step UMI window; config.UMI_MULTI on
            serve_umi's seeded weights behind the port's PolicyInferenceNode
            (bf16, 100 steps, the hash encoder's latent as the task's). Each
-           of 10 cycles: get_obs, get_real_umi_obs_dict against the
+           of 8 cycles: get_obs, get_real_umi_obs_dict against the
            episode's start pose, node.infer, get_real_umi_action, the
            timestamps the aligned obs time plus k / 10 Hz, exec_actions.
            Checks: 24 online D = 64 launches a request and no other
@@ -145,13 +145,17 @@ attention_plan picks.
            the same width and weights, closing the loop through the port's
            env. (a) the deployed tier latent-cached over two streams, (b) the
            same with the plain-int8 route and the same generator seed, (c)
-           bf16 ddim10 uncached over one stream. Checks: every env runs to
+           bf16 ddim10 uncached over one stream, (d) rollout (a) with
+           vector_env="async" (each env in a spawned process, from
+           envs/pusht.make_runner_env). Checks: every env runs to
            its end, every action chunk finite and inside the normalizer's
            range, each kernel's launches over each rollout against the
-           config, (a) and (b) identical per seed (sim_max_reward and the
-           final agent position), and no OpenCV or dill loaded. Host ms per
-           env control step, ms per full and cached call, the rollouts' wall
-           time and rollout (a)'s device idle share.
+           config, (a), (b) and (d) identical per seed (sim_max_reward and
+           the final agent position), and no OpenCV or dill loaded. Host ms
+           per env control step, ms per full and cached call, the rollouts'
+           wall time and env seconds (sync against async), the env
+           processes' start time and the host's resident memory at the first
+           call, and rollout (a)'s device idle share.
 7b. video  video generation at full width (Mar.sample_video: MaskGIT rounds
            of one encoder and decoder pass each, then the video head's
            100-step sampler on the tokens a round reveals; the VAE decode;
@@ -167,7 +171,7 @@ attention_plan picks.
            draws (every attention call within the serve limits, the latents
            within VIDEO_FLOOR_RATIO of the bf16 floor; the planted controls
            rejected); the card in fp32 against the CPU in fp32 at B=2,
-           num_iter 2; the trained decoder's PSNR on 64 corpus frames, the
+           num_iter 1; the trained decoder's PSNR on 64 corpus frames, the
            card within 0.05 dB of the CPU. config.PUSHT_256 (the online D =
            64 kernel, 24 a round) and config.KITCHEN_SMALL128 with a goal
            and cfg 1.5 (8 rows at B=4, the online D = 128 kernel, 12 a
@@ -216,6 +220,21 @@ attention_plan picks.
            B=32, bit-equal to the EMA in memory under the same noise. Seconds
            and bytes of a checkpoint's save and load and of the export, ms
            per step on the corpus, the rollouts' wall time.
+9b. pusht_pipeline  the PushT pipeline from the scripted expert to a
+           recorded env: tools/gen_pusht_demos.py's generate tries 4
+           episodes of the port's expert (env seeds from 20000, up to 300
+           steps at 96 px), keeps those that reach 0.9 and writes them as an
+           .npz, which PushTImageDataset loads with the host augmentation;
+           train_torch.py's Trainer on config.PUSHT_256_RUN (uva_pusht.yaml:
+           mar_base at 256 px, B = 16, data_aug) through the host loader with
+           device_aug=false (the loader's threads crop, resize and blur every
+           clip; the numpy-seeded ch-128 VAE) on the committed corpus: 4 bf16
+           steps, every metric finite and no uva_* launch, each step's time
+           by CUDA events beside its wait for the loader, peak memory; one
+           validation reading with 24 launches of the online kernel's D = 64
+           instance (B = 16, N = 1024); a PushTEnv(render_action=True) in
+           VideoRecordingWrapper for 6 steps, every frame with the action
+           marker, the GIF's header, frame count and trailer checked.
 10. train_umi  the UMI model's stage 2 (config.UMI_MULTI with
            config.UMI_TRAIN_OVERRIDES and its grad_checkpointing on) through
            train_torch.py's Trainer and the host loader, on the port's
@@ -247,7 +266,7 @@ attention_plan picks.
 12. suite_libero10  LIBERO-10 the same way: ten synthetic task stores
            named by LIBERO10_TASK_NAMES (3 demos of 48 steps at 128 px),
            config.LIBERO10 with data_aug (ColorJitter on the host loader),
-           make_libero_runners on the stub (2 test envs a task, 32 steps);
+           make_libero_runners on the stub (2 test envs a task, 16 steps);
            beside suite_toolhang's checks, one language goal per runner and
            test_mean_score the mean of the per-task means.
 13. clip   the CLIP text tower at the width of openai/clip-vit-base-patch32
@@ -262,7 +281,9 @@ tier (the other breakdowns keep their stages by CUDA events), the fp32 request 3
 (5), the video FVD 2 batches (4), sample_video at num_iter 2 (4), the
 rollout 16 env steps (32), the train phase 15 bf16 steps, 6 timed and 2
 profiled (30, 10 and 5), train_run 4 steps an epoch (8) and 16-step
-rollouts (24).
+rollouts (24). When the PushT pipeline joined: the video phase's
+fp32 check at num_iter 1 (2), real_loop 8 cycles (10), LIBERO's stub
+evaluation 16 steps (32).
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
 object with every kernel's numbers, and the result:
@@ -460,6 +481,7 @@ ATTENTION_CASES = [
     (1, 144, 12, 64, torch.bfloat16, True),  # the serving shape at B=1
     (128, 1024, 12, 64, torch.bfloat16, True),  # the 256 px path at B=128
     (1, 1024, 12, 64, torch.bfloat16, True),  # the 256 px path at B=1 (64-row items)
+    (16, 1024, 12, 64, torch.bfloat16, True),  # uva_pusht.yaml's validation at its B=16
     (128, 144, 12, 64, torch.float32, True),
     (8, 137, 12, 64, torch.bfloat16, True),  # a ragged single-pass N (7 rows of edge)
     (8, 100, 12, 64, torch.bfloat16, True), (8, 100, 12, 64, torch.float32, True),
@@ -2028,21 +2050,51 @@ ROLLOUT_SEED = SEED + 20
 
 class RecordingPolicy:
     """The policy as the runner sees it, keeping every returned action
-    tensor (on the card, not waited for) to check after the rollout."""
+    tensor (on the card, not waited for) to check after the rollout, and
+    calling ``on_first_call()`` at its first call (the envs are up by then)."""
 
-    def __init__(self, policy):
+    def __init__(self, policy, on_first_call=None):
         self.policy, self.device, self.actions = policy, policy.device, []
+        self.on_first_call, self.first_call = on_first_call, None
+
+    def _record(self, out):
+        if not self.actions and self.on_first_call is not None:
+            self.first_call = self.on_first_call()
+        self.actions.append(out)
 
     def predict_action_async(self, obs_dict, generator=None):
         out = self.policy.predict_action_async(obs_dict, generator=generator)
-        self.actions.append(out)
+        self._record(out)
         return out
 
     def predict_action_cached_async(self, obs_dict, cache=None, n_shift=8, generator=None):
         out, cond = self.policy.predict_action_cached_async(obs_dict, cache=cache, n_shift=n_shift,
                                                             generator=generator)
-        self.actions.append(out)
+        self._record(out)
         return out, cond
+
+
+def host_rss() -> dict:
+    """This process's resident memory and that of its live child processes
+    (the async rollout's env processes among them), GB, read from /proc."""
+    def rss(pid) -> int:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    me, kids = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == me:
+                        kids.append(rss(d))
+            except (OSError, ValueError, IndexError):
+                continue
+    return {"parent_gb": rss(me) / 1e9, "children": len(kids), "children_gb": sum(kids) / 1e9,
+            "child_max_gb": max(kids, default=0) / 1e9}
 
 
 def device_busy_ms(prof) -> float:
@@ -2053,13 +2105,15 @@ def device_busy_ms(prof) -> float:
 
 
 def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
-    """Three closed-loop rollouts of the port's PushTImageRunner on the card,
+    """Four closed-loop rollouts of the port's PushTImageRunner on the card,
     each with the launches of every kernel counted over the rollout:
     (a) the deployed tier (ddim10 + int8 + yuv420, bf16), latent-cached, two
     streams; (b) the same with the plain-int8 route and the same generator
     seed, which must give the same per-seed results and final agent
-    positions; (c) bf16 ddim10 uncached, one stream. Returns the launches of
-    each rollout."""
+    positions; (c) bf16 ddim10 uncached, one stream; (d) rollout (a) with
+    vector_env="async" (each env in a spawned process), which must give (a)'s
+    results, with its env processes' start time and the host's resident
+    memory while they run. Returns the launches of each rollout."""
     from torch.profiler import ProfilerActivity, profile
 
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
@@ -2083,10 +2137,11 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
     def counts() -> dict:
         return {k: v for counter in counters for k, v in counter.items()}
 
-    def rollout(policy, latent_cache, n_streams, profiled=False):
+    def rollout(policy, latent_cache, n_streams, profiled=False, vector_env="sync"):
         runner = PushTImageRunner(n_train=0, n_test=ROLLOUT_ENVS, max_steps=ROLLOUT_MAX_STEPS,
-                                  latent_cache=latent_cache, n_streams=n_streams)
-        recording = RecordingPolicy(policy)
+                                  latent_cache=latent_cache, n_streams=n_streams,
+                                  vector_env=vector_env)
+        recording = RecordingPolicy(policy, host_rss)
         gen = torch.Generator(device="cuda").manual_seed(ROLLOUT_SEED)
         torch.cuda.synchronize()
         for counter in counters:
@@ -2109,7 +2164,8 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
         for actions in recording.actions:
             check_actions(policy, actions, batch)
         out = {"log": log, "final_agent_pos": runner.final_agent_pos.copy(),
-               "launches": launches, "calls": calls, "batch": batch, "timing": dict(runner.timing)}
+               "launches": launches, "calls": calls, "batch": batch, "timing": dict(runner.timing),
+               "host_rss": recording.first_call}
         if profiled:
             busy = device_busy_ms(prof)
             out["device_busy_ms"] = busy
@@ -2133,10 +2189,12 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
     deployed.set_int8_impl("kernel")
     bf16 = make_policy(None, None)
     results["c"] = rollout(bf16, latent_cache=False, n_streams=1)
+    results["d"] = rollout(deployed, latent_cache=True, n_streams=2, vector_env="async")
 
     wants = {"a": want_launches(deployed, results["a"]["calls"], results["a"]["batch"], True),
              "b": want_launches(deployed, results["b"]["calls"], results["b"]["batch"], False),
-             "c": want_launches(bf16, results["c"]["calls"], results["c"]["batch"], False)}
+             "c": want_launches(bf16, results["c"]["calls"], results["c"]["batch"], False),
+             "d": want_launches(deployed, results["d"]["calls"], results["d"]["batch"], True)}
     for name, r in results.items():
         log(f"rollout ({name}): {r['calls']} calls at B={r['batch']}, launches {r['launches']}, "
             f"want {wants[name]}; test/mean_score {r['log']['test/mean_score']:.4f}; "
@@ -2148,11 +2206,19 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
                              f"{results['b']['log']}")
     if not np.array_equal(results["a"]["final_agent_pos"], results["b"]["final_agent_pos"]):
         raise AssertionError("rollouts (a) and (b) end with different agent positions")
+    if results["d"]["log"] != results["a"]["log"]:
+        raise AssertionError(f"rollouts (d, async) and (a) differ: {results['d']['log']} vs "
+                             f"{results['a']['log']}")
+    if not np.array_equal(results["d"]["final_agent_pos"], results["a"]["final_agent_pos"]):
+        raise AssertionError("rollouts (d, async) and (a) end with different agent positions")
+    if results["d"]["host_rss"]["children"] < ROLLOUT_ENVS:
+        raise AssertionError(f"rollout (d): {results['d']['host_rss']} child processes at its first "
+                             f"call, want at least {ROLLOUT_ENVS} env processes")
     loaded = {m.split(".")[0] for m in sys.modules} - MODULES_BEFORE_THE_PORT
     if loaded & {"cv2", "dill"}:
         raise AssertionError(f"the port loaded {sorted(loaded & {'cv2', 'dill'})}")
-    log("rollouts (a) and (b): identical per-seed sim_max_reward and final agent positions; "
-        "no cv2 or dill loaded")
+    log("rollouts (a), (b) and (d, async): identical per-seed sim_max_reward and final agent "
+        "positions; no cv2 or dill loaded")
 
     # the policy calls of rollout (a) alone: a full and a cached call at the
     # rollout's batch on the host clock, each until its action is on the host
@@ -2178,6 +2244,9 @@ def phase_rollout(attention_ops, int8_ops, trees, normalizer) -> dict:
         "env_control_step_ms_16_envs": 1e3 * c["timing"]["env_step_s"] / c["timing"]["env_steps"],
         "env_control_step_ms_8_envs": 1e3 * a["timing"]["env_step_s"] / a["timing"]["env_steps"],
         "rollout_wall_s": {k: r["timing"]["wall_s"] for k, r in results.items()},
+        "env_step_s": {k: r["timing"]["env_step_s"] for k, r in results.items()},
+        "env_start_s": {k: r["timing"]["env_start_s"] for k, r in results.items()},
+        "host_rss_at_first_call": {k: results[k]["host_rss"] for k in ("a", "d")},
         "rollout_a_device_busy_ms": a.get("device_busy_ms"),
         "rollout_a_device_idle_share": a.get("device_idle_share"),
         "card": card_line(),
@@ -2195,7 +2264,7 @@ VIDEO_FVD_BATCHES, VIDEO_FVD_BATCH = 2, 32  # validation windows of the corpus (
 VIDEO_ITER_BATCH, VIDEO_ITERS = 8, 2  # the rank slices: sample_video at num_iter 2 (4 before)
 VIDEO_ROUTE_BATCH = 4  # the 256 px and kitchen paths' batch (8 rows under CFG)
 VIDEO_CFG = 1.5
-VIDEO_FP32_BATCH, VIDEO_FP32_ITERS = 2, 2  # the card in fp32 against the CPU
+VIDEO_FP32_BATCH, VIDEO_FP32_ITERS = 2, 1  # the card in fp32 against the CPU (num_iter 2 before the PushT pipeline)
 # the kernel route against the plain route, under the same draws: every
 # attention call within SERVE_CALL_REL_RMS and ATTN_BF16_MAX_OVER_RMS of the
 # plain version on its own inputs (the serve phases' limits; the planted
@@ -3192,6 +3261,191 @@ def phase_train_run(attention_ops, int8_ops, dataset) -> dict:
         shutil.rmtree(RUN_OUT, ignore_errors=True)
 
 
+# ----------------------------------- PushT from the scripted expert to a recorded rollout
+
+# pusht_pipeline: the port's expert writing demos, uva_pusht.yaml's recipe
+# (config.PUSHT_256_RUN) on the host loader with the host augmentation, and a
+# recorded env
+PIPE_OUT = os.path.join(REPO, "build", "pusht_pipeline")
+PIPE_SEED0, PIPE_TRIES = 20000, 4  # expert episodes tried (of up to 300 steps at 96 px)
+PIPE_STEPS, PIPE_TIMED_FROM = 4, 1  # bf16 steps at the recipe's B = 16; the first warms up
+PIPE_VIDEO_STEPS = 6  # recorded env steps
+
+
+def gif_blocks(path: str) -> tuple:
+    """(header, number of images, the bytes from the trailer on) of a GIF,
+    walking its blocks."""
+    with open(path, "rb") as f:
+        data = f.read()
+    flags = data[10]
+    i = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    n = 0
+    while i < len(data) and data[i] != 0x3B:
+        if data[i] == 0x21:  # an extension: its label, then its sub-blocks
+            i += 2
+        elif data[i] == 0x2C:  # an image: its descriptor, local table and LZW code size
+            flags = data[i + 9]
+            i += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0) + 1
+            n += 1
+        else:
+            raise AssertionError(f"{path}: block {data[i]:#x} at byte {i}")
+        while data[i]:
+            i += data[i] + 1
+        i += 1
+    return data[:6], n, data[i:]
+
+
+def phase_pusht_pipeline(attention_ops, int8_ops, corpus) -> dict:
+    """The PushT pipeline on the card's machine, each step failing the phase
+    where it fails: (a) tools/gen_pusht_demos.py's generate tries PIPE_TRIES
+    episodes of the port's expert from env seed PIPE_SEED0 and writes the
+    kept ones (reward >= 0.9) as an .npz, which PushTImageDataset loads with
+    the host augmentation; (b) train_torch.py's Trainer on
+    config.PUSHT_256_RUN (uva_pusht.yaml: mar_base at 256 px, B = 16,
+    data_aug) through the host loader with task.dataset.device_aug=false (the
+    loader's 8 threads crop, resize and blur each clip) on the committed
+    corpus: PIPE_STEPS bf16 steps with every metric finite and no uva_*
+    kernel launched, each step's time by CUDA events and its wait for the
+    loader on the host clock, peak memory; then one validation reading
+    whose predict call launches the online kernel's D = 64 instance once per
+    ViT block; (c) a PushTEnv(render_action=True) in VideoRecordingWrapper
+    for PIPE_VIDEO_STEPS steps: the GIF's header, frame count and trailer.
+    Returns the phase's numbers and the validation's launches."""
+    from unified_video_action_tpu_torch import config as port_config
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.config import apply_overrides
+    from unified_video_action_tpu_torch.data.loader import collate
+    from unified_video_action_tpu_torch.data.pusht_dataset import PushTImageDataset
+    from unified_video_action_tpu_torch.data.replay_buffer import ReplayBuffer
+    from unified_video_action_tpu_torch.envs.pusht import PushTEnv
+    from unified_video_action_tpu_torch.envs.video_recording import VideoRecorder, VideoRecordingWrapper
+    from unified_video_action_tpu_torch.tools.gen_pusht_demos import generate
+    from unified_video_action_tpu_torch.training.train_state import train_step
+    from unified_video_action_tpu_torch.training.workspace import Trainer
+
+    shutil.rmtree(PIPE_OUT, ignore_errors=True)
+    perf = {"card": card_line()}
+
+    # (a) the expert's demos, then the .npz as a dataset with the host augmentation
+    demos = os.path.join(PIPE_OUT, "demos.npz")
+    meta = generate(demos, episodes=PIPE_TRIES, seed0=PIPE_SEED0, max_tries=PIPE_TRIES,
+                    log=lambda m: log(f"pusht_pipeline demos: {m}"))
+    kept = ReplayBuffer.load(demos)
+    log(f"pusht_pipeline demos: {meta['episodes']} of {meta['tried']} episodes kept "
+        f"({kept.n_steps} steps), max rewards {json.dumps(meta['tried_rewards'])}, "
+        f"{meta['seconds']:.1f}s")
+    if meta["tried"] != PIPE_TRIES or kept.n_episodes != meta["episodes"] or not meta["episodes"]:
+        raise AssertionError(f"pusht_pipeline demos: {meta}, {kept.n_episodes} episodes in {demos}")
+    ds = PushTImageDataset(demos, horizon=32, pad_before=1, pad_after=7, data_aug=True,
+                           device_aug=False)
+    item = collate([ds[0], ds[len(ds) - 1]])
+    if item["obs"]["image"].shape != (2, 32, 3, 96, 96) or item["obs"]["image"].dtype != np.uint8:
+        raise AssertionError(f"pusht_pipeline: the demos' items are {item['obs']['image'].shape}")
+    perf["demos"] = {k: meta[k] for k in ("episodes", "tried", "steps", "tried_rewards", "seconds")}
+
+    # (b) the recipe on the host loader: the corpus read once for the
+    # flagship's phases shares its replay buffer (the same dataset keys)
+    cfg = copy.deepcopy(port_config.PUSHT_256_RUN)
+    apply_overrides(cfg, [f"training.seed={SEED}", "task.dataset.device_aug=false",
+                          f"task.dataset.dataset_path={CORPUS}", "training.num_epochs=1",
+                          f"training.max_train_steps={PIPE_STEPS}", "training.max_val_steps=1",
+                          "training.checkpoint_every=0", f"output_dir={PIPE_OUT}/run"])
+    dataset = copy.copy(corpus)
+    dataset.data_aug, dataset.device_aug = True, False
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, "cuda", dataset=dataset)
+    policy = trainer.policy
+    c = policy.mar_cfg
+    # the KL-16 VAE's kl16.ckpt is absent: a numpy-seeded ch-128 VAE
+    load_vae(policy, convert.seeded_tree(policy.vae, SEED + 1))
+    log(f"pusht_pipeline: trainer built in {time.perf_counter() - t0:.1f}s: {c.encoder_depth}+"
+        f"{c.decoder_depth} blocks of d={c.encoder_embed_dim}, {c.attention_tokens} tokens, "
+        f"B={trainer.batch_size}, {policy.dtype}, host loader {trainer.host_loader} with "
+        f"{trainer.loader.num_workers} workers, data_aug {trainer.dataset.data_aug}, device_aug "
+        f"{trainer.dataset.device_aug}; {len(trainer.dataset)} training windows")
+    if not (trainer.host_loader and trainer.batch_size == 16 and c.attention_tokens == 1024):
+        raise AssertionError("pusht_pipeline: not uva_pusht.yaml's recipe on the host loader")
+    for counter in (attention_ops.launch_count, int8_ops.launch_count):
+        for k in counter:
+            counter[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, events, waits = trainer.state, [], [], []
+    batches = trainer.batches()
+    t0 = time.perf_counter()
+    for i in range(PIPE_STEPS):
+        tw = time.perf_counter()
+        mode, frames, batch = next(batches)
+        waits.append(time.perf_counter() - tw)
+        if "aug_top" in batch["obs"]:
+            raise AssertionError("pusht_pipeline: the device augmentation's draws in a host-augmented batch")
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        metrics.append(train_step(state, batch, mode, frames, generator=trainer.generator,
+                                  pregathered=True))
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    end.synchronize()
+    events.append(end)
+    batches.close()
+    steps_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(len(events) - 1)]
+    launched = {k: v for k, v in {**attention_ops.launch_count, **int8_ops.launch_count}.items() if v}
+    values = [{k: v.item() for k, v in m.items()} for m in metrics]
+    log(f"pusht_pipeline: {len(values)} bf16 steps at B={trainer.batch_size} in {steps_s:.1f}s; "
+        f"step ms {json.dumps(step_ms)}; loader wait s {json.dumps(waits)}; losses "
+        f"{json.dumps(values)}; uva_* launches {launched}")
+    if launched or not all(np.isfinite(list(v.values())).all() for v in values):
+        raise AssertionError(f"pusht_pipeline: launches {launched}, metrics {values}")
+    for counter in (attention_ops.launch_count, attention_ops.instance_count):
+        for k in counter:
+            counter[k] = 0
+    t0 = time.perf_counter()
+    val = trainer.validate()
+    val_s = time.perf_counter() - t0
+    val_launches = {**attention_ops.launch_count, **attention_ops.instance_count}
+    plan = attention_plan_of(attention_ops, c, trainer.batch_size, torch.bfloat16)
+    blocks = c.encoder_depth + c.decoder_depth
+    log(f"pusht_pipeline validation: val_action_l2_distances {val} in {val_s:.1f}s; launches "
+        f"{json.dumps({k: v for k, v in val_launches.items() if v})}")
+    if (val is None or not np.isfinite(val) or plan.instance != "attention_wgmma_online_d64"
+            or val_launches[plan.instance] != blocks
+            or sum(val_launches[k] for k in attention_ops.launch_count) != blocks):
+        raise AssertionError(f"pusht_pipeline validation: {val}, plan {plan.instance}, launches "
+                             f"{val_launches}")
+    timed = step_ms[PIPE_TIMED_FROM:]
+    perf["train"] = {"ms_per_step": statistics.median(timed), "step_ms": step_ms,
+                     "loader_wait_s": waits, "loader_wait_s_median": statistics.median(waits[PIPE_TIMED_FROM:]),
+                     "samples_per_s": trainer.batch_size / (statistics.median(timed) / 1e3),
+                     "peak_mem_gb": peak / 1e9, "B": trainer.batch_size,
+                     "val_action_l2_distances": val, "val_s": val_s, "host_rss": host_rss()}
+    del trainer, state, policy
+
+    # (c) a recorded env: the action marker in every frame after the first
+    path = os.path.join(PIPE_OUT, "video", "pusht.mp4")
+    env = VideoRecordingWrapper(PushTEnv(render_action=True), VideoRecorder(fps=10), file_path=path)
+    env.seed(SEED)
+    env.reset()
+    t0 = time.perf_counter()
+    for a in np.random.default_rng(SEED + 30).uniform(50, 450, (PIPE_VIDEO_STEPS, 2)):
+        env.step(a)
+        if not (env.render() == (255, 0, 0)).all(-1).any():
+            raise AssertionError("pusht_pipeline: a frame without the action marker")
+    written = env.stop_recording()
+    video_s = time.perf_counter() - t0
+    head, n, tail = gif_blocks(written)
+    log(f"pusht_pipeline video: {written}: {head}, {n} images, trailer {tail!r}, "
+        f"{os.path.getsize(written)} bytes, {video_s:.2f}s for {PIPE_VIDEO_STEPS} steps")
+    if written != os.path.splitext(path)[0] + ".gif" or head != b"GIF89a" or n != PIPE_VIDEO_STEPS + 1 \
+            or tail != b"\x3b":
+        raise AssertionError(f"pusht_pipeline video: {written}, {head}, {n} images, {tail!r}")
+    perf["video"] = {"frames": n, "bytes": os.path.getsize(written), "s": video_s}
+    log(f"pusht_pipeline perf: {json.dumps(perf)}")
+    shutil.rmtree(PIPE_OUT, ignore_errors=True)
+    return {"perf": perf, "launches_validate": val_launches}
+
+
 # ------------------------------------- UMI and toolhang: the conditioning streams
 
 # the UMI multi-task model (config.UMI_MULTI: mar_base at 256 px, 1024 frame
@@ -3390,7 +3644,7 @@ def fp32_card_vs_cpu(attention_ops, name: str, policy32, cpu32, trees, inputs, n
 # loop with the sim-backed UmiRealEnv
 REAL_HZ = 10.0  # the control rate: the obs window's spacing and the actions'
 REAL_HORIZON = 16  # the UMI window of umi_obs, for the frames and the state
-REAL_CYCLES = 10  # requests in the loop (at least 8)
+REAL_CYCLES = 8  # requests in the loop (at least 8; 10 before the PushT pipeline)
 REAL_RECORDED_CYCLE = 3  # the cycle whose request the route and fp32 checks replay
 REAL_CAMERA = dict(px=224, fps=20.0, get_max_k=32)  # 32 frames cover the 1.5 s window
 REAL_ARM = dict(hz=125.0, get_max_k=256)  # 2 s of state
@@ -3828,7 +4082,7 @@ SUITE_TOKENS = 1024  # both configs: 4 frames of 16 x 16 tokens, no text buffer
 SUITE_EVAL = {  # the runners' overrides: (n_train, n_test, max_steps)
     "toolhang": ("task.env_runner.n_train=2", "task.env_runner.n_test=4",
                  "task.env_runner.max_steps=64"),
-    "libero10": ("task.env_runner.n_test=2", "task.env_runner.max_steps=32"),
+    "libero10": ("task.env_runner.n_test=2", "task.env_runner.max_steps=16"),  # 32 before the PushT pipeline
 }
 # the log keys an evaluation writes beside the runners' scores
 EVAL_LOG_KEYS = {"test_mean_score", "env_backend", "STUB_SCORES_NOT_REAL", "ckpt_source",
@@ -4198,6 +4452,8 @@ def main() -> int:
         train = phase_train(attention_ops, int8_ops)
     with Phase("train_run"):
         train_run = phase_train_run(attention_ops, int8_ops, corpus)
+    with Phase("pusht_pipeline"):
+        pipeline = phase_pusht_pipeline(attention_ops, int8_ops, corpus)
     with Phase("train_umi"):
         train_umi = phase_train_umi(attention_ops, int8_ops)
     suites, launches_suites = {}, {}
@@ -4218,7 +4474,7 @@ def main() -> int:
     log(f"int8_gemm device ms per deployed request: {json.dumps(request_ms)}")
 
     rollout_paths = {"rollout_deployed": rollouts["a"], "rollout_plain_int8": rollouts["b"],
-                     "rollout_bf16_uncached": rollouts["c"]}
+                     "rollout_bf16_uncached": rollouts["c"], "rollout_deployed_async": rollouts["d"]}
     attention_by_path = {"predict_action_100_steps": launches, "predict_action_256px": launches_256,
                          "predict_action_cached_deployed": deployed, **rollout_paths,
                          "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen,
@@ -4233,12 +4489,14 @@ def main() -> int:
                          "serve_umi": launches_umi, "serve_toolhang": launches_toolhang,
                          "real_loop": launches_real,
                          "train_umi_validation": train_umi["launches_validate"],
+                         "pusht256_host_loader_validation": pipeline["launches_validate"],
                          **launches_suites}
     attention_keys = tuple(attention_ops.launch_count) + attention_ops.INSTANCES
     attention_by_path = {path: {k: n.get(k, 0) for k in attention_keys}
                          for path, n in attention_by_path.items()}
     attention_launches = {k: sum(p[k] for p in attention_by_path.values()) for k in attention_keys}
     int8_by_path = {"predict_action_cached_deployed": deployed, "rollout_deployed": rollouts["a"],
+                    "rollout_deployed_async": rollouts["d"],
                     "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen,
                     "serve_huge96": launches_huge96}
     gemm_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.GEMM_KERNELS}
@@ -4312,7 +4570,8 @@ def main() -> int:
                                    for k, r in side_rows.items()},
                                 "attention_stage": stage_entry}},
         {**attention_entry("flash_attention_online", "attention_wgmma_online_d64", 67,
-                           (128, 1024, 12, 64), b1=(1, 1024), umi_b32=(32, 1088), umi_b1=(1, 1088)),
+                           (128, 1024, 12, 64), b1=(1, 1024), umi_b32=(32, 1088), umi_b1=(1, 1088),
+                           pusht256_b16=(16, 1024)),
          "by_shape": {f"({r['B']}, {r['N']})": {"ms": r["ms"], "library_ms": r["library_ms"],
                                                 "bound_ms": r["bound_ms"]}
                       for r in rows if r["instance"] == "attention_wgmma_online_d64"}},
@@ -4378,6 +4637,7 @@ def main() -> int:
     log(f"train: {json.dumps({k: train[k] for k in ('perf', 'overfit', 'run_s')})}")
     log(f"train_run: {json.dumps(train_run['perf'])}")
     log(f"train_umi: {json.dumps(train_umi['perf'])}")
+    log(f"pusht_pipeline: {json.dumps(pipeline['perf'])}")
     for kind, perf in suites.items():
         log(f"suite_{kind}: {json.dumps({k: v for k, v in perf.items() if k != 'kernel_vs_plain'})}")
     log(f"clip: {json.dumps(clip)}")

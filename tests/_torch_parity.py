@@ -18,6 +18,8 @@ import jax
 import numpy as np
 import torch
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 # fp32 algorithm parity: the same arithmetic in another order on the CPU.
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 

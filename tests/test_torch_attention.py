@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.ops.attention import flash_attention as jax_flash_attention
 from unified_video_action_tpu_torch.ops import _build
 from unified_video_action_tpu_torch.ops import attention as port

@@ -31,6 +31,7 @@ tile its sweep entry builds.
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu_torch.ops import attention as port
 
 BF16_REL_RMS = 6e-3

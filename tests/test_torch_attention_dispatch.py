@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu_torch.ops import attention
 from unified_video_action_tpu_torch.ops.attention import AttentionPlan, attention_plan
 

@@ -23,6 +23,7 @@ the tensor cores), emulated on the CPU: no card is needed.
 import numpy as np
 import pytest
 import torch
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 
 TOL = 2e-5  # ATTN_ATOL[float32]
 LOG2E = 1.4426950408889634

@@ -22,6 +22,7 @@ import cv2
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.data import augmentation as jaug
 from unified_video_action_tpu_torch.data import augmentation as paug
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 from torch import nn
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.policy.policy import UnifiedVideoActionPolicy as JaxPolicy
 from unified_video_action_tpu_torch import convert
 from unified_video_action_tpu_torch.models.transformer import QuantLinear

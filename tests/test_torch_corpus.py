@@ -26,6 +26,7 @@ import zipfile
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.data import pusht_dataset as jpd
 from unified_video_action_tpu.data.replay_buffer import ReplayBuffer as JaxReplayBuffer
 from unified_video_action_tpu_torch.data import device_dataset as pdd

@@ -18,6 +18,7 @@ import cv2
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.envs.pusht import PushTEnv as JaxStateEnv
 from unified_video_action_tpu.envs.pusht import PushTImageEnv as JaxEnv
 from unified_video_action_tpu_torch.envs import raster
@@ -92,18 +93,28 @@ def test_frames_are_bit_equal_at_512_and_96_px():
 
 
 def test_the_image_env_leaves_out_the_action_marker():
-    env = PushTImageEnv()
-    env.seed(0)
-    env.reset()
-    with pytest.raises(NotImplementedError, match="marker"):
-        env.render()
-    state_env = PushTEnv()
-    state_env.seed(0)
-    state_env.reset()
-    state_env.render()  # no action yet, so no marker
+    # the observed frame has no marker; render() and the state env's frame
+    # draw it (envs/raster.draw_marker_cross), as JAX's cv2.drawMarker does
+    env, jax_env = PushTImageEnv(), JaxEnv()
+    for e in (env, jax_env):
+        e.seed(0)
+        e.reset()
+    np.testing.assert_array_equal(env.render(), jax_env.render())
+    obs = env.step(np.array([100.0, 100.0]))[0]
+    jax_env.step(np.array([100.0, 100.0]))
+    frame = env.render()
+    np.testing.assert_array_equal(frame, jax_env.render())
+    marker = (frame == (255, 0, 0)).all(-1)
+    assert marker.any()
+    assert not (np.moveaxis(obs["image"], 0, -1) * 255 == (255, 0, 0)).all(-1)[marker].all()
+    state_env, jax_state_env = PushTEnv(), JaxStateEnv()
+    for e in (state_env, jax_state_env):
+        e.seed(0)
+        e.reset()
+    np.testing.assert_array_equal(state_env.render(), jax_state_env.render())  # no action yet
     state_env.step(np.array([100.0, 100.0]))
-    with pytest.raises(NotImplementedError, match="marker"):
-        state_env.render()
+    jax_state_env.step(np.array([100.0, 100.0]))
+    np.testing.assert_array_equal(state_env.render(), jax_state_env.render())
 
 
 def _random_rectangle(rng):

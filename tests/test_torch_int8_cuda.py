@@ -30,6 +30,7 @@ scalar kernel takes.
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu_torch.ops import int8_mm
 from unified_video_action_tpu_torch.ops import quant
 

@@ -10,6 +10,7 @@ the card (tests/test_torch_int8_cuda.py).
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu_torch.ops import int8_mm
 from unified_video_action_tpu_torch.ops.int8_mm import GemmPlan, QuantPlan, gemm_plan, quantize_plan
 

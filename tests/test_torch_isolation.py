@@ -25,6 +25,8 @@ import shutil
 import subprocess
 import sys
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "unified_video_action_tpu")
 NOT_ON_THE_CARD = ("cv2", "PIL", "dill")
@@ -42,6 +44,7 @@ import numpy, torch
 torch_roots = sorted({m.split(".")[0] for m in sys.modules})
 import unified_video_action_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+names.append(pkg.__name__ + ".tools.gen_pusht_demos")  # tools/ is no package; the demo tool imports the env
 for name in names:
     importlib.import_module(name)
 import train_torch
@@ -79,7 +82,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "real.fisheye", "real.rtde", "real.wsg", "serving.real_inference",
                      "serving.zmq_server", "envs.stub", "envs.kitchen_tasks",
                      "runners.robomimic_runner", "runners.libero_runner", "data.augmentation",
-                     "data.robomimic_dataset", "data.libero_dataset", "models.clip"):
+                     "data.robomimic_dataset", "data.libero_dataset", "models.clip",
+                     "envs.pusht_expert", "envs.video_recording", "utils.media",
+                     "tools.gen_pusht_demos"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
@@ -113,7 +118,7 @@ def test_chip_smoke_the_port_and_its_card_tests_import_no_jax():
         bad |= _module_level_roots(path) & set(LAZY_ONLY + NOT_ON_THE_CARD)
         assert not bad, (path, bad)
     lazy_cv2 = sorted(os.path.basename(p) for p in sources if "cv2" in _imported_roots(p))
-    assert lazy_cv2 == ["fisheye.py", "sim.py", "video_recorder.py", "visualizer.py"], lazy_cv2
+    assert lazy_cv2 == ["fisheye.py", "sim.py", "visualizer.py"], lazy_cv2
 
 
 def _module_level_roots(path):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.utils import frames as jframes
 from unified_video_action_tpu.utils import image as jimage
 from unified_video_action_tpu.utils import obs_codec as jcodec

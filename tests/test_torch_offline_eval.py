@@ -19,7 +19,7 @@ the trainer's ``sample_every`` hook against the JAX package on the CPU.
   ``video_fvd_pixel``, writes its media, and without the action head
   ``train_torch.py`` keeps the top-k by ``video_fvd_vae`` (mode min), as
   JAX's ``train.py`` does.
-- ``save_video_grid`` writes PNG frames that decode to the grid.
+- ``save_video_grid`` writes PNG frames that decode to the grid, and the GIF.
 """
 
 import copy
@@ -113,10 +113,11 @@ def test_video_fvd_matches_jax(policies, tmp_path):
     for k in want:
         assert np.isfinite(got[k]) and got[k] > 0
         np.testing.assert_allclose(got[k], want[k], rtol=FVD_RTOL, err_msg=k)
-    # the real-vs-predicted grid: 6 videos of 4 frames side by side, 3x2
+    # the real-vs-predicted grid: 6 videos of 4 frames side by side, 3x2, as
+    # JAX's real_vs_pred.gif and a PNG a frame
     frames = sorted(os.listdir(tmp_path))
-    assert frames == [f"real_vs_pred_{t:02d}.png" for t in range(4)]
-    assert read_png(tmp_path / frames[0]).shape == (2 * 32, 3 * 64, 3)
+    assert frames == ["real_vs_pred.gif"] + [f"real_vs_pred_{t:02d}.png" for t in range(4)]
+    assert read_png(tmp_path / frames[1]).shape == (2 * 32, 3 * 64, 3)
 
 
 def test_video_fvd_draws_are_fixed_per_batch(policies):

@@ -55,12 +55,20 @@ def _kwargs(steps):
     return kw
 
 
+@pytest.fixture(scope="module")
+def tiny_params():
+    """The tiny policy's numpy-drawn parameters (seed 0), drawn once for the
+    module: the sampler's step count does not change their shapes."""
+    jp = JaxPolicy(**_kwargs("ddim10"))
+    return random_params(jax.eval_shape(jp.init_params, jax.random.PRNGKey(0)), seed=0)
+
+
 @pytest.mark.parametrize("steps", ["100", "ddim10"])
-def test_predict_action_matches_jax(steps):
+def test_predict_action_matches_jax(steps, tiny_params):
     kw = _kwargs(steps)
     jp = JaxPolicy(**kw)
     jp.set_normalizer(JaxNormalizer.load(os.path.join(LATEST, "normalizer.npz")))
-    params = random_params(jax.eval_shape(jp.init_params, jax.random.PRNGKey(0)), seed=0)
+    params = tiny_params
 
     port = UnifiedVideoActionPolicy(**kw, device="cpu")
     port.load_params(to_numpy(params["mar"]), to_numpy(params["vae"]))
@@ -268,7 +276,7 @@ def test_flagship_deployed_tier_builds():
 
 
 @pytest.mark.parametrize("n_frames", [8, 7])
-def test_vae_encode_chunk_equals_the_unchunked_encode(n_frames):
+def test_vae_encode_chunk_equals_the_unchunked_encode(n_frames, tiny_params):
     # chunks of 3: two full chunks and a remainder of 2 or 1 frames, encoded
     # as one more call. The chunked encode equals the unchunked one to float32
     # rounding: a convolution library picks its algorithm by batch size (the
@@ -281,7 +289,7 @@ def test_vae_encode_chunk_equals_the_unchunked_encode(n_frames):
     frames = rng.uniform(-1, 1, (n_frames, 1, 3, 32, 32)).astype(np.float32)
     key = jax.random.PRNGKey(5)
     jp, jc = JaxPolicy(**kw), JaxPolicy(**kw, vae_encode_chunk=3)
-    params = random_params(jax.eval_shape(jp.init_params, jax.random.PRNGKey(0)), seed=0)
+    params = tiny_params
     want = np.asarray(jp._encode_frames(params["vae"], jnp.asarray(frames), key))
     np.testing.assert_allclose(np.asarray(jc._encode_frames(params["vae"], jnp.asarray(frames), key)),
                                want, **FP32_TOL)

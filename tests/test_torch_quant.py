@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.ops import int8_mm as jint8
 from unified_video_action_tpu.ops import quant as jquant
 from unified_video_action_tpu_torch.ops import int8_mm, quant

@@ -13,8 +13,8 @@ simulated backends of ``real/sim.py``.
   segment;
 - ``BimanualUmiEnv``: per-arm namespacing and interleaved 14-d actions;
 - ``MultiCameraVisualizer`` (ring and file sinks) and
-  ``VideoRecorderProcess`` (an mp4 that OpenCV reads back) on a ring the
-  test writes.
+  ``VideoRecorderProcess`` (a GIF that PIL decodes frame by frame) on a
+  ring the test writes.
 
 Each process is joined in its test (about 0.1 s each); the file takes
 about 15 s alone.
@@ -27,6 +27,7 @@ import types
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.real import trajectory as jtraj
 from unified_video_action_tpu_torch.ipc.shm import SharedMemoryRingBuffer
 from unified_video_action_tpu_torch.real import (CameraProcess, PoseInterpolationController,
@@ -154,7 +155,8 @@ def test_bimanual_env_namespacing_and_interleaved_actions():
 
 
 def test_visualizer_and_recorder_follow_a_ring(tmp_path):
-    cv2 = pytest.importorskip("cv2")
+    from PIL import Image
+
     from unified_video_action_tpu_torch.real.video_recorder import VideoRecorderProcess
 
     rings = [SharedMemoryRingBuffer(_unique_name("test_cam"),
@@ -190,9 +192,12 @@ def test_visualizer_and_recorder_follow_a_ring(tmp_path):
     assert grid.shape == (32, 32, 3)
     assert (grid[:16, 16:] == 80).all() and (grid[16:] == 0).all()  # camera 1, then empty cells
     assert np.load(out).shape == (32, 32, 3)
-    reader = cv2.VideoCapture(path)
-    frames = 0
-    while reader.read()[0]:
-        frames += 1
-    reader.release()
-    assert frames >= 8
+    # the recorder writes a GIF (the .mp4 asked for becomes .gif), each frame
+    # one of the ring's uniform frames, decoded losslessly
+    gif = Image.open(str(tmp_path / "ep" / "video.gif"))
+    assert gif.n_frames == rec.n_written >= 8
+    for t in range(gif.n_frames):
+        gif.seek(t)
+        frame = np.array(gif.convert("RGB"))
+        assert frame.shape == (16, 16, 3) and (frame == frame[0, 0, 0]).all()
+    assert not os.path.exists(path)

@@ -21,6 +21,7 @@ import pickle
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from tests._torch_real_child import write_records
 from unified_video_action_tpu.ipc import shm as jshm
 from unified_video_action_tpu_torch.ipc import shm

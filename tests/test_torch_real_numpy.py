@@ -25,6 +25,7 @@ import struct
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.real import bimanual as jbim
 from unified_video_action_tpu.real import env as jenv
 from unified_video_action_tpu.real import fisheye as jfish

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.real import rtde as jrtde
 from unified_video_action_tpu.real import wsg as jwsg
 from unified_video_action_tpu_torch.real import rtde, wsg

@@ -105,8 +105,11 @@ def test_loader_and_rollout_log():
         with pytest.raises(ImportError, match=package):
             load_env_runner({"task": {"name": name, "env_runner": {}}})
         assert load_env_runner({"task": {"name": name, "env_runner": {"env_backend": "stub"}}})
-    with pytest.raises(NotImplementedError, match="async"):
-        PushTImageRunner(vector_env="async")
+    # the async vector env is ported (tests/test_torch_async_env.py); other
+    # names are refused
+    assert PushTImageRunner(vector_env="async").vector_env == "async"
+    with pytest.raises(ValueError, match="vector_env"):
+        PushTImageRunner(vector_env="gym")
 
 
 class RecordingJaxPolicy:

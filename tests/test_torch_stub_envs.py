@@ -9,6 +9,7 @@ on both.
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.envs import stub as jstub
 from unified_video_action_tpu_torch.envs import stub as pstub
 

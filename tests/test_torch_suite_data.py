@@ -29,6 +29,7 @@ import h5py
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.data import libero_dataset as jlib
 from unified_video_action_tpu.data import robomimic_dataset as jrm
 from unified_video_action_tpu_torch.data import libero_dataset as plib

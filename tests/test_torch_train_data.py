@@ -189,8 +189,12 @@ def test_device_gather_matches_sample_sequence(buffer_path, aug):
 
 
 def test_unported_sources_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="host"):
-        ppd.PushTImageDataset(synthetic=1, data_aug=True, device_aug=False)
+    # the host augmentation is ported (tests/test_torch_pusht_pipeline.py
+    # holds it against JAX's cv2 path): its items come augmented
+    ds = ppd.PushTImageDataset(synthetic=1, data_aug=True, device_aug=False)
+    item = ds[0]["obs"]["image"]
+    assert item.dtype == np.uint8 and item.shape[1:] == (3, 96, 96)
+    assert not np.array_equal(item, ds.sampler.sample_sequence(0)["img"].transpose(0, 3, 1, 2))
     with pytest.raises(FileNotFoundError):
         ppd.PushTImageDataset(str(tmp_path / "absent.h5"))
     with pytest.raises(NotImplementedError, match="2-d"):

@@ -19,6 +19,7 @@ bit (numpy on both sides):
 import numpy as np
 import pytest
 
+from tests import _torch_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 from unified_video_action_tpu.data import loader as jloader
 from unified_video_action_tpu.data import umi_dataset as jumi
 from unified_video_action_tpu.utils import frames as jframes

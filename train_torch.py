@@ -16,6 +16,15 @@ keys of that config (``config.apply_overrides``):
     python3 unified_video_action_tpu_torch/tools/gen_synthetic_umi.py --root data/umi
     python3 train_torch.py --config umi_multi training.num_epochs=2 training.max_train_steps=10
 
+``--config pusht_256`` takes ``config.PUSHT_256_RUN``, the JAX package's
+own PushT recipe (``uva_pusht.yaml``: mar_base at 256 px, batch 16,
+``data_aug``) through the host loader on the committed corpus; with
+``task.dataset.device_aug=false`` the loader's workers augment each clip
+(crop, resize, blur) instead of the card:
+
+    python3 train_torch.py --config pusht_256 task.dataset.device_aug=false \
+        training.num_epochs=1 training.max_train_steps=10
+
 ``--config toolhang`` and ``--config libero10`` take ``config.TOOLHANG`` and
 ``config.LIBERO10`` (robomimic's tool-hang and LIBERO-10, with
 ``config.SUITE_TRAIN_OVERRIDES``: ``grad_checkpointing``) on the stores
@@ -52,7 +61,8 @@ from unified_video_action_tpu_torch.training.workspace import Trainer
 
 
 # --config: a run config kept as data, and the overrides it trains with
-CONFIGS = {"umi_multi": (port_config.UMI_MULTI, port_config.UMI_TRAIN_OVERRIDES),
+CONFIGS = {"pusht_256": (port_config.PUSHT_256_RUN, ()),
+           "umi_multi": (port_config.UMI_MULTI, port_config.UMI_TRAIN_OVERRIDES),
            "toolhang": (port_config.TOOLHANG, port_config.SUITE_TRAIN_OVERRIDES),
            "libero10": (port_config.LIBERO10, port_config.SUITE_TRAIN_OVERRIDES)}
 

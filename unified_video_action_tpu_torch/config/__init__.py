@@ -8,7 +8,7 @@ lists and maps, and otherwise the string. Composing a config from the JAX
 package's yaml files is not ported: the port reads the ``cfg`` that an
 exported checkpoint's ``meta.json`` embeds, or a config kept here as data.
 
-Eight run configs are kept here as data, each the ``cfg`` that the JAX
+Nine run configs are kept here as data, each the ``cfg`` that the JAX
 package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
 ``model.policy``: what serving reads), with the overrides named below.
 ``UnifiedVideoActionPolicy.from_cfg(cfg, device=...)`` builds each:
@@ -62,6 +62,14 @@ package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
   actions in training on UMI's 32-step window (15 history rows do not
   divide 1024 tokens), and so does the port: training takes
   ``UMI_TRAIN_OVERRIDES``.
+* ``PUSHT_256_RUN``: ``PUSHT_256`` as a whole run config, the training,
+  checkpoint, EMA, logging and loader sections of ``uva_pusht.yaml`` and
+  ``task/pusht.yaml``'s dataset and runner as JAX composes them: no
+  ``device_resident``, so the host loader, batch 16, ``data_aug`` (on the
+  device; ``task.dataset.device_aug=false`` moves it into the loader, as
+  JAX's ``device_aug`` does), ``val_ratio`` 0.02. The dataset is the
+  committed ``corpora/pusht_demos_r5b.npz`` (JAX's config names the
+  reference's replay buffer, which is not in the repository).
 * ``TOOLHANG``: ``uva_toolhang.yaml`` (``task/toolhang.yaml`` +
   ``model/uva.yaml``: 240 px frames from two cameras, the side view the
   main one, the wrist camera a conditioning stream, 10-d actions) with
@@ -219,20 +227,21 @@ _UMI_DATASETS = {
 }
 
 
-def _training_sections(name: str) -> dict:
-    """The training sections that ``uva_umi_multi.yaml``, ``uva_toolhang.yaml``
-    and ``uva_libero10.yaml`` share but for the run's name."""
+def _training_sections(name: str, batch_size: int = 32, topk=None) -> dict:
+    """The training sections that ``uva_umi_multi.yaml``, ``uva_toolhang.yaml``,
+    ``uva_libero10.yaml`` and (with its batch and top-k) ``uva_pusht.yaml``
+    share but for the run's name."""
     return {
         "name": "uva",
-        "dataloader": {"batch_size": 32, "num_workers": 8, "shuffle": True},
-        "val_dataloader": {"batch_size": 32, "num_workers": 8, "shuffle": False},
+        "dataloader": {"batch_size": batch_size, "num_workers": 8, "shuffle": True},
+        "val_dataloader": {"batch_size": batch_size, "num_workers": 8, "shuffle": False},
         "training": {
             "checkpoint_every": 10, "debug": False, "gradient_accumulate_every": 1,
             "lr_scheduler": "cosine", "lr_warmup_steps": 1000, "max_train_steps": None,
             "max_val_steps": None, "num_epochs": 3050, "resume": True, "rollout_every": 10,
             "sample_every": 5, "seed": 42, "use_ema": True, "val_every": 1, "mesh": {"data": -1},
         },
-        "checkpoint": {"save_last_ckpt": True, "topk": {
+        "checkpoint": {"save_last_ckpt": True, "topk": topk or {
             "monitor_key": "val_action_l2_distances",
             "format_str": "epoch={epoch:04d}-val_action_l2={val_action_l2_distances:.4f}",
             "k": 5, "mode": "min"}},
@@ -243,6 +252,31 @@ def _training_sections(name: str) -> dict:
         "output_dir": f"data/outputs/train_uva_{name}",
     }
 
+
+# uva_pusht.yaml's whole run (the training, checkpoint, EMA, logging and
+# loader sections of uva_pusht.yaml, task/pusht.yaml's dataset and runner)
+# on PUSHT_256's policy: the host loader (no device_resident), batch 16,
+# data_aug on, the committed corpus in place of the reference's zarr
+PUSHT_256_RUN = copy.deepcopy(PUSHT_256)
+PUSHT_256_RUN["task"].update({
+    "task_type": "single_dataset",
+    "task_modes": [],
+    "dataset": {
+        "_target_": "unified_video_action_tpu_torch.data.pusht_dataset.PushTImageDataset",
+        "horizon": 32, "pad_after": 7, "pad_before": 1, "seed": 42, "val_ratio": 0.02,
+        "data_aug": True, "normalizer_type": "all",
+        "dataset_path": "corpora/pusht_demos_r5b.npz",
+    },
+    "env_runner": {
+        "_target_": "unified_video_action_tpu_torch.runners.pusht_runner.PushTImageRunner",
+        "fps": 10, "max_steps": 300, "n_action_steps": 8, "n_envs": None, "n_obs_steps": 16,
+        "n_test": 50, "n_test_vis": 4, "n_train": 6, "n_train_vis": 2,
+        "test_start_seed": 100000, "train_start_seed": 0, "fix_goal": True,
+    },
+})
+PUSHT_256_RUN.update(_training_sections("pusht", batch_size=16, topk={
+    "monitor_key": "test_mean_score",
+    "format_str": "epoch={epoch:04d}-test_mean_score={test_mean_score:.3f}", "k": 1, "mode": "max"}))
 
 UMI_MULTI = _run_config("umi", _UMI_SHAPE_META, "mar_base", 256, 128, None,
                         shift_action=False, different_history_freq=True, use_proprioception=True,

@@ -19,7 +19,9 @@ linear taps) and ``INTER_LINEAR``, ``cv2.cvtColor`` ``COLOR_RGB2HSV`` /
 ``COLOR_HSV2RGB`` on float32 (H in degrees; computed with torch's CPU ops,
 which release the GIL, so the host loader's threads run them in parallel),
 and ``cv2.GaussianBlur`` (the sampled Gaussian kernel,
-``BORDER_REFLECT_101``).
+``BORDER_REFLECT_101``); on uint8, ``cv2.GaussianBlur`` bit for bit
+(``gaussian_blur_u8``, OpenCV's fixed-point path, which PushT's host
+augmentation takes).
 ``tests/test_torch_augmentation.py`` holds each against OpenCV.
 """
 
@@ -183,6 +185,59 @@ def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma: float) -> np.n
             acc += kj * padded[tuple(sl)]
         out = acc
     return out
+
+
+def gaussian_kernel_q8(ksize: int, sigma: float) -> np.ndarray:
+    """The integer taps (summing to 256) of OpenCV's 8-bit fixed-point
+    Gaussian kernel for an odd ``ksize`` and sigma > 0, which
+    ``cv2.GaussianBlur`` uses on uint8 images: the bit-exact kernel
+    (``getGaussianKernelBitExact``: the taps' exponentials in half-pixel
+    units, normalized by the sum of the half and the centre) scaled by 256
+    and rounded with the error carried from tap to tap
+    (``getGaussianKernelFixedPoint_ED``), the centre taking what remains."""
+    n2 = (ksize - 1) // 2
+    scale2 = -0.125 / (float(sigma) * float(sigma))
+    values = [math.exp(float(x * x) * scale2) for x in range(1 - ksize, 1 - ksize + 2 * n2, 2)]
+    total = 0.0
+    for v in values:
+        total += v
+    mul = 1.0 / (total * 2.0 + 1.0)
+    taps, err = [], 0.0
+    for v in values:
+        adj = v * mul * 256.0 + err
+        q = round(adj)  # half to even, as cvRound
+        err = adj - q
+        taps.append(q)
+    return np.array(taps + [256 - 2 * sum(taps)] + taps[::-1], np.int64)
+
+
+def gaussian_blur_u8(img: np.ndarray, ksize: Tuple[int, int], sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, ksize, sigma)`` of a uint8 (H, W) or (H, W, C)
+    image (the same sigma on both axes, ``BORDER_REFLECT_101``), bit for
+    bit: OpenCV's fixed-point path, the rows filtered with
+    :func:`gaussian_kernel_q8` into 8 fraction bits, the columns into 16,
+    then rounded (``+ 2^15 >> 16``). The sums are exact in int32 (at most
+    255 * 2^16), and the symmetric taps are paired before their product."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"gaussian_blur_u8 takes uint8, got {img.dtype}")
+    out = img.astype(np.int32)
+    for axis, k in ((1, gaussian_kernel_q8(ksize[0], sigma)), (0, gaussian_kernel_q8(ksize[1], sigma))):
+        r = len(k) // 2
+        n = out.shape[axis]
+        idx = np.abs(np.arange(-r, n + r))
+        idx = np.where(idx >= n, 2 * (n - 1) - idx, idx)  # reflect 101
+        padded = np.take(out, idx, axis=axis)
+
+        def tap(j):
+            sl = [slice(None)] * out.ndim
+            sl[axis] = slice(j, j + n)
+            return padded[tuple(sl)]
+
+        acc = np.int32(k[r]) * tap(r)
+        for j in range(r):
+            acc += np.int32(k[j]) * (tap(j) + tap(2 * r - j))
+        out = acc
+    return ((out + (1 << 15)) >> 16).astype(np.uint8)
 
 
 # -- the transforms ------------------------------------------------------------

@@ -10,8 +10,10 @@ multi-dataset path, reference config/task/umi_lazy.yaml:126-132) because its
 per-item work — zarr chunk decode, pose math, augmentation — is CPU-heavy
 Python. This loader supports both worker models:
 
-- ``worker_mode="thread"``: a thread pool. Right when per-item work releases
-  the GIL (hdf5 reads, large numpy slices) or the dataset is in-memory.
+- ``worker_mode="thread"``: a thread pool, at most ``num_workers +
+  prefetch`` batches ahead of the consumer. Right when per-item work
+  releases the GIL (hdf5 reads, large numpy slices) or the dataset is
+  in-memory.
 - ``worker_mode="process"``: worker processes with an index queue and
   ordered result reassembly (the torch model). Right for the UMI scale path
   where zarr decode + relative-pose math serialize on the GIL. The workers
@@ -25,6 +27,8 @@ workers only produce numpy batches.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import multiprocessing as mp
 import queue
 import threading
@@ -145,14 +149,33 @@ class DataLoader:
             return collate([self.dataset[int(i)] for i in idxs])
 
         def producer():
+            # at most num_workers + prefetch batches in flight: the threads
+            # stop once the queue and the pool are full, and leave the GIL
+            # to the consumer (JAX's loader submits the whole epoch at once,
+            # and its threads compete with the train step's host work until
+            # the epoch's last batch is built)
+            def put(item) -> bool:  # False once the consumer has stopped
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        return True
+                    except queue.Full:
+                        continue
+                return False
+
             try:
-                futures = [pool.submit(load_batch, b) for b in batches]
-                for f in futures:
-                    if stop.is_set():
-                        break
-                    q.put(f.result())
+                todo = iter(batches)
+                pending = collections.deque(
+                    pool.submit(load_batch, b)
+                    for b in itertools.islice(todo, self.num_workers + self.prefetch))
+                while pending and put(pending.popleft().result()):
+                    nxt = next(todo, None)
+                    if nxt is not None:
+                        pending.append(pool.submit(load_batch, nxt))
+            except BaseException as e:  # an item raised: the consumer raises it
+                put(e)
             finally:
-                q.put(None)
+                put(None)
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
@@ -166,6 +189,8 @@ class DataLoader:
                     continue
                 if item is None:
                     break
+                if isinstance(item, BaseException):
+                    raise item
                 yield item
         finally:
             stop.set()

@@ -6,18 +6,28 @@ split with its validation dataset, and the synthetic source.
 Two sources: ``dataset_path``, a replay buffer (``ReplayBuffer.load``: a
 ``.npz`` read with numpy, or HDF5 through ``h5py``), or ``synthetic: N``, N episodes of a scripted pusher rolled out
 in the port's own PushT env (:func:`make_synthetic_pusht`, the JAX
-package's, frame for frame). With ``data_aug`` the augmentation runs on the
-device inside the train step (``utils/image.augment_video``); the host cv2
-path of ``device_aug=False`` waits for a later slice.
+package's, frame for frame).
+
+``__getitem__`` serves the host loader (``data/loader.py``): a window's
+uint8 frames (T, 3, H, W), agent positions and actions. With ``data_aug``
+the augmentation runs on the device inside the train step
+(``utils/image.augment_video``, the scalars drawn per batch on the host) or,
+with ``device_aug=False``, here on the host: JAX's ``_augment``, one draw a
+clip from ``default_rng((seed, idx))``, a 95 % crop, the ``INTER_LINEAR``
+resize back and a 5 x 5 Gaussian blur with sigma ~ U(0.1, 2), both on uint8
+as OpenCV computes them (``envs/raster.resize_linear_u8`` and
+``data/augmentation.gaussian_blur_u8``, bit for bit). JAX skips that
+augmentation where OpenCV is absent; the port always applies it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
+from unified_video_action_tpu_torch.data.augmentation import gaussian_blur_u8
 from unified_video_action_tpu_torch.data.normalizer import LinearNormalizer, NormalizerField
 from unified_video_action_tpu_torch.data.replay_buffer import ReplayBuffer
 from unified_video_action_tpu_torch.data.sampler import (
@@ -25,6 +35,7 @@ from unified_video_action_tpu_torch.data.sampler import (
     downsample_mask,
     get_val_mask,
 )
+from unified_video_action_tpu_torch.envs.raster import resize_linear_u8
 
 
 class PushTImageDataset:
@@ -42,9 +53,6 @@ class PushTImageDataset:
         synthetic: Optional[int] = None,
         agent_pos_dim: int = 2,
     ):
-        if data_aug and not device_aug:
-            raise NotImplementedError("the host (cv2) augmentation is not ported; "
-                                      "data_aug runs on the device (device_aug=True)")
         self.agent_pos_dim = agent_pos_dim
         if synthetic is not None:
             if agent_pos_dim != 2:
@@ -63,6 +71,7 @@ class PushTImageDataset:
         self.pad_before = pad_before
         self.pad_after = pad_after
         self.data_aug = data_aug
+        self.device_aug = device_aug
         self.seed = seed
 
     def get_validation_dataset(self) -> "PushTImageDataset":
@@ -86,6 +95,33 @@ class PushTImageDataset:
 
     def __len__(self) -> int:
         return len(self.sampler)
+
+    def __getitem__(self, idx: int) -> Dict:
+        """Window ``idx``: ``{"obs": {"image": (T, 3, H, W) uint8,
+        "agent_pos": (T, agent_pos_dim) float32}, "action": (T, A) float32}``,
+        the frames augmented here under ``data_aug`` without ``device_aug``."""
+        sample = self.sampler.sample_sequence(idx)
+        agent_pos = sample["state"][:, : self.agent_pos_dim].astype(np.float32)
+        image = np.ascontiguousarray(np.moveaxis(sample["img"], -1, 1))
+        if self.data_aug and not self.device_aug:
+            image = self._augment(image, idx)
+        return {"obs": {"image": image, "agent_pos": agent_pos},
+                "action": sample["action"].astype(np.float32)}
+
+    def _augment(self, video: np.ndarray, idx: int) -> np.ndarray:
+        """One seeded crop, resize and blur for the whole (T, C, H, W) uint8
+        clip (JAX's ``_augment``, ``data/pusht_dataset.py:139-160``): the
+        frames' channels side by side, so that each step runs once a clip."""
+        rng = np.random.default_rng((self.seed, idx))
+        T, C, H, W = video.shape
+        ch, cw = int(H * 0.95), int(W * 0.95)
+        top = rng.integers(0, H - ch + 1)
+        left = rng.integers(0, W - cw + 1)
+        sigma = float(rng.uniform(0.1, 2.0))
+        crop = video[:, :, top:top + ch, left:left + cw]
+        planes = np.ascontiguousarray(crop.reshape(T * C, ch, cw).transpose(1, 2, 0))
+        out = gaussian_blur_u8(resize_linear_u8(planes, (W, H)), (5, 5), sigma)
+        return np.ascontiguousarray(out.transpose(2, 0, 1).reshape(T, C, H, W))
 
 
 def make_synthetic_pusht(n_episodes: int = 8, max_steps: int = 60, seed: int = 42,

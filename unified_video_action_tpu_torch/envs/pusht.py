@@ -1,6 +1,7 @@
 """PushT environment, from scratch on the framework's own 2D physics engine
-(the port's copy of the JAX package's ``envs/pusht.py``; its frames are drawn
-by ``envs/raster.py`` instead of OpenCV, pixel for pixel the same).
+(the port's copy of the JAX package's ``envs/pusht.py``; its frames, the
+action marker included, are drawn by ``envs/raster.py`` instead of OpenCV,
+pixel for pixel the same).
 
 Behavioral re-implementation of the reference's pymunk-based PushT
 (env/pusht/pusht_env.py:34-428, pusht_image_env.py:7-64): same geometry
@@ -21,6 +22,7 @@ from typing import Optional
 import numpy as np
 
 from unified_video_action_tpu_torch.envs import raster
+from unified_video_action_tpu_torch.envs.wrappers import MultiStepWrapper
 from unified_video_action_tpu_torch.envs.physics2d import (
     Body,
     CircleShape,
@@ -376,12 +378,15 @@ class PushTEnv:
             self._background_img, self._background_key = img, key
         return self._background_img
 
+    def _draw_action(self, img: np.ndarray) -> None:
+        """The latest action's red cross (JAX's ``cv2.drawMarker``), in
+        place: at the action's position on the 96 px grid whatever the
+        render size, 8/96 of the frame wide and 1/96 of it thick."""
+        coord = (np.asarray(self.latest_action) / 512 * 96).astype(np.int32)
+        raster.draw_marker_cross(img, coord, (255, 0, 0), int(8 / 96 * self.render_size),
+                                 int(1 / 96 * self.render_size))
+
     def _render_frame(self, mode: str):
-        if self.render_action and self.latest_action is not None:
-            raise NotImplementedError(
-                "the action marker (cv2.drawMarker) is not ported; "
-                "construct the env with render_action=False"
-            )
         img = self._background().copy()
         # block, then the agent over it
         for p in self._block_world_polys():
@@ -392,7 +397,10 @@ class PushTEnv:
             int(self.agent_shape.radius),
             COLOR_AGENT,
         )
-        return raster.resize_linear_u8(img, (self.render_size, self.render_size))
+        img = raster.resize_linear_u8(img, (self.render_size, self.render_size))
+        if self.render_action and self.latest_action is not None:
+            self._draw_action(img)
+        return img
 
     def close(self):
         pass
@@ -407,20 +415,38 @@ class PushTImageEnv(PushTEnv):
             legacy=legacy, block_cog=block_cog, damping=damping,
             render_size=render_size, render_action=False, fix_goal=fix_goal,
         )
+        self.render_cache = None
 
     def _get_obs(self):
         img = super()._render_frame(mode="rgb_array")
         agent_pos = np.array(self.agent.position, dtype=np.float32)
-        return {
+        obs = {
             "image": np.moveaxis(img.astype(np.float32) / 255, -1, 0),
             "agent_pos": agent_pos,
         }
+        # render() returns the observed frame with the action marker
+        draw = img.copy()
+        if self.latest_action is not None:
+            self._draw_action(draw)
+        self.render_cache = draw
+        return obs
 
     def render(self, mode: str = "rgb_array"):
-        raise NotImplementedError(
-            "the image env's render() returns the frame with the action marker "
-            "(cv2.drawMarker), which is not ported with video recording"
-        )
+        if self.render_cache is None:
+            self._get_obs()
+        return self.render_cache
+
+
+def make_runner_env(seed: int, legacy: bool, fix_goal: bool, n_obs_steps: int,
+                    n_action_steps: int, max_steps: int):
+    """The runner's env for ``seed``: a seeded :class:`PushTImageEnv` in a
+    ``MultiStepWrapper``. A module-level function of a numpy-only module, so
+    that a ``functools.partial`` of it pickles into an ``AsyncVectorEnv``
+    child without torch."""
+    env = PushTImageEnv(legacy=legacy, fix_goal=fix_goal)
+    env.seed(seed)
+    return MultiStepWrapper(env, n_obs_steps=n_obs_steps, n_action_steps=n_action_steps,
+                            max_episode_steps=max_steps)
 
 
 class _BoxSpace:

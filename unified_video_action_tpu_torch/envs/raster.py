@@ -1,5 +1,5 @@
-"""A numpy rasterizer for the PushT env's frames: the four drawing calls the
-JAX env makes through OpenCV (``envs/pusht.py:359-392``), reproduced on
+"""A numpy rasterizer for the PushT env's frames: the drawing calls the
+JAX env makes through OpenCV (``envs/pusht.py:359-392``, ``:397``), reproduced on
 uint8 (H, W, 3) arrays with OpenCV's integer arithmetic, so that a frame
 equals the reference's pixel for pixel.
 
@@ -13,6 +13,9 @@ equals the reference's pixel for pixel.
   convex scan converter, and a filled circle of radius t / 2 at each end.
 - :func:`fill_circle`: ``cv2.circle(thickness=-1)``: the midpoint circle's
   horizontal spans.
+- :func:`draw_marker_cross`: ``cv2.drawMarker(MARKER_CROSS)``, the action
+  marker (``envs/pusht.py:397``, ``:431``): two lines, each clipped to the
+  image (``Line2``'s fixed-point ends too, through ``clipLine``).
 - :func:`resize_linear_u8`: ``cv2.resize(interpolation=INTER_LINEAR)`` of a
   uint8 image: half-pixel centres, 11-bit coefficients, horizontal taps
   exact in int32, the vertical taps as OpenCV's vector path computes them
@@ -147,10 +150,14 @@ def fill_poly(img: np.ndarray, pts, color) -> None:
     img[rows[0]:rows[-1] + 1, c0:c1 + 1][mask] = color
 
 
-def _line2_points(p1: Sequence[int], p2: Sequence[int]):
+def _line2_points(p1: Sequence[int], p2: Sequence[int], w: int, h: int):
     """(xs, ys) of OpenCV's ``Line2``: a line between 16.16 fixed-point ends,
-    which the convex fill draws as each polygon's outline."""
-    (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+    which the convex fill draws as each polygon's outline, first clipped to
+    the w x h image in fixed point (``clipLine`` on the scaled size)."""
+    clipped = clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2)
+    if clipped is None:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    (x1, y1), (x2, y2) = clipped
     dx, dy = x2 - x1, y2 - y1
     if abs(dx) > abs(dy):
         if dx < 0:
@@ -182,7 +189,7 @@ def _fill_convex_fixed(img: np.ndarray, v: np.ndarray, color) -> None:
     npts = len(v)
     half = XY_ONE >> 1
     for i in range(npts):
-        _put_points(img, *_line2_points(v[i - 1], v[i]), color)
+        _put_points(img, *_line2_points(v[i - 1], v[i], w, h), color)
     ys = [(int(p[1]) + half) >> XY_SHIFT for p in v]
     xs = [(int(p[0]) + half) >> XY_SHIFT for p in v]
     imin = int(np.argmin([int(p[1]) for p in v]))
@@ -271,19 +278,40 @@ def thick_line(img: np.ndarray, p0: Sequence[int], p1: Sequence[int], color, thi
         fill_circle(img, center, (t + (XY_ONE >> 1)) >> XY_SHIFT, color)
 
 
-def _linear_taps(src: int, dst: int):
-    """Source index pairs and 11-bit weights of INTER_LINEAR along one axis."""
+def draw_marker_cross(img: np.ndarray, position: Sequence[int], color, marker_size: int,
+                      thickness: int = 1) -> None:
+    """``cv2.drawMarker(img, position, color, cv2.MARKER_CROSS, marker_size,
+    thickness)`` (8-connected), in place: ``cv2.line`` of a horizontal and a
+    vertical segment of half-length ``marker_size // 2`` through
+    ``position``, each OpenCV's clipped ``LineIterator`` line at thickness 1
+    and :func:`thick_line` above it."""
+    x, y = int(position[0]), int(position[1])
+    half = int(marker_size) // 2
+    h, w = img.shape[:2]
+    for p0, p1 in (((x - half, y), (x + half, y)), ((x, y - half), (x, y + half))):
+        if thickness <= 1:
+            _put_points(img, *line8_points(p0, p1, w, h), color)
+        else:
+            thick_line(img, p0, p1, color, thickness)
+
+
+def _linear_taps(src: int, dst: int, clamp_weights: bool = True):
+    """Source index pairs and 11-bit weights of INTER_LINEAR along one axis.
+    OpenCV moves a tap that falls outside the source onto its edge with the
+    weight (1, 0) along x (``clamp_weights``), while along y it keeps the
+    tap's weights and only clamps the rows it reads."""
     scale = 1.0 / (dst / src)
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = f - s.astype(np.float32)
-    low = s < 0
-    f[low], s[low] = 0, 0
-    high = s >= src - 1
-    f[high], s[high] = 0, src - 1
+    if clamp_weights:
+        low = s < 0
+        f[low], s[low] = 0, 0
+        high = s >= src - 1
+        f[high], s[high] = 0, src - 1
     w1 = np.rint(f * RESIZE_COEF_SCALE).astype(np.int64)
     w0 = np.rint((np.float32(1) - f) * RESIZE_COEF_SCALE).astype(np.int64)
-    return s, np.minimum(s + 1, src - 1), w0, w1
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
 
 
 def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -296,7 +324,7 @@ def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     out_w, out_h = int(size[0]), int(size[1])
     h, w = img.shape[:2]
     c = img.shape[2] if img.ndim == 3 else 1
-    sy0, sy1, b0, b1 = (t.astype(np.int32) for t in _linear_taps(h, out_h))
+    sy0, sy1, b0, b1 = (t.astype(np.int32) for t in _linear_taps(h, out_h, False))
     sx0, sx1, a0, a1 = (t.astype(np.int32) for t in _linear_taps(w, out_w))
     src = img.reshape(h, w, c).astype(np.int32)
     a0, a1 = a0[None, :, None], a1[None, :, None]

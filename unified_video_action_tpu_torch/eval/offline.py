@@ -11,9 +11,11 @@ weights, else ``video_fvd_pixel``). Its draws are the evaluation's own, one
 generator per batch index from a fixed seed and never the trainer's, so that
 epoch-to-epoch readings move only with the weights.
 
-The media are PNG frames written with the standard library (``zlib`` and
-``struct``): the GIF and mp4 of JAX's version wait for PIL, imageio or
-OpenCV, which the card's machine does not have.
+The media are written without PIL, imageio or OpenCV, which the card's
+machine does not have: the real-vs-predicted grid as ``real_vs_pred.gif``
+(``utils/media.write_gif``, JAX's file; JAX's extra mp4 is not written)
+beside one PNG a frame (standard library ``zlib`` and ``struct``), the
+keypoint overlay as PNG frames.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from unified_video_action_tpu_torch.eval.metrics import (
 from unified_video_action_tpu_torch.models.vae import LATENT_SCALE
 from unified_video_action_tpu_torch.utils import image as image_util
 from unified_video_action_tpu_torch.utils.frames import select_frame_indices, split_trajectory
+from unified_video_action_tpu_torch.utils.media import write_gif
 
 # the seed of the evaluation's draws; batch bi draws from EVAL_SEED + bi
 EVAL_SEED = 0
@@ -202,10 +205,11 @@ def _write_frames(frames, path: str) -> None:
         write_png(f"{stem}_{t:02d}.png", frame)
 
 
-def save_video_grid(videos: np.ndarray, path: str) -> None:
-    """(B, T, H, W, 3) uint8 -> T PNG frames (``<path>_<t:02d>.png``) of a
-    near-square grid of the B videos, blank cells last (the reference's
-    utils/data_utils.py:429-458 grid)."""
+def save_video_grid(videos: np.ndarray, path: str, fps: int = 10) -> None:
+    """(B, T, H, W, 3) uint8 -> a near-square grid of the B videos, blank
+    cells last (the reference's utils/data_utils.py:429-458 grid), as an
+    animated GIF at ``fps`` (``<path>.gif``) and as T PNG frames
+    (``<path>_<t:02d>.png``)."""
     B, T, H, W, C = videos.shape
     gw = int(np.ceil(np.sqrt(B)))
     gh = int(np.ceil(B / gw))
@@ -214,3 +218,4 @@ def save_video_grid(videos: np.ndarray, path: str) -> None:
         videos = np.concatenate([videos, np.zeros((pad, T, H, W, C), videos.dtype)], axis=0)
     grid = videos.reshape(gh, gw, T, H, W, C).transpose(2, 0, 3, 1, 4, 5).reshape(T, gh * H, gw * W, C)
     _write_frames(list(grid), path)
+    write_gif(os.path.splitext(path)[0] + ".gif", grid, fps)

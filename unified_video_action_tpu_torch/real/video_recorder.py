@@ -5,9 +5,13 @@ The reference's ``umi/real_world/video_recorder.py`` (a process draining
 camera frames into an h264 file, start/stop per episode): a spawned child
 (``real/controller.py`` says why) follows a camera's shared-memory ring,
 which it reopens by name, and appends every new frame to the active video
-file through cv2.VideoWriter, imported in the child only. Episode lifecycle
-maps to start_recording(path) / stop_recording(), matching UmiRealEnv's
-start_episode/end_episode timing.
+file. Episode lifecycle maps to start_recording(path) /
+stop_recording(), matching UmiRealEnv's start_episode/end_episode timing.
+
+The file is an animated GIF written by the port's own writer
+(``utils/media.GifWriter``, streamed frame by frame; a path with another
+extension, such as JAX's ``.mp4``, gets ``.gif``): JAX's child writes an
+mp4 through OpenCV, which the card's machine does not have.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import queue
 import time
 
 from unified_video_action_tpu_torch.real.controller import SPAWN, SpawnedDevice
+from unified_video_action_tpu_torch.utils.media import GifWriter
 
 
 class VideoRecorderProcess(SpawnedDevice):
@@ -31,7 +36,8 @@ class VideoRecorderProcess(SpawnedDevice):
     # -- parent-side API ----------------------------------------------------
 
     def start_recording(self, path: str) -> None:
-        self._cmd.put(("start", path))
+        """Record into ``path`` with its extension made ``.gif``."""
+        self._cmd.put(("start", os.path.splitext(path)[0] + ".gif"))
 
     def stop_recording(self) -> None:
         self._cmd.put(("stop", None))
@@ -47,8 +53,6 @@ class VideoRecorderProcess(SpawnedDevice):
     # -- child-side loop ----------------------------------------------------
 
     def run(self):  # pragma: no cover - runs in the spawned child
-        import cv2
-
         writer = None
         path = None
         last_ts = float("-inf")
@@ -57,7 +61,7 @@ class VideoRecorderProcess(SpawnedDevice):
             try:
                 cmd, arg = self._cmd.get_nowait()
                 if writer is not None:
-                    writer.release()
+                    writer.close()
                     writer = None
                 if cmd == "start":
                     os.makedirs(os.path.dirname(arg) or ".", exist_ok=True)
@@ -72,18 +76,15 @@ class VideoRecorderProcess(SpawnedDevice):
                 ts = float(data["timestamp"][0])
                 # decimate to the container rate: write a frame only when a
                 # full 1/fps period has elapsed in SOURCE timestamps, so the
-                # mp4 plays back in real time regardless of the camera's own
+                # video plays back in real time regardless of the camera's own
                 # rate (reference steps_per_render semantics)
                 if ts - last_ts >= 1.0 / self.fps - 1e-6:
-                    frame = data["color"][0]
                     if writer is None:
-                        h, w = frame.shape[:2]
-                        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
-                                                 self.fps, (w, h))
-                    writer.write(frame[..., ::-1])  # rgb -> bgr
+                        writer = GifWriter(path, self.fps)
+                    writer.append(data["color"][0])
                     with self._n_written.get_lock():
                         self._n_written.value += 1
                     last_ts = ts
             time.sleep(self.poll_dt)
         if writer is not None:
-            writer.release()
+            writer.close()

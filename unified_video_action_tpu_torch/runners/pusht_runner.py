@@ -12,20 +12,26 @@ All envs of a stream step through one batched policy call per control step.
 With ``n_streams > 1`` the envs split into several vector envs whose calls
 interleave: the policy's ``*_async`` entry points return the action tensor
 on the device without waiting for it, so while one stream's call runs on
-the card the other streams' envs step on the host.
+the card the other streams' envs step on the host. ``vector_env="async"``
+steps each stream's envs in spawned processes (``envs/wrappers.AsyncVectorEnv``,
+one a seed, built from ``envs/pusht.make_runner_env``), ``"sync"`` in this
+one; with the same policy and generator both give the same results.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from unified_video_action_tpu_torch.envs.pusht import PushTImageEnv
-from unified_video_action_tpu_torch.envs.wrappers import MultiStepWrapper, SyncVectorEnv
+from unified_video_action_tpu_torch.envs.pusht import make_runner_env
+from unified_video_action_tpu_torch.envs.wrappers import AsyncVectorEnv, SyncVectorEnv
+
+VECTOR_ENVS = {"sync": SyncVectorEnv, "async": AsyncVectorEnv}
 
 
 class PushTImageRunner:
@@ -53,8 +59,9 @@ class PushTImageRunner:
         chunk_size: Optional[int] = None,
         **kwargs,
     ):
-        if vector_env != "sync":
-            raise NotImplementedError(f"vector_env={vector_env!r} is not ported; only 'sync'")
+        if vector_env not in VECTOR_ENVS:
+            raise ValueError(f"vector_env must be one of {sorted(VECTOR_ENVS)}, got {vector_env!r}")
+        self.vector_env = vector_env
         self.latent_cache = latent_cache
         self.n_streams = n_streams
         self.chunk_size = chunk_size
@@ -70,26 +77,18 @@ class PushTImageRunner:
         self.prefixes = ["train/"] * n_train + ["test/"] * n_test
         self.fix_goal = fix_goal
         self.legacy = legacy_test
-        # of the last run: host seconds (wall, env stepping and the number of
-        # vector-env steps, the policy's dispatches and the waits for their
-        # actions), and each env's last agent position
+        # of the last run: host seconds (wall, building the vector envs with
+        # their first reset, env stepping and the number of vector-env steps,
+        # the policy's dispatches and the waits for their actions), and each
+        # env's last agent position
         self.timing: Dict[str, float] = {}
         self.final_agent_pos = np.zeros((len(self.seeds), 2), dtype=np.float32)
 
     def _make_env_fns(self):
-        fns = []
-        for seed in self.seeds:
-            def make(seed=seed):
-                env = PushTImageEnv(legacy=self.legacy, fix_goal=self.fix_goal)
-                env.seed(seed)
-                return MultiStepWrapper(
-                    env,
-                    n_obs_steps=self.n_obs_steps,
-                    n_action_steps=self.n_action_steps,
-                    max_episode_steps=self.max_steps,
-                )
-            fns.append(make)
-        return fns
+        """One picklable factory a seed."""
+        return [functools.partial(make_runner_env, seed, self.legacy, self.fix_goal,
+                                  self.n_obs_steps, self.n_action_steps, self.max_steps)
+                for seed in self.seeds]
 
     def run(
         self,
@@ -110,7 +109,8 @@ class PushTImageRunner:
         )
         all_rewards = np.zeros(n)
         self.timing = dict.fromkeys(
-            ("wall_s", "env_step_s", "env_steps", "dispatch_s", "dispatches", "wait_s"), 0.0)
+            ("wall_s", "env_start_s", "env_step_s", "env_steps", "dispatch_s", "dispatches",
+             "wait_s"), 0.0)
         t0 = time.perf_counter()
 
         chunks = [
@@ -141,18 +141,20 @@ class PushTImageRunner:
         streams = []
         timing = self.timing
         try:
+            t = time.perf_counter()
             for start, fns in group:
-                venv = SyncVectorEnv(fns)
                 streams.append({
                     "start": start,
-                    "venv": venv,
-                    "obs": venv.reset(),
+                    "venv": VECTOR_ENVS[self.vector_env](fns),
                     "done": np.zeros(len(fns), dtype=bool),
                     "max_reward": np.zeros(len(fns)),
                     "steps": 0,
                     "cache": None,
                     "pending": None,
                 })
+            for s in streams:
+                s["obs"] = s["venv"].reset()
+            timing["env_start_s"] += time.perf_counter() - t
 
             def dispatch(s):
                 t = time.perf_counter()

@@ -47,9 +47,12 @@ a resumed run replays. Every key of the config's ``training``,
 sections is acted on or named in the log as ignored (:func:`config_report`).
 Two input paths: the device-resident store (``dataloader.device_resident:
 true``, the PushT datasets; on the CPU the store is host memory), and the
-host loader (``data/loader.py``) for the UMI datasets of a
-``task_type: multiple_datasets`` config and for the robomimic and LIBERO
-datasets (``config.TOOLHANG``, ``config.LIBERO10``), as JAX runs them
+host loader (``data/loader.py``) for every dataset otherwise: PushT
+(``config.PUSHT_256_RUN``, uva_pusht.yaml's recipe; with ``data_aug`` its
+crop and blur run on the device, or in the loader's workers under
+``device_aug=False``), the UMI datasets of a ``task_type:
+multiple_datasets`` config, and the robomimic and LIBERO datasets
+(``config.TOOLHANG``, ``config.LIBERO10``), as JAX runs them
 (``training/workspace.py:169-181``, ``:340-375``): its batches collated on
 the host by ``dataloader.num_workers`` threads (``worker_mode`` "process" forks them),
 the task mode and the frame indices (a random history frequency under
@@ -153,8 +156,6 @@ def config_report(cfg: Mapping) -> Dict[str, str]:
     return out
 
 
-# the datasets that the host loader serves
-HOST_DATASETS = (UmiMultiDataset, RobomimicReplayImageDataset, LiberoReplayImageDataset)
 Dataset = Union[PushTImageDataset, UmiMultiDataset, RobomimicReplayImageDataset,
                 LiberoReplayImageDataset]
 
@@ -291,9 +292,6 @@ class Trainer:
         self.normalizer = self.dataset.get_normalizer()
         self.policy.set_normalizer(self.normalizer)
         if self.host_loader:
-            if not isinstance(self.dataset, HOST_DATASETS):
-                raise NotImplementedError("the host loader serves the UMI, robomimic and LIBERO "
-                                          "datasets; set dataloader.device_resident=true for PushT")
             dl = cfg["dataloader"]
             loader = dict(worker_mode=dl.get("worker_mode", "thread"),
                           prefetch=int(dl.get("prefetch", 2)))
@@ -343,9 +341,10 @@ class Trainer:
 
     # -- the epoch --------------------------------------------------------
 
-    def draw_aug(self, batch: int) -> Dict[str, np.ndarray]:
-        """Per-sample crop corners and blur widths, drawn on the host."""
-        m_h, m_w = image_util.aug_margins(*self.data.frame_hw)
+    def draw_aug(self, batch: int, frame_hw: Optional[Tuple[int, int]] = None) -> Dict[str, np.ndarray]:
+        """Per-sample crop corners and blur widths for frames of ``frame_hw``
+        (the device store's by default), drawn on the host."""
+        m_h, m_w = image_util.aug_margins(*(frame_hw or self.data.frame_hw))
         return {"aug_top": self.np_rng.integers(0, m_h, batch).astype(np.int32),
                 "aug_left": self.np_rng.integers(0, m_w, batch).astype(np.int32),
                 "aug_sigma": self.np_rng.uniform(0.1, 2.0, batch).astype(np.float32)}
@@ -372,8 +371,13 @@ class Trainer:
         per batch of the loader, the task mode and then the frame indices
         drawn on the host (the history frames at random under
         ``different_history_freq``); a window the items did not gather
-        already (no ``img_indices``) keeps only those frames; then the copy
-        to the device."""
+        already (no ``img_indices``) keeps only those frames; a dataset
+        whose ``data_aug`` runs on the device (PushT's ``device_aug``) gets
+        the batch's crop corners and blur widths drawn next (the items of
+        one with ``device_aug=False`` come augmented); then the copy to the
+        device."""
+        device_aug = (getattr(self.dataset, "data_aug", False)
+                      and getattr(self.dataset, "device_aug", False))
         for b in self.loader:
             task_mode = self.policy.choose_task_mode(self.np_rng)
             obs = b["obs"]
@@ -382,8 +386,10 @@ class Trainer:
                 obs[key].shape[1], eval=False,
                 different_history_freq=self.policy.different_history_freq, rng=self.np_rng)
             if "img_indices" not in obs:
-                b = dict(b, obs=dict(obs, **{key: obs[key][:, frame_indices]}))
-            yield task_mode, frame_indices, to_device_batch(b, self.device)
+                obs = dict(obs, **{key: obs[key][:, frame_indices]})
+            if device_aug:
+                obs = dict(obs, **self.draw_aug(obs[key].shape[0], obs[key].shape[-2:]))
+            yield task_mode, frame_indices, to_device_batch(dict(b, obs=obs), self.device)
 
     def train_epoch(self, stop=lambda: False) -> List[Dict[str, torch.Tensor]]:
         """The epoch's steps (at most ``max_train_steps``; after the step in
