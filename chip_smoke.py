@@ -239,13 +239,25 @@ attention_plan picks.
            config.UMI_TRAIN_OVERRIDES and its grad_checkpointing on) through
            train_torch.py's Trainer and the host loader, on the port's
            synthetic corpus (three datasets of 4 episodes at 224 px, written
-           here by tools/gen_synthetic_umi.py): 3 fp32 steps at B=1 with the
+           here by tools/gen_synthetic_umi.py as reference-layout zarr v2
+           stores, two directories and one .zarr.zip, every key zlib, read
+           lazily through the byte-bounded chunk caches; one batch of them
+           bit-equal to the same batch of an in-memory load; the caches'
+           peak), the codec line (libblosc, libzstd, liblz4: a chunk round
+           trip and a .zarr.tar.lz4 through tools/stage_datasets.py extract
+           where the library loads, else the error naming it), the MAR and
+           the VAE started from reference-format torch checkpoints written
+           here from seeded weights (state_dicts.ema_model under model., a
+           kl16.ckpt; a config object no machine can import) through
+           pretrained_model_path and autoencoder_path, every imported leaf
+           equal to its source; 3 fp32 steps at B=1 with the
            model cut to 2+2 blocks at full width on the card and on the CPU
            (the same batches, noise, label drop and dropout masks) within
            TRAIN_PARITY_RTOL; UMI_STEPS bf16 steps at B=32 at full depth,
            both task modes, the random history frequency, every metric
-           finite, no uva_* kernel launched; ms per step by CUDA events, peak
-           memory; one val_action_l2_distances reading whose predict call
+           finite, no uva_* kernel launched; ms per step by CUDA events, the
+           host loader's wait a batch, peak memory; one
+           val_action_l2_distances reading whose predict call
            launches the online kernel's D = 64 instance once per block.
 11. suite_toolhang  robomimic's tool-hang trained then evaluated: a
            synthetic robomimic-layout store (8 demos of 64 steps, two 240 px
@@ -3885,6 +3897,13 @@ UMI_STEPS = 5  # bf16 steps at the config's B = 32
 UMI_TIMED_FROM = 2  # the first steps warm up
 UMI_PARITY_B, UMI_PARITY_DEPTH = 1, 2  # fp32 card-vs-CPU steps at full width, 2+2 blocks
 UMI_PARITY_MODES = ("policy_model", "full_dynamic_model", "policy_model")
+# the corpus's stores: every key zlib (a standard-library codec: the path
+# needs no optional library), the mouse dataset as a .zarr.zip
+UMI_CODEC = {"id": "zlib", "level": 1}
+UMI_STORE_KEYS = ("camera0_rgb", "robot0_eef_pos", "robot0_eef_rot_axis_angle",
+                  "robot0_gripper_width", "robot0_demo_start_pose")
+UMI_SUFFIXES = {"mouse": ".zarr.zip"}
+UMI_SYSTEM_CODECS = ("libblosc", "libzstd", "liblz4")
 
 
 def umi_train_config(paths: dict, *overrides: str) -> dict:
@@ -3968,6 +3987,180 @@ def umi_parity(paths: dict, trainer) -> dict:
     return {"steps": steps, "cpu_s": seconds["cpu"], "card_s": seconds["cuda"]}
 
 
+def umi_codec_line(root: str, store: str) -> dict:
+    """For each of UMI_SYSTEM_CODECS: where the library loads, a chunk of
+    the camera key round-trips through its codec (blosc, zstd), and for
+    liblz4 the directory store ``store`` packed as a .zarr.tar.lz4 goes
+    through tools/stage_datasets.py extract and reads back equal; where it
+    does not load, reading such data raises an error naming the library.
+    Returns {library: the case that held}."""
+    import tarfile
+
+    from unified_video_action_tpu_torch.data import zarrlite
+    from unified_video_action_tpu_torch.data.replay_buffer import ReplayBuffer
+    from unified_video_action_tpu_torch.tools import stage_datasets
+    from unified_video_action_tpu_torch.utils import lz4f
+
+    frames = np.asarray(ReplayBuffer.load(store, lazy=True)["camera0_rgb"][:4])
+    loaders = {"libblosc": zarrlite._Blosc.lib, "libzstd": zarrlite._Zstd.lib,
+               "liblz4": lz4f._Lib.get}
+    codecs = {"libblosc": dict(zarrlite.DEFAULT_COMPRESSOR), "libzstd": {"id": "zstd", "level": 3}}
+    line = {}
+    for lib in UMI_SYSTEM_CODECS:
+        try:
+            loaders[lib]()
+            loaded = True
+        except RuntimeError as e:
+            loaded, reason = False, str(e)
+        if lib in codecs:
+            group = zarrlite.open_group(zarrlite.MemoryStore(), mode="w")
+            if loaded:
+                arr = group.create_dataset("x", data=frames, chunks=(2,) + frames.shape[1:],
+                                           compressor=codecs[lib])
+                back = zarrlite.open_group(group.store)["x"][:]
+                if not np.array_equal(back, frames):
+                    raise AssertionError(f"train_umi codec line: {lib}'s chunk round trip differs")
+                line[lib] = f"loaded: a chunk of {frames.nbytes} bytes round-trips"
+                continue
+            arr = group.create_dataset("x", shape=frames.shape, dtype=frames.dtype,
+                                       compressor=None)
+            meta = json.loads(group.store.get("x/.zarray"))
+            group.store.set("x/.zarray", json.dumps(dict(meta, compressor=codecs[lib])).encode())
+            group.store.set("x/0.0.0.0", b"\0" * 64)
+            reader = zarrlite.open_group(group.store)["x"]
+        else:
+            if loaded:
+                packed = os.path.join(root, "packed")
+                os.makedirs(packed, exist_ok=True)
+                raw = io.BytesIO()
+                with tarfile.open(fileobj=raw, mode="w") as t:
+                    t.add(store, arcname=os.path.basename(store))
+                archive = os.path.join(packed, os.path.basename(store) + ".tar.lz4")
+                with open(archive, "wb") as f:
+                    f.write(lz4f.compress(raw.getvalue()))
+                out = os.path.join(root, "staged")
+                said = stage_datasets.extract_all(packed, out)
+                a = ReplayBuffer.load(store)
+                b = ReplayBuffer.load(os.path.join(out, os.path.basename(store)))
+                if not (a.keys() == b.keys() and np.array_equal(a.episode_ends, b.episode_ends)
+                        and all(np.array_equal(a[k], b[k]) for k in a.keys())):
+                    raise AssertionError(f"train_umi codec line: {archive} staged differs: {said}")
+                line[lib] = (f"loaded: a .zarr.tar.lz4 of {os.path.getsize(archive)} bytes staged "
+                             f"by stage_datasets extract and read back equal")
+                continue
+            reader = None
+        try:
+            reader[:] if reader is not None else lz4f.decompress(b"\x04\x22\x4d\x18")
+        except RuntimeError as e:
+            if lib not in str(e):
+                raise AssertionError(f"train_umi codec line: {lib} absent, but the error says {e}")
+            line[lib] = f"not loaded ({reason}); reading raises naming it"
+            continue
+        raise AssertionError(f"train_umi codec line: {lib} did not load, yet reading did not raise")
+    return line
+
+
+def umi_reference_checkpoints(cfg: dict, out: str) -> tuple:
+    """A reference-format MAR checkpoint and a kl16.ckpt written under
+    ``out`` from seeded weights of the config's model (the flax layout
+    through tests/_torch_reference_layout.py), and ``cfg`` pointed at them
+    (pretrained_model_path, autoencoder_path). Returns the two trees."""
+    from tests import _torch_reference_layout as reference
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    meta = UnifiedVideoActionPolicy.from_cfg(cfg, device="meta")
+    trees = {"mar": convert.seeded_tree(meta.mar, SEED + 3),
+             "vae": convert.seeded_tree(meta.vae, SEED + 1)}
+    os.makedirs(out, exist_ok=True)
+    policy_cfg = cfg["model"]["policy"]
+    policy_cfg["autoregressive_model_params"]["pretrained_model_path"] = os.path.join(out, "mar.ckpt")
+    policy_cfg["vae_model_params"]["autoencoder_path"] = os.path.join(out, "kl16.ckpt")
+    reference.write_mar_checkpoint(policy_cfg["autoregressive_model_params"]["pretrained_model_path"],
+                                   trees["mar"])
+    reference.write_vae_checkpoint(policy_cfg["vae_model_params"]["autoencoder_path"], trees["vae"])
+    return trees
+
+
+def umi_imported_leaves(policy, trees: dict) -> dict:
+    """Every leaf of the trainer's MAR (fp32) and VAE tree against its
+    source in the reference checkpoints: all bit-equal, none kept at init
+    or skipped."""
+    from unified_video_action_tpu_torch import convert
+
+    got = {"mar": convert.flatten_tree(convert.to_flax_tree(policy.mar)),
+           "vae": convert.flatten_tree(policy.vae_tree)}
+    counts = {"skipped": policy._last_mar_import_skipped,
+              "kept_at_init": policy._last_mar_import_kept_at_init}
+    for name, tree in trees.items():
+        want = convert.flatten_tree(tree)
+        differ = [p for p in want if p not in got[name] or not np.array_equal(got[name][p], want[p])]
+        counts[f"{name}_leaves"], counts[f"{name}_differ"] = len(want), len(differ)
+        if differ or got[name].keys() != want.keys():
+            raise AssertionError(f"train_umi checkpoint: {len(differ)} of {len(want)} {name} leaves "
+                                 f"differ from the reference checkpoint: {differ[:5]}")
+    if counts["skipped"] or counts["kept_at_init"]:
+        raise AssertionError(f"train_umi checkpoint: {counts}")
+    return counts
+
+
+def umi_lazy_batch_check(trainer, cfg: dict) -> dict:
+    """The trainer's datasets read lazily from zarr (each camera array a
+    ZarrArray, two directory stores and one zip); one batch of B items from
+    them bit-equal to the same items of an in-memory load of the stores."""
+    from unified_video_action_tpu_torch.data import zarrlite
+    from unified_video_action_tpu_torch.data.loader import collate
+    from unified_video_action_tpu_torch.training.workspace import build_dataset
+
+    stores = {}
+    for name, ds in trainer.dataset.datasets.items():
+        arrays = [ds.replay_buffer[k] for k in UMI_STORE_KEYS]
+        if not all(isinstance(a, zarrlite.ZarrArray) for a in arrays):
+            raise AssertionError(f"train_umi: {name} is not read lazily: {[type(a) for a in arrays]}")
+        stores[name] = type(arrays[0].store).__name__
+    if sorted(stores.values()) != ["DirectoryStore", "DirectoryStore", "ZipStore"]:
+        raise AssertionError(f"train_umi: stores {stores}")
+    eager = copy.deepcopy(cfg)
+    for spec in eager["task"]["dataset"]["datasets_cfg"].values():
+        spec["lazy"] = False
+    memory = build_dataset(eager)
+    idx = np.random.default_rng(SEED + 8).choice(len(trainer.dataset), trainer.batch_size,
+                                                 replace=False)
+    t0 = time.perf_counter()
+    lazy_batch = collate([trainer.dataset[int(i)] for i in idx])
+    lazy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memory_batch = collate([memory[int(i)] for i in idx])
+    memory_s = time.perf_counter() - t0
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+
+    a, b = dict(leaves(lazy_batch)), dict(leaves(memory_batch))
+    differ = [k for k in a if k not in b or not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))]
+    if differ or a.keys() != b.keys():
+        raise AssertionError(f"train_umi: the lazy batch differs from the in-memory one at {differ}")
+    return {"stores": stores, "batch_keys": len(a), "lazy_batch_s": lazy_s,
+            "memory_batch_s": memory_s}
+
+
+def umi_cache_peak(trainer) -> dict:
+    """The chunk caches of the trainer's lazy arrays: the largest peak of
+    one array, their sum, and the bound each is held to."""
+    from unified_video_action_tpu_torch.data import zarrlite
+
+    peaks = {f"{name}/{k}": ds.replay_buffer[k].cache_peak_bytes
+             for name, ds in trainer.dataset.datasets.items() for k in UMI_STORE_KEYS}
+    if max(peaks.values()) > zarrlite.CACHE_BYTES:
+        raise AssertionError(f"train_umi: a chunk cache past its bound: {peaks}")
+    return {"max_array_peak_bytes": max(peaks.values()), "sum_peak_bytes": sum(peaks.values()),
+            "bound_bytes_per_array": zarrlite.CACHE_BYTES, "arrays": len(peaks)}
+
+
 def load_vae(policy, tree: dict) -> None:
     """The VAE of ``tree`` (flax layout, fp32) into ``policy``, kept as its
     ``vae_tree`` (what its serving policies and checkpoints read)."""
@@ -3981,15 +4174,18 @@ def phase_train_umi(attention_ops, int8_ops) -> dict:
     """The UMI multi-task model's stage 2 on the card through train_torch.py's
     Trainer and the host loader: the port's synthetic corpus
     (tools/gen_synthetic_umi.py: three datasets of UMI_EPISODES episodes at
-    224 px) written here; fp32 card-vs-CPU steps (umi_parity); UMI_STEPS bf16
-    steps at the config's B = 32 (mar_base, N = 1088, both task modes drawn,
-    the random history frequency, the label drop, dropout 0.1) with every
-    metric finite and no uva_* kernel launched, ms per step by CUDA events
-    and peak memory; then the epoch's validation: one
-    val_action_l2_distances reading, its predict call launching the online
-    kernel's D = 64 instance once per ViT block. Returns the phase's numbers
-    and the validation's launches."""
-    from unified_video_action_tpu_torch import convert
+    224 px) written here as reference-layout zarr stores (UMI_CODEC on every
+    key, UMI_SUFFIXES) and read lazily (umi_lazy_batch_check); the codec
+    line (umi_codec_line); the MAR and the VAE from reference-format torch
+    checkpoints (umi_reference_checkpoints, umi_imported_leaves); fp32
+    card-vs-CPU steps (umi_parity); UMI_STEPS bf16 steps at the config's B =
+    32 (mar_base, N = 1088, both task modes drawn, the random history
+    frequency, the label drop, dropout 0.1) with every metric finite and no
+    uva_* kernel launched, ms per step by CUDA events, the loader's wait a
+    batch and peak memory; the chunk caches' peak; then the epoch's
+    validation: one val_action_l2_distances reading, its predict call
+    launching the online kernel's D = 64 instance once per ViT block.
+    Returns the phase's numbers and the validation's launches."""
     from unified_video_action_tpu_torch.tools.gen_synthetic_umi import write_corpus
     from unified_video_action_tpu_torch.training.train_state import train_step
     from unified_video_action_tpu_torch.training.workspace import Trainer
@@ -3997,18 +4193,32 @@ def phase_train_umi(attention_ops, int8_ops) -> dict:
     t0 = time.perf_counter()
     shutil.rmtree(UMI_OUT, ignore_errors=True)
     with contextlib.redirect_stdout(io.StringIO()):
-        paths = write_corpus(os.path.join(UMI_OUT, "umi"), UMI_EPISODES, UMI_EPISODE_LEN, 224)
+        paths = write_corpus(os.path.join(UMI_OUT, "umi"), UMI_EPISODES, UMI_EPISODE_LEN, 224,
+                             compressors={k: dict(UMI_CODEC) for k in UMI_STORE_KEYS},
+                             suffixes=UMI_SUFFIXES)
     corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codecs = umi_codec_line(os.path.join(UMI_OUT, "codecs"), paths["cup"])
+    log(f"train_umi codec line: {json.dumps(codecs)} ({time.perf_counter() - t0:.1f}s)")
     cfg = umi_train_config(paths)
     t0 = time.perf_counter()
+    trees = umi_reference_checkpoints(cfg, os.path.join(UMI_OUT, "reference"))
+    ckpt_s = time.perf_counter() - t0
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in (
+        cfg["model"]["policy"]["autoregressive_model_params"]["pretrained_model_path"],
+        cfg["model"]["policy"]["vae_model_params"]["autoencoder_path"])}
+    t0 = time.perf_counter()
     trainer = Trainer(cfg, "cuda")
+    trainer_s = time.perf_counter() - t0
     policy = trainer.policy
     c = policy.mar_cfg
-    # the KL-16 VAE's kl16.ckpt is absent: a numpy-seeded ch-128 VAE
-    load_vae(policy, convert.seeded_tree(policy.vae, SEED + 1))
-    log(f"train_umi: corpus of {len(paths)} datasets x {UMI_EPISODES} episodes x {UMI_EPISODE_LEN} "
-        f"steps at 224 px written in {corpus_s:.1f}s; {len(trainer.dataset)} training and "
-        f"{len(trainer.val_dataset)} validation items; trainer built in {time.perf_counter() - t0:.1f}s: "
+    imported = umi_imported_leaves(policy, trees)
+    log(f"train_umi: reference checkpoints {json.dumps(sizes)} written in {ckpt_s:.1f}s; the "
+        f"trainer started from them: {json.dumps(imported)}")
+    log(f"train_umi: corpus of {len(paths)} zarr stores x {UMI_EPISODES} episodes x "
+        f"{UMI_EPISODE_LEN} steps at 224 px ({json.dumps(UMI_CODEC)}, {UMI_SUFFIXES}) written in "
+        f"{corpus_s:.1f}s; {len(trainer.dataset)} training and {len(trainer.val_dataset)} "
+        f"validation items; trainer built in {trainer_s:.1f}s: "
         f"{c.encoder_depth}+{c.decoder_depth} blocks of d={c.encoder_embed_dim}, {c.attention_tokens} "
         f"tokens, streams: state {c.proprio_dim}, text {c.has_text}, history "
         f"{c.use_history_action}, different_history_freq {c.different_history_freq}, "
@@ -4016,19 +4226,24 @@ def phase_train_umi(attention_ops, int8_ops) -> dict:
         f"{trainer.loader.num_workers} loader workers")
     if c.use_history_action or not (c.use_proprioception and c.has_text and c.different_history_freq):
         raise AssertionError(f"train_umi: not the stage-2 streams: {c}")
+    lazy = umi_lazy_batch_check(trainer, cfg)
+    log(f"train_umi: one batch of B={trainer.batch_size} from the lazy stores bit-equal to the "
+        f"in-memory load: {json.dumps(lazy)}")
 
     parity = umi_parity(paths, trainer)
 
-    # the bf16 steps, timed
+    # the bf16 steps, timed, with the loader's wait for each batch
     for counter in (attention_ops.launch_count, int8_ops.launch_count):
         for k in counter:
             counter[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    state, modes, metrics, events = trainer.state, [], [], []
+    state, modes, metrics, events, waits = trainer.state, [], [], [], []
+    batches = trainer.batches()
     t0 = time.perf_counter()
-    for i, (mode, frames, batch) in enumerate(trainer.batches()):
-        if i == UMI_STEPS:
-            break
+    for i in range(UMI_STEPS):
+        tw = time.perf_counter()
+        mode, frames, batch = next(batches)
+        waits.append(time.perf_counter() - tw)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
@@ -4039,17 +4254,21 @@ def phase_train_umi(attention_ops, int8_ops) -> dict:
     end.record()
     end.synchronize()
     events.append(end)
+    batches.close()
     steps_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(len(events) - 1)]
     launched = {k: v for k, v in {**attention_ops.launch_count, **int8_ops.launch_count}.items() if v}
     values = [{k: v.item() for k, v in m.items()} for m in metrics]
     log(f"train_umi: {len(values)} bf16 steps at B={trainer.batch_size} in {steps_s:.1f}s, modes "
-        f"{modes}; losses {json.dumps(values)}; uva_* launches {launched}")
+        f"{modes}; step ms {json.dumps(step_ms)}; loader wait s {json.dumps(waits)}; losses "
+        f"{json.dumps(values)}; uva_* launches {launched}")
     if (len(values) != UMI_STEPS or set(modes) != set(policy.task_modes) or launched
             or not all(np.isfinite(list(v.values())).all() for v in values)):
         raise AssertionError(f"train_umi: steps {len(values)}, modes {modes}, launches {launched}, "
                              f"metrics {values}")
+    cache = umi_cache_peak(trainer)
+    log(f"train_umi chunk caches: {json.dumps(cache)}")
 
     # the epoch's validation: one reading through the serving policy
     for counter in (attention_ops.launch_count, attention_ops.instance_count):
@@ -4061,16 +4280,22 @@ def phase_train_umi(attention_ops, int8_ops) -> dict:
     blocks = c.encoder_depth + c.decoder_depth
     log(f"train_umi validation: val_action_l2_distances {val}; launches "
         f"{json.dumps({k: v for k, v in val_launches.items() if v})}")
-    if (val is None or not np.isfinite(val) or val_launches[plan.instance] != blocks
+    if (val is None or not np.isfinite(val) or plan.instance != "attention_wgmma_online_d64"
+            or val_launches[plan.instance] != blocks
             or sum(val_launches[k] for k in attention_ops.launch_count) != blocks):
-        raise AssertionError(f"train_umi validation: {val}, launches {val_launches}")
-    perf = {"ms_per_step": statistics.median(step_ms[UMI_TIMED_FROM:]), "step_ms": step_ms,
-            "samples_per_s": trainer.batch_size / (statistics.median(step_ms[UMI_TIMED_FROM:]) / 1e3),
+        raise AssertionError(f"train_umi validation: {val}, plan {plan.instance}, launches "
+                             f"{val_launches}")
+    timed = step_ms[UMI_TIMED_FROM:]
+    perf = {"ms_per_step": statistics.median(timed), "step_ms": step_ms,
+            "loader_wait_s": waits, "loader_wait_s_median": statistics.median(waits[UMI_TIMED_FROM:]),
+            "samples_per_s": trainer.batch_size / (statistics.median(timed) / 1e3),
             "peak_mem_gb": peak / 1e9, "grad_checkpointing": c.grad_checkpointing,
-            "B": trainer.batch_size, "val_action_l2_distances": val, "card": card_line()}
+            "B": trainer.batch_size, "val_action_l2_distances": val, "stores": "zarr, lazy",
+            "chunk_cache": cache, "card": card_line()}
     log(f"train_umi perf: {json.dumps(perf)}")
     shutil.rmtree(UMI_OUT, ignore_errors=True)
-    return {"perf": perf, "parity": parity, "launches_validate": val_launches}
+    return {"perf": perf, "parity": parity, "launches_validate": val_launches, "codecs": codecs,
+            "checkpoint": imported, "lazy": lazy}
 
 
 # suite_toolhang, suite_libero10: the robomimic and LIBERO suites, trained

@@ -27,9 +27,11 @@ def raising_factory():
 class CountingEnv:
     """A tiny env whose step sleeps ``sleep_s`` once ``step`` reaches
     ``sleep_at`` (a child that hangs) or exits the process at ``exit_at``
-    (a child that dies)."""
+    (a child that dies); it takes ``init_s`` seconds to build (a child slow
+    to start)."""
 
-    def __init__(self, sleep_at=None, sleep_s=0.0, exit_at=None):
+    def __init__(self, sleep_at=None, sleep_s=0.0, exit_at=None, init_s=0.0):
+        time.sleep(init_s)
         self.t, self.sleep_at, self.sleep_s, self.exit_at = 0, sleep_at, sleep_s, exit_at
 
     def reset(self):

@@ -121,6 +121,29 @@ def test_failures_raise_and_close_leaves_no_child():
     assert not any(p.is_alive() for p in venv.procs)
 
 
+def test_start_is_not_held_to_the_command_timeout(monkeypatch):
+    """A child that takes longer than the command timeout to build its env
+    (as a spawned child importing the port can on a loaded host) starts:
+    ``START_TIMEOUT_S`` holds the start, ``timeout`` each command after it,
+    and a start past ``START_TIMEOUT_S`` raises."""
+    from unified_video_action_tpu_torch.envs import wrappers
+
+    slow = functools.partial(child.CountingEnv, init_s=2.0, sleep_at=2, sleep_s=60.0)
+    venv = AsyncVectorEnv([slow, child.CountingEnv], timeout=1.0)
+    try:
+        assert venv.reset().shape == (2, 2)
+        assert venv.step([0, 0])[1].tolist() == [1.0, 1.0]
+        with pytest.raises(TimeoutError, match="in 1s"):
+            venv.step([0, 0])
+    finally:
+        venv.close(timeout=1.0)
+    assert not any(p.is_alive() for p in venv.procs)
+
+    monkeypatch.setattr(wrappers, "START_TIMEOUT_S", 1.0)
+    with pytest.raises(TimeoutError, match="in 1s"):
+        AsyncVectorEnv([functools.partial(child.CountingEnv, init_s=60.0)])
+
+
 def test_children_do_not_run_the_parents_main_module(tmp_path, monkeypatch):
     """A spawned child would run the parent's ``__main__`` again (for
     chip_smoke.py: import torch); AsyncVectorEnv hides it while starting its

@@ -9,7 +9,8 @@ h5py, zstandard and zmq are imported only inside the functions that need
 them); chip_smoke.py, train_torch.py and the card's tests import none of
 them either. OpenCV appears only in ``real/``, and there only inside the
 functions of a real camera, the fisheye remap, the visualizer's window and
-the video recorder, never at a module's top level. chip_smoke.py refuses to
+the video recorder, never at a module's top level; Pillow only in
+``data/zarrlite.py``, inside its JPEG 2000 codec. chip_smoke.py refuses to
 run without a CUDA device or without the package beside it.
 eval_sim_torch.py and eval_real_torch.py import nothing of the JAX package
 (orbax, to read an orbax checkpoint, only inside the function that reads
@@ -37,6 +38,9 @@ LAZY_ONLY = ("h5py", "zstandard", "zmq")
 # the real-robot stack, where OpenCV may be imported inside a function (the
 # card's machine never calls one of those)
 REAL = os.path.join(REPO, "unified_video_action_tpu_torch", "real")
+# where Pillow may be imported inside a function: the JPEG 2000 codec of the
+# zarr stores (the card's machine reads no such store)
+ZARRLITE = os.path.join(REPO, "unified_video_action_tpu_torch", "data", "zarrlite.py")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -44,7 +48,10 @@ import numpy, torch
 torch_roots = sorted({m.split(".")[0] for m in sys.modules})
 import unified_video_action_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-names.append(pkg.__name__ + ".tools.gen_pusht_demos")  # tools/ is no package; the demo tool imports the env
+# tools/ is no package: the tools that import the port's modules
+names += [pkg.__name__ + ".tools." + t for t in ("gen_pusht_demos", "gen_synthetic_umi",
+                                                 "convert_zarr_dataset", "merge_demos",
+                                                 "stage_datasets")]
 for name in names:
     importlib.import_module(name)
 import train_torch
@@ -84,7 +91,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "runners.robomimic_runner", "runners.libero_runner", "data.augmentation",
                      "data.robomimic_dataset", "data.libero_dataset", "models.clip",
                      "envs.pusht_expert", "envs.video_recording", "utils.media",
-                     "tools.gen_pusht_demos"):
+                     "tools.gen_pusht_demos", "data.zarrlite", "utils.lz4f",
+                     "models.torch_import", "tools.gen_synthetic_umi",
+                     "tools.convert_zarr_dataset", "tools.merge_demos", "tools.stage_datasets"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
@@ -109,16 +118,20 @@ def test_chip_smoke_the_port_and_its_card_tests_import_no_jax():
     # all of them run on the machine with the card, which has no JAX
     sources = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "train_torch.py"),
                os.path.join(REPO, "tests", "test_torch_attention_cuda.py"),
-               os.path.join(REPO, "tests", "test_torch_int8_cuda.py")]
+               os.path.join(REPO, "tests", "test_torch_int8_cuda.py"),
+               os.path.join(REPO, "tests", "_torch_reference_layout.py")]
     for root, _, files in os.walk(os.path.join(REPO, "unified_video_action_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in sources:
         in_real = os.path.dirname(path) == REAL
-        bad = _imported_roots(path) & set(FORBIDDEN + NOT_ON_THE_CARD) - ({"cv2"} if in_real else set())
+        lazy = ({"cv2"} if in_real else set()) | ({"PIL"} if path == ZARRLITE else set())
+        bad = _imported_roots(path) & set(FORBIDDEN + NOT_ON_THE_CARD) - lazy
         bad |= _module_level_roots(path) & set(LAZY_ONLY + NOT_ON_THE_CARD)
         assert not bad, (path, bad)
     lazy_cv2 = sorted(os.path.basename(p) for p in sources if "cv2" in _imported_roots(p))
     assert lazy_cv2 == ["fisheye.py", "sim.py", "visualizer.py"], lazy_cv2
+    lazy_pil = [p for p in sources if "PIL" in _imported_roots(p)]
+    assert lazy_pil == [ZARRLITE], lazy_pil
 
 
 def _module_level_roots(path):

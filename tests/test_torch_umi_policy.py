@@ -400,9 +400,9 @@ def test_configs_match_load_config(name):
             assert ours["task"][k] == want["task"][k], k
         for k in ("normalizer_type", "random_img_sampling", "val_ratio"):
             assert ours["task"]["dataset"][k] == want["task"]["dataset"][k], k
-        for ds, spec in want["task"]["datasets"].items():  # the port's stores are .npz
-            assert {k: v for k, v in ours["task"]["datasets"][ds].items() if k != "path"} == \
-                {k: v for k, v in spec.items() if k != "path"}
+        for ds, spec in want["task"]["datasets"].items():  # JAX's zarr stores, path too
+            assert ours["task"]["datasets"][ds] == spec
+            assert ours["task"]["dataset"]["datasets_cfg"][ds] == spec
     else:
         ours = config.TOOLHANG
         want = load_config("uva_toolhang", common + [

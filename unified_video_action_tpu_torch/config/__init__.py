@@ -55,9 +55,9 @@ package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
   ``tests/test_mar_import_parity.py:58-59``): ``use_proprioception`` (16-d
   state), ``use_history_action`` and ``language_emb_model: clip`` (the
   64-token text buffer: 1088 tokens attended). Its datasets are the three
-  ``.npz`` stores that ``tools/gen_synthetic_umi.py`` writes under
-  ``data/umi/`` (JAX's config names zarr stores there, which the port does
-  not read yet). ``predict_proprioception`` stays off: JAX's UMI branch of
+  zarr stores ``data/umi/<name>.zarr`` that JAX's ``task/umi_multi.yaml``
+  names (``tools/gen_synthetic_umi.py`` writes them), read lazily.
+  ``predict_proprioception`` stays off: JAX's UMI branch of
   ``_build_proprio_train`` builds no target for it. JAX refuses history
   actions in training on UMI's 32-step window (15 history rows do not
   divide 1024 tokens), and so does the port: training takes
@@ -219,10 +219,10 @@ TOOLHANG = _run_config("toolhang", _TOOLHANG_SHAPE_META, "mar_base", 256, 128, N
                        use_proprioception=True, predict_proprioception=True)
 
 _UMI_DATASETS = {
-    "cup": {"path": "data/umi/cup.npz", "mask_mirror": True,
+    "cup": {"path": "data/umi/cup.zarr", "mask_mirror": True,
             "prompt": "pick up the cup and place it on the saucer"},
-    "towel": {"path": "data/umi/towel.npz", "mask_mirror": False, "prompt": "fold the towel"},
-    "mouse": {"path": "data/umi/mouse.npz", "mask_mirror": True,
+    "towel": {"path": "data/umi/towel.zarr", "mask_mirror": False, "prompt": "fold the towel"},
+    "mouse": {"path": "data/umi/mouse.zarr", "mask_mirror": True,
               "prompt": "pick up the mouse and place it on the mousepad"},
 }
 

@@ -20,9 +20,11 @@ numpy only.
   the pixels ``cv2.fillPoly`` draws, by the port's numpy rasterizer (the
   card's machine has no OpenCV).
 
-Stores are the port's ``.npz`` replay buffers (``tools/gen_synthetic_umi.py``
-writes the synthetic corpus); the zarr and HDF5 UMI stores wait for a later
-slice.
+Stores are the reference's zarr stores (``tools/gen_synthetic_umi.py``
+writes the synthetic corpus so), read lazily: an item decodes the chunks
+its frames fall in (``ReplayBuffer.load(..., lazy=True)``, each array's
+chunk cache bounded in bytes), never a whole key. A ``.npz`` or HDF5
+replay buffer is read whole.
 """
 
 from __future__ import annotations
@@ -236,14 +238,16 @@ def build_umi_multi_from_config(datasets_cfg: Dict[str, dict], val_ratio: float 
                                 random_img_sampling: bool = False, seed: int = 42,
                                 text_encoder=None, **kwargs) -> UmiMultiDataset:
     """``UmiMultiDataset`` from the task config's ``datasets`` block ({name:
-    {path, mask_mirror, prompt}}); each path a ``.npz`` replay buffer. Other
-    keyword arguments of the dataset block (``normalizer_type``) are read by
-    the trainer."""
+    {path, mask_mirror, prompt, lazy}}); each path a replay buffer, a zarr
+    store read lazily unless its ``lazy`` says otherwise. Other keyword
+    arguments of the dataset block (``normalizer_type``) are read by the
+    trainer."""
     datasets: Dict[str, UmiLazyDataset] = {}
     prompts: Dict[str, str] = {}
     for name, spec in datasets_cfg.items():
+        lazy = bool(spec.get("lazy", ReplayBuffer._is_zarr(spec["path"])))
         datasets[name] = UmiLazyDataset(
-            ReplayBuffer.load(spec["path"]), name=name,
+            ReplayBuffer.load(spec["path"], lazy=lazy), name=name,
             mask_mirror=bool(spec.get("mask_mirror", False)),
             random_img_sampling=random_img_sampling, val_ratio=val_ratio, seed=seed)
         if "prompt" in spec:

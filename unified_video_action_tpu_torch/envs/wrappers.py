@@ -41,8 +41,13 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 
-# the longest a parent waits for one child's answer, s
+# the longest a parent waits for one child's answer to a command, s
 RECV_TIMEOUT_S = 120.0
+# the longest a parent waits for a spawned child to import its modules and
+# build its env, s; apart from the command timeout, which a caller may set
+# short to catch a hung step (a child's start under a loaded host took more
+# than 1 s)
+START_TIMEOUT_S = 300.0
 
 
 def stack_repeated(x, n):
@@ -216,7 +221,8 @@ class AsyncVectorEnv:
     """Process-per-env vector env over pipes: each of ``env_fns`` (picklable)
     is called in a spawned child, which then serves ``reset``, ``step``,
     ``render`` and ``call``. The constructor returns once every child has
-    built its env."""
+    built its env, within ``START_TIMEOUT_S``; each command's answer is
+    waited for ``timeout`` seconds."""
 
     def __init__(self, env_fns: Sequence[Callable[[], Any]], timeout: float = RECV_TIMEOUT_S):
         ctx = mp.get_context("spawn")
@@ -233,26 +239,27 @@ class AsyncVectorEnv:
                     p.start()
                 work_remote.close()
                 self.procs.append(p)
-            self._gather()  # each child's env is built
+            self._gather(START_TIMEOUT_S)  # each child's env is built
         except BaseException:
             self.close()
             raise
 
-    def _recv(self, i: int):
+    def _recv(self, i: int, timeout: float):
         """Child i's answer: ("ok", result) or ("error", its traceback)."""
         remote, proc = self.remotes[i], self.procs[i]
-        if not remote.poll(self.timeout):
-            raise TimeoutError(f"env process {proc.pid} sent nothing in {self.timeout:.0f}s")
+        if not remote.poll(timeout):
+            raise TimeoutError(f"env process {proc.pid} sent nothing in {timeout:.0f}s")
         try:
             return remote.recv()
         except EOFError:
             proc.join(1.0)
             raise RuntimeError(f"env process {proc.pid} died (exit code {proc.exitcode})") from None
 
-    def _gather(self) -> list:
+    def _gather(self, timeout: Optional[float] = None) -> list:
         """Every child's result; where some raised, every answer is read
         first (the pipes stay in step) and the first traceback raised."""
-        answers = [self._recv(i) for i in range(self.n_envs)]
+        timeout = self.timeout if timeout is None else timeout
+        answers = [self._recv(i, timeout) for i in range(self.n_envs)]
         for i, (status, payload) in enumerate(answers):
             if status == "error":
                 raise RuntimeError(f"env process {self.procs[i].pid} raised:\n{payload}")

@@ -291,45 +291,77 @@ class UnifiedVideoActionPolicy:
         """JAX's ``init_params``: the MAR's parameters drawn from flax's
         initializers (``models/initializers.py``) by a generator on the
         policy's device seeded with ``seed``, the VAE read from
-        ``vae_model_params.autoencoder_path`` (an npz of the flax tree, kept
-        in fp32 as :attr:`vae_tree`; without a path the VAE keeps its
-        weights, and ``load_params`` sets them), then the stage bootstrap
-        from ``pretrained_model_path`` where that path exists
+        ``vae_model_params.autoencoder_path`` (an npz of the flax tree, or
+        the reference's torch ``.ckpt`` such as ``kl16.ckpt``; kept in fp32
+        as :attr:`vae_tree`; without a path the VAE keeps its weights, and
+        ``load_params`` sets them), then the stage bootstrap from
+        ``pretrained_model_path`` where that path exists
         (:meth:`load_pretrained`)."""
         init_module(self.mar, torch.Generator(device=self.device).manual_seed(seed))
         if self.vae_path:
             if not os.path.exists(self.vae_path):
                 raise FileNotFoundError(f"autoencoder_path {self.vae_path!r} does not exist")
-            self.vae_tree = convert.load_flat_npz(self.vae_path)
+            if self.vae_path.endswith(".npz"):
+                self.vae_tree = convert.load_flat_npz(self.vae_path)
+            else:
+                self.vae_tree = self._import_vae_ckpt(self.vae_path)
             convert.load_into(self.vae, self.vae_tree)
         if self.pretrained_model_path and os.path.exists(self.pretrained_model_path):
             self.load_pretrained(self.pretrained_model_path)
 
+    def _import_vae_ckpt(self, path: str) -> Dict[str, Dict]:
+        """The VAE's flax tree with the reference torch checkpoint ``path``
+        (its ``model`` state dict, or the file's top level) merged on where
+        the shapes match (JAX's ``_load_vae_ckpt``, ``policy.py:284-291``).
+        The state dict is read in the geometry of the reference's
+        ``kl16.ckpt`` (``import_kl_vae``'s defaults, as JAX's call reads it),
+        so the encoder's per-level attention is taken from the level where
+        it sits at 256 px."""
+        from unified_video_action_tpu_torch.models import torch_import
+
+        ckpt = torch_import.load_torch_checkpoint(path)
+        sd = torch_import.state_dict_arrays(ckpt.get("model", ckpt))
+        imported = torch_import.import_kl_vae(sd)
+        merged, skipped = convert.merge_params(convert.to_flax_tree(self.vae), imported)
+        if skipped:
+            print(f"[vae import] skipped {len(skipped)} leaves: {skipped[:5]}", flush=True)
+        return merged
+
     def load_pretrained(self, path: str) -> None:
         """The stage bootstrap (JAX's ``_load_mar_ckpt``, ``policy.py:
-        257-343``): the MAR weights of the port's checkpoint directory
-        ``path`` (``training/checkpoint.py``: a full checkpoint or a slim
-        export, the EMA weights where it holds them) merged onto the current
-        ones where the flax path exists and the shape matches
-        (``convert.merge_params``). Sets ``_last_mar_import_skipped`` (the
+        292-340``): the MAR weights of ``path`` merged onto the current ones
+        where the flax path exists and the shape matches
+        (``convert.merge_params``). ``path`` is a checkpoint directory of the
+        port (``training/checkpoint.py``: a full checkpoint or a slim export,
+        the EMA weights where it holds them) or a reference torch file: the
+        framework's checkpoint (``state_dicts.ema_model``, keys under
+        ``model.``) or the MAR release (``model_ema``), through
+        ``models/torch_import.py``. Sets ``_last_mar_import_skipped`` (the
         checkpoint's leaves left out, as JAX counts them) and
         ``_last_mar_import_kept_at_init`` (this MAR's leaves that the
         checkpoint did not set: absent from it or of another shape), and
-        prints both. An orbax directory or a reference torch checkpoint file
-        is refused."""
+        prints both. An orbax directory is refused (ROADMAP, "Not queued":
+        the card has no orbax)."""
+        from unified_video_action_tpu_torch.models import torch_import
         from unified_video_action_tpu_torch.training import checkpoint as ckpt_lib
 
         if not os.path.isdir(path):
+            c = self.mar_cfg
+            sd = torch_import.state_dict_arrays(
+                torch_import.mar_state_dict(torch_import.load_torch_checkpoint(path)))
+            src = torch_import.import_mar(sd, encoder_depth=c.encoder_depth,
+                                          decoder_depth=c.decoder_depth,
+                                          diffloss_depth=c.diffloss_d,
+                                          diffloss_act_depth=c.diffloss_act_d)
+        elif ckpt_lib.is_port_checkpoint(path):
+            src, _ = ckpt_lib.read_weights(path)
+        elif os.path.isdir(os.path.join(path, "state")):
             raise NotImplementedError(
-                f"pretrained_model_path {path!r} is a file: importing a reference torch "
-                f".ckpt is not ported (ROADMAP A11); give a checkpoint directory of the port")
-        if not ckpt_lib.is_port_checkpoint(path):
-            if os.path.isdir(os.path.join(path, "state")):
-                raise NotImplementedError(
-                    f"pretrained_model_path {path!r} is an orbax checkpoint: reading orbax needs "
-                    f"JAX, which the port does not import; give a checkpoint directory of the port")
+                f"pretrained_model_path {path!r} is an orbax checkpoint: reading orbax needs "
+                f"JAX, which the port does not import (ROADMAP, 'Not queued'); give a checkpoint "
+                f"directory of the port or a reference torch .ckpt")
+        else:
             raise FileNotFoundError(f"pretrained_model_path {path!r} holds no checkpoint")
-        src, _ = ckpt_lib.read_weights(path)
         init = convert.to_flax_tree(self.mar)
         merged, skipped = convert.merge_params(init, src)
         flat_init, flat_src = convert.flatten_tree(init), convert.flatten_tree(src)
