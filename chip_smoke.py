@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, evaluation and training paths (PushT,
-kitchen, UMI, the robomimic tool-hang and LIBERO-10 suites, the CLIP text
-tower) on one NVIDIA GPU.
+kitchen, UMI, the robomimic tool-hang, LIBERO-10, kitchen and Fetch suites,
+the software renderer, the CLIP text tower) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,6 +14,12 @@ attention_plan picks.
 1. env     torch and CUDA versions, the card's name and power limit.
 2. build   every kernel source of unified_video_action_tpu_torch/csrc/
            (attention.cu, int8_mm.cu) by nvcc, all started together.
+2b. render3d  the software renderer's rasterizer (native/raster3d.cpp, the
+           kitchen and Fetch envs' frames) built by g++ into build/raster3d/
+           and held against its numpy version on the JAX package's three
+           fixed scenes (one triangle, z-buffer occlusion, near-plane
+           clipping): at least 99.5 % of the pixels equal and the lit pixels
+           where JAX's tests expect them.
 3. kernel  each kernel against its plain PyTorch version on the card, at the
            serving paths' shapes and beyond (attention at D = 64, at the
            mar_small paths' D = 128 and at the mar_huge paths' D = 80; the
@@ -265,9 +271,10 @@ attention_plan picks.
            tools/gen_synthetic_suites.py; config.TOOLHANG with
            config.SUITE_TRAIN_OVERRIDES through train_torch.py's Trainer and
            the host loader, SUITE_STEPS bf16 steps at B = SUITE_B (every
-           metric finite, no uva_* launch; ms per step, peak memory); the
+           metric finite, no uva_* launch; ms per step, each step's own
+           span and the loader's wait, peak memory); the
            slim export evaluated through eval_sim_torch.py's evaluate on the
-           stub backend (2 train and 4 test envs, 64 steps): every request 24
+           stub backend (2 train and 4 test envs, 32 steps): every request 24
            launches of the online kernel's D = 64 instance and no other
            attention kernel, finite actions, each stub's action_log the
            runner's undone (axis-angle) actions, the log's keys and its
@@ -278,9 +285,25 @@ attention_plan picks.
 12. suite_libero10  LIBERO-10 the same way: ten synthetic task stores
            named by LIBERO10_TASK_NAMES (3 demos of 48 steps at 128 px),
            config.LIBERO10 with data_aug (ColorJitter on the host loader),
-           make_libero_runners on the stub (2 test envs a task, 16 steps);
+           make_libero_runners on the stub (2 test envs a task, 8 steps);
            beside suite_toolhang's checks, one language goal per runner and
            test_mean_score the mean of the per-task means.
+12b. suite_kitchen  config.KITCHEN (uva_kitchen.yaml: mar_base, 128 px frames
+           into 256, 1024 tokens, 9-d joint-velocity actions, pad_before 16)
+           the same way on three synthetic kitchen task stores
+           (kitchen_<task>_demo.npz, 3 demos of 48 steps): one runner a
+           task on the stub, which receives the 9-d actions as the policy
+           made them (no rot6d undo); env_backend="kitchen" raising an
+           ImportError naming mujoco, which the card's machine lacks.
+12c. suite_fetch  config.FETCH (uva_fetch.yaml: mar_small at 96 px, 144
+           tokens, the committed pusht_vae96.npz, 4-d delta actions) trained
+           at its B = 32 from the device-resident store (8 synthetic demos
+           of 48 steps), exported and evaluated by RobomimicImageRunner on
+           the stub (2 train and 4 test envs, 16 steps, 4-d actions): every
+           request 12 launches of the single-pass kernel's D = 128 instance;
+           the route and fp32 checks; the first request again by the host
+           clock beside its stages and the device's busy share;
+           env_backend="fetch" raising an ImportError naming mujoco.
 13. clip   the CLIP text tower at the width of openai/clip-vit-base-patch32
            on seeded weights through get_text_encoder: fp32 and bf16 on the
            card against fp32 on the CPU.
@@ -295,7 +318,8 @@ rollout 16 env steps (32), the train phase 15 bf16 steps, 6 timed and 2
 profiled (30, 10 and 5), train_run 4 steps an epoch (8) and 16-step
 rollouts (24). When the PushT pipeline joined: the video phase's
 fp32 check at num_iter 1 (2), real_loop 8 cycles (10), LIBERO's stub
-evaluation 16 steps (32).
+evaluation 16 steps (32). When the real-physics suites joined: LIBERO's
+stub evaluation 8 steps (16), tool-hang's 32 (64).
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
 object with every kernel's numbers, and the result:
@@ -4298,16 +4322,28 @@ def phase_train_umi(attention_ops, int8_ops) -> dict:
             "checkpoint": imported, "lazy": lazy}
 
 
-# suite_toolhang, suite_libero10: the robomimic and LIBERO suites, trained
-# then evaluated on the stub backend (the simulators are not on the card's
-# machine; a stub's score is a seed schedule that measures nothing)
+# suite_toolhang, suite_libero10, suite_kitchen, suite_fetch: the robomimic,
+# LIBERO, kitchen and Fetch suites, trained then evaluated on the stub backend
+# (the simulators, mujoco among them, are not on the card's machine; a stub's
+# score is a seed schedule that measures nothing)
 SUITE_OUT = os.path.join(REPO, "build", "suites")
 SUITE_STEPS, SUITE_B, SUITE_TIMED_FROM = 4, 8, 1  # bf16 steps at B = 8; the first warms up
-SUITE_TOKENS = 1024  # both configs: 4 frames of 16 x 16 tokens, no text buffer
 SUITE_EVAL = {  # the runners' overrides: (n_train, n_test, max_steps)
     "toolhang": ("task.env_runner.n_train=2", "task.env_runner.n_test=4",
-                 "task.env_runner.max_steps=64"),
-    "libero10": ("task.env_runner.n_test=2", "task.env_runner.max_steps=16"),  # 32 before the PushT pipeline
+                 "task.env_runner.max_steps=32"),  # 64 before the real-physics suites
+    "libero10": ("task.env_runner.n_test=2", "task.env_runner.max_steps=8"),  # 32, then 16
+    "kitchen": ("task.env_runner.n_test=2", "task.env_runner.max_steps=16"),
+    "fetch": ("task.env_runner.n_train=2", "task.env_runner.n_test=4",
+              "task.env_runner.max_steps=16"),
+}
+# each suite's model: (attended tokens, grad_checkpointing, training batch,
+# the attention instance of every request, the actions a stub receives)
+SUITE_MODEL = {
+    "toolhang": (1024, True, SUITE_B, "attention_wgmma_online_d64", 7),
+    "libero10": (1024, True, SUITE_B, "attention_wgmma_online_d64", 7),
+    "kitchen": (1024, True, SUITE_B, "attention_wgmma_online_d64", 9),
+    # config.FETCH's own batch: mar_small at N = 144 from the device-resident store
+    "fetch": (144, False, 32, "attention_wgmma_d128", 4),
 }
 # the log keys an evaluation writes beside the runners' scores
 EVAL_LOG_KEYS = {"test_mean_score", "env_backend", "STUB_SCORES_NOT_REAL", "ckpt_source",
@@ -4349,16 +4385,17 @@ def recorded_requests(attention_ops):
         UnifiedVideoActionPolicy.predict_action = original
 
 
-def check_stub_logs(name: str, runner) -> int:
-    """Every stub of ``runner``'s last run received the runner's undone
-    actions (7-d, axis-angle), cut where its episode ended; returns the
-    actions the stubs received."""
-    stepped = np.stack(runner.env_actions, axis=1)  # (envs, calls, n_action_steps, 7)
+def check_stub_logs(name: str, runner, action_dim: int = 7) -> int:
+    """Every stub of ``runner``'s last run received the runner's actions
+    (``action_dim`` wide: 7-d after the axis-angle undo, the kitchen's 9-d or
+    Fetch's 4-d as the policy made them), cut where its episode ended;
+    returns the actions the stubs received."""
+    stepped = np.stack(runner.env_actions, axis=1)  # (envs, calls, n_action_steps, A)
     received = 0
     for i, env in enumerate(runner.raw_envs):
         flat = stepped[i].reshape(-1, stepped.shape[-1]).astype(np.float32)
         log = np.stack(env.action_log)
-        if (stepped.shape[-1] != 7 or not 0 < len(log) <= len(flat)
+        if (stepped.shape[-1] != action_dim or not 0 < len(log) <= len(flat)
                 or not np.array_equal(log, flat[: len(log)])):
             raise AssertionError(f"{name}: env {i}'s stub received {log.shape} actions, not the "
                                  f"runner's {flat.shape}")
@@ -4366,24 +4403,52 @@ def check_stub_logs(name: str, runner) -> int:
     return received
 
 
+def real_backend_check(name: str, make) -> str:
+    """``make()`` builds a runner on a real-physics backend: where mujoco,
+    gymnasium or gymnasium_robotics is absent it must raise an ImportError
+    naming mujoco (and never fall back to the stub). Returns what happened."""
+    from unified_video_action_tpu_torch.envs.kitchen_env import missing_physics_packages
+
+    missing = missing_physics_packages()
+    try:
+        runner = make()
+    except ImportError as e:
+        if not missing or "mujoco" not in str(e):
+            raise AssertionError(f"{name}: ImportError {e} with {missing} missing")
+        return f"raised ImportError naming mujoco ({', '.join(missing)} absent)"
+    runners = runner if isinstance(runner, list) else [runner]
+    if missing or any(r.env_backend == "stub" for r in runners):
+        raise AssertionError(f"{name}: built {runners} with {missing} missing")
+    return "built (mujoco installed)"
+
+
 def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
-    """One suite (``kind``: "toolhang", config.TOOLHANG, or "libero10",
-    config.LIBERO10 with data_aug) at full width through train_torch.py's
-    Trainer and the host loader on synthetic stores written here by
-    tools/gen_synthetic_suites.py (toolhang: 8 demos of 64 steps, two 240
-    px cameras; LIBERO-10: ten task stores of 3 demos of 48 steps at 128
-    px), config.SUITE_TRAIN_OVERRIDES (grad_checkpointing): SUITE_STEPS bf16
-    steps at B = SUITE_B with every metric finite and no uva_* kernel
-    launched, ms per step by CUDA events, peak memory; the slim export;
+    """One suite at full width through train_torch.py's Trainer on synthetic
+    stores written here by tools/gen_synthetic_suites.py: ``kind``
+    "toolhang" (config.TOOLHANG: 8 demos of 64 steps, two 240 px cameras),
+    "libero10" (config.LIBERO10 with data_aug: ten task stores of 3 demos of
+    48 steps at 128 px) and "kitchen" (config.KITCHEN with data_aug and
+    pad_before 16: three kitchen task stores of 3 demos of 48 steps, 9-d
+    joint velocities), each with config.SUITE_TRAIN_OVERRIDES
+    (grad_checkpointing) through the host loader at B = SUITE_B; "fetch"
+    (config.FETCH: mar_small at 96 px from the device-resident store of 8
+    demos of 48 steps, the committed pusht_vae96.npz, at its B = 32).
+    SUITE_STEPS bf16 steps with every metric finite and no uva_* kernel
+    launched, ms per step by CUDA events (start to next start), each step's
+    own span and the loader's wait for each batch, peak memory; the slim export;
     eval_sim_torch.py's evaluate on it with the stub backend (SUITE_EVAL):
-    every request 24 launches of the online kernel's D = 64 instance and no
-    other attention kernel, finite actions, each stub's action_log the
-    runner's undone actions, the log's keys and its .STUB name; for LIBERO
-    one goal per runner and test_mean_score the mean of the per-task means.
-    Then the first request through the kernel route against the plain
-    route (the serve limits, the controls that plant a fault at N = 1024),
-    and its first env in fp32 on the card against the CPU. Returns the
-    phase's numbers, the counted launches and the fp32 check's."""
+    every request the attention instance of SUITE_MODEL once per ViT block
+    and no other attention kernel, finite actions, each stub's action_log
+    the runner's actions (undone to axis-angle where the config's actions
+    are absolute), the log's keys and its .STUB name; for LIBERO and the
+    kitchen one goal per runner and test_mean_score the mean of the
+    per-task means. Then the first request through the kernel route
+    against the plain route (the serve limits, the controls that plant a
+    fault at the path's N), and its first env in fp32 on the card against
+    the CPU; for Fetch, the first request again by the host clock and its
+    stages (``breakdown``); for the kitchen and Fetch, the real-physics
+    backend raising an ImportError naming mujoco where it is absent. Returns the phase's
+    numbers, the counted launches and the fp32 check's."""
     import eval_sim_torch
     from unified_video_action_tpu_torch import config as port_config
     from unified_video_action_tpu_torch import convert
@@ -4398,23 +4463,33 @@ def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
     shutil.rmtree(out, ignore_errors=True)
     t0 = time.perf_counter()
     data = os.path.join(out, "data")
-    if kind == "toolhang":
-        store = gen.write_toolhang(data)
+    if kind in ("toolhang", "fetch"):
+        store = gen.write_toolhang(data) if kind == "toolhang" else gen.write_fetch(data)
         data_keys = [f"task.dataset.dataset_path={store}", f"task.env_runner.dataset_path={store}"]
     else:
-        store = os.path.dirname(gen.write_libero10(data)[0])
+        write = gen.write_libero10 if kind == "libero10" else gen.write_kitchen
+        store = os.path.dirname(write(data)[0])
         data_keys = [f"task.dataset.dataset_dir={store}", f"task.env_runner.dataset_dir={store}"]
     corpus_s = time.perf_counter() - t0
-    cfg = copy.deepcopy({"toolhang": port_config.TOOLHANG, "libero10": port_config.LIBERO10}[kind])
-    apply_overrides(cfg, [*port_config.SUITE_TRAIN_OVERRIDES, *data_keys, f"training.seed={SEED}",
-                          f"dataloader.batch_size={SUITE_B}", "training.num_epochs=1",
+    tokens, checkpointing, batch_size, instance, action_dim = SUITE_MODEL[kind]
+    cfg = copy.deepcopy({"toolhang": port_config.TOOLHANG, "libero10": port_config.LIBERO10,
+                         "kitchen": port_config.KITCHEN, "fetch": port_config.FETCH}[kind])
+    apply_overrides(cfg, [*(port_config.SUITE_TRAIN_OVERRIDES if checkpointing else ()),
+                          *data_keys, f"training.seed={SEED}",
+                          f"dataloader.batch_size={batch_size}", "training.num_epochs=1",
                           f"output_dir={out}/run"])
     t0 = time.perf_counter()
     trainer = Trainer(cfg, "cuda")
     policy = trainer.policy
     c = policy.mar_cfg
-    # the KL-16 VAE's kl16.ckpt is absent: a numpy-seeded ch-128 VAE
-    load_vae(policy, convert.seeded_tree(policy.vae, SEED + 1))
+    if kind == "fetch":  # the committed 96 px VAE, read from autoencoder_path
+        vae = f"{policy.vae_path}, {policy.vae.encoder.conv_in.out_channels} channels"
+        if not policy.vae_path.endswith("pusht_vae96.npz") or trainer.host_loader:
+            raise AssertionError(f"{name}: VAE {vae}, host loader {trainer.host_loader}")
+        vae += f"; the device-resident store {trainer.data.nbytes / 1e6:.1f} MB"
+    else:  # the KL-16 VAE's kl16.ckpt is absent: a numpy-seeded ch-128 VAE
+        load_vae(policy, convert.seeded_tree(policy.vae, SEED + 1))
+        vae = "seeded ch-128"
     log(f"{name}: stores written in {corpus_s:.1f}s; {len(trainer.dataset)} training and "
         f"{len(trainer.val_dataset)} validation windows; trainer built in "
         f"{time.perf_counter() - t0:.1f}s: {c.encoder_depth}+{c.decoder_depth} blocks of "
@@ -4422,9 +4497,10 @@ def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
         f"{c.proprio_dim if c.use_proprioception else None}, second camera "
         f"{policy.encodes_second_camera}, text {c.has_text}, grad_checkpointing "
         f"{c.grad_checkpointing}; B={trainer.batch_size}, {policy.dtype}, "
-        f"data_aug {getattr(trainer.dataset, 'transforms', None) is not None}")
-    if (c.attention_tokens != SUITE_TOKENS or not c.grad_checkpointing
-            or trainer.batch_size != SUITE_B):
+        f"data_aug {getattr(trainer.dataset, 'transforms', None) is not None}; VAE {vae}; "
+        f"{policy.action_dim}-d actions")
+    if (c.attention_tokens != tokens or c.grad_checkpointing != checkpointing
+            or trainer.batch_size != batch_size):
         raise AssertionError(f"{name}: not the config's model: {c}")
 
     # the bf16 steps, timed
@@ -4432,25 +4508,38 @@ def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
         for k in counter:
             counter[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    metrics, events = [], []
+    metrics, events, ends, waits = [], [], [], []
+    batches = trainer.batches()
     t0 = time.perf_counter()
-    for i, (mode, frames, batch) in enumerate(trainer.batches()):
-        if i == SUITE_STEPS:
+    for _ in range(SUITE_STEPS):
+        tw = time.perf_counter()
+        got = next(batches, None)
+        waits.append(time.perf_counter() - tw)
+        if got is None:
             break
-        ev = torch.cuda.Event(enable_timing=True)
+        mode, frames, batch = got
+        ev, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
         metrics.append(train_step(trainer.state, batch, mode, frames, generator=trainer.generator,
                                   pregathered=True))
+        done.record()
+        ends.append(done)
     end = torch.cuda.Event(enable_timing=True)
     end.record()
     end.synchronize()
     events.append(end)
+    batches.close()
     steps_s = time.perf_counter() - t0
+    # start to next start (the loader's wait for the next batch included), and
+    # each step's own span from its first launch to its last
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(len(events) - 1)]
+    span_ms = [events[i].elapsed_time(ends[i]) for i in range(len(ends))]
     launched = {k: v for k, v in {**attention_ops.launch_count, **int8_ops.launch_count}.items() if v}
     values = [{k: v.item() for k, v in m.items()} for m in metrics]
     train = {"ms_per_step": statistics.median(step_ms[SUITE_TIMED_FROM:]), "step_ms": step_ms,
+             "step_span_ms": span_ms, "loader_wait_s": waits,
+             "loader_wait_s_median": statistics.median(waits[SUITE_TIMED_FROM:]),
              "steps_s": steps_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "B": trainer.batch_size, "card": card_line()}
     log(f"{name}: {len(values)} bf16 steps, losses {json.dumps(values)}; uva_* launches {launched}; "
@@ -4481,8 +4570,7 @@ def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
     want = {**attention_launches_per_request(attention_ops, c, batch, torch.bfloat16),
             **attention_instances_per_request(attention_ops, c, batch, torch.bfloat16)}
     plan = attention_plan_of(attention_ops, c, batch, torch.bfloat16)
-    if plan.instance != "attention_wgmma_online_d64" or want[plan.instance] != c.encoder_depth + \
-            c.decoder_depth:
+    if plan.instance != instance or want[plan.instance] != c.encoder_depth + c.decoder_depth:
         raise AssertionError(f"{name}: plan {plan}, launches a request {want}")
     for k, call in enumerate(calls):
         if call["launches"] != want:
@@ -4490,7 +4578,7 @@ def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
         check_actions(policy, torch.from_numpy(call["action_pred"]), batch)
     if any(launches[k] != len(calls) * v for k, v in want.items()):
         raise AssertionError(f"{name}: {launches} launched over {len(calls)} requests")
-    received = sum(check_stub_logs(name, r) for r in runners)
+    received = sum(check_stub_logs(name, r, action_dim) for r in runners)
     score_keys = {k for k in eval_log if "sim_max_reward" in k or "mean_score" in k}
     if (not log_path.endswith(".STUB.json") or set(eval_log) != EVAL_LOG_KEYS | score_keys
             or eval_log["env_backend"] != "stub" or json.load(open(log_path)) != eval_log):
@@ -4500,10 +4588,11 @@ def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
             or len([k for k in eval_log if "sim_max_reward" in k])
             != sum(len(r.raw_envs) for r in runners)):
         raise AssertionError(f"{name}: test_mean_score {eval_log['test_mean_score']} of {means}")
-    if kind == "libero10":
+    if kind in ("libero10", "kitchen"):
         goals = {r.language_goal for r in runners}
         per_call = [call["goal"] for call in calls]
-        if (len(runners) != 10 or len(goals) != 10 or set(per_call) != goals
+        n_tasks = 10 if kind == "libero10" else 3
+        if (len(runners) != n_tasks or len(goals) != n_tasks or set(per_call) != goals
                 or sorted(set(per_call), key=per_call.index) != [r.language_goal for r in runners]):
             raise AssertionError(f"{name}: goals {per_call} for runners {goals}")
     request_ms = statistics.median(call["ms"] for call in calls)
@@ -4526,20 +4615,105 @@ def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
     policy32.load_params(*trees)
     policy32.set_normalizer(policy.normalizer)
     diffs = route_check(attention_ops, policy, policy32, {batch: inputs[batch][0]},
-                        {batch: noise[batch]}, REJECTED_CONTROLS_256, {batch: inputs[batch][2]},
-                        {batch: inputs[batch][1]})
+                        {batch: noise[batch]},
+                        REJECTED_CONTROLS if kind == "fetch" else REJECTED_CONTROLS_256,
+                        {batch: inputs[batch][2]}, {batch: inputs[batch][1]})
     cpu32 = UnifiedVideoActionPolicy.from_cfg(eval_cfg, device="cpu", compute_dtype="float32")
     cpu32.set_normalizer(policy.normalizer)
     f32_launches = fp32_card_vs_cpu(attention_ops, name, policy32, cpu32, trees, inputs[1], noise[1])
     D = c.encoder_embed_dim // c.encoder_num_heads
+    stages = None
+    if kind == "fetch":
+        # the first request again by the host clock, then its stages (the
+        # frames alone condition it), back to back
+        again, gen = [], torch.Generator(device="cuda").manual_seed(SEED + 71)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            policy.predict_action(first["obs"], gen, language_goal=first["goal"])
+            again.append((time.perf_counter() - t0) * 1e3)
+        stages = {"request_again_ms": again,
+                  **breakdown(policy, inputs[batch][0], noise[batch], reps=3)}
+        log(f"{name} request stages at B={batch}: {json.dumps(stages)}")
     del policy32, cpu32, policy
     shutil.rmtree(out, ignore_errors=True)
+    backend = None
+    if kind in ("kitchen", "fetch"):
+        from unified_video_action_tpu_torch.runners.libero_runner import make_libero_runners
+        from unified_video_action_tpu_torch.runners.robomimic_runner import RobomimicImageRunner
+
+        env_runner = {k: v for k, v in eval_cfg["task"]["env_runner"].items() if k != "_target_"}
+        env_runner["env_backend"] = kind
+        make = make_libero_runners if kind == "kitchen" else RobomimicImageRunner
+        backend = real_backend_check(name, lambda: make(**env_runner))
+        log(f"{name}: env_backend={kind!r}: {backend}")
     perf = {"train": train, "export_s": export_s, "eval_s": eval_s, "requests": len(calls),
             "request_batch": batch, "request_ms_median": request_ms,
-            "request_ms": [call["ms"] for call in calls], "stub_actions": received,
+            "request_ms": [call["ms"] for call in calls], "request_stages": stages,
+            "stub_actions": received,
+            "real_backend": backend,
             "kernel_vs_plain": diffs, "card": card_line()}
     log(f"{name} perf: {json.dumps(perf)}")
     return perf, launches, {f"{name}_fp32_vs_cpu_b1": {f"attention_f32_d{D}": f32_launches}}
+
+
+# render3d: the software renderer's native rasterizer (the kitchen and Fetch
+# envs' frames) on the JAX package's three fixed scenes
+# (tests/test_kitchen_env.py:26-122): (cam, faces, colours, size, focal,
+# ambient, diffuse)
+RASTER_SCENES = {
+    "one_triangle": ([[-0.5, -0.5, 2.0], [0.5, -0.5, 2.0], [0.0, 0.6, 2.0]], [[0, 1, 2]],
+                     [[1.0, 0.2, 0.1]], 64, 60.0, 0.5, 0.5),
+    "zbuffer_occlusion": ([[-1, -1, 2.0], [1, -1, 2.0], [0, 1, 2.0], [-1, -1, 4.0], [1, -1, 4.0],
+                           [0, 1, 4.0]], [[0, 1, 2], [3, 4, 5]], [[1, 0, 0], [0, 1, 0]], 48, 40.0,
+                          1.0, 0.0),
+    "near_plane_clipping": ([[-1, 0, -1.0], [1, -0.5, 2.0], [1, 0.5, 2.0]], [[0, 1, 2]],
+                            [[1, 1, 1]], 48, 40.0, 1.0, 0.0),
+}
+RASTER_EQUAL_SHARE = 0.995  # JAX's own rule: the share of pixels equal to the numpy oracle
+
+
+def phase_render3d() -> dict:
+    """native/raster3d.cpp built by g++ into build/raster3d/ (the seconds
+    printed) and held against envs/render3d._raster_numpy on each scene of
+    RASTER_SCENES: at least RASTER_EQUAL_SHARE of the pixels equal (the
+    clipping scene against the numpy rasterizer on the soup that
+    clip_near_plane makes, since the numpy one skips triangles behind the
+    near plane) and the lit pixels where JAX's tests expect them: the
+    triangle's centre lit and its corner background; the near triangle red
+    over the far green one in either drawing order; a clipped triangle
+    kept."""
+    from unified_video_action_tpu_torch.envs import render3d
+
+    build_s = render3d.build()
+    lib = render3d.library_path()
+    out = {"build_s": build_s, "library": os.path.relpath(str(lib), REPO)}
+    black = np.zeros(3, np.uint8)
+    light = np.array([0.0, 0.0, 1.0], np.float32)
+    for name, (cam, faces, rgb, size, focal, ambient, diffuse) in RASTER_SCENES.items():
+        cam, faces, rgb = (np.asarray(cam, np.float32), np.asarray(faces, np.int32),
+                           np.asarray(rgb, np.float32))
+        orders = ([0, 1], [1, 0]) if len(faces) == 2 else ([0],)
+        shares = []
+        for order in orders:
+            f, c = np.ascontiguousarray(faces[order]), np.ascontiguousarray(rgb[order])
+            args = (size, size, focal, focal, size / 2, size / 2, 0.02, light, ambient, diffuse,
+                    black)
+            got = render3d.raster(cam, f, c, *args)
+            want = render3d._raster_numpy(*render3d.clip_near_plane(cam, f, c, 0.02), *args)
+            shares.append(float((got == want).mean()))
+            centre = got[size // 2, size // 2]
+            lit = {"one_triangle": got[:, :, 0].max() == 255 and centre[0] > 0
+                   and (got[0, 0] == 0).all(),
+                   "zbuffer_occlusion": centre[0] > 200 and centre[1] == 0,
+                   "near_plane_clipping": got.max() == 255}[name]
+            if shares[-1] < RASTER_EQUAL_SHARE or not lit:
+                raise AssertionError(f"render3d {name} order {order}: {shares[-1]:.4f} of the pixels "
+                                     f"equal, lit as expected {lit}")
+        out[name] = min(shares)
+    log(f"render3d: g++ {build_s:.2f}s into {out['library']}; equal shares "
+        f"{json.dumps({k: out[k] for k in RASTER_SCENES})} (at least {RASTER_EQUAL_SHARE})")
+    return out
 
 
 # clip: the CLIP text tower at the width of openai/clip-vit-base-patch32
@@ -4612,6 +4786,8 @@ def main() -> int:
             seconds = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
         for name in KERNEL_SOURCES:
             log(f"nvcc csrc/{name}.cu: {seconds[name]:.1f}s\n{_build.build_log(name)}")
+    with Phase("render3d"):
+        render3d = phase_render3d()
     meta_policy, normalizer = flagship_config()
     from unified_video_action_tpu_torch import config as port_config
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
@@ -4682,7 +4858,7 @@ def main() -> int:
     with Phase("train_umi"):
         train_umi = phase_train_umi(attention_ops, int8_ops)
     suites, launches_suites = {}, {}
-    for kind in ("toolhang", "libero10"):
+    for kind in ("toolhang", "libero10", "kitchen", "fetch"):
         with Phase(f"suite_{kind}"):
             suites[kind], launches_suites[f"suite_{kind}"], paths = phase_suite(
                 attention_ops, int8_ops, kind)
@@ -4866,6 +5042,7 @@ def main() -> int:
     for kind, perf in suites.items():
         log(f"suite_{kind}: {json.dumps({k: v for k, v in perf.items() if k != 'kernel_vs_plain'})}")
     log(f"clip: {json.dumps(clip)}")
+    log(f"render3d: {json.dumps(render3d)}")
     log(f"video: {json.dumps({'fvd': video['flagship']['fvd'], 'stages': video['flagship']['stages'], 'psnr': video['flagship']['psnr']})}")
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(card, flush=True)

@@ -24,8 +24,8 @@ weights, read from the first of these that applies:
 
 The port's policy is built from the config and the weights go through the
 weight bridge. The task's env runner (``runners/base.load_env_runner``:
-PushT, the robomimic tasks, one LIBERO runner per task store) rolls out the
-policy, and the log is written to ``<output_dir>/eval_log_<name>.json``
+PushT, the robomimic tasks and Fetch, one LIBERO runner per task store for
+LIBERO and the kitchen) rolls out the policy, and the log is written to ``<output_dir>/eval_log_<name>.json``
 (``eval_log_<name>.STUB.json`` where a runner used the stub backend, whose
 scores are a seed schedule that measures nothing about the policy) with the
 JAX package's keys
@@ -34,6 +34,14 @@ JAX package's keys
 ``port``, ``device``, ``compute_dtype`` and ``eval_wall_s``. The policy runs
 on ``--device`` (``cuda`` by default); its draws come from a generator
 seeded with 0, as ``eval_sim.py`` passes ``PRNGKey(0)``.
+
+A checkpoint of ``config.KITCHEN`` or ``config.FETCH`` rolls out in
+mujoco's physics (``task.env_runner.env_backend`` ``kitchen`` or ``fetch``,
+which need mujoco, gymnasium and gymnasium_robotics), or on the stub with
+``task.env_runner.env_backend=stub``:
+
+    python eval_sim_torch.py -c OUT/export -o EVAL --device cpu \
+        task.env_runner.env_backend=kitchen task.env_runner.n_test=2
 """
 
 import argparse

@@ -2,12 +2,16 @@
 module in it (the offline evaluation of ``eval/`` too, and the real-robot
 stack of ``ipc/``, ``real/`` and ``serving/``, and the robomimic and LIBERO
 suites: their stub envs, runners, datasets and augmentation, and the CLIP
-text tower), and train_torch.py, loads no
-JAX, no flax, no optax, no orbax and nothing of the JAX package, and no
-OpenCV, PIL, dill, h5py, zstandard or zmq (which the card's machine lacks;
-h5py, zstandard and zmq are imported only inside the functions that need
-them); chip_smoke.py, train_torch.py and the card's tests import none of
-them either. OpenCV appears only in ``real/``, and there only inside the
+text tower; the kitchen and Fetch suites: the software renderer, the envs,
+their experts and demo tools, the benchmark registry), and train_torch.py,
+loads no JAX, no flax, no optax, no orbax and nothing of the JAX package,
+and no OpenCV, PIL, dill, h5py, zstandard, zmq, mujoco, gymnasium or
+gymnasium_robotics (which the card's machine lacks; those six are imported
+only inside the functions that need them); chip_smoke.py, train_torch.py
+and the card's tests import none of them either. A second probe imports
+every module with mujoco, gymnasium and gymnasium_robotics made
+unimportable, as on the card's machine: the ``kitchen`` and ``fetch``
+backends then raise an ImportError naming mujoco. OpenCV appears only in ``real/``, and there only inside the
 functions of a real camera, the fisheye remap, the visualizer's window and
 the video recorder, never at a module's top level; Pillow only in
 ``data/zarrlite.py``, inside its JPEG 2000 codec. chip_smoke.py refuses to
@@ -32,9 +36,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "unified_video_action_tpu")
 NOT_ON_THE_CARD = ("cv2", "PIL", "dill")
 # not on the card either: imported only inside the functions that read a file
-# with them (ReplayBuffer.load of HDF5, tools/export_corpus.py) or serve with
-# them (zmq: serving/zmq_server.py's serve)
-LAZY_ONLY = ("h5py", "zstandard", "zmq")
+# with them (ReplayBuffer.load of HDF5, tools/export_corpus.py), serve with
+# them (zmq: serving/zmq_server.py's serve) or build a mujoco env (the kitchen
+# and Fetch envs, their experts, the renderer's scene)
+MUJOCO = ("mujoco", "gymnasium", "gymnasium_robotics")
+LAZY_ONLY = ("h5py", "zstandard", "zmq", *MUJOCO)
 # the real-robot stack, where OpenCV may be imported inside a function (the
 # card's machine never calls one of those)
 REAL = os.path.join(REPO, "unified_video_action_tpu_torch", "real")
@@ -51,12 +57,47 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 # tools/ is no package: the tools that import the port's modules
 names += [pkg.__name__ + ".tools." + t for t in ("gen_pusht_demos", "gen_synthetic_umi",
                                                  "convert_zarr_dataset", "merge_demos",
-                                                 "stage_datasets")]
+                                                 "stage_datasets", "gen_kitchen_demos",
+                                                 "gen_fetch_demos")]
 for name in names:
     importlib.import_module(name)
 import train_torch
 roots = sorted({m.split(".")[0] for m in sys.modules})
 print(json.dumps({"modules": names, "roots": roots, "torch_roots": torch_roots}))
+"""
+
+# the card's machine: a finder ahead of every other that makes these packages
+# unimportable, installed before anything is imported
+_BLOCKED = r"""
+import importlib.abc, sys
+BLOCKED = %r
+class _Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"No module named {name!r}", name=name)
+        return None
+sys.meta_path.insert(0, _Absent())
+""" % (MUJOCO,)
+
+_BACKENDS = r"""
+from unified_video_action_tpu_torch.envs import kitchen_env
+from unified_video_action_tpu_torch.runners.libero_runner import LiberoImageRunner, make_libero_runners
+from unified_video_action_tpu_torch.runners.robomimic_runner import RobomimicImageRunner
+makers = {"kitchen_runners": lambda: make_libero_runners(env_backend="kitchen"),
+          "kitchen_runner": lambda: LiberoImageRunner("kitchen_microwave_demo.hdf5",
+                                                      env_backend="kitchen"),
+          "fetch_runner": lambda: RobomimicImageRunner(env_backend="fetch"),
+          "kitchen_env": lambda: kitchen_env.KitchenImageEnv()}
+raised = {}
+for name, make in makers.items():
+    try:
+        make()
+        raised[name] = None
+    except ImportError as e:
+        raised[name] = str(e)
+print(json.dumps({"raised": raised, "available": kitchen_env.available(),
+                  "blocked_loaded": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED),
+                  "jax": "jax" in sys.modules}))
 """
 
 
@@ -93,7 +134,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "envs.pusht_expert", "envs.video_recording", "utils.media",
                      "tools.gen_pusht_demos", "data.zarrlite", "utils.lz4f",
                      "models.torch_import", "tools.gen_synthetic_umi",
-                     "tools.convert_zarr_dataset", "tools.merge_demos", "tools.stage_datasets"):
+                     "tools.convert_zarr_dataset", "tools.merge_demos", "tools.stage_datasets",
+                     "envs.render3d", "envs.kitchen_env", "envs.kitchen_expert",
+                     "envs.fetch_env", "envs.fetch_expert", "envs.benchmark",
+                     "tools.gen_kitchen_demos", "tools.gen_fetch_demos"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
@@ -101,6 +145,27 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     added = loaded - set(result["torch_roots"])
     assert not added & set(NOT_ON_THE_CARD + LAZY_ONLY), sorted(added & set(NOT_ON_THE_CARD + LAZY_ONLY))
     assert "cv2" not in loaded and "PIL" not in loaded
+
+
+def test_port_imports_and_refuses_the_mujoco_backends_without_mujoco():
+    """Every port module imports with mujoco, gymnasium and
+    gymnasium_robotics unimportable and no JAX loaded; the kitchen and Fetch
+    backends then raise an ImportError naming mujoco, never a stub."""
+    import json
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = _run(["-c", _BLOCKED + _PROBE + _BACKENDS], cwd=REPO, env=env)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    modules, result = json.loads(lines[-2]), json.loads(lines[-1])
+    assert "unified_video_action_tpu_torch.envs.kitchen_env" in modules["modules"]
+    assert not set(modules["roots"]) & set(FORBIDDEN + MUJOCO)
+    assert not result["jax"] and not result["blocked_loaded"] and not result["available"]
+    for name, message in result["raised"].items():
+        assert message is not None and ("mujoco" in message or "gymnasium" in message), \
+            (name, message)
+    for name in ("kitchen_runners", "kitchen_runner", "fetch_runner"):
+        assert "mujoco, gymnasium and gymnasium_robotics" in result["raised"][name], name
 
 
 def _imported_roots(path):

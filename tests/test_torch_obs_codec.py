@@ -80,5 +80,8 @@ def test_select_frame_indices_matches_jax_eval(total):
 def test_remap_image_keys_matches_jax(task):
     obs = {"agentview_rgb": 1, "agentview_image": 2, "camera0_rgb": 3, "sideview_image": 4,
            "robot0_eye_in_hand_image": 5, "image": 6, "agent_pos": 7}
-    assert pimage.TASK_IMAGE_KEYS == jimage.TASK_IMAGE_KEYS
+    # JAX's table, and Fetch's key, which JAX lacks (ROADMAP C16)
+    assert {k: v for k, v in pimage.TASK_IMAGE_KEYS.items() if k != "fetch"} == \
+        jimage.TASK_IMAGE_KEYS
+    assert pimage.TASK_IMAGE_KEYS["fetch"] == {"agentview_image": "image"}
     assert pimage.remap_image_keys(task, obs) == jimage.remap_image_keys(task, obs)

@@ -14,14 +14,16 @@ package's, on the stub backend, on the CPU.
   in the port every stub's ``action_log`` equal to the runner's undone
   actions, cut where its episode ended. Measured: chunks 5.4e-6, logs 6.0e-6.
 - ``load_env_runner``'s dispatch and ``env_rollout``'s averaging and stub
-  flag against JAX's; each backend that cannot run here raises, naming what
-  is missing; ``eval_sim_torch.py`` on a LIBERO checkpoint writes the
+  flag against JAX's; each backend that cannot run raises, naming what is
+  missing (robosuite and LIBERO here, mujoco where it is hidden);
+  ``eval_sim_torch.py`` on a LIBERO checkpoint writes the
   ``.STUB`` log; ``train_torch.py --config toolhang|libero10`` trains a
   tiny model on the synthetic stores, validates and rolls out on the stub.
 """
 
 import copy
 import json
+import sys
 
 import h5py
 import jax
@@ -250,7 +252,13 @@ def test_load_env_runner_dispatch_and_backends():
     (lambda b: make_libero_runners(env_backend=b), "kitchen", "mujoco"),
     (lambda b: LiberoImageRunner("x_demo.hdf5", env_backend=b), "kitchen", "mujoco"),
 ])
-def test_backends_that_cannot_run_raise(make, backend, names):
+def test_backends_that_cannot_run_raise(make, backend, names, monkeypatch):
+    """robosuite and LIBERO are not installed here; mujoco, gymnasium and
+    gymnasium_robotics are, so the kitchen and Fetch cases hide them, as on
+    the card's machine."""
+    if names == "mujoco":
+        for module in ("mujoco", "gymnasium", "gymnasium_robotics"):
+            monkeypatch.setitem(sys.modules, module, None)
     with pytest.raises(ImportError, match=names):
         make(backend)
     with pytest.raises(ValueError, match="unknown env_backend"):

@@ -36,6 +36,20 @@ backend, whose scores measure nothing about the policy:
     python3 train_torch.py --config libero10 task.env_runner.env_backend=stub \
         training.num_epochs=1 training.max_train_steps=10
 
+``--config kitchen`` and ``--config fetch`` take ``config.KITCHEN``
+(``uva_kitchen.yaml``: mar_base, 1024 tokens, 9-d actions, with
+``SUITE_TRAIN_OVERRIDES``) and ``config.FETCH`` (``uva_fetch.yaml``:
+mar_small at 96 px, 4-d actions, its store on the device). Their demos come
+from the scripted experts in mujoco (``tools/gen_kitchen_demos.py``,
+``tools/gen_fetch_demos.py``) and their rollouts run mujoco's physics
+(``env_backend`` ``kitchen`` and ``fetch``); without mujoco,
+``gen_synthetic_suites.py --suites kitchen fetch`` writes stores of their
+layout and the stub backend rolls out:
+
+    python3 unified_video_action_tpu_torch/tools/gen_kitchen_demos.py --out-dir data/kitchen_demos \
+        --tasks microwave "slide cabinet" --episodes 20
+    python3 train_torch.py --config kitchen training.num_epochs=1 training.max_train_steps=10
+
 The run initializes the MAR from ``training.seed`` (and merges the port
 checkpoint at ``pretrained_model_path`` into it, the stage-1 -> stage-2
 bootstrap), reads the VAE from ``autoencoder_path``, trains on the card
@@ -64,7 +78,9 @@ from unified_video_action_tpu_torch.training.workspace import Trainer
 CONFIGS = {"pusht_256": (port_config.PUSHT_256_RUN, ()),
            "umi_multi": (port_config.UMI_MULTI, port_config.UMI_TRAIN_OVERRIDES),
            "toolhang": (port_config.TOOLHANG, port_config.SUITE_TRAIN_OVERRIDES),
-           "libero10": (port_config.LIBERO10, port_config.SUITE_TRAIN_OVERRIDES)}
+           "libero10": (port_config.LIBERO10, port_config.SUITE_TRAIN_OVERRIDES),
+           "kitchen": (port_config.KITCHEN, port_config.SUITE_TRAIN_OVERRIDES),
+           "fetch": (port_config.FETCH, ())}
 
 
 def load_run_config(path: str) -> dict:

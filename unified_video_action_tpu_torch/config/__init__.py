@@ -8,7 +8,7 @@ lists and maps, and otherwise the string. Composing a config from the JAX
 package's yaml files is not ported: the port reads the ``cfg`` that an
 exported checkpoint's ``meta.json`` embeds, or a config kept here as data.
 
-Nine run configs are kept here as data, each the ``cfg`` that the JAX
+Eleven run configs are kept here as data, each the ``cfg`` that the JAX
 package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
 ``model.policy``: what serving reads), with the overrides named below.
 ``UnifiedVideoActionPolicy.from_cfg(cfg, device=...)`` builds each:
@@ -91,7 +91,24 @@ package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
   ``libero`` backend; ``task.env_runner.env_backend=stub`` runs it without
   LIBERO).
 
-Training either suite takes ``SUITE_TRAIN_OVERRIDES``
+* ``KITCHEN``: ``uva_kitchen.yaml`` (``task/kitchen.yaml`` +
+  ``model/uva.yaml``: mar_base, 128 px agentview frames upscaled to 256 on
+  the device, 1024 tokens, 9-d joint-velocity actions, no
+  ``language_emb_model``, so no text buffer) with the action head on, a
+  whole run config: the kitchen's per-task stores ``kitchen_<task>_demo.*``
+  under ``data/kitchen_demos`` (``tools/gen_kitchen_demos.py`` records them
+  with the expert) with ``data_aug`` and ``pad_before`` 16, and
+  ``make_libero_runners`` on the ``kitchen`` backend (mujoco physics;
+  ``task.env_runner.env_backend=stub`` runs it without mujoco).
+* ``FETCH``: ``uva_fetch.yaml`` (``task/fetch_pickplace.yaml`` +
+  ``model/uva_small96.yaml``: mar_small at 96 px, 144 tokens, the committed
+  ``pretrained_models/vae/pusht_vae96.npz``, 4-d delta actions) with the
+  action head on, a whole run config: the demo store
+  ``data/fetch_demos.h5`` (``tools/gen_fetch_demos.py``) held on the device
+  (``device_resident``), and ``RobomimicImageRunner`` on the ``fetch``
+  backend.
+
+Training the 1024-token suites takes ``SUITE_TRAIN_OVERRIDES``
 (``grad_checkpointing``: B = 32 at N = 1024).
 
 The 256 px configs have no checkpoint paths (the KL-16 VAE's
@@ -347,7 +364,78 @@ LIBERO10["task"].update({
 })
 LIBERO10.update(_training_sections("libero10"))
 
-# what training the two suites takes: B = 32 at N = 1024 does not fit the
+KITCHEN = _run_config("kitchen", _KITCHEN_SHAPE_META, "mar_base", 256, 128, None)
+KITCHEN["task"].update({
+    "task_type": "single_dataset",
+    "task_modes": [],
+    "dataset": {
+        "_target_": "unified_video_action_tpu_torch.data.libero_dataset.LiberoReplayImageDataset",
+        "dataset_dir": "data/kitchen_demos",
+        "shape_meta": copy.deepcopy(_KITCHEN_SHAPE_META),
+        "horizon": 32, "pad_before": 16, "pad_after": 7, "abs_action": False, "seed": 42,
+        "val_ratio": 0.02, "data_aug": True, "language_max_length": 77,
+    },
+    "env_runner": {
+        "_target_": "unified_video_action_tpu_torch.runners.libero_runner.LiberoImageRunner",
+        "dataset_dir": "data/kitchen_demos",
+        "max_steps": 260, "n_action_steps": 8, "n_obs_steps": 16, "n_test": 10,
+        "test_start_seed": 100000, "abs_action": False, "env_backend": "kitchen",
+    },
+})
+KITCHEN.update(_training_sections("kitchen", topk={
+    "monitor_key": "test_mean_score",
+    "format_str": "epoch={epoch:04d}-test_mean_score={test_mean_score:.3f}", "k": 3, "mode": "max"}))
+for _section in ("dataloader", "val_dataloader"):
+    KITCHEN[_section]["num_workers"] = 4
+KITCHEN["training"].update(checkpoint_every=5, rollout_every=5)
+
+_FETCH_SHAPE_META = {
+    "image_resolution": 96,
+    "action": {"shape": [4]},
+    "obs": {
+        "agentview_image": {"shape": [3, 96, 96], "type": "rgb"},
+        "robot0_eef_pos": {"shape": [3], "type": "low_dim"},
+        "robot0_gripper_qpos": {"shape": [2], "type": "low_dim"},
+    },
+}
+FETCH = _run_config("fetch_pickplace", _FETCH_SHAPE_META, "mar_small", 96, 64,
+                    "pretrained_models/vae/pusht_vae96.npz")
+FETCH["task"].update({
+    "task_type": "single_dataset",
+    "task_modes": [],
+    "dataset": {
+        "_target_": "unified_video_action_tpu_torch.data.robomimic_dataset.RobomimicReplayImageDataset",
+        "dataset_path": "data/fetch_demos.h5",
+        "shape_meta": copy.deepcopy(_FETCH_SHAPE_META),
+        "horizon": 32, "pad_before": 1, "pad_after": 7, "abs_action": False, "seed": 42,
+        "val_ratio": 0.05, "normalizer_type": "all",
+    },
+    "env_runner": {
+        "_target_": "unified_video_action_tpu_torch.runners.robomimic_runner.RobomimicImageRunner",
+        "dataset_path": "data/fetch_demos.h5",
+        "shape_meta": copy.deepcopy(_FETCH_SHAPE_META),
+        "env_backend": "fetch", "max_steps": 60, "n_action_steps": 8, "n_obs_steps": 16,
+        "n_test": 20, "n_train": 3, "test_start_seed": 100000, "abs_action": False,
+    },
+})
+FETCH.update({
+    "name": "uva_fetch",
+    "dataloader": {"batch_size": 32, "num_workers": 2, "shuffle": True, "device_resident": True},
+    "val_dataloader": {"batch_size": 32, "num_workers": 2, "shuffle": False},
+    "training": {
+        "checkpoint_every": 8, "debug": False, "gradient_accumulate_every": 1,
+        "lr_scheduler": "cosine", "lr_warmup_steps": 500, "max_train_steps": None,
+        "max_val_steps": 8, "num_epochs": 40, "resume": True, "rollout_every": 4, "seed": 42,
+        "val_every": 1, "sample_every": 4,
+    },
+    "checkpoint": {"topk": {
+        "k": 2, "monitor_key": "test_mean_score", "mode": "max",
+        "format_str": "epoch={epoch:04d}-test_mean_score={test_mean_score:.3f}"}},
+    "logging": {"mode": "offline"},
+    "output_dir": "data/outputs/fetch_pickplace",
+})
+
+# what training the 1024-token suites takes: B = 32 at N = 1024 does not fit the
 # card without recomputing the blocks' activations (as UMI at N = 1088)
 SUITE_TRAIN_OVERRIDES = ("model.policy.autoregressive_model_params.grad_checkpointing=true",)
 

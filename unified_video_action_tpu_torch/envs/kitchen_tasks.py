@@ -2,9 +2,10 @@
 of the pure-data helpers of the JAX package's ``envs/kitchen_env.py:30-56``:
 ``KITCHEN_TASK_PROMPTS``, ``_slug`` and ``task_from_name``).
 
-The kitchen env itself (mujoco Franka-kitchen physics and its software
-renderer) is not ported; these name its tasks, so that a dataset or runner
-named after a kitchen task resolves the same prompt as in the JAX package.
+They stay apart from the kitchen env (``envs/kitchen_env.py``, which needs
+mujoco and gymnasium_robotics), so that a dataset or runner named after a
+kitchen task resolves the same prompt as in the JAX package where mujoco is
+not installed.
 """
 
 from __future__ import annotations

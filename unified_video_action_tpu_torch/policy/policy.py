@@ -85,7 +85,7 @@ _TRAINING_KEYS = {"optimizer"}
 # plain version), whatever the JAX program chose ("xla", "pallas", "ring").
 _IGNORED_KEYS = {"attn_impl"}
 # the tasks whose serving path is ported (a task matches if its name holds one)
-_PORTED_TASKS = ("pusht", "kitchen", "umi", "toolhang", "libero")
+_PORTED_TASKS = ("pusht", "kitchen", "umi", "toolhang", "libero", "fetch")
 # the state keys of each task family's proprioception (policy.py:655-666, :786-811)
 UMI_STATE_KEYS = ("robot0_eef_pos", "robot0_eef_rot_axis_angle", "robot0_gripper_width",
                   "robot0_eef_rot_axis_angle_wrt_start")

@@ -27,6 +27,32 @@ class BaseImageRunner:
         raise NotImplementedError
 
 
+def require_mujoco(what: str) -> None:
+    """Raise an ImportError naming mujoco, gymnasium and gymnasium_robotics
+    where one of them does not import: ``what`` (a runner's real-physics
+    backend, ``envs/kitchen_env.py`` or ``envs/fetch_env.py``) needs all
+    three."""
+    from unified_video_action_tpu_torch.envs.kitchen_env import missing_physics_packages
+
+    missing = missing_physics_packages()
+    if missing:
+        raise ImportError(f"{what} needs mujoco, gymnasium and gymnasium_robotics; "
+                          f"{', '.join(missing)} is not installed. env_backend='stub' runs the "
+                          "runner without them (its scores measure nothing)")
+
+
+def env_action_dim(shape_meta: Optional[dict], abs_action: bool) -> int:
+    """The width of the actions a runner steps its env with, the one rule of
+    both runners' stubs: the task's action width as the policy makes it
+    (the kitchen's 9-d joint velocities, Fetch's 4-d deltas), or after the
+    rot6d undo 7 an arm; 7 (the LIBERO arm's, the width of JAX's stubs)
+    where no shape_meta names an action."""
+    shape = (shape_meta or {}).get("action", {}).get("shape")
+    if not shape:
+        return 7
+    return (int(shape[0]) // 10) * 7 if abs_action else int(shape[0])
+
+
 def undo_transform_action(action: np.ndarray, rot_tf) -> np.ndarray:
     """Abs-action (..., 10) pos3 + rot6d + grip -> (..., 7) pos3 +
     axis_angle + grip for env stepping; two arms (..., 20) -> (..., 14)
@@ -44,7 +70,8 @@ def undo_transform_action(action: np.ndarray, rot_tf) -> np.ndarray:
 def load_env_runner(cfg, output_dir: Optional[str] = None):
     """Instantiate the env runner(s) for ``cfg["task"]`` (a plain nested
     dict, e.g. an exported checkpoint's ``meta.json`` ``cfg``): one runner,
-    or a list for libero (one per task store)."""
+    or a list for libero and the kitchen (one per task store); Fetch takes
+    the robomimic runner."""
     task = cfg["task"]
     er_cfg = dict(task.get("env_runner", {}))
     target = er_cfg.pop("_target_", "")
@@ -54,11 +81,12 @@ def load_env_runner(cfg, output_dir: Optional[str] = None):
         from unified_video_action_tpu_torch.runners.pusht_runner import PushTImageRunner
 
         return PushTImageRunner(output_dir=output_dir, **er_cfg)
-    if "libero" in name or "libero" in target:
+    if "libero" in name or "kitchen" in name or "libero" in target:
         from unified_video_action_tpu_torch.runners.libero_runner import make_libero_runners
 
+        er_cfg.setdefault("shape_meta", task.get("shape_meta"))  # the stubs' action width
         return make_libero_runners(output_dir=output_dir, **er_cfg)
-    if "robomimic" in target or name in ("toolhang", "square", "can", "lift"):
+    if "robomimic" in target or "fetch" in name or name in ("toolhang", "square", "can", "lift"):
         from unified_video_action_tpu_torch.runners.robomimic_runner import RobomimicImageRunner
 
         return RobomimicImageRunner(output_dir=output_dir, **er_cfg)

@@ -1,7 +1,7 @@
 """The LIBERO rollout harness (the port's counterpart of the JAX package's
-``runners/libero_runner.py``: ``LiberoImageRunner`` at :39-166,
-``_LiberoObsAdapter`` at :169-203, ``LIBERO10_TASK_NAMES`` and
-``make_libero_runners`` at :206-242).
+``runners/libero_runner.py``: ``LiberoImageRunner`` at :39-166 with
+its ``kitchen`` backend at :71-99, ``_LiberoObsAdapter`` at :169-203,
+``LIBERO10_TASK_NAMES`` and ``make_libero_runners`` at :206-242).
 
 Equivalent of the reference's ``LiberoImageRunner``
 (env_runner/libero_image_runner.py:69-431): one runner per task store, each
@@ -11,9 +11,19 @@ the rot6d -> axis-angle undo. Each runner's ``test/mean_score`` averages into
 ``test_mean_score`` in ``runners.base.env_rollout``.
 
 Backends: ``stub`` (``envs/stub.StubLiberoEnv``) runs anywhere; ``libero``
-needs the LIBERO benchmark package and ``kitchen`` the JAX package's mujoco
-kitchen env, which the port does not have: both raise an ImportError naming
-what is missing. No backend switches to the stub by itself.
+needs the LIBERO benchmark package; ``kitchen`` (``envs/kitchen_env.
+KitchenImageEnv`` at 128 px: mujoco physics) needs mujoco, gymnasium and
+gymnasium_robotics. Where those are missing the runner raises an
+ImportError naming them; no backend switches to the stub by itself. On the
+kitchen backend a runner's task comes from its file name
+(``kitchen_<task>_demo.*``), its goal is that task's prompt and its actions
+are the kitchen's 9-d joint velocities, stepped as they come (no rot6d
+undo); with no stores, ``make_libero_runners`` makes one runner a kitchen
+task. The stub takes actions as wide as the env would step
+(``runners.base.env_action_dim`` of the task's ``shape_meta``, which
+``load_env_runner`` passes): 7-d after the undo, the kitchen's 9-d as the
+policy makes them, 7-d where no shape_meta is given (JAX's stub takes 7-d
+only, so JAX cannot run the kitchen's config on it).
 """
 
 from __future__ import annotations
@@ -28,8 +38,18 @@ from unified_video_action_tpu_torch.data.libero_dataset import (
     store_stem,
     task_stores,
 )
+from unified_video_action_tpu_torch.envs.kitchen_tasks import (
+    KITCHEN_TASK_PROMPTS,
+    _slug,
+    task_from_name,
+)
 from unified_video_action_tpu_torch.envs.wrappers import MultiStepWrapper, SyncVectorEnv
-from unified_video_action_tpu_torch.runners.base import BaseImageRunner, undo_transform_action
+from unified_video_action_tpu_torch.runners.base import (
+    BaseImageRunner,
+    env_action_dim,
+    require_mujoco,
+    undo_transform_action,
+)
 from unified_video_action_tpu_torch.utils.rotation import RotationTransformer
 
 
@@ -38,9 +58,7 @@ def _require_backend(env_backend: str) -> None:
     if env_backend not in ("libero", "stub", "kitchen"):
         raise ValueError(f"unknown env_backend {env_backend!r}")
     if env_backend == "kitchen":
-        raise ImportError("LiberoImageRunner's 'kitchen' backend needs mujoco, "
-                          "gymnasium_robotics and the JAX package's kitchen env, which the "
-                          "port does not have")
+        require_mujoco("LiberoImageRunner's 'kitchen' backend")
     if env_backend == "libero":
         _require_libero()
 
@@ -67,6 +85,7 @@ class LiberoImageRunner(BaseImageRunner):
         bddl_file: Optional[str] = None,
         abs_action: bool = True,
         env_backend: str = "libero",
+        shape_meta: Optional[dict] = None,
         **kwargs,
     ):
         super().__init__(output_dir)
@@ -84,16 +103,31 @@ class LiberoImageRunner(BaseImageRunner):
         self.n_obs_steps = n_obs_steps
         self.n_action_steps = n_action_steps
         self.bddl_file = bddl_file
+        self.kitchen_task = None
+        if env_backend == "kitchen":
+            self.kitchen_task = kwargs.get("kitchen_task") or task_from_name(dataset_path)
+            if self.kitchen_task is None:
+                raise ValueError(f"cannot resolve a kitchen task from {dataset_path!r}")
+            self.language_goal = KITCHEN_TASK_PROMPTS[self.kitchen_task]
+            self.abs_action = False  # 9-d joint velocities, not a pose and rot6d
+        # the stub's action width, from the task's shape_meta
+        self.stub_action_dim = env_action_dim(shape_meta, self.abs_action)
         # of the last run: the raw envs (a stub keeps its action_log) and the
         # (B, n_action_steps, A) actions stepped at each control step
         self.raw_envs: list = []
         self.env_actions: list = []
 
     def _make_raw_env(self):
+        if self.env_backend == "kitchen":
+            from unified_video_action_tpu_torch.envs.kitchen_env import KitchenImageEnv
+
+            return KitchenImageEnv(tasks=[self.kitchen_task], camera_heights=128,
+                                   camera_widths=128)
         if self.env_backend == "stub":
             from unified_video_action_tpu_torch.envs.stub import StubLiberoEnv
 
-            return StubLiberoEnv(camera_heights=128, camera_widths=128)
+            return StubLiberoEnv(camera_heights=128, camera_widths=128,
+                                 action_dim=self.stub_action_dim)
         from libero.libero.envs import OffScreenRenderEnv
 
         return OffScreenRenderEnv(bddl_file_name=self.bddl_file, camera_heights=128,
@@ -204,11 +238,13 @@ LIBERO10_TASK_NAMES = (
 def make_libero_runners(dataset_dir: Optional[str] = None, output_dir: Optional[str] = None,
                         env_backend: str = "libero", **kwargs) -> List[LiberoImageRunner]:
     """One runner per task store under ``dataset_dir`` (``*.hdf5`` and
-    ``*.npz``, sorted by name); the stub backend with no stores staged takes
-    the libero-10 task names."""
+    ``*.npz``, sorted by name); with no stores staged, the stub backend takes
+    the libero-10 task names and the kitchen backend its 7 tasks."""
     _require_backend(env_backend)
     files = task_stores(dataset_dir) if dataset_dir else []
     if not files and env_backend == "stub":
         files = [name + ".hdf5" for name in LIBERO10_TASK_NAMES]
+    if not files and env_backend == "kitchen":
+        files = [f"kitchen_{_slug(t)}_demo.hdf5" for t in KITCHEN_TASK_PROMPTS]
     return [LiberoImageRunner(path, output_dir=output_dir, env_backend=env_backend, **kwargs)
             for path in files]

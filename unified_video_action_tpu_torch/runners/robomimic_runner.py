@@ -1,6 +1,7 @@
 """The robomimic (robosuite) rollout harness (the port's counterpart of the
 JAX package's ``runners/robomimic_runner.py``: ``RobomimicImageWrapper`` at
-:37-79 and ``RobomimicImageRunner`` at :82-236).
+:37-79 and ``RobomimicImageRunner`` at :82-236, its ``fetch`` backend at
+:112-170).
 
 Equivalent of the reference's ``RobomimicImageRunner``
 (env_runner/robomimic_image_runner.py:46-385): n_train envs reset to the
@@ -10,10 +11,17 @@ stepping, ``MultiStepWrapper`` chunking, each episode's max reward, mean
 scores per prefix.
 
 Backends: ``stub`` (``envs/stub.StubRobosuiteEnv``) runs anywhere;
-``robosuite`` needs robosuite and robomimic, and the runner raises an
-ImportError naming them where they are absent; ``fetch`` (the JAX package's
-mujoco Fetch env) is not ported and raises naming mujoco. No backend
-switches to the stub by itself.
+``robosuite`` needs robosuite and robomimic; ``fetch``
+(``envs/fetch_env.FetchImageEnv``: mujoco's Fetch pick-and-place at the
+shape_meta's image size, 4-d delta actions stepped as they come, no rot6d
+undo) needs mujoco, gymnasium and gymnasium_robotics. Where those are
+missing the runner raises an ImportError naming them; no backend switches
+to the stub by itself. The train episodes reset to the first state of the
+store's demos through ``reset_to``; on ``fetch`` with no store, to the
+states of the env's resets at seeds ``train_start_idx + i``. The stub takes
+the actions the env would (``env_action_dim``: Fetch's 4-d where the
+shape_meta says so; JAX's stub takes 7-d only, so JAX cannot run Fetch's
+config on it).
 """
 
 from __future__ import annotations
@@ -26,7 +34,12 @@ import numpy as np
 import torch
 
 from unified_video_action_tpu_torch.envs.wrappers import MultiStepWrapper, SyncVectorEnv
-from unified_video_action_tpu_torch.runners.base import BaseImageRunner, undo_transform_action
+from unified_video_action_tpu_torch.runners.base import (
+    BaseImageRunner,
+    env_action_dim,
+    require_mujoco,
+    undo_transform_action,
+)
 from unified_video_action_tpu_torch.utils.rotation import RotationTransformer
 
 
@@ -107,8 +120,8 @@ class RobomimicImageRunner(BaseImageRunner):
         if env_backend not in ("robosuite", "stub", "fetch"):
             raise ValueError(f"unknown env_backend {env_backend!r}")
         if env_backend == "fetch":
-            raise ImportError("RobomimicImageRunner's 'fetch' backend needs mujoco and the JAX "
-                              "package's Fetch env, which the port does not have")
+            require_mujoco("RobomimicImageRunner's 'fetch' backend")
+            abs_action = False  # 4-d deltas, not a pose and rot6d
         if env_backend == "robosuite":
             _require_robosuite()
         self.env_backend = env_backend
@@ -128,6 +141,12 @@ class RobomimicImageRunner(BaseImageRunner):
         self.raw_envs: list = []
         self.env_actions: list = []
 
+    @property
+    def env_action_dim(self) -> int:
+        """The width of the actions the env steps (``runners.base.
+        env_action_dim`` of the shape_meta)."""
+        return env_action_dim(self.shape_meta, self.abs_action)
+
     def undo_transform_action(self, action: np.ndarray) -> np.ndarray:
         """(..., 10) pos3 + rot6d + grip -> (..., 7) pos3 + axis_angle +
         grip (reference :368-385); two arms 20 -> 14."""
@@ -140,7 +159,12 @@ class RobomimicImageRunner(BaseImageRunner):
         if self.env_backend == "stub":
             from unified_video_action_tpu_torch.envs.stub import StubRobosuiteEnv
 
-            return lambda seed=0: StubRobosuiteEnv(self.shape_meta, seed=seed)
+            return lambda seed=0: StubRobosuiteEnv(self.shape_meta, seed=seed,
+                                                   action_dim=self.env_action_dim)
+        if self.env_backend == "fetch":
+            from unified_video_action_tpu_torch.envs.fetch_env import FetchImageEnv
+
+            return lambda seed=0: FetchImageEnv(self.shape_meta, seed=seed)
         import robomimic.utils.env_utils as EnvUtils
         import robomimic.utils.file_utils as FileUtils
 
@@ -153,7 +177,8 @@ class RobomimicImageRunner(BaseImageRunner):
 
     def _train_init_states(self):
         """The first state of each train episode's demo in the store (HDF5 or
-        ``.npz``); zeros for the stub backend when no store is staged."""
+        ``.npz``); where no store is staged, zeros for the stub backend and the
+        states of seeded resets for fetch."""
         if self.dataset_path and os.path.exists(self.dataset_path):
             from unified_video_action_tpu_torch.data.robomimic_dataset import RobomimicStore
 
@@ -162,6 +187,17 @@ class RobomimicImageRunner(BaseImageRunner):
                         for i in range(self.n_train)]
         if self.env_backend == "stub":
             return [np.zeros(1, np.float32) for _ in range(self.n_train)]
+        if self.env_backend == "fetch":
+            from unified_video_action_tpu_torch.envs.fetch_env import FetchImageEnv
+
+            env = FetchImageEnv(self.shape_meta)
+            states = []
+            for i in range(self.n_train):
+                np.random.seed(self.train_start_idx + i)
+                env.reset()
+                states.append(env.get_state()["states"])
+            env.close()
+            return states
         raise FileNotFoundError(self.dataset_path)
 
     def _make_envs(self):

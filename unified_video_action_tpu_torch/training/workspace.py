@@ -46,7 +46,8 @@ a resumed run replays. Every key of the config's ``training``,
 ``checkpoint``, ``ema``, ``logging``, ``dataloader`` and ``val_dataloader``
 sections is acted on or named in the log as ignored (:func:`config_report`).
 Two input paths: the device-resident store (``dataloader.device_resident:
-true``, the PushT datasets; on the CPU the store is host memory), and the
+true``: the PushT datasets and robomimic-layout ones, ``config.FETCH``'s; on
+the CPU the store is host memory), and the
 host loader (``data/loader.py``) for every dataset otherwise: PushT
 (``config.PUSHT_256_RUN``, uva_pusht.yaml's recipe; with ``data_aug`` its
 crop and blur run on the device, or in the loader's workers under

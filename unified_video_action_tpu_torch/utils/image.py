@@ -19,6 +19,10 @@ TASK_IMAGE_KEYS = {
         "sideview_image": "image",
         "robot0_eye_in_hand_image": "wrist_image",
     },
+    # the port's own entry: JAX's table has none for Fetch, so JAX's
+    # predict_action and compute_loss raise KeyError 'image' on uva_fetch.yaml's
+    # obs (envs/fetch_env.py's agentview_image)
+    "fetch": {"agentview_image": "image"},
 }
 
 
