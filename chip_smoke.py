@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, evaluation and training paths (PushT,
 kitchen, UMI, the robomimic tool-hang, LIBERO-10, kitchen and Fetch suites,
-the software renderer, the CLIP text tower) on one NVIDIA GPU.
+the human-video keypoint task, the software renderer, the CLIP text tower) on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -178,11 +179,18 @@ attention_plan picks.
            within VIDEO_FLOOR_RATIO of the bf16 floor; the planted controls
            rejected); the card in fp32 against the CPU in fp32 at B=2,
            num_iter 1; the trained decoder's PSNR on 64 corpus frames, the
-           card within 0.05 dB of the CPU. config.PUSHT_256 (the online D =
-           64 kernel, 24 a round) and config.KITCHEN_SMALL128 with a goal
-           and cfg 1.5 (8 rows at B=4, the online D = 128 kernel, 12 a
-           round; the CFG no-op control: a projected goal equal to
-           fake_latent gives bit-identical latents at cfg 3 and 7), each with
+           card within 0.05 dB of the CPU. The flagship's int8 tier
+           (serving_quant="int8": both stacks, the action denoiser and the
+           video head's denoiser W8A8): sample_video, one round at B=8,
+           counted (the single-pass D = 64 instance 24 times; one int8 GEMM
+           and one row quantization a W8A8 layer call, by the kernels their
+           plans name, uva_int8_gemm_wgmma and uva_quantize_rows_vector
+           among them), bit-equal to the plain-int8 route, its gap to the
+           bf16 route printed. config.PUSHT_256 (the online D = 64 kernel,
+           24 a round) and config.KITCHEN_SMALL128 with a goal and cfg 1.5
+           (8 rows at B=4, the online D = 128 kernel, 12 a round; the CFG
+           no-op control: a projected goal equal to fake_latent gives
+           bit-identical latents at cfg 3 and 7), one round each, each with
            the same route check.
 8. train   the flagship's training step (train_torch.py's Trainer on the
            stage-2 recipe of latest/meta.json: mar_base at full width, 96 px,
@@ -304,6 +312,20 @@ attention_plan picks.
            the route and fp32 checks; the first request again by the host
            clock beside its stages and the device's busy share;
            env_backend="fetch" raising an ImportError naming mujoco.
+12d. human_pp  the human-video keypoint task (config.HUMAN_PP,
+           uva_human_pp.yaml: mar_base, the 96 px frames upscaled to 256 on
+           the card, 1024 tokens, 14-d hand-keypoint actions) with
+           HUMAN_PP_TRAIN_OVERRIDES (grad_checkpointing) on a synthetic
+           keypoint store written here as .npz: 4 bf16 steps at B=32 from
+           the host loader with the recipe's data_aug, every metric finite
+           and no uva_* launch, ms per step, peak memory and the loader's
+           wait; one validation batch at B=32 (24 online D = 64 launches)
+           writing media/keypoints_epoch0.gif with its 16 images; the slim
+           export served by eval_human_torch.run_stream over 8 frames of a
+           scripted capture, each frame's stages timed by
+           utils/profiling.Timer on the card, 24 online D = 64 launches a
+           request as attention_plan names; the first window in fp32 on the
+           card against the CPU.
 13. clip   the CLIP text tower at the width of openai/clip-vit-base-patch32
            on seeded weights through get_text_encoder: fp32 and bf16 on the
            card against fp32 on the CPU.
@@ -319,7 +341,11 @@ profiled (30, 10 and 5), train_run 4 steps an epoch (8) and 16-step
 rollouts (24). When the PushT pipeline joined: the video phase's
 fp32 check at num_iter 1 (2), real_loop 8 cycles (10), LIBERO's stub
 evaluation 16 steps (32). When the real-physics suites joined: LIBERO's
-stub evaluation 8 steps (16), tool-hang's 32 (64).
+stub evaluation 8 steps (16), tool-hang's 32 (64). When the human_pp phase
+and the int8 sample_video joined: the 256 px and kitchen sample_video paths
+one round (2), train_umi's fp32 parity 2 steps (3); and the weight bridge
+moves each float leaf to the card before changing its layout (the host's
+transposes of the mar_huge kernels took about 20 s a phase).
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
 object with every kernel's numbers, and the result:
@@ -2580,7 +2606,7 @@ def video_flagship(attention_ops, trees, normalizer, dataset) -> dict:
             "psnr": psnr, "fp32_latent_rel": rel}
 
 
-def video_cfg_noop(policy, cond, draws, text) -> None:
+def video_cfg_noop(policy, cond, draws, text, num_iter: int) -> None:
     """With ``text_proj_cond`` mapping every goal onto ``fake_latent``, the
     conditional and unconditional halves are the same rows: guidance scales
     3 and 7 must give bit-identical latents and actions on the card."""
@@ -2590,7 +2616,7 @@ def video_cfg_noop(policy, cond, draws, text) -> None:
         with torch.no_grad():
             mar.text_proj_cond.weight.zero_()
             mar.text_proj_cond.bias.copy_(mar.fake_latent[0].to(mar.text_proj_cond.bias.dtype))
-        outs = [mar.sample_video(cond, draws, num_iter=2, cfg=s, text_latents=text,
+        outs = [mar.sample_video(cond, draws, num_iter=num_iter, cfg=s, text_latents=text,
                                  temperature=policy.temperature) for s in (3.0, 7.0)]
     finally:
         mar.text_proj_cond.load_state_dict(saved)
@@ -2603,7 +2629,7 @@ def video_cfg_noop(policy, cond, draws, text) -> None:
 
 
 def video_path(attention_ops, name: str, run_cfg: dict, vae_tree, rejected, goal=None,
-               cfg: float = 1.0, num_iter: int = 2) -> dict:
+               cfg: float = 1.0, num_iter: int = 1) -> dict:
     """sample_video of a served config at B = VIDEO_ROUTE_BATCH (numpy-seeded
     MAR, ``vae_tree``), ``num_iter`` rounds, with ``goal`` and guidance
     ``cfg`` where given: counted (the instance attention_plan names at 2B
@@ -2648,23 +2674,100 @@ def video_path(attention_ops, name: str, run_cfg: dict, vae_tree, rejected, goal
         raise AssertionError(f"video {name}: launches {launches}, want {want}; latents "
                              f"{tuple(lat.shape)}")
     if goal is not None:
-        video_cfg_noop(policy, cond, draws, text)
+        video_cfg_noop(policy, cond, draws, text, num_iter)
     policy32 = make_policy("float32")
     route = video_route_check(attention_ops, name, policy, policy32, cond, draws, rejected, **kw)
     return {"launches": launches, "route": route, "instance": plan.instance}
 
 
-def phase_video(attention_ops, trees, normalizer, dataset) -> dict:
+VIDEO_INT8_BATCH = 8  # the int8 tier's sample_video: one round at this batch
+
+
+def video_int8(attention_ops, int8_ops, trees, normalizer) -> dict:
+    """The flagship's sample_video on the int8 tier (serving_quant="int8":
+    both stacks, the action denoiser and the video head's denoiser W8A8), one
+    round at B = VIDEO_INT8_BATCH from the same seeded weights and draws as
+    the bf16 route: counted (the single-pass D = 64 instance once per ViT
+    block; one int8 GEMM and one row quantization a W8A8 layer call, each by
+    the kernel its plan names, uva_int8_gemm_wgmma and
+    uva_quantize_rows_vector among them); the int8 kernel route bit-equal to
+    the plain-int8 route; and its gap to the bf16 route printed (the
+    latents' mean |int8 - bf16| over their mean |bf16|, the actions' max in
+    normalized units)."""
+    from unified_video_action_tpu_torch.models.transformer import QuantLinear
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+
+    meta = os.path.join(LATEST, "meta.json")
+
+    def make_policy(**kw):
+        p = UnifiedVideoActionPolicy.from_run_config(meta, device="cuda", **kw)
+        p.set_normalizer(normalizer)
+        p.load_params(*trees)
+        return p
+
+    policy, bf16 = make_policy(serving_quant="int8"), make_policy()
+    c, B = policy.mar_cfg, VIDEO_INT8_BATCH
+    gen = torch.Generator().manual_seed(SEED + 75)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 75).integers(
+        0, 256, (B, 4, 3, c.img_size, c.img_size), dtype=np.uint8)).cuda()
+    cond = policy._encode_frames(policy._prep_frames(frames),
+                                 torch.randn(policy.noise_shapes(B)["vae"], generator=gen).cuda())
+    draws = draws_to(policy.mar.sample_video_draws(B, gen, torch.device("cpu"), 1), "cuda")
+    kw = dict(num_iter=1, temperature=policy.temperature)
+    layers = [m for m in policy.mar.modules() if isinstance(m, QuantLinear)]
+    calls = [0]
+    hooks = [m.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1)) for m in layers]
+    policy.mar.sample_video(cond, draws, **kw)  # warm-up: not counted
+    calls[0] = 0
+    for k in int8_ops.launch_count:
+        int8_ops.launch_count[k] = 0
+    (lat, act), launches = counted_launches(attention_ops, lambda: policy.mar.sample_video(
+        cond, draws, **kw))
+    for h in hooks:
+        h.remove()
+    int8 = dict(int8_ops.launch_count)
+    gemm = {k: int8[k] for k in int8_ops.GEMM_KERNELS}
+    rows = {k: int8[k] for k in int8_ops.QUANT_KERNELS}
+    blocks = c.encoder_depth + c.decoder_depth
+    log(f"video int8: sample_video at B={B}, one round, serving_quant int8: {calls[0]} W8A8 layer "
+        f"calls, int8 launches {json.dumps(int8)}, attention "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    if (sum(gemm.values()) != calls[0] or sum(rows.values()) != calls[0]
+            or not gemm["int8_gemm_wgmma"] or not rows["quantize_rows_vector"]
+            or launches["attention_wgmma_d64"] != blocks
+            or not bool(torch.isfinite(lat).all()) or not bool(torch.isfinite(act).all())):
+        raise AssertionError(f"video int8: {calls[0]} layer calls, int8 {int8}, attention "
+                             f"{launches}")
+    policy.set_int8_impl("plain")
+    lat_plain, act_plain = policy.mar.sample_video(cond, draws, **kw)
+    policy.set_int8_impl("kernel")
+    if not (torch.equal(lat, lat_plain) and torch.equal(act, act_plain)):
+        raise AssertionError(f"video int8: the kernel route is not the plain-int8 route: max "
+                             f"|dlat| {float((lat - lat_plain).abs().max())}")
+    lat_bf16, act_bf16 = bf16.mar.sample_video(cond, draws, **kw)
+    gap = {"latents_rel_mean": float((lat.float() - lat_bf16.float()).abs().mean()
+                                     / lat_bf16.float().abs().mean()),
+           "actions_max": float((act.float() - act_bf16.float()).abs().max()),
+           "actions_mean": float((act.float() - act_bf16.float()).abs().mean())}
+    log(f"video int8: bit-equal to the plain-int8 route; gap to the bf16 route {json.dumps(gap)}")
+    del policy, bf16
+    torch.cuda.empty_cache()
+    return {"launches": {**launches, **int8}, "layer_calls": calls[0], "gap_to_bf16": gap}
+
+
+def phase_video(attention_ops, int8_ops, trees, normalizer, dataset) -> dict:
     """The video generation slice at full width: the flagship
-    (``video_flagship``), then config.PUSHT_256 (the seeded ch-128 VAE, the
-    online D = 64 kernel) and config.KITCHEN_SMALL128 with a goal and
-    classifier-free guidance at VIDEO_CFG (the online D = 128 kernel on 2B
-    rows, and the CFG no-op control) through ``video_path``."""
+    (``video_flagship``) and its int8 tier (``video_int8``), then
+    config.PUSHT_256 (the seeded ch-128 VAE, the online D = 64 kernel) and
+    config.KITCHEN_SMALL128 with a goal and classifier-free guidance at
+    VIDEO_CFG (the online D = 128 kernel on 2B rows, and the CFG no-op
+    control) through ``video_path``."""
     from unified_video_action_tpu_torch import config as port_config
     from unified_video_action_tpu_torch import convert
     from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
 
     flagship = video_flagship(attention_ops, trees, normalizer, dataset)
+    int8 = video_int8(attention_ops, int8_ops, trees, normalizer)
     vae256 = convert.seeded_tree(UnifiedVideoActionPolicy.from_cfg(port_config.PUSHT_256,
                                                                    device="meta").vae, SEED + 1)
     px256 = video_path(attention_ops, "256px", port_config.PUSHT_256, vae256,
@@ -2673,7 +2776,7 @@ def phase_video(attention_ops, trees, normalizer, dataset) -> dict:
         REPO, port_config.KITCHEN_SMALL128["model"]["policy"]["vae_model_params"]["autoencoder_path"]))
     kitchen = video_path(attention_ops, "kitchen128", port_config.KITCHEN_SMALL128, kitchen_vae,
                          REJECTED_CONTROLS_KITCHEN, goal=KITCHEN_GOAL, cfg=VIDEO_CFG)
-    return {"flagship": flagship, "256px": px256, "kitchen128": kitchen}
+    return {"flagship": flagship, "int8": int8, "256px": px256, "kitchen128": kitchen}
 
 
 # the train phase: the flagship's stage-2 recipe (latest/meta.json) on a
@@ -3920,7 +4023,8 @@ UMI_EPISODES, UMI_EPISODE_LEN = 4, 60  # a dataset; one of each dataset's four i
 UMI_STEPS = 5  # bf16 steps at the config's B = 32
 UMI_TIMED_FROM = 2  # the first steps warm up
 UMI_PARITY_B, UMI_PARITY_DEPTH = 1, 2  # fp32 card-vs-CPU steps at full width, 2+2 blocks
-UMI_PARITY_MODES = ("policy_model", "full_dynamic_model", "policy_model")
+# two steps (three before the human_pp phase joined)
+UMI_PARITY_MODES = ("policy_model", "full_dynamic_model")
 # the corpus's stores: every key zlib (a standard-library codec: the path
 # needs no optional library), the mouse dataset as a .zarr.zip
 UMI_CODEC = {"id": "zlib", "level": 1}
@@ -4657,6 +4761,188 @@ def phase_suite(attention_ops, int8_ops, kind: str) -> tuple:
     return perf, launches, {f"{name}_fp32_vs_cpu_b1": {f"attention_f32_d{D}": f32_launches}}
 
 
+# human_pp: the human-video keypoint task (config.HUMAN_PP, uva_human_pp.yaml)
+# on a synthetic 14-d keypoint store written here
+HUMAN_OUT = os.path.join(REPO, "build", "human_pp")
+HUMAN_EPISODES, HUMAN_EPISODE_STEPS = 12, 60  # make_synthetic_pusht(agent_pos_dim=14) at 96 px
+HUMAN_STEPS, HUMAN_TIMED_FROM = 4, 1  # bf16 steps at the recipe's B = 32; the first warms up
+HUMAN_FRAMES = 8  # eval_human_torch.run_stream's frames, one request each at B = 1
+
+
+def phase_human_pp(attention_ops, int8_ops) -> tuple:
+    """The human-video keypoint task at full width (config.HUMAN_PP:
+    mar_base, the 96 px frames upscaled to 256 on the card, 1024 tokens,
+    14-d hand-keypoint actions) with config.HUMAN_PP_TRAIN_OVERRIDES
+    (grad_checkpointing) on a synthetic keypoint store written here as .npz
+    (make_synthetic_pusht(agent_pos_dim=14): the real corpus is not in the
+    repository), the MAR initialized from training.seed as the trainer
+    initializes it and a numpy-seeded ch-128 VAE: HUMAN_STEPS bf16
+    steps at B = 32 from the host loader with the recipe's data_aug (on the
+    card), every metric finite and no uva_* kernel launched, ms per step by
+    CUDA events, the loader's wait and peak memory; one validation batch
+    (val_action_l2 at B = 32, the online D = 64 instance once per ViT block)
+    writing media/keypoints_epoch0.gif with one image a predicted step; the
+    slim export; eval_human_torch.run_stream over HUMAN_FRAMES frames of the
+    store (BGR) through a scripted capture, each frame's stages timed by
+    utils/profiling.Timer on the card, each request launching the online D =
+    64 instance once per ViT block as attention_plan names; the first
+    request's window in fp32 on the card against the CPU. Returns the
+    phase's numbers, the counted launches by path and the fp32 check's."""
+    import eval_human_torch
+    import eval_sim_torch
+    from unified_video_action_tpu_torch import config as port_config
+    from unified_video_action_tpu_torch import convert
+    from unified_video_action_tpu_torch.config import apply_overrides
+    from unified_video_action_tpu_torch.data.pusht_dataset import make_synthetic_pusht
+    from unified_video_action_tpu_torch.policy.policy import UnifiedVideoActionPolicy
+    from unified_video_action_tpu_torch.training.train_state import train_step
+    from unified_video_action_tpu_torch.training.workspace import Trainer
+    from unified_video_action_tpu_torch.utils.profiling import Timer
+
+    name = "human_pp"
+    shutil.rmtree(HUMAN_OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    store = make_synthetic_pusht(HUMAN_EPISODES, max_steps=HUMAN_EPISODE_STEPS, seed=SEED,
+                                 agent_pos_dim=14)
+    path = os.path.join(HUMAN_OUT, "human_replay.npz")
+    store.save(path)
+    corpus_s = time.perf_counter() - t0
+    cfg = copy.deepcopy(port_config.HUMAN_PP)
+    apply_overrides(cfg, [*port_config.HUMAN_PP_TRAIN_OVERRIDES, f"task.dataset.dataset_path={path}",
+                          f"training.seed={SEED}", "training.num_epochs=1",
+                          f"output_dir={HUMAN_OUT}/run"])
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, "cuda")
+    policy = trainer.policy
+    c = policy.mar_cfg
+    load_vae(policy, convert.seeded_tree(policy.vae, SEED + 1))  # kl16.ckpt is not in the repository
+    log(f"{name}: store of {store.n_episodes} episodes, {store.n_steps} steps "
+        f"({os.path.getsize(path) / 1e6:.1f} MB) written in {corpus_s:.1f}s; "
+        f"{len(trainer.dataset)} training and {len(trainer.val_dataset)} validation windows; "
+        f"trainer built in {time.perf_counter() - t0:.1f}s: {c.encoder_depth}+{c.decoder_depth} "
+        f"blocks of d={c.encoder_embed_dim}, {c.img_size}px, {c.attention_tokens} tokens, "
+        f"{policy.action_dim}-d actions, grad_checkpointing {c.grad_checkpointing}; "
+        f"B={trainer.batch_size}, {policy.dtype}, host loader {trainer.host_loader}, data_aug "
+        f"{trainer.dataset.data_aug} (device_aug {trainer.dataset.device_aug})")
+    if (c.attention_tokens != 1024 or policy.action_dim != 14 or trainer.batch_size != 32
+            or not trainer.host_loader or not trainer.dataset.data_aug):
+        raise AssertionError(f"{name}: not the config's model or loader: {c}")
+
+    # the bf16 steps, timed
+    for counter in (attention_ops.launch_count, int8_ops.launch_count):
+        for k in counter:
+            counter[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics, events, waits = [], [], []
+    batches = trainer.batches()
+    for _ in range(HUMAN_STEPS):
+        tw = time.perf_counter()
+        mode, frames, batch = next(batches)
+        waits.append(time.perf_counter() - tw)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        metrics.append(train_step(trainer.state, batch, mode, frames, generator=trainer.generator,
+                                  pregathered=True))
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    end.synchronize()
+    events.append(end)
+    batches.close()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(len(events) - 1)]
+    launched = {k: v for k, v in {**attention_ops.launch_count, **int8_ops.launch_count}.items() if v}
+    values = [{k: v.item() for k, v in m.items()} for m in metrics]
+    train = {"ms_per_step": statistics.median(step_ms[HUMAN_TIMED_FROM:]), "step_ms": step_ms,
+             "loader_wait_s": waits, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "B": trainer.batch_size, "card": card_line()}
+    log(f"{name}: {len(values)} bf16 steps, losses {json.dumps(values)}; uva_* launches {launched}; "
+        f"{json.dumps(train)}")
+    if launched or not all(np.isfinite(list(v.values())).all() for v in values):
+        raise AssertionError(f"{name}: launches {launched}, metrics {values}")
+
+    # one validation batch, writing the keypoint overlay
+    trainer.max_val_steps = 1
+    gif = trainer.keypoint_video_path()
+    t0 = time.perf_counter()
+    l2, launches_val = counted_launches(attention_ops, trainer.validate)
+    val_s = time.perf_counter() - t0
+    want_val = {**attention_launches_per_request(attention_ops, c, trainer.batch_size, torch.bfloat16),
+                **attention_instances_per_request(attention_ops, c, trainer.batch_size,
+                                                  torch.bfloat16)}
+    header, images, tail = gif_blocks(gif) if gif and os.path.exists(gif) else (b"", 0, b"")
+    log(f"{name} validation: val_action_l2_distances {l2} in {val_s:.1f}s; launches "
+        f"{json.dumps({k: v for k, v in launches_val.items() if v})}; {gif}: {images} images")
+    if (not np.isfinite(l2) or launches_val != want_val
+            or launches_val["attention_wgmma_online_d64"] != c.encoder_depth + c.decoder_depth
+            or header != b"GIF89a" or images != 16 or tail != b"\x3b"):
+        raise AssertionError(f"{name} validation: l2 {l2}, launches {launches_val}, want "
+                             f"{want_val}; the GIF {header} with {images} images")
+
+    # the export, served by eval_human_torch over a scripted capture
+    t0 = time.perf_counter()
+    export = trainer.export(os.path.join(HUMAN_OUT, "export"))
+    export_s = time.perf_counter() - t0
+    del trainer, policy
+    torch.cuda.empty_cache()
+    served = eval_human_torch.load_policy(export, "cuda")
+    bgr = np.ascontiguousarray(store["img"][:HUMAN_FRAMES, ..., ::-1])
+    timer = Timer("cuda")
+    overlaid, windows = [], []
+    original = served.predict_action
+
+    def recorded(obs, generator=None, noise=None, language_goal=None):
+        windows.append(np.array(obs["image"]))
+        return original(obs, generator, noise, language_goal)
+
+    served.predict_action = recorded
+    eval_human_torch.run_stream(served, eval_human_torch.FrameCapture(bgr[:1]), max_frames=1)  # warm-up
+    windows.clear()
+    with contextlib.redirect_stdout(io.StringIO()):
+        n, launches = counted_launches(attention_ops, lambda: eval_human_torch.run_stream(
+            served, eval_human_torch.FrameCapture(bgr),
+            on_frame=lambda vis, kp: overlaid.append((vis, kp)),
+            timer=timer, seed=SEED))
+    served.predict_action = original
+    want = {k: HUMAN_FRAMES * v for k, v in {
+        **attention_launches_per_request(attention_ops, c, 1, torch.bfloat16),
+        **attention_instances_per_request(attention_ops, c, 1, torch.bfloat16)}.items()}
+    plan = attention_plan_of(attention_ops, c, 1, torch.bfloat16)
+    stages = {k: {"p50_ms": v["p50_s"] * 1e3, "mean_ms": v["mean_s"] * 1e3, "count": v["count"]}
+              for k, v in timer.stats().items()}
+    frame_ms = [sum(timer.seconds(k)[i] for k in ("read", "preprocess", "request", "overlay")) * 1e3
+                for i in range(n)]
+    log(f"{name} eval_human_torch: {n} frames at B=1, plan {plan}, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; ms a frame {json.dumps(frame_ms)}; "
+        f"stages {json.dumps(stages)}")
+    if (n != HUMAN_FRAMES or launches != want or plan.instance != "attention_wgmma_online_d64"
+            or want[plan.instance] != HUMAN_FRAMES * (c.encoder_depth + c.decoder_depth)
+            or len(overlaid) != n or any(vis.shape != bgr[0].shape for vis, _ in overlaid)
+            or not all(np.isfinite(kp).all() and kp.shape == (14,) for _, kp in overlaid)):
+        raise AssertionError(f"{name} eval_human_torch: {n} frames, launches {launches}, want {want}")
+
+    # the first request's window in fp32 on the card against the CPU, at B = 1
+    trees = eval_sim_torch.load_weights(export)
+    meta_cfg = json.load(open(os.path.join(export, "meta.json")))["cfg"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    policy32 = UnifiedVideoActionPolicy.from_cfg(meta_cfg, device="cuda", compute_dtype="float32")
+    policy32.load_params(*trees)
+    policy32.set_normalizer(served.normalizer)
+    cpu32 = UnifiedVideoActionPolicy.from_cfg(meta_cfg, device="cpu", compute_dtype="float32")
+    cpu32.set_normalizer(served.normalizer)
+    noise = served.sample_noise(1, torch.Generator(device="cuda").manual_seed(SEED + 80))
+    f32_launches = fp32_card_vs_cpu(attention_ops, name, policy32, cpu32, trees,
+                                    request_inputs(served, {"image": windows[0]}), noise)
+    del policy32, cpu32, served
+    shutil.rmtree(HUMAN_OUT, ignore_errors=True)
+    perf = {"train": train, "val_s": val_s, "val_action_l2": l2, "keypoint_gif_images": images,
+            "export_s": export_s, "frames": n, "frame_ms": frame_ms,
+            "frame_ms_median": statistics.median(frame_ms), "stages": stages, "card": card_line()}
+    log(f"{name} perf: {json.dumps(perf)}")
+    return perf, {"human_pp_validation": launches_val, "eval_human_torch": launches}, \
+        {"human_pp_fp32_vs_cpu_b1": {"attention_f32_d64": f32_launches}}
+
+
 # render3d: the software renderer's native rasterizer (the kitchen and Fetch
 # envs' frames) on the JAX package's three fixed scenes
 # (tests/test_kitchen_env.py:26-122): (cam, faces, colours, size, focal,
@@ -4846,7 +5132,7 @@ def main() -> int:
     corpus = build_dataset(train_run_config(1))  # the video and train_run phases' corpus
     log(f"corpus {CORPUS} read in {time.perf_counter() - t0:.1f}s")
     with Phase("video"):
-        video = phase_video(attention_ops, trees, normalizer, corpus)
+        video = phase_video(attention_ops, int8_ops, trees, normalizer, corpus)
     fp32_paths["video_fp32_vs_cpu"] = {"attention_f32_d64":
                                        video["flagship"]["launches_fp32"]["attention_f32_d64"]}
     with Phase("train"):
@@ -4863,6 +5149,9 @@ def main() -> int:
             suites[kind], launches_suites[f"suite_{kind}"], paths = phase_suite(
                 attention_ops, int8_ops, kind)
             fp32_paths.update(paths)
+    with Phase("human_pp"):
+        human, launches_human, paths = phase_human_pp(attention_ops, int8_ops)
+        fp32_paths.update(paths)
     with Phase("clip"):
         clip = phase_clip()
 
@@ -4891,7 +5180,8 @@ def main() -> int:
                          "real_loop": launches_real,
                          "train_umi_validation": train_umi["launches_validate"],
                          "pusht256_host_loader_validation": pipeline["launches_validate"],
-                         **launches_suites}
+                         "sample_video_int8": video["int8"]["launches"],
+                         **launches_suites, **launches_human}
     attention_keys = tuple(attention_ops.launch_count) + attention_ops.INSTANCES
     attention_by_path = {path: {k: n.get(k, 0) for k in attention_keys}
                          for path, n in attention_by_path.items()}
@@ -4899,7 +5189,8 @@ def main() -> int:
     int8_by_path = {"predict_action_cached_deployed": deployed, "rollout_deployed": rollouts["a"],
                     "rollout_deployed_async": rollouts["d"],
                     "serve_small96": launches_small96, "serve_kitchen128": launches_kitchen,
-                    "serve_huge96": launches_huge96}
+                    "serve_huge96": launches_huge96,
+                    "sample_video_int8": video["int8"]["launches"]}
     gemm_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.GEMM_KERNELS}
     quant_launches = {k: sum(n[k] for n in int8_by_path.values()) for k in int8_ops.QUANT_KERNELS}
     int8_row = int8_rows[0]  # qkv at B=128, the path's largest int8 shape
@@ -5041,6 +5332,8 @@ def main() -> int:
     log(f"pusht_pipeline: {json.dumps(pipeline['perf'])}")
     for kind, perf in suites.items():
         log(f"suite_{kind}: {json.dumps({k: v for k, v in perf.items() if k != 'kernel_vs_plain'})}")
+    log(f"human_pp: {json.dumps({k: v for k, v in human.items() if k != 'stages'})}")
+    log(f"video int8: {json.dumps({k: video['int8'][k] for k in ('layer_calls', 'gap_to_bf16')})}")
     log(f"clip: {json.dumps(clip)}")
     log(f"render3d: {json.dumps(render3d)}")
     log(f"video: {json.dumps({'fvd': video['flagship']['fvd'], 'stages': video['flagship']['stages'], 'psnr': video['flagship']['psnr']})}")

@@ -11,7 +11,8 @@ setup(
     packages=find_packages(exclude=("tests",)),
     package_data={
         "unified_video_action_tpu": ["config/yaml/**/*.yaml"],
-        "unified_video_action_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "envs/*.json"],
+        "unified_video_action_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "envs/*.json",
+                                           "config/yaml/**/*.yaml"],
     },
     python_requires=">=3.10",
     install_requires=[

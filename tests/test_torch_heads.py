@@ -71,5 +71,13 @@ def test_action_head_sample_matches_jax(steps):
 
 
 def test_only_conv_fc_is_ported():
+    """Every pool of JAX's is ported now (conv_ori, conv2 and fc2 held
+    against JAX in tests/test_torch_human_pp.py); a pool JAX lacks is
+    refused."""
     with pytest.raises(NotImplementedError):
-        ph.ActionDiffusionHead(2, D, 24, 1, act_model_type="fc2")
+        ph.ActionDiffusionHead(2, D, 24, 1, act_model_type="conv3")
+    pools = {"conv_fc": ph.ConvFcPool, "conv_ori": ph.ConvOriPool, "conv2": ph.Conv2Pool,
+             "fc2": ph.Fc2Pool}
+    for name, cls in pools.items():
+        head = ph.ActionDiffusionHead(2, D, 24, 1, act_model_type=name, n_tokens=64)
+        assert type(head.pool) is cls

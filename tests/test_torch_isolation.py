@@ -3,8 +3,12 @@ module in it (the offline evaluation of ``eval/`` too, and the real-robot
 stack of ``ipc/``, ``real/`` and ``serving/``, and the robomimic and LIBERO
 suites: their stub envs, runners, datasets and augmentation, and the CLIP
 text tower; the kitchen and Fetch suites: the software renderer, the envs,
-their experts and demo tools, the benchmark registry), and train_torch.py,
-loads no JAX, no flax, no optax, no orbax and nothing of the JAX package,
+their experts and demo tools, the benchmark registry; the human-video
+task's modules: the yaml reader, the Franka RPC, teleop, the SLAM pipeline,
+the trajectory metrics, the tree helpers and the CUDA-event profiling), and
+train_torch.py and eval_human_torch.py, loads no JAX, no flax, no optax, no
+orbax and nothing of the JAX package, no PyYAML (the port reads its yaml
+files with ``utils/yaml_lite.py``),
 and no OpenCV, PIL, dill, h5py, zstandard, zmq, mujoco, gymnasium or
 gymnasium_robotics (which the card's machine lacks; those six are imported
 only inside the functions that need them); chip_smoke.py, train_torch.py
@@ -12,13 +16,15 @@ and the card's tests import none of them either. A second probe imports
 every module with mujoco, gymnasium and gymnasium_robotics made
 unimportable, as on the card's machine: the ``kitchen`` and ``fetch``
 backends then raise an ImportError naming mujoco. OpenCV appears only in ``real/``, and there only inside the
-functions of a real camera, the fisheye remap, the visualizer's window and
-the video recorder, never at a module's top level; Pillow only in
+functions of a real camera, the fisheye remap, the visualizer's window,
+the video recorder and the SLAM pipeline's ArUco and anti-aliased mask,
+never at a module's top level; Pillow only in
 ``data/zarrlite.py``, inside its JPEG 2000 codec. chip_smoke.py refuses to
 run without a CUDA device or without the package beside it.
-eval_sim_torch.py and eval_real_torch.py import nothing of the JAX package
-(orbax, to read an orbax checkpoint, only inside the function that reads
-it; zmq only inside the server).
+eval_sim_torch.py, eval_real_torch.py and eval_human_torch.py import
+nothing of the JAX package (orbax, to read an orbax checkpoint, only inside
+the function that reads it; zmq only inside the server; OpenCV only inside
+the functions that open a camera or a window).
 
 The import check runs in a fresh interpreter, since this test process has
 JAX loaded already.
@@ -62,6 +68,7 @@ names += [pkg.__name__ + ".tools." + t for t in ("gen_pusht_demos", "gen_synthet
 for name in names:
     importlib.import_module(name)
 import train_torch
+import eval_human_torch
 roots = sorted({m.split(".")[0] for m in sys.modules})
 print(json.dumps({"modules": names, "roots": roots, "torch_roots": torch_roots}))
 """
@@ -137,7 +144,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      "tools.convert_zarr_dataset", "tools.merge_demos", "tools.stage_datasets",
                      "envs.render3d", "envs.kitchen_env", "envs.kitchen_expert",
                      "envs.fetch_env", "envs.fetch_expert", "envs.benchmark",
-                     "tools.gen_kitchen_demos", "tools.gen_fetch_demos"):
+                     "tools.gen_kitchen_demos", "tools.gen_fetch_demos", "utils.yaml_lite",
+                     "utils.profiling", "utils.tree", "utils.traj_eval", "real.franka",
+                     "real.teleop", "real.slam_pipeline"):
         assert f"unified_video_action_tpu_torch.{expected}" in result["modules"]
     loaded = set(result["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
@@ -145,6 +154,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     added = loaded - set(result["torch_roots"])
     assert not added & set(NOT_ON_THE_CARD + LAZY_ONLY), sorted(added & set(NOT_ON_THE_CARD + LAZY_ONLY))
     assert "cv2" not in loaded and "PIL" not in loaded
+    assert "yaml" not in added and not added & {"pandas", "av", "pynput"}, sorted(added)
 
 
 def test_port_imports_and_refuses_the_mujoco_backends_without_mujoco():
@@ -182,19 +192,22 @@ def _imported_roots(path):
 def test_chip_smoke_the_port_and_its_card_tests_import_no_jax():
     # all of them run on the machine with the card, which has no JAX
     sources = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "train_torch.py"),
+               os.path.join(REPO, "eval_human_torch.py"),
                os.path.join(REPO, "tests", "test_torch_attention_cuda.py"),
                os.path.join(REPO, "tests", "test_torch_int8_cuda.py"),
                os.path.join(REPO, "tests", "_torch_reference_layout.py")]
     for root, _, files in os.walk(os.path.join(REPO, "unified_video_action_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in sources:
-        in_real = os.path.dirname(path) == REAL
+        in_real = os.path.dirname(path) == REAL or path.endswith("eval_human_torch.py")
         lazy = ({"cv2"} if in_real else set()) | ({"PIL"} if path == ZARRLITE else set())
         bad = _imported_roots(path) & set(FORBIDDEN + NOT_ON_THE_CARD) - lazy
         bad |= _module_level_roots(path) & set(LAZY_ONLY + NOT_ON_THE_CARD)
         assert not bad, (path, bad)
     lazy_cv2 = sorted(os.path.basename(p) for p in sources if "cv2" in _imported_roots(p))
-    assert lazy_cv2 == ["fisheye.py", "sim.py", "visualizer.py"], lazy_cv2
+    assert lazy_cv2 == ["eval_human_torch.py", "fisheye.py", "sim.py", "slam_pipeline.py",
+                        "visualizer.py"], lazy_cv2
+    assert not any("yaml" in _imported_roots(p) for p in sources)
     lazy_pil = [p for p in sources if "PIL" in _imported_roots(p)]
     assert lazy_pil == [ZARRLITE], lazy_pil
 
@@ -228,6 +241,16 @@ def test_eval_real_torch_imports_nothing_of_the_jax_package():
                              *NOT_ON_THE_CARD, *LAZY_ONLY}, everywhere
     out = _run([path, "--help"], cwd=REPO)
     assert out.returncode == 0 and "--language-latents" in out.stdout, out.stderr
+
+
+def test_eval_human_torch_imports_nothing_of_the_jax_package():
+    path = os.path.join(REPO, "eval_human_torch.py")
+    everywhere = _imported_roots(path)
+    assert not everywhere & {"jax", "jaxlib", "flax", "optax", "orbax", "unified_video_action_tpu",
+                             "PIL", "dill", *LAZY_ONLY}, everywhere
+    assert "cv2" not in _module_level_roots(path)
+    out = _run([path, "--help"], cwd=REPO)
+    assert out.returncode == 0 and "--source" in out.stdout, out.stderr
 
 
 def test_chip_smoke_fails_without_cuda():

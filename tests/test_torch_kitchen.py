@@ -263,11 +263,12 @@ def test_kitchen_async_halves_take_the_goal(kitchen_pair):
 @pytest.mark.parametrize("task", ["libero10", "toolhang", "umi"])
 def test_other_tasks_stay_refused(task):
     """libero, toolhang and umi are ported now and build with JAX's state
-    and proprioception-head widths for their task; a task of no ported
-    family (the human-video one) stays refused."""
+    and proprioception-head widths for their task; a task of no yaml of the
+    JAX package stays refused (the human-video task, refused here before, is
+    ported: tests/test_torch_human_pp.py)."""
     kw = _kitchen_kwargs()
     with pytest.raises(NotImplementedError, match="not ported"):
-        UnifiedVideoActionPolicy(**dict(kw, task_name="human_pp"), device="cpu")
+        UnifiedVideoActionPolicy(**dict(kw, task_name="cloth_folding"), device="cpu")
     kw["task_name"] = task
     port = UnifiedVideoActionPolicy(**kw, use_proprioception=True, device="cpu")
     want = JaxPolicy(**kw, use_proprioception=True).mar_cfg

@@ -197,5 +197,7 @@ def test_unported_sources_are_refused(tmp_path):
     assert not np.array_equal(item, ds.sampler.sample_sequence(0)["img"].transpose(0, 3, 1, 2))
     with pytest.raises(FileNotFoundError):
         ppd.PushTImageDataset(str(tmp_path / "absent.h5"))
-    with pytest.raises(NotImplementedError, match="2-d"):
-        ppd.PushTImageDataset(synthetic=1, agent_pos_dim=14)
+    # the human_pp keypoint variant of the synthetic source, refused here
+    # before, is ported (tests/test_torch_human_pp.py holds it against JAX's)
+    keypoints = ppd.PushTImageDataset(synthetic=1, agent_pos_dim=14)[0]
+    assert keypoints["obs"]["agent_pos"].shape[1] == keypoints["action"].shape[1] == 14

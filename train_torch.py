@@ -50,6 +50,25 @@ layout and the stub backend rolls out:
         --tasks microwave "slide cabinet" --episodes 20
     python3 train_torch.py --config kitchen training.num_epochs=1 training.max_train_steps=10
 
+``--config human_pp`` takes ``config.HUMAN_PP`` (``uva_human_pp.yaml``:
+mar_base, the 96 px frames upscaled to 256, 1024 tokens, 14-d hand-keypoint
+actions, ``keypoints.eval``: each validation writes
+``media/keypoints_epoch<n>.gif``) with ``config.HUMAN_PP_TRAIN_OVERRIDES``
+(``grad_checkpointing``). ``--config-name NAME`` composes
+``unified_video_action_tpu_torch/config/yaml/NAME.yaml`` as it stands, as
+``train.py --config-name`` does (the port's ``load_config``, no PyYAML). The
+real human-video corpus is not in the repository; a synthetic keypoint
+store of its layout (``make_synthetic_pusht(agent_pos_dim=14)``, saved as
+``.npz``) stands in:
+
+    python3 -c "from unified_video_action_tpu_torch.data.pusht_dataset import make_synthetic_pusht; \
+        make_synthetic_pusht(16, agent_pos_dim=14).save('data/human_pp/human_replay.npz')"
+    python3 train_torch.py --config-name uva_human_pp \
+        task.dataset.dataset_path=data/human_pp/human_replay.npz \
+        model.policy.autoregressive_model_params.pretrained_model_path=null \
+        model.policy.vae_model_params.autoencoder_path=null \
+        model.policy.action_model_params.predict_action=true training.max_train_steps=10
+
 The run initializes the MAR from ``training.seed`` (and merges the port
 checkpoint at ``pretrained_model_path`` into it, the stage-1 -> stage-2
 bootstrap), reads the VAE from ``autoencoder_path``, trains on the card
@@ -80,7 +99,8 @@ CONFIGS = {"pusht_256": (port_config.PUSHT_256_RUN, ()),
            "toolhang": (port_config.TOOLHANG, port_config.SUITE_TRAIN_OVERRIDES),
            "libero10": (port_config.LIBERO10, port_config.SUITE_TRAIN_OVERRIDES),
            "kitchen": (port_config.KITCHEN, port_config.SUITE_TRAIN_OVERRIDES),
-           "fetch": (port_config.FETCH, ())}
+           "fetch": (port_config.FETCH, ()),
+           "human_pp": (port_config.HUMAN_PP, port_config.HUMAN_PP_TRAIN_OVERRIDES)}
 
 
 def load_run_config(path: str) -> dict:
@@ -110,6 +130,9 @@ def main(argv=None):
                      help="a meta.json with the run config under 'cfg', or the run config as JSON")
     src.add_argument("--config", choices=sorted(CONFIGS),
                      help="a run config of unified_video_action_tpu_torch.config")
+    src.add_argument("--config-name",
+                     help="a yaml of unified_video_action_tpu_torch/config/yaml, composed by "
+                          "load_config (e.g. uva_human_pp)")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     ap.add_argument("overrides", nargs="*", help="dotted overrides, e.g. training.max_train_steps=20")
     args = ap.parse_args(argv)
@@ -118,6 +141,8 @@ def main(argv=None):
         cfg = copy.deepcopy(cfg)
         print(f"[config] {args.config} with {list(base)}", flush=True)
         apply_overrides(cfg, base)
+    elif args.config_name:
+        cfg = port_config.load_config(args.config_name)
     else:
         cfg = load_run_config(args.run_config)
     apply_overrides(cfg, args.overrides)

@@ -4,9 +4,15 @@
 counterpart of the JAX package's ``config/__init__.py:130-145``) sets nested
 keys of a plain dict, creating the missing levels. Values are read as YAML
 scalars are: ``null``/``~``, ``true``/``false``, integers, floats, JSON
-lists and maps, and otherwise the string. Composing a config from the JAX
-package's yaml files is not ported: the port reads the ``cfg`` that an
-exported checkpoint's ``meta.json`` embeds, or a config kept here as data.
+lists and maps, and otherwise the string. ``load_config(name, overrides)``
+composes ``config/yaml/<name>.yaml`` (the port's copy of the JAX package's
+yaml files, their ``_target_`` the port's classes) as the JAX package's
+``load_config`` does, read by ``utils/yaml_lite.py`` (the card's machine has
+no PyYAML). ``HUMAN_PP`` is composed so, from ``uva_human_pp.yaml`` with
+``HUMAN_PP_OVERRIDES``: the human-video keypoint task (mar_base at 256 px,
+the 96 px frames upscaled on the device, 1024 tokens, 14-d hand-keypoint
+actions and ``agent_pos``, ``keypoints.eval``, no env runner), a whole run
+config; it trains with ``HUMAN_PP_TRAIN_OVERRIDES``.
 
 Eleven run configs are kept here as data, each the ``cfg`` that the JAX
 package's ``load_config`` composes (``task.name``, ``task.shape_meta`` and
@@ -120,7 +126,15 @@ from __future__ import annotations
 
 import copy
 import json
-from typing import Any, Iterable
+import os
+import re
+from typing import Any, Iterable, Optional, Sequence
+
+from unified_video_action_tpu_torch.utils import yaml_lite
+
+# the port's copy of the JAX package's config/yaml/ (its _target_ names the
+# port's classes), read by utils/yaml_lite.py: no PyYAML
+CONFIG_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "yaml")
 
 _PUSHT_SHAPE_META = {
     "image_resolution": 96,
@@ -466,3 +480,109 @@ def apply_overrides(cfg: dict, overrides: Iterable[str]) -> None:
                 node[p] = {}
             node = node[p]
         node[parts[-1]] = parse_value(val)
+
+
+def _deep_merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def load_config(name: str, overrides: Optional[Sequence[str]] = None,
+                config_root: str = CONFIG_ROOT) -> dict:
+    """``<config_root>/<name>.yaml`` composed as the JAX package's
+    ``load_config`` composes it (``config/__init__.py:85-128``): its
+    ``defaults`` list in order (``group: choice`` entries read
+    ``<group>/<choice>.yaml`` under the key ``group``; ``_self_`` places the
+    file's own keys, last where it is absent), each merged key by key into
+    the one before; an override ``group=choice`` (no dot, a group of the
+    list) picks another file; the other overrides (:func:`apply_overrides`)
+    apply to the composition, then ``${a.b}`` interpolations resolve. A
+    plain dict."""
+    if not name.endswith(".yaml"):
+        name += ".yaml"
+    raw = yaml_lite.load(os.path.join(config_root, name)) or {}
+    defaults = raw.pop("defaults", [])
+    groups, plain = {}, []
+    for ov in overrides or ():
+        key, _, value = ov.partition("=")
+        if "." not in key and any(isinstance(d, dict) and key in d for d in defaults):
+            groups[key] = value
+        else:
+            plain.append(ov)
+    cfg: dict = {}
+    self_merged = False
+    for d in defaults:
+        if d == "_self_":
+            cfg = _deep_merge(cfg, raw)
+            self_merged = True
+            continue
+        if not (isinstance(d, dict) and len(d) == 1):
+            raise ValueError(f"{name}: a defaults entry is _self_ or group: choice, got {d!r}")
+        group, choice = next(iter(d.items()))
+        sub = yaml_lite.load(os.path.join(config_root, group, f"{groups.get(group, choice)}.yaml"))
+        cfg = _deep_merge(cfg, {group: sub or {}})
+    if not self_merged:
+        cfg = _deep_merge(cfg, raw)
+    cfg = copy.deepcopy(cfg)
+    apply_overrides(cfg, plain)
+    resolve_interpolations(cfg)
+    return cfg
+
+
+_INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
+
+
+def _lookup(root: dict, dotted: str) -> Any:
+    node: Any = root
+    for p in dotted.split("."):
+        node = node[p]
+    return node
+
+
+def resolve_interpolations(cfg: dict, max_passes: int = 8) -> None:
+    """Replaces, in place, each string ``${a.b}`` by a copy of that node and
+    each ``${a.b}`` inside a longer string by its text, over at most
+    ``max_passes`` passes (an interpolation may name another)."""
+
+    def resolve(node) -> bool:
+        changed = False
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for k, v in list(items):
+            if isinstance(v, str):
+                m = _INTERP.fullmatch(v)
+                if m:
+                    node[k] = copy.deepcopy(_lookup(cfg, m.group(1)))
+                    changed = True
+                elif isinstance(node, dict) and _INTERP.search(v):
+                    node[k] = _INTERP.sub(lambda mm: str(_lookup(cfg, mm.group(1))), v)
+                    changed = True
+            elif isinstance(v, (dict, list)):
+                changed |= resolve(v)
+        return changed
+
+    for _ in range(max_passes):
+        if not resolve(cfg):
+            break
+
+
+# uva_human_pp.yaml (task/human_pp.yaml + model/uva.yaml: mar_base at 256 px,
+# the 96 px frames upscaled on the device, 1024 tokens; 14-d hand-keypoint
+# actions and agent_pos; horizon 32, B = 32; keypoints.eval) composed from
+# the port's yaml copy, with these overrides:
+HUMAN_PP_OVERRIDES = (
+    # the action head on, as the stage that eval_human.py serves trains it
+    "model.policy.action_model_params.predict_action=true",
+    # the MAR release and kl16.ckpt are not in the repository: the weights
+    # load separately (as PUSHT_256's)
+    "model.policy.autoregressive_model_params.pretrained_model_path=null",
+    "model.policy.vae_model_params.autoencoder_path=null",
+)
+HUMAN_PP = load_config("uva_human_pp", HUMAN_PP_OVERRIDES)
+# what training HUMAN_PP takes: B = 32 at N = 1024 (SUITE_TRAIN_OVERRIDES:
+# grad_checkpointing, as the 1024-token suites)
+HUMAN_PP_TRAIN_OVERRIDES = SUITE_TRAIN_OVERRIDES

@@ -6,6 +6,12 @@ The port's modules carry the flax module names, so a flax leaf at path
 
 * Dense ``kernel`` (in, out)        -> ``weight`` (out, in)
 * Conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw)
+* 1-d Conv ``kernel`` (k, in, out)  -> ``weight`` (out, in, k)
+* ConvTranspose ``kernel`` (kt, kh, kw, in, out) -> ``ConvTranspose3d``
+  ``weight`` (in, out, kt, kh, kw), its kernel axes reversed: flax's
+  ``ConvTranspose`` (``transpose_kernel=False``) does not flip its kernel
+  and torch's does (the same function where kernel and stride agree, as in
+  the ``conv_ori`` pool)
 * LayerNorm / GroupNorm ``scale``   -> ``weight``
 * ``bias`` and raw parameters (position embeddings, fake latents) keep
   their name and shape.
@@ -143,7 +149,12 @@ def port_key(path: Path, ndim: int) -> Tuple[str, str]:
             return ".".join(mods + ["weight"]), "linear"
         if ndim == 4:
             return ".".join(mods + ["weight"]), "conv"
-        raise ValueError(f"kernel {'/'.join(path)} has {ndim} dims; only Dense and 2-D Conv map")
+        if ndim == 3:
+            return ".".join(mods + ["weight"]), "conv1d"
+        if ndim == 5:
+            return ".".join(mods + ["weight"]), "conv_transpose3d"
+        raise ValueError(f"kernel {'/'.join(path)} has {ndim} dims; only Dense, 1-d and 2-d Conv "
+                         f"and 3-d ConvTranspose map")
     if leaf == "scale":
         return ".".join(mods + ["weight"]), "none"
     return ".".join(path), "none"
@@ -156,15 +167,44 @@ def _port_shape(shape: Tuple[int, ...], change: str) -> Tuple[int, ...]:
         return (shape[1],)
     if change == "conv":
         return (shape[3], shape[2], shape[0], shape[1])
+    if change == "conv1d":
+        return (shape[2], shape[1], shape[0])
+    if change == "conv_transpose3d":
+        return (shape[3], shape[4], shape[0], shape[1], shape[2])
     return tuple(shape)
 
 
 def _to_port_layout(x: np.ndarray, change: str) -> np.ndarray:
+    """A flax leaf in the port's layout, as numpy (:func:`_port_layout_tensor`)."""
+    return _port_layout_tensor(torch.as_tensor(np.asarray(x)), change).numpy()
+
+
+def _port_layout_tensor(x: torch.Tensor, change: str) -> torch.Tensor:
+    """A flax leaf as a tensor in the port's layout, where the tensor lies (on
+    the card, the transposes of a large model's kernels take a fraction of
+    the host's time)."""
+    if change == "linear":
+        return x.T.contiguous()
+    if change == "conv":
+        return x.permute(3, 2, 0, 1).contiguous()
+    if change == "conv1d":
+        return x.permute(2, 1, 0).contiguous()
+    if change == "conv_transpose3d":
+        return x.permute(3, 4, 0, 1, 2).flip(2, 3, 4).contiguous()
+    return x.clone()
+
+
+def _to_flax_layout(x: np.ndarray, change: str) -> np.ndarray:
+    """The inverse of :func:`_to_port_layout`."""
     if change == "linear":
         return np.ascontiguousarray(x.T)
     if change == "conv":
-        return np.ascontiguousarray(np.transpose(x, (3, 2, 0, 1)))
-    return np.asarray(x)
+        return np.ascontiguousarray(np.transpose(x, (2, 3, 1, 0)))
+    if change == "conv1d":
+        return np.ascontiguousarray(np.transpose(x, (2, 1, 0)))
+    if change == "conv_transpose3d":
+        return np.ascontiguousarray(np.transpose(np.flip(x, axis=(2, 3, 4)), (2, 3, 4, 0, 1)))
+    return np.ascontiguousarray(x)
 
 
 def _skipped(path: Path, skip: Iterable[Path]) -> bool:
@@ -217,19 +257,25 @@ def module_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
 
 def load_into(module: nn.Module, tree: Mapping, skip: Iterable[Path] = ()) -> nn.Module:
     """Set every parameter of ``module`` from the flax-layout ``tree`` of
-    numpy arrays, casting to the parameters' dtype and device."""
+    numpy arrays, casting to the parameters' dtype and device. Float leaves
+    are copied to the module's device first and changed to the port's layout
+    there; a W8A8 kernel is quantized on the host, as before."""
     flat = flatten_tree(tree)
     mapping = plan({p: np.shape(v) for p, v in flat.items()}, module_shapes(module), skip)
     quantized: Dict[Path, Tuple[torch.Tensor, torch.Tensor]] = {}
+    first = next(iter(module.state_dict().values()), None)
+    device = first.device if first is not None else torch.device("cpu")
 
     def value(path: Path, change: str) -> torch.Tensor:
         x = np.asarray(flat[path], dtype=np.float32)
+        if not x.flags.writeable:  # torch.from_numpy takes writeable arrays
+            x = x.copy()
         if change in ("quant", "quant_scale"):
             if path not in quantized:
                 quantized[path] = quantize_weight(torch.from_numpy(x))
             w_q, scale = quantized[path]
             return w_q.T.contiguous() if change == "quant" else scale
-        return torch.tensor(_to_port_layout(x, change))
+        return _port_layout_tensor(torch.from_numpy(x).to(device), change)
 
     state = {key: value(path, change) for key, (path, change) in mapping.items()}
     module.load_state_dict(state, strict=True)
@@ -256,6 +302,10 @@ def flax_paths(module: nn.Module) -> Dict[str, Tuple[Path, str]]:
             continue
         elif leaf == "weight" and isinstance(owner, nn.Conv2d):
             out[key] = (tuple(mods) + ("kernel",), "conv")
+        elif leaf == "weight" and isinstance(owner, nn.Conv1d):
+            out[key] = (tuple(mods) + ("kernel",), "conv1d")
+        elif leaf == "weight" and isinstance(owner, nn.ConvTranspose3d):
+            out[key] = (tuple(mods) + ("kernel",), "conv_transpose3d")
         else:
             out[key] = (tuple(mods) + (leaf,), "none")
     return out
@@ -266,6 +316,10 @@ def _flax_shape(shape: Tuple[int, ...], change: str) -> Tuple[int, ...]:
         return (shape[1], shape[0])
     if change == "conv":
         return (shape[2], shape[3], shape[1], shape[0])
+    if change == "conv1d":
+        return (shape[2], shape[1], shape[0])
+    if change == "conv_transpose3d":
+        return (shape[2], shape[3], shape[4], shape[0], shape[1])
     return tuple(shape)
 
 
@@ -295,15 +349,11 @@ def to_flax_tree(module: nn.Module, state: Mapping[str, torch.Tensor] = None) ->
     for key, (path, change) in flax_paths(module).items():
         if change == "quant":
             raise ValueError(f"{key}: a QuantLinear holds no float kernel")
-        x = state[key].detach().float().cpu().numpy()
-        if change == "linear":
-            x = x.T
-        elif change == "conv":
-            x = np.transpose(x, (2, 3, 1, 0))
+        x = _to_flax_layout(state[key].detach().float().cpu().numpy(), change)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(x)
+        node[path[-1]] = x
     return tree
 
 

@@ -6,7 +6,9 @@ split with its validation dataset, and the synthetic source.
 Two sources: ``dataset_path``, a replay buffer (``ReplayBuffer.load``: a
 ``.npz`` read with numpy, or HDF5 through ``h5py``), or ``synthetic: N``, N episodes of a scripted pusher rolled out
 in the port's own PushT env (:func:`make_synthetic_pusht`, the JAX
-package's, frame for frame).
+package's, frame for frame). ``agent_pos_dim`` 14 is the human_pp task's
+keypoint variant (``uva_human_pp.yaml``): 7 keypoints of the agent and the
+actions, from either source.
 
 ``__getitem__`` serves the host loader (``data/loader.py``): a window's
 uint8 frames (T, 3, H, W), agent positions and actions. With ``data_aug``
@@ -55,9 +57,8 @@ class PushTImageDataset:
     ):
         self.agent_pos_dim = agent_pos_dim
         if synthetic is not None:
-            if agent_pos_dim != 2:
-                raise NotImplementedError("the synthetic source has the 2-d agent position only")
-            self.replay_buffer = make_synthetic_pusht(n_episodes=synthetic, seed=seed)
+            self.replay_buffer = make_synthetic_pusht(n_episodes=synthetic, seed=seed,
+                                                      agent_pos_dim=agent_pos_dim)
         else:
             if not os.path.exists(dataset_path):
                 raise FileNotFoundError(f"dataset_path {dataset_path!r} does not exist")
@@ -125,10 +126,16 @@ class PushTImageDataset:
 
 
 def make_synthetic_pusht(n_episodes: int = 8, max_steps: int = 60, seed: int = 42,
-                         render_size: int = 96) -> ReplayBuffer:
+                         render_size: int = 96, agent_pos_dim: int = 2) -> ReplayBuffer:
     """A replay buffer of ``n_episodes`` scripted pushes (at most
     ``max_steps`` each) in the port's PushT env: the agent steers toward the
-    block's far side from the goal, with seeded jitter."""
+    block's far side from the goal, with seeded jitter.
+
+    ``agent_pos_dim > 2`` makes the human_pp keypoint variant (JAX's
+    ``data/pusht_dataset.py:166-215``): the agent's track and the actions
+    become K = agent_pos_dim // 2 keypoints, the position plus K fixed
+    offsets drawn ~ U(-20, 20) after each episode's rollout, clipped to [0,
+    511]; the state keeps the block's pose after them."""
     from unified_video_action_tpu_torch.envs.pusht import PushTEnv
 
     buffer = ReplayBuffer()
@@ -152,7 +159,17 @@ def make_synthetic_pusht(n_episodes: int = 8, max_steps: int = 60, seed: int = 4
             _, _, done, _, _ = env.step(action)
             if done:
                 break
-        buffer.add_episode({"img": np.asarray(imgs, dtype=np.uint8),
-                            "state": np.asarray(states, dtype=np.float32),
-                            "action": np.asarray(actions, dtype=np.float32)})
+        state_arr = np.asarray(states, dtype=np.float32)
+        action_arr = np.asarray(actions, dtype=np.float32)
+        if agent_pos_dim > 2:
+            k = agent_pos_dim // 2
+            offs = rng.uniform(-20, 20, (1, k, 2)).astype(np.float32)
+
+            def expand(xy):  # (T, 2) -> (T, 2K): the K keypoints of each step
+                return np.clip(xy[:, None, :] + offs, 0, 511).reshape(len(xy), 2 * k)
+
+            action_arr = expand(action_arr)
+            state_arr = np.concatenate([expand(state_arr[:, :2]), state_arr[:, 2:]], axis=1)
+        buffer.add_episode({"img": np.asarray(imgs, dtype=np.uint8), "state": state_arr,
+                            "action": action_arr})
     return buffer

@@ -15,7 +15,7 @@ The media are written without PIL, imageio or OpenCV, which the card's
 machine does not have: the real-vs-predicted grid as ``real_vs_pred.gif``
 (``utils/media.write_gif``, JAX's file; JAX's extra mp4 is not written)
 beside one PNG a frame (standard library ``zlib`` and ``struct``), the
-keypoint overlay as PNG frames.
+keypoint overlay the same way (its GIF JAX's file).
 """
 
 from __future__ import annotations
@@ -164,9 +164,12 @@ def test_action_l2(policy, val_batches: Iterable[Mapping], generator: torch.Gene
 
 def _write_keypoint_overlay(frames: np.ndarray, gt_actions: np.ndarray, pred_actions: np.ndarray,
                             path: str, scale: float = 512.0) -> None:
-    """(T, 3, H, W) frames and (T', K·2) keypoint chunks -> one PNG a
-    predicted step (``<path stem>_<t>.png``), ground truth green and
-    prediction red."""
+    """(T, 3, H, W) frames and (T', K·2) keypoint chunks -> one frame a
+    predicted step, each keypoint (in [0, ``scale``) pixels) a 3 x 3 square,
+    ground truth green and prediction red (JAX's drawing,
+    ``eval/offline.py:177-205``), written as an animated GIF at 5 fps
+    (``<path stem>.gif``, JAX's file) and one PNG a frame
+    (``<path stem>_<t>.png``)."""
     T = min(len(gt_actions), len(pred_actions), len(frames))
     H, W = frames.shape[-2:]
     out = []
@@ -182,6 +185,7 @@ def _write_keypoint_overlay(frames: np.ndarray, gt_actions: np.ndarray, pred_act
                     img[max(yi - 1, 0): yi + 2, max(xi - 1, 0): xi + 2] = color
         out.append(img)
     _write_frames(out, path)
+    write_gif(os.path.splitext(path)[0] + ".gif", out, fps=5)
 
 
 def write_png(path: str, image: np.ndarray) -> None:

@@ -1,6 +1,8 @@
 """Diffusion heads (port of ``models/heads.py``: ``VideoDiffusionHead``'s
 training loss and sampler at :31-93, ``_adaptive_pool_matrix`` and
-``ConvFcPool`` at :96-148, ``ActionDiffusionHead`` at :255-298).
+``ConvFcPool`` at :96-148, the other three pools ``ConvOriPool``,
+``Conv2Pool`` and ``Fc2Pool`` at :151-208, ``ActionDiffusionHead`` at
+:211-298).
 
 ``ConvFcPool`` pools the decoder's (B, T·S, D) tokens into 16 action-slot
 latents: a per-frame 3x3 conv, an adaptive average pool to 4x4 with torch's
@@ -71,6 +73,57 @@ class ConvFcPool(nn.Module):
         return self.refine2(F.relu(self.refine1(z)))
 
 
+class ConvOriPool(nn.Module):
+    """``conv_ori``: a temporal transposed convolution (each frame's tokens
+    to 4 slots) and the spatial mean (JAX's ``ConvOriPool``,
+    ``heads.py:151-170``). flax's ``ConvTranspose`` does not flip its kernel
+    and torch's does: ``convert.py`` reverses the kernel's axes."""
+
+    def __init__(self, z_channels: int, n_frames: int = 4):
+        super().__init__()
+        self.n_frames = n_frames
+        self.conv_transpose3d = nn.ConvTranspose3d(z_channels, z_channels, (4, 1, 1), stride=(4, 1, 1))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        B, TS, D = z.shape
+        T = self.n_frames
+        W = int(round((TS // T) ** 0.5))
+        z = z.reshape(B, T, W, W, D).permute(0, 4, 1, 2, 3)  # (B, D, T, W, W)
+        return self.conv_transpose3d(z).mean(dim=(3, 4)).transpose(1, 2)  # (B, 4T, D)
+
+
+class Conv2Pool(nn.Module):
+    """``conv2``: the decoder's tokens as channels of two 1-d convolutions
+    along the feature axis, ``n_tokens`` -> 256 -> ``num_actions`` (JAX's
+    ``Conv2Pool``, ``heads.py:173-191``, whose flax ``Conv`` runs on (B, D,
+    tokens), channels last: torch's ``Conv1d`` on (B, tokens, D) is the
+    same)."""
+
+    def __init__(self, n_tokens: int, num_actions: int = 16):
+        super().__init__()
+        self.conv1 = nn.Conv1d(n_tokens, 256, 7, padding=3)
+        self.conv2 = nn.Conv1d(256, num_actions, 7, padding=3)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.conv2(F.relu(self.conv1(z)))
+
+
+class Fc2Pool(nn.Module):
+    """``fc2``: a token-mixing MLP, ``n_tokens`` -> 256 -> ``num_actions``
+    (JAX's ``Fc2Pool``, ``heads.py:194-208``)."""
+
+    def __init__(self, n_tokens: int, num_actions: int = 16):
+        super().__init__()
+        self.fc1 = nn.Linear(n_tokens, 256)
+        self.fc2 = nn.Linear(256, num_actions)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.relu(self.fc1(z.transpose(1, 2)))).transpose(1, 2)
+
+
+ACT_MODEL_TYPES = ("conv_fc", "conv_ori", "conv2", "fc2")
+
+
 class VideoDiffusionHead(nn.Module):
     """DiffLoss equivalent: the per-token denoiser of the frame latents, its
     training diffusion and its sampling diffusion."""
@@ -130,17 +183,26 @@ class VideoDiffusionHead(nn.Module):
 
 
 class ActionDiffusionHead(nn.Module):
-    """DiffActLoss equivalent with the ``conv_fc`` pool."""
+    """DiffActLoss equivalent with the pool ``act_model_type`` names
+    (``ACT_MODEL_TYPES``; JAX's choice at ``heads.py:222-231``). ``conv2`` and
+    ``fc2`` mix the decoder's ``n_tokens`` tokens, a width torch's layers
+    take at construction (flax infers it at the first call)."""
 
     def __init__(self, target_channels: int, z_channels: int, width: int, depth: int,
                  n_frames: int = 4, num_actions: int = 16, act_diff_training_steps: int = 1000,
                  act_diff_testing_steps: str = "100", act_model_type: str = "conv_fc",
-                 quant: bool = False):
+                 quant: bool = False, n_tokens: int = 0):
         super().__init__()
-        if act_model_type != "conv_fc":
-            raise NotImplementedError(f"act_model_type {act_model_type!r} is not ported yet")
+        if act_model_type not in ACT_MODEL_TYPES:
+            raise NotImplementedError(f"act_model_type {act_model_type!r}: one of {ACT_MODEL_TYPES}")
         self.target_channels = target_channels
-        self.pool = ConvFcPool(z_channels, n_frames=n_frames, num_actions=num_actions)
+        if act_model_type == "conv_fc":
+            self.pool = ConvFcPool(z_channels, n_frames=n_frames, num_actions=num_actions)
+        elif act_model_type == "conv_ori":
+            self.pool = ConvOriPool(z_channels, n_frames=n_frames)
+        else:
+            pool = Conv2Pool if act_model_type == "conv2" else Fc2Pool
+            self.pool = pool(n_tokens, num_actions=num_actions)
         self.net = MlpDenoiser(
             in_channels=target_channels,
             model_channels=width,

@@ -53,8 +53,10 @@ def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of ``module`` from its flax initializer, in
     module order, from ``generator`` (on the parameters' device)."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            init_kernel(m.weight, getattr(m, "kernel_init", "lecun_normal"), generator)
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose3d)):
+            # a transposed convolution's weight is (in, out, ...): its fans as flax's
+            w = m.weight.transpose(0, 1) if isinstance(m, nn.ConvTranspose3d) else m.weight
+            init_kernel(w, getattr(m, "kernel_init", "lecun_normal"), generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):

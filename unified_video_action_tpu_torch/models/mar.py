@@ -315,7 +315,8 @@ class Mar(nn.Module):
                            n_frames=c.n_frames, num_actions=c.num_action_tokens,
                            act_diff_training_steps=c.act_diff_training_steps,
                            act_diff_testing_steps=c.act_diff_testing_steps,
-                           act_model_type=c.act_model_type, quant=c.quant)
+                           act_model_type=c.act_model_type, quant=c.quant,
+                           n_tokens=c.total_tokens)
         if c.predict_video:
             self.diffloss = VideoDiffusionHead(**video_head, quant=c.quant)
             if c.predict_wrist_img:  # JAX gives the wrist head no quant

@@ -32,8 +32,11 @@ string, a list of strings or precomputed (B or 1, 512) latents, encoded by
 ``text_encoder``, which is ``utils.language.HashTextEncoder`` until the CLIP
 tokenizer is ported), UMI (its goal always precomputed latents, as JAX takes
 it), toolhang and LIBERO (whose composed config has no text buffer: the
-runner's goal is not read, as in JAX). The conditioning streams follow the
-config:
+runner's goal is not read, as in JAX), Fetch and the human-video keypoint
+task (``human_pp``: 14-d hand keypoints, frames of ``obs["image"]``, JAX's
+robomimic-family state width where proprioception is asked for). The
+action head takes any of JAX's four pools (``act_model_type``). The
+conditioning streams follow the config:
 ``use_history_action`` (the obs dict's ``past_action``, normalized as the
 actions), ``use_proprioception`` (the state of the task's keys: UMI's four
 relative-pose keys, PushT's ``agent_pos``, robomimic's eef pose and gripper,
@@ -85,7 +88,7 @@ _TRAINING_KEYS = {"optimizer"}
 # plain version), whatever the JAX program chose ("xla", "pallas", "ring").
 _IGNORED_KEYS = {"attn_impl"}
 # the tasks whose serving path is ported (a task matches if its name holds one)
-_PORTED_TASKS = ("pusht", "kitchen", "umi", "toolhang", "libero", "fetch")
+_PORTED_TASKS = ("pusht", "kitchen", "umi", "toolhang", "libero", "fetch", "human_pp")
 # the state keys of each task family's proprioception (policy.py:655-666, :786-811)
 UMI_STATE_KEYS = ("robot0_eef_pos", "robot0_eef_rot_axis_angle", "robot0_gripper_width",
                   "robot0_eef_rot_axis_angle_wrt_start")

@@ -4,7 +4,10 @@ step log's metrics to a run directory, or to ``wandb`` where it imports.
 - :class:`OfflineRunTracker` writes ``<output_dir>/tracker/`` with
   ``config.json``, ``metrics.jsonl`` (one line per logged step: the metrics
   and ``_step``, wandb's history format) and ``summary.json`` (the last value
-  of each key). Video files wait for video sampling (ROADMAP A7).
+  of each key); ``log_video(key, path, step)`` copies a GIF into its
+  ``media/`` as ``<step>_<key>.gif`` and logs ``{key: {"_type":
+  "video-file", "path": ...}}``, the row wandb's videos take (JAX's
+  ``log_video``).
 - :class:`WandbTracker` logs through ``wandb``, imported where it is built.
 - :class:`MultiTracker` fans out to several sinks; ``logging.mode:
   disabled`` gives one with none.
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -53,6 +57,9 @@ class Tracker:
     def log(self, data: Dict[str, Any], step: Optional[int] = None) -> None:
         raise NotImplementedError
 
+    def log_video(self, key: str, path: str, step: Optional[int] = None) -> None:
+        pass
+
     def finish(self) -> None:
         pass
 
@@ -81,6 +88,17 @@ class OfflineRunTracker(Tracker):
         with open(os.path.join(self.run_dir, "summary.json"), "w") as f:
             json.dump(self._summary, f, indent=2, default=str)
 
+    def log_video(self, key: str, path: str, step: Optional[int] = None) -> None:
+        if not os.path.exists(path):
+            return
+        media = os.path.join(self.run_dir, "media")
+        os.makedirs(media, exist_ok=True)
+        dst = os.path.join(media, f"{step if step is not None else 0}_{key.replace('/', '_')}"
+                                  f"{os.path.splitext(path)[1]}")
+        shutil.copyfile(path, dst)
+        self.log({key: {"_type": "video-file", "path": os.path.relpath(dst, self.run_dir)}},
+                 step=step)
+
     def finish(self) -> None:
         self._hist.close()
 
@@ -96,6 +114,12 @@ class WandbTracker(Tracker):
     def log(self, data, step=None):
         self.run.log({k: _jsonable(v) for k, v in data.items()}, step=step)
 
+    def log_video(self, key, path, step=None):
+        if os.path.exists(path):
+            import wandb
+
+            self.run.log({key: wandb.Video(path)}, step=step)
+
     def finish(self):
         self.run.finish()
 
@@ -107,6 +131,10 @@ class MultiTracker(Tracker):
     def log(self, data, step=None):
         for t in self.trackers:
             t.log(data, step=step)
+
+    def log_video(self, key, path, step=None):
+        for t in self.trackers:
+            t.log_video(key, path, step=step)
 
     def finish(self):
         for t in self.trackers:

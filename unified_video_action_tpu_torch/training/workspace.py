@@ -33,7 +33,10 @@ batches, a rollout of one train and one test seed of 20 steps. The
 split (``eval/offline.test_video_fvd``; an error in it is printed as ``[fvd]
 skipped`` and training goes on, as in JAX). Validation is the RMSE of the
 EMA policy's actions against the future actions on the validation split
-(``val_action_l2``); rollouts run the task's env runner
+(``val_action_l2``; under the task's ``keypoints.eval``, human_pp's, the
+first batch's future and predicted keypoints drawn into
+``media/keypoints_epoch<n>.gif`` and logged as ``eval/keypoints``);
+rollouts run the task's env runner
 (``runners/base.py``). All three serve the EMA weights through one serving policy
 on the trainer's device (its attention through the CUDA kernel on the card),
 built at the first and refreshed at each. Early stopping counts rollouts
@@ -201,7 +204,8 @@ def build_policy(cfg: Mapping, device: torch.device) -> UnifiedVideoActionPolicy
 
 def val_action_l2(policy: UnifiedVideoActionPolicy, batch: Mapping[str, Any],
                   generator: Optional[torch.Generator] = None,
-                  noise: Optional[Mapping[str, torch.Tensor]] = None) -> Optional[float]:
+                  noise: Optional[Mapping[str, torch.Tensor]] = None,
+                  keypoint_video_path: Optional[str] = None) -> Optional[float]:
     """JAX's ``_val_action_l2`` (``training/workspace.py:646-688``): the
     RMSE between ``policy``'s action chunk for the first half of each
     window of ``batch`` (``obs["image"]`` (B, T, 3, H, W) uint8, ``action``
@@ -221,7 +225,15 @@ def val_action_l2(policy: UnifiedVideoActionPolicy, batch: Mapping[str, Any],
     and the future is the second half of the action window. JAX's function
     raises on such a batch (its frame selection picks frames 3-6 of the
     4-frame half-window), so this reading has no JAX counterpart beyond its
-    predict program on the same inputs."""
+    predict program on the same inputs.
+
+    With ``keypoint_video_path`` (the human_pp task's ``keypoints.eval``)
+    the batch's first window is drawn with its future and predicted
+    keypoints from this same prediction (``eval/offline.
+    _write_keypoint_overlay``: ``<path stem>.gif`` and its PNG frames). An
+    error in that drawing is printed as ``[keypoints] overlay failed`` and
+    the reading stands, as in JAX (``training/workspace.py:482-501``); an
+    error of the prediction is not caught."""
     if not policy.mar_cfg.predict_action:
         return None
     obs = image_util.remap_image_keys(policy.task_name, dict(batch["obs"]))
@@ -245,6 +257,12 @@ def val_action_l2(policy: UnifiedVideoActionPolicy, batch: Mapping[str, Any],
     pred = pred.cpu().numpy()
     _, future = split_trajectory(np.asarray(batch["action"].cpu()), T, policy.shift_action,
                                  policy.use_history_action)
+    if keypoint_video_path is not None:
+        try:
+            offline._write_keypoint_overlay(np.asarray(image[0].cpu()), future[0], pred[0],
+                                            keypoint_video_path)
+        except Exception as e:  # the overlay never stops validation, as in JAX
+            print(f"[keypoints] overlay failed: {e}", flush=True)
     n = min(pred.shape[-1], 9)
     d = pred[..., :n] - future[..., :n]
     return float(np.sqrt((d ** 2).mean()))
@@ -447,20 +465,30 @@ class Trainer:
                               num_batches=1 if self.debug else 4,
                               output_dir=os.path.join(self.output_dir, "media"))
 
+    def keypoint_video_path(self) -> Optional[str]:
+        """``<output_dir>/media/keypoints_epoch<epoch>.gif`` where the task
+        sets ``keypoints.eval`` (human_pp), else None."""
+        if not ((self.cfg.get("task") or {}).get("keypoints") or {}).get("eval", False):
+            return None
+        return os.path.join(self.output_dir, "media", f"keypoints_epoch{self.epoch}.gif")
+
     def validate(self) -> Optional[float]:
         """The mean of ``val_action_l2`` over the validation windows, in
         order, in batches of the training batch size, at most
         ``max_val_steps`` batches; None without validation windows or
-        without the action head."""
+        without the action head. Under ``keypoints.eval`` the first batch
+        also writes :meth:`keypoint_video_path` from its prediction."""
         n = len(self.val_data)
         if n == 0 or not self.policy.mar_cfg.predict_action:
             return None
         policy = self.serving_policy()
+        kp_path = self.keypoint_video_path()
         losses = []
         for j, batch in enumerate(self.val_batches()):
             if self.max_val_steps is not None and j >= self.max_val_steps:
                 break
-            losses.append(val_action_l2(policy, batch, self.generator))
+            losses.append(val_action_l2(policy, batch, self.generator,
+                                        keypoint_video_path=kp_path if j == 0 else None))
         return float(np.mean(losses))
 
     def rollout(self) -> Dict[str, Any]:
@@ -572,6 +600,9 @@ class Trainer:
                     l2 = self.validate()
                     if l2 is not None:
                         step_log["val_action_l2_distances"] = l2
+                    kp_path = self.keypoint_video_path()
+                    if kp_path is not None and os.path.exists(kp_path):
+                        tracker.log_video("eval/keypoints", kp_path, step=self.state.step)
                 if self.env_runner is not None and fires(self.rollout_every):
                     runner_log = self.rollout()
                     step_log.update({k: v for k, v in runner_log.items()
